@@ -1,0 +1,501 @@
+#!/usr/bin/env python3
+"""GPU smoke of the PyTorch port (``src/repro_torch``) on one card.
+
+    python3 chip_smoke.py
+
+Builds the hand-written CUDA kernels from ``src/repro_torch/kernels/csrc``
+into ``build/kernels/``, holds each against its plain PyTorch version at
+the Llama-7B shapes of the slice, drives the prune-and-evaluate slice
+(``repro_torch.launch.ebft_run.run``) on Llama-7B at full width with 4 of
+its 32 layers in bf16, and cross-checks tiny_dense on the card against
+the CPU. Every phase prints one JSON line; any failed check raises, so the
+script exits non-zero. The last three lines are the card's name and power
+limit, the per-kernel summary, and ``{"ok": true, "device": ...}``.
+Without a card it exits non-zero and prints no result.
+"""
+from __future__ import annotations
+
+import json
+import math
+import os
+import subprocess
+import sys
+import time
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, os.path.join(ROOT, "src"))
+
+# H100 SXM data-sheet peaks (dense): bytes/s of HBM3, FLOP/s per dtype
+HBM_BYTES_S = 3.35e12
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+M_ROWS = 8 * 2048  # B * S of the slice's microbatch
+
+
+def emit(obj) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+def smi() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+
+
+def timed_ms(fn, reps: int = 3) -> float:
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    for _ in range(reps):
+        fn()
+    e1.record()
+    e1.synchronize()
+    return e0.elapsed_time(e1) / reps
+
+
+def check_close(name, out, ref, dtype: str) -> float:
+    import torch
+
+    tol = TOL[dtype]
+    err = float((out.float() - ref.float()).abs().max())
+    if not torch.allclose(out.float(), ref.float(), rtol=tol, atol=tol):
+        raise AssertionError(f"{name}: kernel disagrees with its plain version "
+                             f"(max abs err {err}, tol {tol})")
+    return err
+
+
+def _refuses(name, fn) -> None:
+    """The wrapper must raise on operands its kernel does not take."""
+    try:
+        fn()
+    except ValueError:
+        return
+    raise AssertionError(f"{name}: the wrapper launched on operands it must refuse")
+
+
+def bound_ms(nbytes: float, flops: float, dtype: str):
+    t_bytes, t_ops = nbytes / HBM_BYTES_S, flops / PEAK_FLOPS[dtype]
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+# ---------------------------------------------------------------------------
+def phase_masked_matmul(g):
+    """Kernel vs plain at the four Llama-7B linear shapes, f32 and bf16,
+    plus an all-zero mask, a ragged shape and a strided x."""
+    import torch
+
+    from repro_torch.kernels.masked_matmul.ops import masked_matmul
+    from repro_torch.kernels.masked_matmul.ref import masked_matmul_plain
+
+    # (name, leaf shape, reduction axes): the leaf is viewed as (R, O)
+    leaves = [("wq", (4096, 32, 128), 1), ("wo", (32, 128, 4096), 2),
+              ("w_up", (4096, 11008), 1), ("w_down", (11008, 4096), 1)]
+    summary = None
+    for dtype in ("float32", "bfloat16"):
+        dt = getattr(torch, dtype)
+        for name, shape, n_red in leaves:
+            R = math.prod(shape[:n_red])
+            w = (torch.randn(shape, device="cuda", generator=g) / math.sqrt(R)).to(dt)
+            m = torch.rand(shape, device="cuda", generator=g) < 0.3  # Wanda at 0.7 keeps 30%
+            x = torch.randn(M_ROWS, R, device="cuda", generator=g).to(dt)
+            w2, m2 = w.reshape(R, -1), m.reshape(R, -1)
+            out = masked_matmul(x, w2, m2)
+            ref = masked_matmul_plain(x, w2, m2)
+            torch.cuda.synchronize()
+            err = check_close(f"masked_matmul {name} {dtype}", out, ref, dtype)
+            ms = timed_ms(lambda: masked_matmul(x, w2, m2))
+            plain_ms = timed_ms(lambda: masked_matmul_plain(x, w2, m2))
+            wm = w2 * m2.to(dt)
+            library_ms = timed_ms(lambda: torch.matmul(x, wm))
+            K, N = w2.shape
+            nbytes = (x.numel() + w2.numel() + M_ROWS * N) * x.element_size() + m2.numel()
+            flops = 2.0 * M_ROWS * float(m2.sum())  # the products the mask keeps
+            b_ms, b_by = bound_ms(nbytes, flops, dtype)
+            row = dict(phase="masked_matmul", leaf=name, dtype=dtype, M=M_ROWS, K=K, N=N,
+                       max_abs_err=err, tol=TOL[dtype], ms=ms, plain_ms=plain_ms,
+                       library_ms=library_ms, bound_ms=b_ms, bound_by=b_by)
+            emit(row)
+            if dtype == "bfloat16" and name == "w_up":
+                summary = row  # the slice's heaviest launch
+            del w, m, x, out, ref, wm
+    # an all-zero mask gives exactly zero
+    x = torch.randn(256, 4096, device="cuda", generator=g)
+    w = torch.randn(4096, 11008, device="cuda", generator=g)
+    zero = masked_matmul(x, w, torch.zeros_like(w, dtype=torch.bool))
+    torch.cuda.synchronize()
+    if float(zero.abs().max()) != 0.0:
+        raise AssertionError("masked_matmul: all-zero mask gave a non-zero output")
+    # ragged edges on every axis, x a strided column slice: any shape in
+    # f32; in bf16 dims and offsets that keep 16-byte alignment, and the
+    # wrapper refuses others
+    for dtype, case, K, N, off in (("float32", "ragged+strided", 1001, 333, 101),
+                                    ("float32", "ragged+aligned", 1000, 336, 104),
+                                    ("bfloat16", "ragged+aligned", 1000, 336, 104)):
+        dt = getattr(torch, dtype)
+        big = torch.randn(777, 1200, device="cuda", generator=g).to(dt)
+        x = big[:, off:off + K]  # row stride 1200
+        w = (torch.randn(K, N, device="cuda", generator=g) / 32).to(dt)
+        m = torch.rand(K, N, device="cuda", generator=g) < 0.5
+        err = check_close(f"masked_matmul {case} {dtype}", masked_matmul(x, w, m),
+                          masked_matmul_plain(x, w, m), dtype)
+        emit(dict(phase="masked_matmul", case=case, dtype=dtype, M=777, K=K, N=N,
+                  max_abs_err=err, tol=TOL[dtype]))
+    x = torch.randn(777, 1200, device="cuda", generator=g).to(torch.bfloat16)[:, 101:1102]
+    w = torch.randn(1001, 336, device="cuda", generator=g).to(torch.bfloat16)
+    _refuses("masked_matmul unaligned bf16",
+             lambda: masked_matmul(x, w, torch.ones_like(w, dtype=torch.bool)))
+    emit(dict(phase="masked_matmul", case="all-zero mask", exact_zero=True))
+    emit(dict(phase="masked_matmul", case="unaligned bf16", refused=True))
+    return summary
+
+
+def _causal_pairs(sq: int, sk: int, causal: bool, q_offset: int) -> int:
+    if not causal:
+        return sq * sk
+    return sum(min(sk, q_offset + i + 1) for i in range(sq))
+
+
+def phase_flash_attention(g):
+    """Kernel vs plain: (256, 2048, 128) causal, a non-causal case and a
+    q_offset > 0 case with Sq < Sk, in f32 and bf16; plus every compiled
+    head width at a small shape."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.flash_attention.ref import flash_attention_plain
+
+    cases = [(256, 2048, 2048, 128, True, 0), (64, 1024, 1024, 128, False, 0),
+             (64, 512, 2048, 128, True, 1536), (8, 200, 333, 64, True, 133),
+             (8, 128, 128, 32, False, 0), (16, 128, 128, 16, True, 0)]
+    summary = None
+    for dtype in ("float32", "bfloat16"):
+        dt = getattr(torch, dtype)
+        for BH, Sq, Sk, d, causal, off in cases:
+            q = torch.randn(BH, Sq, d, device="cuda", generator=g).to(dt)
+            k = torch.randn(BH, Sk, d, device="cuda", generator=g).to(dt)
+            v = torch.randn(BH, Sk, d, device="cuda", generator=g).to(dt)
+            kw = dict(causal=causal, q_offset=off)
+            out = flash_attention(q, k, v, **kw)
+            ref = flash_attention_plain(q, k, v, **kw)
+            torch.cuda.synchronize()
+            err = check_close(f"flash_attention {(BH, Sq, Sk, d, causal, off)} {dtype}",
+                              out, ref, dtype)
+            row = dict(phase="flash_attention", dtype=dtype, BH=BH, Sq=Sq, Sk=Sk, d=d,
+                       causal=causal, q_offset=off, max_abs_err=err, tol=TOL[dtype])
+            if BH >= 64:
+                row["ms"] = timed_ms(lambda: flash_attention(q, k, v, **kw))
+                row["plain_ms"] = timed_ms(lambda: flash_attention_plain(q, k, v, **kw))
+                if off == 0:
+                    row["library_ms"] = timed_ms(lambda: F.scaled_dot_product_attention(
+                        q[None], k[None], v[None], is_causal=causal))
+                pairs = _causal_pairs(Sq, Sk, causal, off)
+                nbytes = 2 * (q.numel() + k.numel()) * q.element_size()
+                b_ms, b_by = bound_ms(nbytes, 4.0 * BH * d * pairs, dtype)
+                row.update(bound_ms=b_ms, bound_by=b_by)
+                if dtype == "bfloat16" and (BH, Sq, causal) == (256, 2048, True):
+                    summary = row
+            emit(row)
+            del q, k, v, out, ref
+    buf = torch.randn(3, 8 * 200 * 64 + 1, device="cuda", generator=g).to(torch.bfloat16)
+    q, k, v = (buf[i, 1:].view(8, 200, 64) for i in range(3))
+    _refuses("flash_attention unaligned bf16", lambda: flash_attention(q, k, v))
+    emit(dict(phase="flash_attention", case="unaligned bf16", refused=True))
+    return summary
+
+
+# ---------------------------------------------------------------------------
+def _check_pruned(res, cfg, keep_frac, pattern):
+    """Pruned slots are exactly 0; each output column keeps round(R*keep)
+    inputs (or N of every M)."""
+    import torch
+
+    from repro_torch import tree as T
+    from repro_torch.sparsity import sparse_params as SP
+
+    for path, m in T.leaves_with_path(res.masks):
+        if not SP.is_prunable(path, m):
+            continue
+        w = T.get_path(res.pruned, path)
+        if bool((w[~m] != 0).any()):
+            raise AssertionError(f"{path}: pruned slots are not exactly 0")
+        mat, _ = SP.to_matrix_stacked(path[-1], m)  # (L, R, O)
+        R = mat.shape[-2]
+        if pattern is None:
+            want = max(1, int(round(R * keep_frac)))
+            kept = mat.sum(dim=-2)
+        else:
+            n, mm = pattern
+            want = n
+            kept = mat.reshape(*mat.shape[:-2], R // mm, mm, mat.shape[-1]).sum(dim=-2)
+        if not bool((kept == want).all()):
+            raise AssertionError(f"{path}: columns keep {torch.unique(kept).tolist()}, "
+                                 f"want {want}")
+
+
+def phase_slice(method_cfg, tokens, microbatch=8):
+    """The slice on Llama-7B (4 of 32 layers, bf16, flash attention), then
+    its masks held against a second prune (``phase_mask_flips``).
+    ``tokens`` are the run's own calibration and eval segments."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import ops as FA
+    from repro_torch.kernels.masked_matmul import ops as MM
+    from repro_torch.launch import ebft_run
+
+    sparsity, pattern = method_cfg
+    calib, ev = tokens
+    cfg = get_config("llama_7b").replace(num_layers=4, dtype="bfloat16",
+                                         param_dtype="bfloat16", attn_impl="flash")
+    spec = ebft_run.RunSpec(arch="llama_7b", seed=0, seq=calib.shape[1], method="wanda",
+                            sparsity=sparsity, pattern=pattern, calib_samples=len(calib),
+                            pretrain_steps=0, epochs=0, bench_out="")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    MM.launches = 0
+    FA.launches = 0
+    t0 = time.perf_counter()
+    res = ebft_run.run(cfg, spec, "cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"masked_matmul": MM.launches, "flash_attention": FA.launches}
+    L = cfg.num_layers
+    n_cal = math.ceil(len(calib) / microbatch)
+    n_ev = math.ceil(ebft_run.EVAL_SAMPLES / microbatch)
+    # 7 masked linears per block per masked forward (walk advances and the
+    # pruned eval); one attention per block per forward (dense eval, the
+    # walk's taps replay and advance, pruned eval)
+    expected = {"masked_matmul": 7 * L * (n_cal + n_ev),
+                "flash_attention": L * (2 * n_ev + 2 * n_cal)}
+    pat = tuple(int(x) for x in pattern.split(":")) if pattern else None
+    row = dict(phase="slice", arch="llama_7b", num_layers=L, reduced="num_layers 32->4",
+               dtype="bfloat16", seq=spec.seq, method="wanda", sparsity=sparsity,
+               pattern=pattern or None, calib_samples=len(calib),
+               eval_samples=ebft_run.EVAL_SAMPLES, perplexity=res.perplexity,
+               achieved_sparsity=res.sparsity, phases_s=res.phases, wall_s=wall,
+               peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
+               launches=launches, expected_launches=expected)
+    emit(row)
+    for k, v in res.perplexity.items():
+        if not math.isfinite(v):
+            raise AssertionError(f"slice: {k} perplexity is {v}")
+    if launches != expected:
+        raise AssertionError(f"slice: launches {launches} != expected {expected}")
+    _check_pruned(res, cfg, 1.0 - sparsity, pat)
+    phase_mask_flips(cfg, spec, pat, tokens, run_masks=res.masks)
+    return launches
+
+
+# largest relative gap to its threshold of a block-0 slot whose mask two
+# attention paths may flip: block 0's statistics come from the dense block
+# on the embedding, so the paths' scores there differ by rounding alone
+FIRST_BLOCK_GAP = {"bfloat16": 1e-2, "float32": 1e-4}
+
+
+def phase_mask_flips(cfg, spec, pattern, tokens, run_masks=None):
+    """Prune the run's weights twice more: as the run did (with
+    ``run_masks``, the masks must equal them), and with the plain attention
+    ("chunked") in place of the kernel, whose output differs in rounding
+    and summation order, so its masks may differ in slots near their
+    thresholds. Each such slot is kept under one set of scores and dropped
+    under the other, so its distance from the first threshold cannot
+    exceed how far the scores and thresholds moved,
+    |sA - tA| <= |sA - sB| + |tA - tB|; a slot past that bound fails. A
+    flip in block 0 must also lie within FIRST_BLOCK_GAP of its threshold.
+    Later blocks see calibration inputs that passed through blocks pruned
+    with masks that differ, so their flips need not be near-ties. The
+    pruned perplexity under each set of masks, both through the kernels,
+    shows what the flips alone do to it."""
+    import torch
+
+    from repro_torch import tree as T
+    from repro_torch.core.evaluate import perplexity
+    from repro_torch.core.masks import prune
+    from repro_torch.models.model import build
+    from repro_torch.sparsity import sparse_params as SP
+
+    calib, ev = tokens
+    model = build(cfg)
+    params = model.init(torch.Generator(device="cuda").manual_seed(spec.seed))
+    masks, pruned, scores = {}, {}, {}
+    for impl in ("flash", "chunked"):
+        scores[impl] = {}
+        masks[impl], pruned[impl] = prune(
+            build(cfg.replace(attn_impl=impl)), params, calib, method="wanda",
+            sparsity=spec.sparsity, pattern=pattern, scores_out=scores[impl])
+    del params
+    repeat_diff, flips, slots, worst_move = 0, 0, 0, 0.0
+    per_block, gap_per_block = [0] * cfg.num_layers, [0.0] * cfg.num_layers
+    for path, m_a in T.leaves_with_path(masks["flash"]):
+        if not SP.is_prunable(path, m_a):
+            continue
+        if run_masks is not None:
+            repeat_diff += int((m_a != T.get_path(run_masks, path)).sum())
+        diff = m_a != T.get_path(masks["chunked"], path)
+        for i in range(m_a.shape[0]):
+            sa = scores["flash"][(i, *path[1:])].double()
+            sb = scores["chunked"][(i, *path[1:])].double()
+            ta = SP.thresholds(sa, spec.sparsity, pattern)
+            tb = SP.thresholds(sb, spec.sparsity, pattern)
+            move = (sa - sb).abs() + (ta - tb).abs()
+            worst_move = max(worst_move, float((move / ta.abs()).max()))
+            slots += sa.numel()
+            d = diff[i].reshape(sa.shape)
+            n = int(d.sum())
+            if n == 0:
+                continue
+            flips += n
+            per_block[i] += n
+            lhs = (sa - ta).abs()[d]
+            if bool((lhs > move[d] * (1 + 1e-9)).any()):
+                raise AssertionError(f"mask flips: a slot of {path} block {i} flipped "
+                                     f"farther from its threshold than the scores moved")
+            gap_per_block[i] = max(gap_per_block[i], float((lhs / ta.abs()[d]).max()))
+    del scores
+    ppl = {impl: perplexity(model, pruned[impl], ev, masks=masks[impl]) for impl in masks}
+    emit(dict(phase="mask_flips", dtype=cfg.dtype, method="wanda", sparsity=spec.sparsity,
+              pattern=spec.pattern or None,
+              repeat_differing_slots=repeat_diff if run_masks is not None else None,
+              chunked_vs_kernel_flips=flips, prunable_slots=slots,
+              flip_rate=flips / slots, flips_per_block=per_block,
+              worst_flip_gap_rel_per_block=gap_per_block,
+              first_block_gap_limit=FIRST_BLOCK_GAP[cfg.dtype],
+              worst_score_move_rel=worst_move, ppl_kernel_masks=ppl["flash"],
+              ppl_chunked_masks=ppl["chunked"],
+              ppl_rel_change=ppl["chunked"] / ppl["flash"] - 1.0))
+    if repeat_diff:
+        raise AssertionError(f"mask flips: a repeat of the run's prune differs from it "
+                             f"in {repeat_diff} slots")
+    if gap_per_block[0] > FIRST_BLOCK_GAP[cfg.dtype]:
+        raise AssertionError(f"mask flips: a block-0 slot {gap_per_block[0]:.2e} from its "
+                             f"threshold flipped (limit {FIRST_BLOCK_GAP[cfg.dtype]:.0e})")
+    if not all(math.isfinite(v) for v in ppl.values()):
+        raise AssertionError(f"mask flips: pruned perplexity {ppl}")
+
+
+def phase_tiny_crosscheck():
+    """tiny_dense with the same weights on the card (kernels) and on the
+    CPU (plain versions): perplexities within rel 1e-4 (f32, sums taken in
+    another order), and masks that differ only in slots whose Wanda score
+    lies within 1e-6 (relative) of its column's threshold."""
+    import torch
+
+    from repro_torch import interop
+    from repro_torch import tree as T
+    from repro_torch.configs import get_config
+    from repro_torch.core.evaluate import perplexity
+    from repro_torch.core.masks import prune
+    from repro_torch.data.tokens import CorpusConfig, SyntheticCorpus, calibration_set, eval_set
+    from repro_torch.models.model import build
+    from repro_torch.sparsity import sparse_params as SP
+
+    cfg = get_config("tiny_dense").replace(attn_impl="flash")
+    model = build(cfg)
+    weights = interop.params_to_numpy(model.init(torch.Generator().manual_seed(0)))
+    corpus = SyntheticCorpus(CorpusConfig(vocab_size=cfg.vocab_size, seed=0))
+    calib, ev = calibration_set(corpus, 16, 128), eval_set(corpus, 16, 128)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        params = interop.params_to_torch(weights, dev)
+        scores = {}
+        masks, pruned = prune(model, params, calib, method="wanda", sparsity=0.5,
+                              scores_out=scores)
+        out[dev] = dict(dense=perplexity(model, params, ev),
+                        wanda=perplexity(model, pruned, ev, masks=masks),
+                        masks=masks, scores=scores)
+    flips, worst = 0, 0.0
+    for path, m in T.leaves_with_path(out["cpu"]["masks"]):
+        if not SP.is_prunable(path, m):
+            continue
+        diff = m != T.get_path(out["cuda"]["masks"], path).cpu()
+        for i in range(m.shape[0]):
+            s = out["cpu"]["scores"][(i, *path[1:])]
+            d = diff[i].reshape(s.shape)
+            if d.any():
+                gap = float(SP.threshold_gaps(s, 0.5)[d].max())
+                worst = max(worst, gap)
+                flips += int(d.sum())
+    row = dict(phase="tiny_crosscheck", arch="tiny_dense", attn_impl="flash",
+               ppl_cuda={k: out["cuda"][k] for k in ("dense", "wanda")},
+               ppl_cpu={k: out["cpu"][k] for k in ("dense", "wanda")},
+               ppl_rtol=1e-4, mask_flips=flips, worst_flip_gap=worst, gap_rtol=1e-6)
+    emit(row)
+    for k in ("dense", "wanda"):
+        a, b = out["cuda"][k], out["cpu"][k]
+        if not abs(a - b) <= 1e-4 * abs(b):
+            raise AssertionError(f"tiny cross-check: {k} ppl cuda {a} vs cpu {b}")
+    if worst > 1e-6:
+        raise AssertionError(f"tiny cross-check: a mask flipped {worst:.2e} from its threshold")
+
+
+# ---------------------------------------------------------------------------
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this script runs the port on a GPU",
+              file=sys.stderr)
+        return 2
+    from repro_torch.kernels import _build
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    card = smi()
+    print(card, flush=True)
+    emit(dict(phase="device", card=card, torch=torch.__version__, cuda=torch.version.cuda,
+              kind=torch.cuda.get_device_name(0), count=torch.cuda.device_count()))
+    t0 = time.perf_counter()
+    _build.build(["masked_matmul", "flash_attention"])
+    emit(dict(phase="build", seconds=time.perf_counter() - t0,
+              ptxas={n: [ln.strip() for ln in log.splitlines() if "Used" in ln]
+                     for n, log in _build.build_log.items()}))
+
+    g = torch.Generator(device="cuda").manual_seed(0)
+    mm = phase_masked_matmul(g)
+    fa = phase_flash_attention(g)
+    torch.cuda.empty_cache()
+    from repro_torch.data.tokens import CorpusConfig, SyntheticCorpus, calibration_set, eval_set
+    from repro_torch.configs import get_config
+    from repro_torch.launch.ebft_run import EVAL_SAMPLES, RunSpec
+
+    # the run's segments, sampled as ebft_run.run samples them (seed 0)
+    corpus = SyntheticCorpus(CorpusConfig(vocab_size=32000, seed=0))
+    tokens = calibration_set(corpus, 16, 2048), eval_set(corpus, EVAL_SAMPLES, 2048)
+    # the main path: its launches are the ones reported
+    launches = phase_slice((0.7, ""), tokens)
+    phase_slice((0.5, "2:4"), tokens)
+    # the same at f32, where the two attention paths differ only in the
+    # order of their sums
+    torch.cuda.empty_cache()
+    cfg32 = get_config("llama_7b").replace(num_layers=4, attn_impl="flash")
+    spec32 = RunSpec(arch="llama_7b", seed=0, seq=2048, sparsity=0.7, calib_samples=16,
+                     pretrain_steps=0, epochs=0, bench_out="")
+    phase_mask_flips(cfg32, spec32, None, tokens)
+    phase_tiny_crosscheck()
+
+    kernels = []
+    for name, row, src, replaces in (
+        ("masked_matmul", mm, "src/repro_torch/kernels/csrc/masked_matmul.cu",
+         "src/repro/kernels/masked_matmul/masked_matmul.py:49"),
+        ("flash_attention", fa, "src/repro_torch/kernels/csrc/flash_attention.cu",
+         "src/repro/kernels/flash_attention/flash_attention.py:85"),
+    ):
+        kernels.append(dict(name=name, route="cuda", source=src, replaces=replaces,
+                            launches=launches[name], max_abs_err=row["max_abs_err"],
+                            ms=row["ms"], plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
+                            bound_by=row["bound_by"], library_ms=row.get("library_ms")))
+    print(smi(), flush=True)
+    emit({"kernels": kernels})
+    emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                 "count": torch.cuda.device_count()}})
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

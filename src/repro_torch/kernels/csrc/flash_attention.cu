@@ -1,0 +1,441 @@
+// flash_attention: blocked online-softmax attention for Hopper (sm_90a).
+//
+// Replaces the Pallas TPU kernel `flash_attention` in
+// src/repro/kernels/flash_attention/flash_attention.py (body `_kernel`),
+// which src/repro/kernels/flash_attention/ops.py::flash_attention_bshd
+// reaches from the model's attention with attn_impl="flash".
+//
+// What bounds it on an H100: causal attention at the slice's shape
+// (BH = 256, S = 2048, d = 128) does about 4*S*d/2 = 0.5 M operations per
+// (q, k, v, o) row of 4 x 256 bytes in bf16, far above the ~295
+// operations per byte where the card stops waiting on HBM: it is bound by
+// operations, and the S x S scores must never reach device memory.
+//
+// Design: one thread block handles one (bh, 64-row query tile) and loops
+// over key tiles with the online-softmax recurrence; the TPU kernel's
+// sequential key grid axis and its VMEM scratch (m, l, acc) become that
+// loop, shared memory and registers. Semantics follow the TPU kernel:
+//   * q and k are upcast to f32 and the scores are f32 products;
+//   * causal masking is shifted by q_offset; key tiles wholly above the
+//     diagonal are never visited, and only tiles that cross it are masked,
+//     with -1e30 as in the reference;
+//   * p is rounded to v's dtype before the PV product, while the
+//     normaliser sums the unrounded p; m, l and acc stay f32;
+//   * the normaliser is clamped at 1e-30.
+// Keys past the end of a ragged last tile contribute exactly zero.
+// Two kernels share these semantics:
+//   * bf16: both products on the tensor cores (mma.sync m16n8k16), one
+//     warp per 16 query rows, 64-key tiles; it takes 16-byte-aligned
+//     operands only and refuses others with cudaErrorInvalidValue;
+//   * f32 (no TF32: IEEE products for the 2e-5 tolerance): SIMT fp32 FMAs,
+//     64-row query and 32-key tiles.
+// No TMA, wgmma, pipelining or warp specialisation yet.
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+#include <cmath>
+#include <cstdint>
+
+namespace {
+
+constexpr int BQ = 64, BKV = 32, THREADS = 128;
+constexpr float NEG = -1e30f;
+
+template <int HD>
+constexpr size_t smem_bytes() {
+  return sizeof(float) *
+         (BQ * (HD + 1) + BKV * (HD + 1) + BKV * HD + BQ * (BKV + 1) + BQ);
+}
+
+template <int HD>
+__global__ void __launch_bounds__(THREADS)
+flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
+             const float* __restrict__ v, float* __restrict__ o, int Sq, int Sk,
+             int causal, int q_offset, float scale) {
+  static_assert(HD % 8 == 0, "head_dim must be a multiple of 8");
+  constexpr int QLD = HD + 1, PLD = BKV + 1, NJ = HD / 8;
+  extern __shared__ float smem[];
+  float* Qs = smem;               // BQ x QLD
+  float* Ks = Qs + BQ * QLD;      // BKV x QLD
+  float* Vs = Ks + BKV * QLD;     // BKV x HD
+  float* Ps = Vs + BKV * HD;      // BQ x PLD: scores, then rounded p
+  float* rowv = Ps + BQ * PLD;    // BQ: per-row rescale, then the normaliser
+
+  const int tid = threadIdx.x;
+  const int tx = tid % 8, ty = tid / 8;  // 8 x 16: rows ty*4+i, cols tx+8j
+  const int q0 = blockIdx.x * BQ;
+  const long long bh = blockIdx.y;
+  const float* qb = q + bh * Sq * HD;
+  const float* kb = k + bh * Sk * HD;
+  const float* vb = v + bh * Sk * HD;
+  float* ob = o + bh * Sq * HD;
+
+  for (int e = tid; e < BQ * HD; e += THREADS) {
+    const int r = e / HD, c = e % HD;
+    Qs[r * QLD + c] = (q0 + r < Sq) ? qb[(long long)(q0 + r) * HD + c] : 0.f;
+  }
+
+  float acc[4][NJ];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) acc[i][j] = 0.f;
+  // softmax statistics: thread pair (2r, 2r+1) owns query row r
+  const int srow = tid >> 1, shalf = tid & 1;
+  float m_row = NEG, l_row = 0.f;
+
+  const int q_pos0 = q_offset + q0;
+  int n_kt = (Sk + BKV - 1) / BKV;
+  if (causal) n_kt = min(n_kt, (q_pos0 + BQ - 1) / BKV + 1);  // skip tiles above
+
+  for (int kt = 0; kt < n_kt; ++kt) {
+    const int k0 = kt * BKV;
+    __syncthreads();  // the previous tile's Vs/Ps reads are done
+    for (int e = tid; e < BKV * HD; e += THREADS) {
+      const int r = e / HD, c = e % HD;
+      const bool in = k0 + r < Sk;
+      const long long g = (long long)(k0 + r) * HD + c;
+      Ks[r * QLD + c] = in ? kb[g] : 0.f;
+      Vs[r * HD + c] = in ? vb[g] : 0.f;
+    }
+    __syncthreads();
+
+    float s[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
+#pragma unroll 8
+    for (int d = 0; d < HD; ++d) {
+      float a[4], b[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) a[i] = Qs[(ty * 4 + i) * QLD + d];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) b[j] = Ks[(tx + 8 * j) * QLD + d];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) s[i][j] = fmaf(a[i], b[j], s[i][j]);
+    }
+    const bool diag = causal && (q_pos0 < k0 + BKV - 1);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int r = ty * 4 + i;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int c = tx + 8 * j;
+        float val = s[i][j] * scale;
+        if (diag && q_pos0 + r < k0 + c) val = NEG;
+        if (k0 + c >= Sk) val = -INFINITY;  // past the end: p == 0 exactly
+        Ps[r * PLD + c] = val;
+      }
+    }
+    __syncthreads();
+
+    {
+      float* prow = Ps + srow * PLD + shalf * (BKV / 2);
+      float mx = -INFINITY;
+#pragma unroll
+      for (int c = 0; c < BKV / 2; ++c) mx = fmaxf(mx, prow[c]);
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      const float m_new = fmaxf(m_row, mx);
+      float sum = 0.f;
+#pragma unroll
+      for (int c = 0; c < BKV / 2; ++c) {
+        const float p = expf(prow[c] - m_new);
+        sum += p;
+        prow[c] = p;  // p in v's dtype (f32) for PV
+      }
+      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+      const float corr = expf(m_row - m_new);
+      l_row = l_row * corr + sum;
+      m_row = m_new;
+      if (shalf == 0) rowv[srow] = corr;
+    }
+    __syncthreads();
+
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float cr = rowv[ty * 4 + i];
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) acc[i][j] *= cr;
+    }
+#pragma unroll 4
+    for (int kk = 0; kk < BKV; ++kk) {
+      float p[4], vv[NJ];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) p[i] = Ps[(ty * 4 + i) * PLD + kk];
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) vv[j] = Vs[kk * HD + tx + 8 * j];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < NJ; ++j) acc[i][j] = fmaf(p[i], vv[j], acc[i][j]);
+    }
+  }
+
+  __syncthreads();
+  if (shalf == 0) rowv[srow] = fmaxf(l_row, 1e-30f);
+  __syncthreads();
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int r = ty * 4 + i;
+    if (q0 + r >= Sq) continue;
+    const float l = rowv[r];
+#pragma unroll
+    for (int j = 0; j < NJ; ++j)
+      ob[(long long)(q0 + r) * HD + tx + 8 * j] = acc[i][j] / l;
+  }
+}
+
+template <int HD>
+int launch(const void* q, const void* k, const void* v, void* o, int BH, int Sq,
+           int Sk, int causal, int q_offset, float scale, cudaStream_t stream) {
+  constexpr size_t smem = smem_bytes<HD>();
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  dim3 grid((Sq + BQ - 1) / BQ, BH);
+  flash_kernel<HD><<<grid, THREADS, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o), Sq, Sk, causal, q_offset,
+      scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ------------------------------------------------- bf16 on tensor cores ---
+// One warp per 16 query rows, 64-key tiles. Both products run as
+// mma.sync m16n8k16 (bf16 in, f32 accumulate: bf16 x bf16 products are exact
+// in f32, so the scores equal the upcast-q/k scores up to summation order).
+// The score accumulators are laid out as the A operand of the next product,
+// so p goes from registers to the PV product without shared memory. With
+// g = lane / 4 and t = lane % 4, a thread holds rows g and g + 8 of its
+// warp's 16, columns 2t and 2t + 1 of every 8-wide n-tile.
+constexpr int TC_BQ = 64, TC_BKV = 64, TC_THREADS = 128;
+
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// two values -> one register, the first in the low half (lower column)
+__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+__device__ __forceinline__ uint32_t pack2(__nv_bfloat16 lo, __nv_bfloat16 hi) {
+  __nv_bfloat162 v;
+  v.x = lo;
+  v.y = hi;
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+template <int HD>
+constexpr size_t tc_smem_bytes() {
+  return sizeof(__nv_bfloat16) * (TC_BQ + 2 * TC_BKV) * (HD + 8);
+}
+
+template <int HD>
+__global__ void __launch_bounds__(TC_THREADS)
+flash_tc_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+                const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
+                int Sq, int Sk, int causal, int q_offset, float scale) {
+  static_assert(HD % 16 == 0, "head_dim must be a multiple of 16");
+  constexpr int LD = HD + 8;  // padded rows: conflict-free fragment loads
+  constexpr int KSTEPS = HD / 16, NT_S = TC_BKV / 8, NT_O = HD / 8, CH = HD / 8;
+  extern __shared__ __align__(16) unsigned char tc_smem[];
+  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(tc_smem);
+  __nv_bfloat16* Ks = Qs + TC_BQ * LD;
+  __nv_bfloat16* Vs = Ks + TC_BKV * LD;
+
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int g = lane / 4, t = lane % 4;
+  const int q0 = blockIdx.x * TC_BQ;
+  const long long bh = blockIdx.y;
+  const __nv_bfloat16* qb = q + bh * Sq * HD;
+  const __nv_bfloat16* kb = k + bh * Sk * HD;
+  const __nv_bfloat16* vb = v + bh * Sk * HD;
+  __nv_bfloat16* ob = o + bh * Sq * HD;
+
+  // rows [row0, row0 + rows) of src, zero past `limit`, in 16-byte chunks
+  auto load_tile = [&](__nv_bfloat16* dst, const __nv_bfloat16* src, int row0,
+                       int limit, int rows) {
+    for (int c = tid; c < rows * CH; c += TC_THREADS) {
+      const int r = c / CH, cc = (c % CH) * 8;
+      uint4 val = make_uint4(0, 0, 0, 0);
+      if (row0 + r < limit)
+        val = *reinterpret_cast<const uint4*>(src + (long long)(row0 + r) * HD + cc);
+      *reinterpret_cast<uint4*>(dst + r * LD + cc) = val;
+    }
+  };
+
+  load_tile(Qs, qb, q0, Sq, TC_BQ);
+  __syncthreads();
+  uint32_t qf[KSTEPS][4];
+#pragma unroll
+  for (int kk = 0; kk < KSTEPS; ++kk) {
+    const __nv_bfloat16* p0 = Qs + (warp * 16 + g) * LD + kk * 16 + 2 * t;
+    qf[kk][0] = ld32(p0);
+    qf[kk][1] = ld32(p0 + 8 * LD);
+    qf[kk][2] = ld32(p0 + 8);
+    qf[kk][3] = ld32(p0 + 8 * LD + 8);
+  }
+
+  float oacc[NT_O][4];
+#pragma unroll
+  for (int j = 0; j < NT_O; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) oacc[j][e] = 0.f;
+  float m_r[2] = {NEG, NEG}, l_r[2] = {0.f, 0.f};  // rows g and g + 8
+
+  const int q_pos0 = q_offset + q0;
+  int n_kt = (Sk + TC_BKV - 1) / TC_BKV;
+  if (causal) n_kt = min(n_kt, (q_pos0 + TC_BQ - 1) / TC_BKV + 1);  // skip tiles above
+
+  for (int kt = 0; kt < n_kt; ++kt) {
+    const int k0 = kt * TC_BKV;
+    __syncthreads();  // the previous tile's K/V reads are done
+    load_tile(Ks, kb, k0, Sk, TC_BKV);
+    load_tile(Vs, vb, k0, Sk, TC_BKV);
+    __syncthreads();
+
+    float s[NT_S][4];
+#pragma unroll
+    for (int j = 0; j < NT_S; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < KSTEPS; ++kk) {
+        const __nv_bfloat16* kp = Ks + (j * 8 + g) * LD + kk * 16 + 2 * t;
+        mma_bf16(s[j], qf[kk], ld32(kp), ld32(kp + 8));
+      }
+    }
+    const bool diag = causal && (q_pos0 < k0 + TC_BKV - 1);
+#pragma unroll
+    for (int j = 0; j < NT_S; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int kpos = k0 + j * 8 + 2 * t + (e & 1);
+        const int qpos = q_pos0 + warp * 16 + g + (e >> 1) * 8;
+        float val = s[j][e] * scale;
+        if (diag && qpos < kpos) val = NEG;
+        if (kpos >= Sk) val = -INFINITY;  // past the end: p == 0 exactly
+        s[j][e] = val;
+      }
+    }
+
+    float corr[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float mx = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < NT_S; ++j) mx = fmaxf(mx, fmaxf(s[j][2 * h], s[j][2 * h + 1]));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      const float m_new = fmaxf(m_r[h], mx);
+      float sum = 0.f;
+#pragma unroll
+      for (int j = 0; j < NT_S; ++j) {
+#pragma unroll
+        for (int e = 2 * h; e < 2 * h + 2; ++e) {
+          const float p = expf(s[j][e] - m_new);
+          s[j][e] = p;
+          sum += p;  // the normaliser sums the unrounded p
+        }
+      }
+      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+      sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+      corr[h] = expf(m_r[h] - m_new);
+      l_r[h] = l_r[h] * corr[h] + sum;
+      m_r[h] = m_new;
+    }
+#pragma unroll
+    for (int j = 0; j < NT_O; ++j) {
+      oacc[j][0] *= corr[0];
+      oacc[j][1] *= corr[0];
+      oacc[j][2] *= corr[1];
+      oacc[j][3] *= corr[1];
+    }
+
+#pragma unroll
+    for (int kk = 0; kk < TC_BKV / 16; ++kk) {
+      // p rounded to bf16 (v's dtype) as the A operand of PV
+      const uint32_t pa[4] = {pack2(s[2 * kk][0], s[2 * kk][1]),
+                              pack2(s[2 * kk][2], s[2 * kk][3]),
+                              pack2(s[2 * kk + 1][0], s[2 * kk + 1][1]),
+                              pack2(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+#pragma unroll
+      for (int j = 0; j < NT_O; ++j) {
+        const __nv_bfloat16* vp = Vs + (kk * 16 + 2 * t) * LD + j * 8 + g;
+        mma_bf16(oacc[j], pa, pack2(vp[0], vp[LD]), pack2(vp[8 * LD], vp[9 * LD]));
+      }
+    }
+  }
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = q0 + warp * 16 + g + h * 8;
+    if (r >= Sq) continue;
+    const float l = fmaxf(l_r[h], 1e-30f);
+#pragma unroll
+    for (int j = 0; j < NT_O; ++j)
+      *reinterpret_cast<uint32_t*>(ob + (long long)r * HD + j * 8 + 2 * t) =
+          pack2(oacc[j][2 * h] / l, oacc[j][2 * h + 1] / l);
+  }
+}
+
+template <int HD>
+int launch_tc(const void* q, const void* k, const void* v, void* o, int BH, int Sq,
+              int Sk, int causal, int q_offset, float scale, cudaStream_t stream) {
+  constexpr size_t smem = tc_smem_bytes<HD>();
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_tc_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  dim3 grid((Sq + TC_BQ - 1) / TC_BQ, BH);
+  flash_tc_kernel<HD><<<grid, TC_THREADS, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), Sq, Sk,
+      causal, q_offset, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
+
+}  // namespace
+
+extern "C" int flash_attention_f32(const void* q, const void* k, const void* v,
+                                   void* o, int BH, int Sq, int Sk, int d,
+                                   int causal, int q_offset, float scale,
+                                   void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (d) {
+    case 16: return launch<16>(q, k, v, o, BH, Sq, Sk, causal, q_offset, scale, st);
+    case 32: return launch<32>(q, k, v, o, BH, Sq, Sk, causal, q_offset, scale, st);
+    case 64: return launch<64>(q, k, v, o, BH, Sq, Sk, causal, q_offset, scale, st);
+    case 128: return launch<128>(q, k, v, o, BH, Sq, Sk, causal, q_offset, scale, st);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+extern "C" int flash_attention_bf16(const void* q, const void* k, const void* v,
+                                    void* o, int BH, int Sq, int Sk, int d,
+                                    int causal, int q_offset, float scale,
+                                    void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (!(aligned16(q) && aligned16(k) && aligned16(v) && aligned16(o)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  switch (d) {
+    case 16: return launch_tc<16>(q, k, v, o, BH, Sq, Sk, causal, q_offset, scale, st);
+    case 32: return launch_tc<32>(q, k, v, o, BH, Sq, Sk, causal, q_offset, scale, st);
+    case 64: return launch_tc<64>(q, k, v, o, BH, Sq, Sk, causal, q_offset, scale, st);
+    case 128: return launch_tc<128>(q, k, v, o, BH, Sq, Sk, causal, q_offset, scale, st);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}

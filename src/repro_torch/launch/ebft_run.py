@@ -1,0 +1,147 @@
+"""The paper's pipeline as a driver, forward half (port of
+``repro.launch.ebft_run``): build the dense model, take its perplexity,
+prune (Wanda or magnitude) through the calibration walk, take the pruned
+model's perplexity with every masked linear on the masked matmul kernel.
+
+    python -m repro_torch.launch.ebft_run --arch tiny_dense --pretrain-steps 0 \
+        --epochs 0 --method wanda --sparsity 0.7
+
+Runs on the card unless ``--device cpu``. Pretraining and EBFT tuning
+are not ported yet: a run that asks for them raises.
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import time
+from typing import Any, Dict, Optional
+
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.configs import get_config
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core.evaluate import perplexity
+from repro_torch.core.masks import prune
+from repro_torch.data.tokens import CorpusConfig, SyntheticCorpus, calibration_set, eval_set
+from repro_torch.models.model import build
+from repro_torch.sparsity.sparse_params import sparsity_of
+
+EVAL_SAMPLES = 16  # held-out segments, as the reference's eval_set
+
+
+@dataclasses.dataclass(frozen=True)
+class RunSpec:
+    """The fields of the reference's ``RunSpec`` (``repro.launch.api``)
+    this path reads, with the same names and defaults."""
+
+    arch: str = "tiny_dense"
+    seed: int = 0
+    seq: int = 128
+    method: str = "wanda"
+    sparsity: float = 0.7
+    pattern: str = ""
+    calib_samples: int = 64
+    pretrain_steps: int = 200
+    epochs: int = 10
+    bench_out: str = "BENCH_ebft.json"
+
+
+@dataclasses.dataclass
+class RunResult:
+    perplexity: Dict[str, float]
+    phases: Dict[str, float]
+    sparsity: float
+    masks: Any
+    pruned: Any
+
+
+def _parse(argv) -> tuple:
+    ap = argparse.ArgumentParser(prog="repro_torch.launch.ebft_run", description=__doc__)
+    for f in dataclasses.fields(RunSpec):
+        ap.add_argument("--" + f.name.replace("_", "-"), type=type(f.default),
+                        default=f.default)
+    ap.add_argument("--device", default=None,
+                    help="cuda (the default) or cpu; never falls back")
+    args = vars(ap.parse_args(argv))
+    device = args.pop("device")
+    return RunSpec(**args), device
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+class _phase:
+    """Wall time of a phase, fenced by a device synchronise at both ends."""
+
+    def __init__(self, device: torch.device):
+        self.device = device
+        self.duration = 0.0
+
+    def __enter__(self) -> "_phase":
+        _sync(self.device)
+        self._t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        _sync(self.device)
+        self.duration = time.perf_counter() - self._t0
+        return False
+
+
+def run(cfg: ModelConfig, spec: RunSpec, device=None,
+        params: Optional[Any] = None) -> RunResult:
+    """eval_dense -> prune -> pruned eval, as the reference's
+    ``ebft_run.py`` does before tuning. ``params`` defaults to the port's
+    init seeded with ``spec.seed``."""
+    if spec.pretrain_steps > 0 or spec.epochs > 0:
+        raise NotImplementedError(
+            "pretraining and EBFT tuning are not ported yet (ROADMAP.md queue A, "
+            "item 5: slice 2); run with --pretrain-steps 0 --epochs 0")
+    device = resolve_device(device)
+    model = build(cfg)
+    corpus = SyntheticCorpus(CorpusConfig(vocab_size=cfg.vocab_size, seed=spec.seed))
+    if params is None:
+        params = model.init(torch.Generator(device=device).manual_seed(spec.seed))
+    elif params["embed"]["tok"].device.type != device.type:
+        raise ValueError(f"params live on {params['embed']['tok'].device}, the run on {device}")
+    calib = calibration_set(corpus, spec.calib_samples, spec.seq)
+    ev = eval_set(corpus, EVAL_SAMPLES, spec.seq)
+    pattern = tuple(int(x) for x in spec.pattern.split(":")) if spec.pattern else None
+
+    phases: Dict[str, float] = {}
+    ppl: Dict[str, float] = {}
+    with _phase(device) as sp:
+        ppl["dense"] = perplexity(model, params, ev)
+    phases["eval_dense"] = sp.duration
+    with _phase(device) as sp:
+        masks, pruned = prune(model, params, calib, method=spec.method,
+                              sparsity=spec.sparsity, pattern=pattern)
+    phases["prune"] = sp.duration
+    with _phase(device) as sp:
+        ppl[spec.method] = perplexity(model, pruned, ev, masks=masks)
+    phases["eval_pruned"] = sp.duration
+    return RunResult(ppl, phases, sparsity_of(masks, params), masks, pruned)
+
+
+def main(argv=None) -> RunResult:
+    spec, device = _parse(argv)
+    cfg = get_config(spec.arch)
+    res = run(cfg, spec, device)
+    print(f"dense ppl          {res.perplexity['dense']:8.2f}")
+    print(f"{spec.method} ppl {' ' * (10 - len(spec.method))}"
+          f"{res.perplexity[spec.method]:8.2f}   ({res.phases['prune']:.0f}s, "
+          f"sparsity {res.sparsity:.4f})")
+    if spec.bench_out:
+        with open(spec.bench_out, "w") as f:
+            json.dump({"run_spec": dataclasses.asdict(spec), "phases": res.phases,
+                       "perplexity": res.perplexity}, f, indent=2)
+        print(f"wrote {spec.bench_out}")
+    return res
+
+
+if __name__ == "__main__":
+    main()
