@@ -5,13 +5,17 @@
 
 Builds the hand-written CUDA kernels from ``src/repro_torch/kernels/csrc``
 into ``build/kernels/``, holds each against its plain PyTorch version at
-the Llama-7B shapes of the slice, drives the prune-and-evaluate slice
-(``repro_torch.launch.ebft_run.run``) on Llama-7B at full width with 4 of
-its 32 layers in bf16, and cross-checks tiny_dense on the card against
-the CPU. Every phase prints one JSON line; any failed check raises, so the
-script exits non-zero. The last three lines are the card's name and power
-limit, the per-kernel summary, and ``{"ok": true, "device": ...}``.
-Without a card it exits non-zero and prints no result.
+the Llama-7B shapes of the slice (the masked matmul and its dX and dW, the
+flash attention forward and backward, the N:M sparse matmul), drives the
+prune -> EBFT -> evaluate slice (``repro_torch.launch.ebft_run.run``) on
+Llama-7B at full width with 4 of its 32 layers in bf16 (Wanda 0.7, the
+main path; and 2:4, whose tuned weights are re-packed and run through
+``nm_spmm``), and cross-checks tiny_dense (prune and EBFT) on the card
+against the CPU. Every phase prints one JSON line; any failed check
+raises, so the script exits non-zero. The last three lines are the card's
+name and power limit, the per-kernel summary, and
+``{"ok": true, "device": ...}``. Without a card it exits non-zero and
+prints no result.
 """
 from __future__ import annotations
 
@@ -78,12 +82,30 @@ def _refuses(name, fn) -> None:
     raise AssertionError(f"{name}: the wrapper launched on operands it must refuse")
 
 
+def check_scaled(name, out, ref, dtype: str) -> float:
+    """Max abs error within tol x max(1, max |ref|): for sums of thousands
+    of products (gradients), whose large entries carry the rounding of
+    their magnitude."""
+    tol = TOL[dtype]
+    err = float((out.float() - ref.float()).abs().max())
+    scale = max(1.0, float(ref.float().abs().max()))
+    if not err <= tol * scale:
+        raise AssertionError(f"{name}: kernel disagrees with its plain version "
+                             f"(max abs err {err}, tol {tol} x {scale})")
+    return err
+
+
 def bound_ms(nbytes: float, flops: float, dtype: str):
     t_bytes, t_ops = nbytes / HBM_BYTES_S, flops / PEAK_FLOPS[dtype]
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
 # ---------------------------------------------------------------------------
+# (name, leaf shape, reduction axes): the leaf is viewed as (R, O)
+LEAVES = [("wq", (4096, 32, 128), 1), ("wo", (32, 128, 4096), 2),
+          ("w_up", (4096, 11008), 1), ("w_down", (11008, 4096), 1)]
+
+
 def phase_masked_matmul(g):
     """Kernel vs plain at the four Llama-7B linear shapes, f32 and bf16,
     plus an all-zero mask, a ragged shape and a strided x."""
@@ -92,13 +114,10 @@ def phase_masked_matmul(g):
     from repro_torch.kernels.masked_matmul.ops import masked_matmul
     from repro_torch.kernels.masked_matmul.ref import masked_matmul_plain
 
-    # (name, leaf shape, reduction axes): the leaf is viewed as (R, O)
-    leaves = [("wq", (4096, 32, 128), 1), ("wo", (32, 128, 4096), 2),
-              ("w_up", (4096, 11008), 1), ("w_down", (11008, 4096), 1)]
     summary = None
     for dtype in ("float32", "bfloat16"):
         dt = getattr(torch, dtype)
-        for name, shape, n_red in leaves:
+        for name, shape, n_red in LEAVES:
             R = math.prod(shape[:n_red])
             w = (torch.randn(shape, device="cuda", generator=g) / math.sqrt(R)).to(dt)
             m = torch.rand(shape, device="cuda", generator=g) < 0.3  # Wanda at 0.7 keeps 30%
@@ -209,6 +228,145 @@ def phase_flash_attention(g):
     return summary
 
 
+def phase_masked_matmul_bwd(g):
+    """dX = dY (W*M)^T and dW = (X^T dY)*M, kernel vs plain formula at the
+    four Llama-7B leaf shapes with M = 16384 rows, f32 and bf16, plus a
+    ragged and a strided case; dW must be exactly 0 in every pruned slot.
+    Both sum thousands of products: checked within tol x max |plain|."""
+    import torch
+
+    from repro_torch.kernels.masked_matmul import ops as MM
+    from repro_torch.kernels.masked_matmul.ref import (
+        masked_matmul_dw_plain, masked_matmul_dx_plain,
+    )
+
+    summary = {}
+    for dtype in ("float32", "bfloat16"):
+        dt = getattr(torch, dtype)
+        for name, shape, n_red in LEAVES:
+            R = math.prod(shape[:n_red])
+            w = (torch.randn(shape, device="cuda", generator=g) / math.sqrt(R)).to(dt)
+            m = torch.rand(shape, device="cuda", generator=g) < 0.3
+            x = torch.randn(M_ROWS, R, device="cuda", generator=g).to(dt)
+            w2, m2 = w.reshape(R, -1), m.reshape(R, -1)
+            K, N = w2.shape
+            dy = torch.randn(M_ROWS, N, device="cuda", generator=g).to(dt)
+            dx = MM.masked_matmul_dx(dy, w2, m2)
+            dw = MM.masked_matmul_dw(x, dy, m2)
+            torch.cuda.synchronize()
+            if bool((dw[~m2] != 0).any()):
+                raise AssertionError(f"masked_matmul_dw {name} {dtype}: a pruned slot is not 0")
+            wm = w2 * m2.to(dt)
+            nnz = float(m2.sum())
+            for op, out, plain, lib, nbytes in (
+                ("dx", dx, lambda: masked_matmul_dx_plain(dy, w2, m2),
+                 lambda: torch.matmul(dy, wm.T),
+                 (dy.numel() + w2.numel() + dx.numel()) * dy.element_size() + m2.numel()),
+                ("dw", dw, lambda: masked_matmul_dw_plain(x, dy, m2),
+                 lambda: torch.matmul(x.T, dy) * m2,
+                 (x.numel() + dy.numel() + dw.numel()) * x.element_size() + m2.numel()),
+            ):
+                err = check_scaled(f"masked_matmul_{op} {name} {dtype}", out, plain(), dtype)
+                kern = (lambda: MM.masked_matmul_dx(dy, w2, m2)) if op == "dx" else \
+                    (lambda: MM.masked_matmul_dw(x, dy, m2))
+                b_ms, b_by = bound_ms(nbytes, 2.0 * M_ROWS * nnz, dtype)
+                row = dict(phase="masked_matmul_bwd", op=op, leaf=name, dtype=dtype, M=M_ROWS,
+                           K=K, N=N, max_abs_err=err, tol=TOL[dtype], ms=timed_ms(kern),
+                           plain_ms=timed_ms(plain), library_ms=timed_ms(lib), bound_ms=b_ms,
+                           bound_by=b_by)
+                emit(row)
+                if dtype == "bfloat16" and name == "w_up":
+                    summary[op] = row
+            del w, m, x, dy, dx, dw, wm
+    # ragged edges (K and N not multiples of the tile), x and dy strided
+    # column slices; bf16 with dims and offsets that keep 16-byte alignment
+    for dtype, case, K, N, off in (("float32", "ragged+strided", 1001, 333, 101),
+                                    ("bfloat16", "ragged+strided", 1000, 336, 104)):
+        dt = getattr(torch, dtype)
+        x = torch.randn(777, 1200, device="cuda", generator=g).to(dt)[:, off:off + K]
+        dy = torch.randn(777, 1200, device="cuda", generator=g).to(dt)[:, off:off + N]
+        w = (torch.randn(K, N, device="cuda", generator=g) / 32).to(dt)
+        m = torch.rand(K, N, device="cuda", generator=g) < 0.5
+        dw = MM.masked_matmul_dw(x, dy, m)
+        err_dx = check_scaled(f"masked_matmul_dx {case} {dtype}", MM.masked_matmul_dx(dy, w, m),
+                              masked_matmul_dx_plain(dy, w, m), dtype)
+        err_dw = check_scaled(f"masked_matmul_dw {case} {dtype}", dw,
+                              masked_matmul_dw_plain(x, dy, m), dtype)
+        if bool((dw[~m] != 0).any()):
+            raise AssertionError(f"masked_matmul_dw {case} {dtype}: a pruned slot is not 0")
+        emit(dict(phase="masked_matmul_bwd", case=case, dtype=dtype, M=777, K=K, N=N,
+                  max_abs_err_dx=err_dx, max_abs_err_dw=err_dw, tol=TOL[dtype]))
+    return summary
+
+
+def phase_flash_attention_bwd(g):
+    """The backward kernel (through ``FlashAttentionFn``) against the plain
+    formula and against autograd of the plain attention in f32: (256, 2048, 128)
+    causal, non-causal, q_offset with Sq < Sk, and every head width, in f32
+    and bf16. Gradients checked within tol x max |plain|."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import ops as FA
+    from repro_torch.kernels.flash_attention.ref import (
+        flash_attention_bwd_plain, flash_attention_plain,
+    )
+
+    cases = [(256, 2048, 2048, 128, True, 0), (64, 1024, 1024, 128, False, 0),
+             (64, 512, 2048, 128, True, 1536), (8, 200, 333, 64, True, 133),
+             (8, 128, 128, 32, False, 0), (16, 128, 128, 16, True, 0)]
+    summary = None
+    for dtype in ("float32", "bfloat16"):
+        dt = getattr(torch, dtype)
+        for BH, Sq, Sk, d, causal, off in cases:
+            q = torch.randn(BH, Sq, d, device="cuda", generator=g).to(dt)
+            k = torch.randn(BH, Sk, d, device="cuda", generator=g).to(dt)
+            v = torch.randn(BH, Sk, d, device="cuda", generator=g).to(dt)
+            do = torch.randn(BH, Sq, d, device="cuda", generator=g).to(dt)
+            kw = dict(causal=causal, q_offset=off)
+            leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+            got = torch.autograd.grad(FA.flash_attention(*leaves, **kw), leaves, do)
+            o, lse = FA._launch(q, k, v, causal, off, with_lse=True)
+            plain = flash_attention_bwd_plain(q, k, v, o, do, lse, **kw)
+            # autograd of the plain attention on f32 copies of the inputs: in
+            # bf16 autograd would round its own intermediate gradients
+            leaves = [t.float().requires_grad_(True) for t in (q, k, v)]
+            auto = torch.autograd.grad(flash_attention_plain(*leaves, **kw), leaves, do.float())
+            del leaves
+            torch.cuda.synchronize()
+            tag = f"flash_attention_bwd {(BH, Sq, Sk, d, causal, off)} {dtype}"
+            err = max(check_scaled(f"{tag} d{n}", a, b, dtype)
+                      for n, a, b in zip("qkv", got, plain))
+            err_auto = max(check_scaled(f"{tag} d{n} vs autograd", a, b, dtype)
+                           for n, a, b in zip("qkv", got, auto))
+            row = dict(phase="flash_attention_bwd", dtype=dtype, BH=BH, Sq=Sq, Sk=Sk, d=d,
+                       causal=causal, q_offset=off, max_abs_err=err,
+                       max_abs_err_vs_autograd=err_auto, tol=TOL[dtype])
+            del got, plain, auto
+            if BH >= 64:
+                row["ms"] = timed_ms(lambda: FA.flash_attention_bwd(q, k, v, o, do, lse, **kw))
+                row["plain_ms"] = timed_ms(
+                    lambda: flash_attention_bwd_plain(q, k, v, o, do, lse, **kw))
+                if off == 0:
+                    qkv = [t[None].clone().requires_grad_(True) for t in (q, k, v)]
+                    out = F.scaled_dot_product_attention(*qkv, is_causal=causal)
+                    row["library_ms"] = timed_ms(lambda: torch.autograd.grad(
+                        out, qkv, do[None], retain_graph=True))
+                    del qkv, out
+                pairs = _causal_pairs(Sq, Sk, causal, off)
+                # reads q, k, v, o, do and the f32 lse; writes dq, dk, dv;
+                # S = QK^T, dP = dO V^T, dV, dQ, dK: 5 products of 2*d per pair
+                nbytes = (5 * q.numel() + 3 * k.numel()) * q.element_size() + 4 * lse.numel()
+                b_ms, b_by = bound_ms(nbytes, 10.0 * BH * d * pairs, dtype)
+                row.update(bound_ms=b_ms, bound_by=b_by)
+                if dtype == "bfloat16" and (BH, Sq, causal) == (256, 2048, True):
+                    summary = row
+            emit(row)
+            del q, k, v, do, o, lse
+            torch.cuda.empty_cache()
+    return summary
+
+
 # ---------------------------------------------------------------------------
 def _check_pruned(res, cfg, keep_frac, pattern):
     """Pruned slots are exactly 0; each output column keeps round(R*keep)
@@ -238,16 +396,49 @@ def _check_pruned(res, cfg, keep_frac, pattern):
                                  f"want {want}")
 
 
-def phase_slice(method_cfg, tokens, microbatch=8):
-    """The slice on Llama-7B (4 of 32 layers, bf16, flash attention), then
-    its masks held against a second prune (``phase_mask_flips``).
-    ``tokens`` are the run's own calibration and eval segments."""
-    import torch
-
-    from repro_torch.configs import get_config
+def _counters():
     from repro_torch.kernels.flash_attention import ops as FA
     from repro_torch.kernels.masked_matmul import ops as MM
+    from repro_torch.kernels.nm_spmm import ops as NM
+
+    return {"masked_matmul": (MM, "launches"), "masked_matmul_dx": (MM, "dx_launches"),
+            "masked_matmul_dw": (MM, "dw_launches"), "flash_attention": (FA, "launches"),
+            "flash_attention_bwd": (FA, "bwd_launches"), "nm_spmm": (NM, "launches")}
+
+
+def reset_counts() -> None:
+    for mod, attr in _counters().values():
+        setattr(mod, attr, 0)
+
+
+def read_counts() -> dict:
+    return {name: getattr(mod, attr) for name, (mod, attr) in _counters().items()}
+
+
+def phase_slice(method_cfg, tokens, microbatch=8, every_block_drops=True):
+    """The slice on Llama-7B (4 of 32 layers, bf16, flash attention):
+    prune, EBFT with the reference's EBFTConfig defaults (lr 2e-4, 10
+    epochs, patience 2), evaluate; then its masks held against a second
+    prune (``phase_mask_flips``). ``tokens`` are the run's own calibration
+    and eval segments. Every kernel count is set to 0 just before the run;
+    returns the counts read just after it, and the run.
+
+    The mean block loss must drop, and so must every block's that ran to
+    its last epoch. With ``every_block_drops`` every block's loss must end
+    below where it began. Without it a block that the plateau rule stopped
+    must end at or below its best epoch mean: Adam's first step moves every
+    weight by lr * sign(g), which on these random weights overshoots, so a
+    block's first epochs can lie above its starting loss, and if two do the
+    plateau rule (patience 2, the starting loss in the history, as the
+    reference's) stops the block there, before it is back below its start.
+    That is the algorithm's behaviour, not a fault; the 2:4 run holds it
+    so."""
+    import torch
+
+    from repro_torch import tree as T
+    from repro_torch.configs import get_config
     from repro_torch.launch import ebft_run
+    from repro_torch.sparsity import sparse_params as SP
 
     sparsity, pattern = method_cfg
     calib, ev = tokens
@@ -255,41 +446,166 @@ def phase_slice(method_cfg, tokens, microbatch=8):
                                          param_dtype="bfloat16", attn_impl="flash")
     spec = ebft_run.RunSpec(arch="llama_7b", seed=0, seq=calib.shape[1], method="wanda",
                             sparsity=sparsity, pattern=pattern, calib_samples=len(calib),
-                            pretrain_steps=0, epochs=0, bench_out="")
+                            pretrain_steps=0, lr=2e-4, epochs=10, bench_out="")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    MM.launches = 0
-    FA.launches = 0
+    reset_counts()
     t0 = time.perf_counter()
     res = ebft_run.run(cfg, spec, "cuda")
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {"masked_matmul": MM.launches, "flash_attention": FA.launches}
+    launches = read_counts()
     L = cfg.num_layers
     n_cal = math.ceil(len(calib) / microbatch)
     n_ev = math.ceil(ebft_run.EVAL_SAMPLES / microbatch)
-    # 7 masked linears per block per masked forward (walk advances and the
-    # pruned eval); one attention per block per forward (dense eval, the
-    # walk's taps replay and advance, pruned eval)
-    expected = {"masked_matmul": 7 * L * (n_cal + n_ev),
-                "flash_attention": L * (2 * n_ev + 2 * n_cal)}
+    steps = sum(r.epochs_run for r in res.reports) * n_cal  # tuning steps, all blocks
+    # masked forwards of a block (7 masked linears, one attention each): the
+    # prune walk's advances, the pruned and the tuned eval, and in EBFT per
+    # block the mean loss before and after, each step, the student advance.
+    # Attention also runs in the dense eval, the prune walk's taps replay
+    # and the teacher advances. Each step's backward runs dX and dW of the
+    # 7 masked linears and one attention backward.
+    masked_fwd = L * (n_cal + 2 * n_ev + 3 * n_cal) + steps
+    expected = {"masked_matmul": 7 * masked_fwd, "masked_matmul_dx": 7 * steps,
+                "masked_matmul_dw": 7 * steps,
+                "flash_attention": masked_fwd + L * (n_ev + 2 * n_cal),
+                "flash_attention_bwd": steps, "nm_spmm": 0}
     pat = tuple(int(x) for x in pattern.split(":")) if pattern else None
-    row = dict(phase="slice", arch="llama_7b", num_layers=L, reduced="num_layers 32->4",
+    blocks = [dict(block=r.index, loss_before=r.loss_before, loss_after=r.loss_after,
+                   dropped=r.loss_after < r.loss_before, epochs_run=r.epochs_run,
+                   early_stop=r.early_stop, history=r.history)
+              for r in res.reports]
+    row = dict(phase="ebft", arch="llama_7b", num_layers=L, reduced="num_layers 32->4",
                dtype="bfloat16", seq=spec.seq, method="wanda", sparsity=sparsity,
                pattern=pattern or None, calib_samples=len(calib),
-               eval_samples=ebft_run.EVAL_SAMPLES, perplexity=res.perplexity,
-               achieved_sparsity=res.sparsity, phases_s=res.phases, wall_s=wall,
+               eval_samples=ebft_run.EVAL_SAMPLES,
+               ebft=dict(lr=spec.lr, epochs=spec.epochs, patience=2,
+                         every_block_drops=every_block_drops),
+               perplexity=res.perplexity, achieved_sparsity=res.sparsity, blocks=blocks,
+               phases_s=res.phases, wall_s=wall,
                peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
+               live_block_bytes=max(r.live_bytes for r in res.reports),
                launches=launches, expected_launches=expected)
     emit(row)
     for k, v in res.perplexity.items():
         if not math.isfinite(v):
-            raise AssertionError(f"slice: {k} perplexity is {v}")
+            raise AssertionError(f"ebft: {k} perplexity is {v}")
     if launches != expected:
-        raise AssertionError(f"slice: launches {launches} != expected {expected}")
+        raise AssertionError(f"ebft: launches {launches} != expected {expected}")
+    for b in blocks:
+        if every_block_drops or b["early_stop"] == "max_epochs":
+            if not b["dropped"]:
+                raise AssertionError(f"ebft: block {b['block']} loss {b['loss_before']} -> "
+                                     f"{b['loss_after']} did not drop")
+        elif b["loss_after"] > min(b["history"][1:]):
+            raise AssertionError(f"ebft: block {b['block']} stopped at {b['loss_after']}, "
+                                 f"above its best epoch mean {min(b['history'][1:])}")
+    mean_before = sum(b["loss_before"] for b in blocks) / len(blocks)
+    mean_after = sum(b["loss_after"] for b in blocks) / len(blocks)
+    if not mean_after < mean_before:
+        raise AssertionError(f"ebft: mean block loss {mean_before} -> {mean_after} did not drop")
     _check_pruned(res, cfg, 1.0 - sparsity, pat)
+    for path, m in T.leaves_with_path(res.masks):
+        if SP.is_prunable(path, m) and bool((T.get_path(res.tuned, path)[~m] != 0).any()):
+            raise AssertionError(f"ebft: {path} tuned weights are not 0 in pruned slots")
+    # the masks the run tuned with must equal a repeat of its prune
     phase_mask_flips(cfg, spec, pat, tokens, run_masks=res.masks)
-    return launches
+    return launches, res, cfg
+
+
+def phase_nm_pack(res, cfg, tokens, launches, microbatch=8):
+    """The 2:4 run's tuned weights re-packed with ``nm_compress`` and run
+    through ``nm_spmm`` on the run's own block inputs (the tuned student
+    stream's first calibration microbatch, M = 16384 rows), held against
+    ``masked_matmul`` on the same tuned weights and against the plain
+    version. Adds the nm_spmm launches to ``launches`` (the path's counts,
+    set to 0 before its run)."""
+    import torch
+
+    from repro_torch import tree as T
+    from repro_torch.kernels.masked_matmul.ops import masked_matmul
+    from repro_torch.kernels.nm_spmm import ops as NM
+    from repro_torch.kernels.nm_spmm.ref import nm_spmm_plain
+    from repro_torch.models.model import build
+    from repro_torch.sparsity import sparse_params as SP
+    from repro_torch.sparsity.taps import dense_taps
+
+    model = build(cfg)
+    calib, _ = tokens
+    n, m = 2, 4
+    batch = {"tokens": torch.as_tensor(calib[:microbatch], device="cuda")}
+    errs, packed, dense_bytes, timing = [], 0, 0, None
+    with torch.no_grad():
+        h, pos = model.embed_tokens(res.tuned, batch)
+        for i in range(model.num_blocks):
+            bp, mb = model.get_block(res.tuned, i), model.get_block(res.masks, i)
+            taps = dense_taps(bp, cfg, h, pos)
+            for path, w in T.leaves_with_path(bp):
+                if not SP.is_prunable(path, w):
+                    continue
+                w2, _ = SP.to_matrix(path[-1], w)
+                m2, _ = SP.to_matrix(path[-1], T.get_path(mb, path))
+                vals, idx = SP.nm_compress(w2, m2, n, m)
+                if not torch.equal(SP.nm_decompress(vals, idx, n, m), w2 * m2):
+                    raise AssertionError(f"nm_pack: block {i} {path} pack/unpack mismatch")
+                x = taps[path[-1]]
+                out = NM.nm_spmm(x, vals, idx, n=n, m=m)
+                ref_mm = masked_matmul(x, w2, m2)
+                plain = nm_spmm_plain(x, vals, idx, n=n, m=m)
+                torch.cuda.synchronize()
+                err = check_close(f"nm_spmm block {i} {path[-1]}", out, plain, "bfloat16")
+                err_mm = check_close(f"nm_spmm vs masked_matmul block {i} {path[-1]}", out,
+                                     ref_mm, "bfloat16")
+                errs.append((err, err_mm))
+                packed += vals.numel() * vals.element_size() + idx.numel()
+                dense_bytes += w2.numel() * w2.element_size()
+                if i == 0 and path[-1] == "w_up":  # timed below, outside the path
+                    timing = (x, vals, idx, SP.nm_decompress(vals, idx, n, m), err, err_mm)
+            h = model.apply_block(res.tuned, i, bp, h, pos, mb)
+    torch.cuda.synchronize()
+    launches["nm_spmm"] = NM.launches
+    expected = 7 * model.num_blocks
+    if launches["nm_spmm"] != expected:
+        raise AssertionError(f"nm_pack: {launches['nm_spmm']} nm_spmm launches, want {expected}")
+    x, vals, idx, wd, err, err_mm = timing
+    M, (K, N) = x.shape[0], wd.shape
+    nbytes = (x.numel() + M * N) * x.element_size() + vals.numel() * vals.element_size() + \
+        idx.numel()  # the compressed weight's bytes
+    b_ms, b_by = bound_ms(nbytes, 2.0 * M * (K // m * n) * N, "bfloat16")
+    summary = dict(phase="nm_spmm", leaf="w_up", block=0, dtype="bfloat16", M=M, K=K, N=N,
+                   n=n, m=m, max_abs_err=err, max_abs_err_vs_masked_matmul=err_mm,
+                   tol=TOL["bfloat16"], ms=timed_ms(lambda: NM.nm_spmm(x, vals, idx, n=n, m=m)),
+                   plain_ms=timed_ms(lambda: nm_spmm_plain(x, vals, idx, n=n, m=m)),
+                   library_ms=timed_ms(lambda: torch.matmul(x, wd)), bound_ms=b_ms,
+                   bound_by=b_by)
+    # the f32 kernel, 1:4, ragged edges (K, N not multiples of the tile)
+    # and a strided x; the bf16 wrapper refuses an x it cannot take
+    g = torch.Generator(device="cuda").manual_seed(1)
+    for dtype, (nn, mm), K, N in (("float32", (2, 4), 1000, 333), ("float32", (1, 4), 4096, 336),
+                                  ("bfloat16", (2, 4), 1000, 333), ("bfloat16", (1, 4), 4096, 11008)):
+        dt = getattr(torch, dtype)
+        xs = torch.randn(777, K + 8, device="cuda", generator=g).to(dt)[:, :K]
+        ws = (torch.randn(K, N, device="cuda", generator=g) / math.sqrt(K)).to(dt)
+        vs, ix = SP.nm_compress(ws, SP.nm_mask(torch.rand(K, N, device="cuda", generator=g),
+                                               nn, mm), nn, mm)
+        err = check_close(f"nm_spmm {nn}:{mm} {(K, N)} {dtype}", NM.nm_spmm(xs, vs, ix, n=nn, m=mm),
+                          nm_spmm_plain(xs, vs, ix, n=nn, m=mm), dtype)
+        emit(dict(phase="nm_spmm", case=f"{nn}:{mm} ragged+strided", dtype=dtype, M=777, K=K,
+                  N=N, max_abs_err=err, tol=TOL[dtype]))
+    xs = torch.randn(777 * 1000 + 1, device="cuda", generator=g).to(torch.bfloat16)[1:]
+    vs, ix = SP.nm_compress(torch.ones(1000, 336, device="cuda", dtype=torch.bfloat16),
+                            SP.nm_mask(torch.rand(1000, 336, device="cuda", generator=g), 2, 4),
+                            2, 4)
+    _refuses("nm_spmm unaligned bf16",
+             lambda: NM.nm_spmm(xs.view(777, 1000), vs, ix, n=2, m=4))
+    emit(dict(phase="nm_spmm", case="unaligned bf16", refused=True))
+    emit(dict(phase="nm_pack", pattern="2:4", leaves=len(errs),
+              max_abs_err=max(e for e, _ in errs),
+              max_abs_err_vs_masked_matmul=max(e for _, e in errs),
+              packed_mib=packed / 2**20, dense_mib=dense_bytes / 2**20,
+              launches=launches["nm_spmm"], expected_launches=expected))
+    emit(summary)
+    return summary
 
 
 # largest relative gap to its threshold of a block-0 slot whose mask two
@@ -432,6 +748,47 @@ def phase_tiny_crosscheck():
             raise AssertionError(f"tiny cross-check: {k} ppl cuda {a} vs cpu {b}")
     if worst > 1e-6:
         raise AssertionError(f"tiny cross-check: a mask flipped {worst:.2e} from its threshold")
+    phase_tiny_ebft(model, weights, out["cpu"]["masks"], calib, ev)
+
+
+def phase_tiny_ebft(model, weights, masks_cpu, calib, ev, rel=1e-4):
+    """EBFT on tiny_dense in f32 from the same weights and the same (CPU)
+    masks on the card (kernels, their backward) and on the CPU (plain
+    versions): equal epochs_run and early stops per block, loss histories
+    and the EBFT perplexity within rel 1e-4 (f32, sums taken in another
+    order)."""
+    from repro_torch import interop
+    from repro_torch import tree as T
+    from repro_torch.core import ebft
+    from repro_torch.core.evaluate import perplexity
+    from repro_torch.sparsity import sparse_params as SP
+
+    ecfg = ebft.EBFTConfig(lr=1e-2, epochs=8, microbatch=8, patience=3)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        params = interop.params_to_torch(weights, dev)
+        masks = T.tree_map(lambda m: m.to(dev), masks_cpu)
+        tuned, reports = ebft.finetune(model, params, SP.apply_masks(params, masks), masks,
+                                       calib, ecfg)
+        out[dev] = dict(reports=reports, ppl=perplexity(model, tuned, ev, masks=masks))
+    worst = 0.0
+    for a, b in zip(out["cuda"]["reports"], out["cpu"]["reports"]):
+        if (a.epochs_run, a.early_stop) != (b.epochs_run, b.early_stop):
+            raise AssertionError(f"tiny EBFT: block {a.index} ran {a.epochs_run} "
+                                 f"({a.early_stop}) on the card, {b.epochs_run} "
+                                 f"({b.early_stop}) on the CPU")
+        for x, y in zip(a.history + [a.loss_after], b.history + [b.loss_after]):
+            worst = max(worst, abs(x - y) / abs(y))
+    ppl_rel = abs(out["cuda"]["ppl"] / out["cpu"]["ppl"] - 1.0)
+    emit(dict(phase="tiny_ebft", arch="tiny_dense", dtype="float32", lr=ecfg.lr,
+              epochs=ecfg.epochs, patience=ecfg.patience,
+              epochs_run=[r.epochs_run for r in out["cuda"]["reports"]],
+              early_stop=[r.early_stop for r in out["cuda"]["reports"]],
+              worst_loss_rel=worst, ppl_cuda=out["cuda"]["ppl"], ppl_cpu=out["cpu"]["ppl"],
+              ppl_rel=ppl_rel, rtol=rel))
+    if worst > rel or ppl_rel > rel:
+        raise AssertionError(f"tiny EBFT: card vs CPU loss rel {worst:.2e}, ppl rel "
+                             f"{ppl_rel:.2e} (limit {rel:.0e})")
 
 
 # ---------------------------------------------------------------------------
@@ -451,14 +808,16 @@ def main() -> int:
     emit(dict(phase="device", card=card, torch=torch.__version__, cuda=torch.version.cuda,
               kind=torch.cuda.get_device_name(0), count=torch.cuda.device_count()))
     t0 = time.perf_counter()
-    _build.build(["masked_matmul", "flash_attention"])
+    _build.build(["masked_matmul", "flash_attention", "nm_spmm"])
     emit(dict(phase="build", seconds=time.perf_counter() - t0,
-              ptxas={n: [ln.strip() for ln in log.splitlines() if "Used" in ln]
+              ptxas={n: [ln.strip() for ln in log.splitlines() if "Used" in ln or "spill" in ln]
                      for n, log in _build.build_log.items()}))
 
     g = torch.Generator(device="cuda").manual_seed(0)
-    mm = phase_masked_matmul(g)
-    fa = phase_flash_attention(g)
+    rows = {"masked_matmul": phase_masked_matmul(g)}
+    rows.update({f"masked_matmul_{op}": r for op, r in phase_masked_matmul_bwd(g).items()})
+    rows["flash_attention"] = phase_flash_attention(g)
+    rows["flash_attention_bwd"] = phase_flash_attention_bwd(g)
     torch.cuda.empty_cache()
     from repro_torch.data.tokens import CorpusConfig, SyntheticCorpus, calibration_set, eval_set
     from repro_torch.configs import get_config
@@ -468,8 +827,14 @@ def main() -> int:
     corpus = SyntheticCorpus(CorpusConfig(vocab_size=32000, seed=0))
     tokens = calibration_set(corpus, 16, 2048), eval_set(corpus, EVAL_SAMPLES, 2048)
     # the main path: its launches are the ones reported
-    launches = phase_slice((0.7, ""), tokens)
-    phase_slice((0.5, "2:4"), tokens)
+    launches, res, _ = phase_slice((0.7, ""), tokens)
+    del res
+    torch.cuda.empty_cache()
+    # the N:M path: 2:4 prune, EBFT, re-pack, nm_spmm
+    nm_launches, res, cfg = phase_slice((0.5, "2:4"), tokens, every_block_drops=False)
+    rows["nm_spmm"] = phase_nm_pack(res, cfg, tokens, nm_launches)
+    launches["nm_spmm"] = nm_launches["nm_spmm"]
+    del res
     # the same at f32, where the two attention paths differ only in the
     # order of their sums
     torch.cuda.empty_cache()
@@ -479,16 +844,17 @@ def main() -> int:
     phase_mask_flips(cfg32, spec32, None, tokens)
     phase_tiny_crosscheck()
 
+    root = "src/repro_torch/kernels/csrc/"
+    pallas = {"masked_matmul": "src/repro/kernels/masked_matmul/masked_matmul.py:49",
+              "flash_attention": "src/repro/kernels/flash_attention/flash_attention.py:85",
+              "nm_spmm": "src/repro/kernels/nm_spmm/nm_spmm.py:62"}
     kernels = []
-    for name, row, src, replaces in (
-        ("masked_matmul", mm, "src/repro_torch/kernels/csrc/masked_matmul.cu",
-         "src/repro/kernels/masked_matmul/masked_matmul.py:49"),
-        ("flash_attention", fa, "src/repro_torch/kernels/csrc/flash_attention.cu",
-         "src/repro/kernels/flash_attention/flash_attention.py:85"),
-    ):
-        kernels.append(dict(name=name, route="cuda", source=src, replaces=replaces,
-                            launches=launches[name], max_abs_err=row["max_abs_err"],
-                            ms=row["ms"], plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
+    for name, row in rows.items():
+        base = name.replace("_dx", "").replace("_dw", "").replace("_bwd", "")
+        kernels.append(dict(name=name, route="cuda", source=root + base + ".cu",
+                            replaces=pallas[base], launches=launches[name],
+                            max_abs_err=row["max_abs_err"], ms=row["ms"],
+                            plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
                             bound_by=row["bound_by"], library_ms=row.get("library_ms")))
     print(smi(), flush=True)
     emit({"kernels": kernels})

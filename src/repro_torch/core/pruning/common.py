@@ -1,5 +1,6 @@
-"""Shared machinery for the calibration-based pruning methods (port of
-``repro.core.pruning.common``: statistics and the single-stream walk).
+"""Shared machinery for the calibration-based pruning methods and EBFT
+(port of ``repro.core.pruning.common``: statistics, the single-stream walk
+of the pruning methods and the dual-stream walk of EBFT).
 
 The hidden stream is propagated block by block over the calibration set
 in microbatches; the per-linear input activations are tapped
@@ -75,38 +76,61 @@ def _make_batches(calib: np.ndarray, microbatch: int, device) -> List[Dict[str, 
 
 
 def walk_blocks(model, params, calib: np.ndarray, visit_fn: Callable, microbatch: int = 8,
-                params_student=None, masks=None):
-    """Block-by-block calibration walk, single stream (the Wanda/SparseGPT
-    convention: the stream advances through the already-updated blocks).
+                params_student=None, masks=None, dual_stream: bool = False):
+    """Block-by-block calibration walk over per-microbatch lists.
+
+    Single-stream mode (the pruning methods, Wanda/SparseGPT convention):
+    one stream advances through the already-updated blocks. The reference
+    also hands each such visit ``target_mb``, the dense block's output on
+    the same input; no ported pruning visitor reads it, so this mode does
+    not compute it.
+
+    Dual-stream mode (EBFT, Eq. 3/4): the teacher stream propagates through
+    the dense ``params`` and the student stream through
+    ``params_student``; each visit sees the student's inputs (``h_mb``) and
+    the teacher's outputs (``target_mb``), computed just before the visit
+    (the reference's prefetch depth 0). Enqueuing the teacher ahead on the
+    same stream overlaps nothing on the card; a side-stream teacher is
+    later work (ROADMAP.md).
 
     ``visit_fn(i, bp, ctx)`` returns the block's new params or None; ctx
-    holds ``h_mb``, ``pos_mb`` and ``site``. With ``masks`` (a full mask
-    tree the visitor fills in), each advance runs the block's masked
-    linears through the masked matmul kernel. The reference also hands
-    each visit ``target_mb``, the dense block's output on the same input;
-    no ported visitor reads it, so the port does not compute it. Returns
-    the updated params (``params_student``, updated in place).
+    holds ``h_mb``, ``pos_mb``, ``site`` (and ``target_mb`` in dual-stream
+    mode). With ``masks`` (a full mask tree, which a pruning visitor fills
+    in), each student advance runs the block's masked linears through the
+    masked matmul kernel; the teacher runs dense. Returns the updated
+    params (``params_student``, updated in place; never ``params`` in
+    dual-stream mode).
     """
     out_params = params_student if params_student is not None else params
+    if dual_stream and out_params is params:
+        raise ValueError("walk_blocks: the dual-stream walk needs a student tree of its own "
+                         "(set_block writes in place; the teacher must stay dense)")
     device = params["embed"]["tok"].device
     batch_all = _make_batches(calib, microbatch, device)
-    return _walk_blocks_lists(model, out_params, batch_all, visit_fn, masks)
-
-
-def _walk_blocks_lists(model, out_params, batch_all, visit_fn, masks):
     for seg in R.execution_plan(model):
-        hs_mb, pos_mb = [], []
-        for b in batch_all:
-            h, pos = seg.h0(out_params, b)
-            hs_mb.append(h)
-            pos_mb.append(pos)
+        hs_mb, ht_mb, pos_mb = [], [], []
+        with torch.no_grad():
+            for b in batch_all:
+                h, pos = seg.h0(out_params, b)
+                hs_mb.append(h)
+                pos_mb.append(pos)
+                if dual_stream:
+                    ht_mb.append(seg.h0(params, b)[0])
         for (i, site) in seg.visits:
+            ctx = dict(h_mb=hs_mb, pos_mb=pos_mb, site=site)
+            if dual_stream:
+                dense_bp = model.get_block(params, i)
+                with torch.no_grad():
+                    ht_mb = [R.advance_with(model, params, i, dense_bp, h, p)
+                             for h, p in zip(ht_mb, pos_mb)]
+                ctx["target_mb"] = ht_mb
             bp = model.get_block(out_params, i)
-            new_bp = visit_fn(i, bp, dict(h_mb=hs_mb, pos_mb=pos_mb, site=site))
+            new_bp = visit_fn(i, bp, ctx)
             if new_bp is not None:
                 out_params = model.set_block(out_params, i, new_bp)
                 bp = model.get_block(out_params, i)
             mb = model.get_block(masks, i) if masks is not None else None
-            hs_mb = [R.advance_with(model, out_params, i, bp, h, p, mb)
-                     for h, p in zip(hs_mb, pos_mb)]
+            with torch.no_grad():
+                hs_mb = [R.advance_with(model, out_params, i, bp, h, p, mb)
+                         for h, p in zip(hs_mb, pos_mb)]
     return out_params

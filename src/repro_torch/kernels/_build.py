@@ -30,12 +30,18 @@ P, I, LL, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 # bare Python int would be cut to 32 bits)
 SIGNATURES: Dict[str, Dict[str, list]] = {
     "masked_matmul": {
-        fn: [P, P, P, P, I, I, I, LL, LL, LL, LL, P]
-        for fn in ("masked_matmul_f32", "masked_matmul_bf16")
+        f"masked_matmul{op}_{dt}": [P, P, P, P, I, I, I, LL, LL, LL, LL, P]
+        for op in ("", "_dx", "_dw") for dt in ("f32", "bf16")
     },
     "flash_attention": {
-        fn: [P, P, P, P, I, I, I, I, I, I, F, P]
-        for fn in ("flash_attention_f32", "flash_attention_bf16")
+        **{fn: [P, P, P, P, P, I, I, I, I, I, I, F, P]
+           for fn in ("flash_attention_f32", "flash_attention_bf16")},
+        **{fn: [P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, F, P]
+           for fn in ("flash_attention_bwd_f32", "flash_attention_bwd_bf16")},
+    },
+    "nm_spmm": {
+        fn: [P, P, P, P, I, I, I, I, I, LL, LL, LL, LL, P]
+        for fn in ("nm_spmm_f32", "nm_spmm_bf16")
     },
 }
 
@@ -59,8 +65,12 @@ def _lib_path(name: str) -> Path:
 
 
 def _stale(name: str) -> bool:
+    """The library is missing or older than its source or a shared header."""
     lib = _lib_path(name)
-    return not lib.exists() or lib.stat().st_mtime < (CSRC / f"{name}.cu").stat().st_mtime
+    if not lib.exists():
+        return True
+    sources = [CSRC / f"{name}.cu", *CSRC.glob("*.cuh")]
+    return lib.stat().st_mtime < max(p.stat().st_mtime for p in sources)
 
 
 def build(names: Iterable[str]) -> None:

@@ -1,9 +1,12 @@
-// flash_attention: blocked online-softmax attention for Hopper (sm_90a).
+// flash_attention: blocked online-softmax attention for Hopper (sm_90a),
+// forward and backward.
 //
 // Replaces the Pallas TPU kernel `flash_attention` in
 // src/repro/kernels/flash_attention/flash_attention.py (body `_kernel`),
 // which src/repro/kernels/flash_attention/ops.py::flash_attention_bshd
-// reaches from the model's attention with attn_impl="flash".
+// reaches from the model's attention with attn_impl="flash". The JAX
+// package has no backward kernel; the backward at the end of this file
+// gives the gradient of this forward for EBFT's tuning steps.
 //
 // What bounds it on an H100: causal attention at the slice's shape
 // (BH = 256, S = 2048, d = 128) does about 4*S*d/2 = 0.5 M operations per
@@ -29,6 +32,9 @@
 //     operands only and refuses others with cudaErrorInvalidValue;
 //   * f32 (no TF32: IEEE products for the 2e-5 tolerance): SIMT fp32 FMAs,
 //     64-row query and 32-key tiles.
+// With a non-null `lse` either forward also writes the f32 row
+// log-sum-exp of the scaled, masked scores, m + log(max(l, 1e-30)), which
+// the backward reads; the no-grad callers pass null and write nothing.
 // No TMA, wgmma, pipelining or warp specialisation yet.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -50,8 +56,8 @@ constexpr size_t smem_bytes() {
 template <int HD>
 __global__ void __launch_bounds__(THREADS)
 flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
-             const float* __restrict__ v, float* __restrict__ o, int Sq, int Sk,
-             int causal, int q_offset, float scale) {
+             const float* __restrict__ v, float* __restrict__ o, float* __restrict__ lse,
+             int Sq, int Sk, int causal, int q_offset, float scale) {
   static_assert(HD % 8 == 0, "head_dim must be a multiple of 8");
   constexpr int QLD = HD + 1, PLD = BKV + 1, NJ = HD / 8;
   extern __shared__ float smem[];
@@ -175,7 +181,10 @@ flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 
   __syncthreads();
-  if (shalf == 0) rowv[srow] = fmaxf(l_row, 1e-30f);
+  if (shalf == 0) {
+    rowv[srow] = fmaxf(l_row, 1e-30f);
+    if (lse != nullptr && q0 + srow < Sq) lse[bh * Sq + q0 + srow] = m_row + logf(rowv[srow]);
+  }
   __syncthreads();
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
@@ -189,8 +198,8 @@ flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
 }
 
 template <int HD>
-int launch(const void* q, const void* k, const void* v, void* o, int BH, int Sq,
-           int Sk, int causal, int q_offset, float scale, cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* o, float* lse, int BH,
+           int Sq, int Sk, int causal, int q_offset, float scale, cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<HD>();
   cudaError_t err = cudaFuncSetAttribute(
       flash_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -198,7 +207,7 @@ int launch(const void* q, const void* k, const void* v, void* o, int BH, int Sq,
   dim3 grid((Sq + BQ - 1) / BQ, BH);
   flash_kernel<HD><<<grid, THREADS, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(o), Sq, Sk, causal, q_offset,
+      static_cast<const float*>(v), static_cast<float*>(o), lse, Sq, Sk, causal, q_offset,
       scale);
   return static_cast<int>(cudaGetLastError());
 }
@@ -246,7 +255,8 @@ template <int HD>
 __global__ void __launch_bounds__(TC_THREADS)
 flash_tc_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                 const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
-                int Sq, int Sk, int causal, int q_offset, float scale) {
+                float* __restrict__ lse, int Sq, int Sk, int causal, int q_offset,
+                float scale) {
   static_assert(HD % 16 == 0, "head_dim must be a multiple of 16");
   constexpr int LD = HD + 8;  // padded rows: conflict-free fragment loads
   constexpr int KSTEPS = HD / 16, NT_S = TC_BKV / 8, NT_O = HD / 8, CH = HD / 8;
@@ -384,6 +394,7 @@ flash_tc_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __rest
     const int r = q0 + warp * 16 + g + h * 8;
     if (r >= Sq) continue;
     const float l = fmaxf(l_r[h], 1e-30f);
+    if (lse != nullptr && t == 0) lse[bh * Sq + r] = m_r[h] + logf(l);
 #pragma unroll
     for (int j = 0; j < NT_O; ++j)
       *reinterpret_cast<uint32_t*>(ob + (long long)r * HD + j * 8 + 2 * t) =
@@ -392,8 +403,8 @@ flash_tc_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __rest
 }
 
 template <int HD>
-int launch_tc(const void* q, const void* k, const void* v, void* o, int BH, int Sq,
-              int Sk, int causal, int q_offset, float scale, cudaStream_t stream) {
+int launch_tc(const void* q, const void* k, const void* v, void* o, float* lse, int BH,
+              int Sq, int Sk, int causal, int q_offset, float scale, cudaStream_t stream) {
   constexpr size_t smem = tc_smem_bytes<HD>();
   cudaError_t err = cudaFuncSetAttribute(
       flash_tc_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -401,41 +412,319 @@ int launch_tc(const void* q, const void* k, const void* v, void* o, int BH, int 
   dim3 grid((Sq + TC_BQ - 1) / TC_BQ, BH);
   flash_tc_kernel<HD><<<grid, TC_THREADS, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), Sq, Sk,
+      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), lse, Sq, Sk,
       causal, q_offset, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
 bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
 
+// ------------------------------------------------------------ backward ---
+// dQ, dK, dV of the forward above from its output o, the upstream gradient
+// dO and the f32 row log-sum-exp of the scaled, masked scores (written by
+// the forward when the caller asks), with P = exp(s - lse) and
+//     D  = rowsum(dO * O)
+//     dV = P^T dO,   dS = P * (dO V^T - D),   dQ = scale dS K,   dK = scale dS^T Q.
+// The forward rounds p to v's dtype before PV; its gradient passes that
+// cast straight through, as JAX's astype does, so P here is the f32 P.
+// What bounds it on an H100: five products of 2*d operations per
+// unmasked (query, key) pair against 8 rows of d values of I/O per row,
+// so, as the forward, it is bound by operations; this first version runs
+// them on the SIMT units, far from that bound.
+// Three kernels, no atomics, so the result does not depend on the order
+// blocks run in: a warp per row for D; one block per 32-key tile that walks
+// the 32-row query tiles at or below the shifted diagonal and keeps its dK
+// and dV rows in registers; one block per 32-row query tile that walks the
+// key tiles up to the diagonal for dQ (it recomputes P and dS). Both input
+// types compute in IEEE f32 FMAs on the SIMT units: simple and right first,
+// the tensor cores are later work.
+constexpr int B_Q = 32, B_K = 32, B_THREADS = 256;
+
+template <typename T>
+__device__ __forceinline__ float to_f(T x) { return static_cast<float>(x); }
+template <typename T>
+__device__ __forceinline__ T from_f(float x) { return static_cast<T>(x); }
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
+  return __float2bfloat16(x);
+}
+
+template <int HD>
+constexpr size_t bwd_smem_bytes() {
+  return sizeof(float) * (2 * B_Q * (HD + 1) + 2 * B_K * (HD + 1) + 2 * B_Q * (B_K + 1) + 2 * B_Q);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(B_THREADS)
+bwd_rowdot_kernel(const T* __restrict__ o, const T* __restrict__ dO, float* __restrict__ D,
+                  long long rows, int HD) {
+  const long long row = blockIdx.x * (long long)(B_THREADS / 32) + threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  if (row >= rows) return;
+  float acc = 0.f;
+  for (int c = lane; c < HD; c += 32) acc = fmaf(to_f(dO[row * HD + c]), to_f(o[row * HD + c]), acc);
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
+  if (lane == 0) D[row] = acc;
+}
+
+// rows [row0, row0 + rows) of a (S, HD) matrix into f32 shared memory with
+// row stride HD + 1, zero past `limit`
+template <typename T, int HD>
+__device__ __forceinline__ void load_rows(float* dst, const T* __restrict__ src, int row0,
+                                          int limit, int rows) {
+  for (int e = threadIdx.x; e < rows * HD; e += B_THREADS) {
+    const int r = e / HD, c = e % HD;
+    dst[r * (HD + 1) + c] = (row0 + r < limit) ? to_f(src[(long long)(row0 + r) * HD + c]) : 0.f;
+  }
+}
+
+// P and dS of one (32 query x 32 key) tile into Ps and dSs. Thread t takes
+// query row t / 8 and keys t % 8 + 8j. Scores are scaled and masked as the
+// forward's, then P = exp(s - lse); rows past Sq and keys past Sk get 0.
+template <int HD>
+__device__ __forceinline__ void p_ds_tile(const float* Qs, const float* dOs, const float* Ks,
+                                          const float* Vs, const float* lse_s,
+                                          const float* D_s, float* Ps, float* dSs, int q0,
+                                          int k0, int Sq, int Sk, int causal, int q_offset,
+                                          float scale) {
+  constexpr int LD = HD + 1, PLD = B_K + 1;
+  const int r = threadIdx.x / 8, cx = threadIdx.x % 8;
+  float s[4] = {0.f, 0.f, 0.f, 0.f}, dp[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll 8
+  for (int d = 0; d < HD; ++d) {
+    const float a = Qs[r * LD + d], g = dOs[r * LD + d];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      s[j] = fmaf(a, Ks[(cx + 8 * j) * LD + d], s[j]);
+      dp[j] = fmaf(g, Vs[(cx + 8 * j) * LD + d], dp[j]);
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const int c = cx + 8 * j;
+    float val = s[j] * scale;
+    if (causal && q_offset + q0 + r < k0 + c) val = NEG;
+    float p = expf(val - lse_s[r]);
+    if (q0 + r >= Sq || k0 + c >= Sk) p = 0.f;
+    Ps[r * PLD + c] = p;
+    dSs[r * PLD + c] = p * (dp[j] - D_s[r]);
+  }
+}
+
+// the tile's rows of lse and D into shared memory (0 past Sq)
+__device__ __forceinline__ void load_row_stats(float* lse_s, float* D_s, const float* lse,
+                                               const float* D, long long base, int q0, int Sq) {
+  if (threadIdx.x < B_Q) {
+    const bool in = q0 + threadIdx.x < Sq;
+    lse_s[threadIdx.x] = in ? lse[base + q0 + threadIdx.x] : 0.f;
+    D_s[threadIdx.x] = in ? D[base + q0 + threadIdx.x] : 0.f;
+  }
+}
+
+template <typename T, int HD>
+__global__ void __launch_bounds__(B_THREADS)
+bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                const T* __restrict__ dO, const float* __restrict__ lse,
+                const float* __restrict__ D, T* __restrict__ dk, T* __restrict__ dv, int Sq,
+                int Sk, int causal, int q_offset, float scale) {
+  constexpr int LD = HD + 1, PLD = B_K + 1, NJ = HD / 8;
+  extern __shared__ float bsm[];
+  float* Qs = bsm;
+  float* dOs = Qs + B_Q * LD;
+  float* Ks = dOs + B_Q * LD;
+  float* Vs = Ks + B_K * LD;
+  float* Ps = Vs + B_K * LD;
+  float* dSs = Ps + B_Q * PLD;
+  float* lse_s = dSs + B_Q * PLD;
+  float* D_s = lse_s + B_Q;
+
+  const int k0 = blockIdx.x * B_K;
+  const long long bh = blockIdx.y;
+  load_rows<T, HD>(Ks, k + bh * Sk * HD, k0, Sk, B_K);
+  load_rows<T, HD>(Vs, v + bh * Sk * HD, k0, Sk, B_K);
+  // thread t owns key row c = t / 8, columns t % 8 + 8j of dK and dV
+  const int c = threadIdx.x / 8, cx = threadIdx.x % 8;
+  float dk_acc[NJ], dv_acc[NJ];
+#pragma unroll
+  for (int j = 0; j < NJ; ++j) dk_acc[j] = dv_acc[j] = 0.f;
+
+  const int n_qt = (Sq + B_Q - 1) / B_Q;
+  // the first query tile holding a row at or below the diagonal for key k0
+  const int qt0 = causal ? max(0, k0 - q_offset) / B_Q : 0;
+  for (int qt = qt0; qt < n_qt; ++qt) {
+    const int q0 = qt * B_Q;
+    __syncthreads();  // the previous tile's reads are done
+    load_rows<T, HD>(Qs, q + bh * Sq * HD, q0, Sq, B_Q);
+    load_rows<T, HD>(dOs, dO + bh * Sq * HD, q0, Sq, B_Q);
+    load_row_stats(lse_s, D_s, lse, D, bh * Sq, q0, Sq);
+    __syncthreads();
+    p_ds_tile<HD>(Qs, dOs, Ks, Vs, lse_s, D_s, Ps, dSs, q0, k0, Sq, Sk, causal, q_offset, scale);
+    __syncthreads();
+#pragma unroll 4
+    for (int r = 0; r < B_Q; ++r) {
+      const float p = Ps[r * PLD + c], ds = dSs[r * PLD + c];
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+        dv_acc[j] = fmaf(p, dOs[r * LD + cx + 8 * j], dv_acc[j]);
+        dk_acc[j] = fmaf(ds, Qs[r * LD + cx + 8 * j], dk_acc[j]);
+      }
+    }
+  }
+  if (k0 + c < Sk) {
+    const long long base = (bh * Sk + k0 + c) * HD;
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+      dk[base + cx + 8 * j] = from_f<T>(dk_acc[j] * scale);
+      dv[base + cx + 8 * j] = from_f<T>(dv_acc[j]);
+    }
+  }
+}
+
+template <typename T, int HD>
+__global__ void __launch_bounds__(B_THREADS)
+bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+              const T* __restrict__ dO, const float* __restrict__ lse,
+              const float* __restrict__ D, T* __restrict__ dq, int Sq, int Sk, int causal,
+              int q_offset, float scale) {
+  constexpr int LD = HD + 1, PLD = B_K + 1, NJ = HD / 8;
+  extern __shared__ float bsm[];
+  float* Qs = bsm;
+  float* dOs = Qs + B_Q * LD;
+  float* Ks = dOs + B_Q * LD;
+  float* Vs = Ks + B_K * LD;
+  float* Ps = Vs + B_K * LD;
+  float* dSs = Ps + B_Q * PLD;
+  float* lse_s = dSs + B_Q * PLD;
+  float* D_s = lse_s + B_Q;
+
+  const int q0 = blockIdx.x * B_Q;
+  const long long bh = blockIdx.y;
+  load_rows<T, HD>(Qs, q + bh * Sq * HD, q0, Sq, B_Q);
+  load_rows<T, HD>(dOs, dO + bh * Sq * HD, q0, Sq, B_Q);
+  load_row_stats(lse_s, D_s, lse, D, bh * Sq, q0, Sq);
+  // thread t owns query row r = t / 8, columns t % 8 + 8j of dQ
+  const int r = threadIdx.x / 8, cx = threadIdx.x % 8;
+  float dq_acc[NJ];
+#pragma unroll
+  for (int j = 0; j < NJ; ++j) dq_acc[j] = 0.f;
+
+  int n_kt = (Sk + B_K - 1) / B_K;
+  if (causal) n_kt = min(n_kt, (q_offset + q0 + B_Q - 1) / B_K + 1);  // skip tiles above
+  for (int kt = 0; kt < n_kt; ++kt) {
+    const int k0 = kt * B_K;
+    __syncthreads();
+    load_rows<T, HD>(Ks, k + bh * Sk * HD, k0, Sk, B_K);
+    load_rows<T, HD>(Vs, v + bh * Sk * HD, k0, Sk, B_K);
+    __syncthreads();
+    p_ds_tile<HD>(Qs, dOs, Ks, Vs, lse_s, D_s, Ps, dSs, q0, k0, Sq, Sk, causal, q_offset, scale);
+    __syncthreads();
+#pragma unroll 4
+    for (int c = 0; c < B_K; ++c) {
+      const float ds = dSs[r * PLD + c];
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) dq_acc[j] = fmaf(ds, Ks[c * LD + cx + 8 * j], dq_acc[j]);
+    }
+  }
+  if (q0 + r < Sq) {
+    const long long base = (bh * Sq + q0 + r) * HD;
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) dq[base + cx + 8 * j] = from_f<T>(dq_acc[j] * scale);
+  }
+}
+
+template <typename T, int HD>
+int launch_bwd(const void* q, const void* k, const void* v, const void* o, const void* dO,
+               const float* lse, float* D, void* dq, void* dk, void* dv, int BH, int Sq, int Sk,
+               int causal, int q_offset, float scale, cudaStream_t stream) {
+  constexpr size_t smem = bwd_smem_bytes<HD>();
+  cudaError_t err = cudaFuncSetAttribute(bwd_dkdv_kernel<T, HD>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(bwd_dq_kernel<T, HD>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const T* q_ = static_cast<const T*>(q);
+  const T* k_ = static_cast<const T*>(k);
+  const T* v_ = static_cast<const T*>(v);
+  const T* dO_ = static_cast<const T*>(dO);
+  const long long rows = (long long)BH * Sq;
+  bwd_rowdot_kernel<T><<<(unsigned)((rows + B_THREADS / 32 - 1) / (B_THREADS / 32)), B_THREADS,
+                         0, stream>>>(static_cast<const T*>(o), dO_, D, rows, HD);
+  bwd_dkdv_kernel<T, HD><<<dim3((Sk + B_K - 1) / B_K, BH), B_THREADS, smem, stream>>>(
+      q_, k_, v_, dO_, lse, D, static_cast<T*>(dk), static_cast<T*>(dv), Sq, Sk, causal,
+      q_offset, scale);
+  bwd_dq_kernel<T, HD><<<dim3((Sq + B_Q - 1) / B_Q, BH), B_THREADS, smem, stream>>>(
+      q_, k_, v_, dO_, lse, D, static_cast<T*>(dq), Sq, Sk, causal, q_offset, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int bwd_dispatch(const void* q, const void* k, const void* v, const void* o, const void* dO,
+                 const void* lse, void* D, void* dq, void* dk, void* dv, int BH, int Sq, int Sk,
+                 int d, int causal, int q_offset, float scale, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float* l = static_cast<const float*>(lse);
+  float* Db = static_cast<float*>(D);
+  switch (d) {
+    case 16: return launch_bwd<T, 16>(q, k, v, o, dO, l, Db, dq, dk, dv, BH, Sq, Sk, causal, q_offset, scale, st);
+    case 32: return launch_bwd<T, 32>(q, k, v, o, dO, l, Db, dq, dk, dv, BH, Sq, Sk, causal, q_offset, scale, st);
+    case 64: return launch_bwd<T, 64>(q, k, v, o, dO, l, Db, dq, dk, dv, BH, Sq, Sk, causal, q_offset, scale, st);
+    case 128: return launch_bwd<T, 128>(q, k, v, o, dO, l, Db, dq, dk, dv, BH, Sq, Sk, causal, q_offset, scale, st);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
 }  // namespace
 
+// lse (BH, Sq) f32 receives the row log-sum-exp when it is not null
 extern "C" int flash_attention_f32(const void* q, const void* k, const void* v,
-                                   void* o, int BH, int Sq, int Sk, int d,
+                                   void* o, void* lse, int BH, int Sq, int Sk, int d,
                                    int causal, int q_offset, float scale,
                                    void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float* l = static_cast<float*>(lse);
   switch (d) {
-    case 16: return launch<16>(q, k, v, o, BH, Sq, Sk, causal, q_offset, scale, st);
-    case 32: return launch<32>(q, k, v, o, BH, Sq, Sk, causal, q_offset, scale, st);
-    case 64: return launch<64>(q, k, v, o, BH, Sq, Sk, causal, q_offset, scale, st);
-    case 128: return launch<128>(q, k, v, o, BH, Sq, Sk, causal, q_offset, scale, st);
+    case 16: return launch<16>(q, k, v, o, l, BH, Sq, Sk, causal, q_offset, scale, st);
+    case 32: return launch<32>(q, k, v, o, l, BH, Sq, Sk, causal, q_offset, scale, st);
+    case 64: return launch<64>(q, k, v, o, l, BH, Sq, Sk, causal, q_offset, scale, st);
+    case 128: return launch<128>(q, k, v, o, l, BH, Sq, Sk, causal, q_offset, scale, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
 extern "C" int flash_attention_bf16(const void* q, const void* k, const void* v,
-                                    void* o, int BH, int Sq, int Sk, int d,
+                                    void* o, void* lse, int BH, int Sq, int Sk, int d,
                                     int causal, int q_offset, float scale,
                                     void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float* l = static_cast<float*>(lse);
   if (!(aligned16(q) && aligned16(k) && aligned16(v) && aligned16(o)))
     return static_cast<int>(cudaErrorInvalidValue);
   switch (d) {
-    case 16: return launch_tc<16>(q, k, v, o, BH, Sq, Sk, causal, q_offset, scale, st);
-    case 32: return launch_tc<32>(q, k, v, o, BH, Sq, Sk, causal, q_offset, scale, st);
-    case 64: return launch_tc<64>(q, k, v, o, BH, Sq, Sk, causal, q_offset, scale, st);
-    case 128: return launch_tc<128>(q, k, v, o, BH, Sq, Sk, causal, q_offset, scale, st);
+    case 16: return launch_tc<16>(q, k, v, o, l, BH, Sq, Sk, causal, q_offset, scale, st);
+    case 32: return launch_tc<32>(q, k, v, o, l, BH, Sq, Sk, causal, q_offset, scale, st);
+    case 64: return launch_tc<64>(q, k, v, o, l, BH, Sq, Sk, causal, q_offset, scale, st);
+    case 128: return launch_tc<128>(q, k, v, o, l, BH, Sq, Sk, causal, q_offset, scale, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+// D (BH, Sq) f32 is the wrapper's scratch; dq, dk, dv take q's dtype
+extern "C" int flash_attention_bwd_f32(const void* q, const void* k, const void* v,
+                                       const void* o, const void* dO, const void* lse, void* D,
+                                       void* dq, void* dk, void* dv, int BH, int Sq, int Sk,
+                                       int d, int causal, int q_offset, float scale,
+                                       void* stream) {
+  return bwd_dispatch<float>(q, k, v, o, dO, lse, D, dq, dk, dv, BH, Sq, Sk, d, causal,
+                             q_offset, scale, stream);
+}
+
+extern "C" int flash_attention_bwd_bf16(const void* q, const void* k, const void* v,
+                                        const void* o, const void* dO, const void* lse, void* D,
+                                        void* dq, void* dk, void* dv, int BH, int Sq, int Sk,
+                                        int d, int causal, int q_offset, float scale,
+                                        void* stream) {
+  return bwd_dispatch<__nv_bfloat16>(q, k, v, o, dO, lse, D, dq, dk, dv, BH, Sq, Sk, d, causal,
+                                     q_offset, scale, stream);
 }

@@ -1,21 +1,29 @@
-"""Public wrapper of the masked matmul kernel: ``out = x @ (w ⊙ m)``.
+"""Public wrappers of the masked matmul kernels: ``out = x @ (w ⊙ m)`` and
+its gradients ``dx = dy @ (w ⊙ m)ᵀ`` and ``dw = (xᵀ @ dy) ⊙ m``.
 
-On a CPU tensor it runs the plain PyTorch version. On a CUDA tensor it
+On a CPU tensor each runs its plain PyTorch version. On a CUDA tensor it
 launches ``csrc/masked_matmul.cu`` on the current stream, or raises on an
-operand the kernel does not take; it never falls back. ``launches``
-counts kernel launches, so a run can show that its path went through the
-kernel.
+operand the kernel does not take; it never falls back. When grad is
+enabled and x or w requires it, :func:`masked_matmul` goes through
+:class:`MaskedMatmulFn`, whose backward is the dX and dW kernels (their
+plain versions on the CPU), so a kernel's output always carries its
+autograd edge. ``launches``, ``dx_launches`` and ``dw_launches`` count
+kernel launches, so a run can show that its path went through each.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.masked_matmul.ref import masked_matmul_plain
+from repro_torch.kernels.masked_matmul.ref import (
+    masked_matmul_dw_plain, masked_matmul_dx_plain, masked_matmul_plain,
+)
 
 launches = 0
+dx_launches = 0
+dw_launches = 0
 
-_FN = {torch.float32: "masked_matmul_f32", torch.bfloat16: "masked_matmul_bf16"}
+_SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
 _INT_MAX = 2**31 - 1
 
 
@@ -27,48 +35,133 @@ def masked_matmul(x: torch.Tensor, w: torch.Tensor, m: torch.Tensor) -> torch.Te
             f"masked_matmul: inconsistent operand shapes x={tuple(x.shape)} "
             f"w={tuple(w.shape)} m={tuple(m.shape)} (want x=(M,K), w=m=(K,N))"
         )
-    if not (x.device == w.device == m.device):
-        raise ValueError(f"masked_matmul: operands on {x.device}, {w.device}, {m.device}")
-    if x.device.type == "cpu":
-        return masked_matmul_plain(x, w, m)
-    if x.device.type != "cuda":
-        raise ValueError(f"masked_matmul: no kernel for device {x.device}")
-    return _launch(x, w, m)
+    _on_cpu("masked_matmul", x, w, m)  # checks the devices
+    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
+        return MaskedMatmulFn.apply(x, w, m)
+    return _forward(x, w, m)
+
+
+def masked_matmul_dx(dy: torch.Tensor, w: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
+    """dy (M, N); w and m (K, N) -> dx (M, K) in dy's dtype."""
+    if dy.dim() != 2 or w.dim() != 2 or dy.shape[1] != w.shape[1] or m.shape != w.shape:
+        raise ValueError(f"masked_matmul_dx: inconsistent operand shapes dy={tuple(dy.shape)} "
+                         f"w={tuple(w.shape)} m={tuple(m.shape)}")
+    if _on_cpu("masked_matmul_dx", dy, w, m):
+        return masked_matmul_dx_plain(dy, w, m)
+    return _launch_dx(dy, w, m)
+
+
+def masked_matmul_dw(x: torch.Tensor, dy: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
+    """x (M, K); dy (M, N); m (K, N) -> dw (K, N) in x's dtype, exactly 0
+    wherever m is 0."""
+    if x.dim() != 2 or dy.dim() != 2 or x.shape[0] != dy.shape[0] or \
+            m.shape != (x.shape[1], dy.shape[1]):
+        raise ValueError(f"masked_matmul_dw: inconsistent operand shapes x={tuple(x.shape)} "
+                         f"dy={tuple(dy.shape)} m={tuple(m.shape)}")
+    if _on_cpu("masked_matmul_dw", x, dy, m):
+        return masked_matmul_dw_plain(x, dy, m)
+    return _launch_dw(x, dy, m)
+
+
+class MaskedMatmulFn(torch.autograd.Function):
+    """``x @ (w ⊙ m)`` with the dX and dW kernels as its backward; the mask
+    takes no gradient, and pruned slots of dw are exactly 0."""
+
+    @staticmethod
+    def forward(ctx, x, w, m):
+        ctx.save_for_backward(x, w, m)
+        return _forward(x, w, m)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w, m = ctx.saved_tensors
+        if dy.stride(-1) != 1:
+            dy = dy.contiguous()
+        dx = masked_matmul_dx(dy, w, m) if ctx.needs_input_grad[0] else None
+        dw = masked_matmul_dw(x, dy, m) if ctx.needs_input_grad[1] else None
+        return dx, dw, None
+
+
+def _on_cpu(what: str, *ts: torch.Tensor) -> bool:
+    """True for CPU operands (the plain version), False for CUDA ones (the
+    kernel); raises for mixed devices or a device with no kernel."""
+    dev = ts[0].device
+    if any(t.device != dev for t in ts):
+        raise ValueError(f"{what}: operands on {', '.join(str(t.device) for t in ts)}")
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"{what}: no kernel for device {dev}")
+    return dev.type == "cpu"
+
+
+def _forward(x, w, m):
+    return masked_matmul_plain(x, w, m) if x.device.type == "cpu" else _launch(x, w, m)
 
 
 def _launch(x: torch.Tensor, w: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
     global launches
-    if x.dtype not in _FN or w.dtype != x.dtype:
-        raise TypeError(f"masked_matmul: kernel takes f32 or bf16 x == w, got "
-                        f"{x.dtype} and {w.dtype}")
+    M, K = x.shape
+    N = w.shape[1]
+    out = _run("masked_matmul", x, w, m, (M, N), M, K, N)
+    launches += out is not None
+    return _or_empty(out, (M, N), x)
+
+
+def _launch_dx(dy: torch.Tensor, w: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
+    global dx_launches
+    M, N = dy.shape
+    K = w.shape[0]
+    out = _run("masked_matmul_dx", dy, w, m, (M, K), M, K, N)
+    dx_launches += out is not None
+    return _or_empty(out, (M, K), dy)
+
+
+def _launch_dw(x: torch.Tensor, dy: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
+    global dw_launches
+    M, K = x.shape
+    N = dy.shape[1]
+    out = _run("masked_matmul_dw", x, dy, m, (K, N), M, K, N)
+    dw_launches += out is not None
+    return _or_empty(out, (K, N), x)
+
+
+def _or_empty(out, shape, like: torch.Tensor) -> torch.Tensor:
+    """A product with an empty dimension launches nothing: zeros (an empty
+    reduction) or an empty tensor."""
+    return out if out is not None else torch.zeros(shape, dtype=like.dtype, device=like.device)
+
+
+def _run(fn: str, a: torch.Tensor, b: torch.Tensor, m: torch.Tensor, out_shape,
+         M: int, K: int, N: int):
+    """Launch ``<fn>_<dtype>`` on two matrices ``a``, ``b`` of one dtype and
+    a (K, N) mask after the checks every entry point of the library needs;
+    None when a dimension is empty and nothing was launched."""
+    if a.dtype not in _SUFFIX or b.dtype != a.dtype:
+        raise TypeError(f"{fn}: kernel takes f32 or bf16 operands of one dtype, got "
+                        f"{a.dtype} and {b.dtype}")
     if m.dtype == torch.bool or m.dtype == torch.int8:
         m = m.view(torch.uint8)
     if m.dtype != torch.uint8:
-        raise TypeError(f"masked_matmul: kernel takes a bool/uint8/int8 mask, got {m.dtype}")
-    for name, t in (("x", x), ("w", w), ("m", m)):
+        raise TypeError(f"{fn}: kernel takes a bool/uint8/int8 mask, got {m.dtype}")
+    for name, t in (("first operand", a), ("second operand", b), ("mask", m)):
         if t.stride(1) != 1:
-            raise ValueError(f"masked_matmul: {name} needs unit column stride, "
-                             f"got strides {t.stride()}")
-    M, K = x.shape
-    N = w.shape[1]
-    if x.dtype == torch.bfloat16 and not (
+            raise ValueError(f"{fn}: {name} needs unit column stride, got strides {t.stride()}")
+    if a.dtype == torch.bfloat16 and not (
             K % 8 == 0 and N % 8 == 0
-            and x.stride(0) % 8 == 0 and w.stride(0) % 8 == 0 and m.stride(0) % 8 == 0
-            and x.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0 and m.data_ptr() % 8 == 0):
-        raise ValueError("masked_matmul: the bf16 kernel takes K, N and row strides that "
-                         "are multiples of 8, on 16-byte-aligned x and w and an "
+            and a.stride(0) % 8 == 0 and b.stride(0) % 8 == 0 and m.stride(0) % 8 == 0
+            and a.data_ptr() % 16 == 0 and b.data_ptr() % 16 == 0 and m.data_ptr() % 8 == 0):
+        raise ValueError(f"{fn}: the bf16 kernel takes K, N and row strides that are "
+                         "multiples of 8, on 16-byte-aligned matrices and an "
                          "8-byte-aligned mask")
     if max(M, K, N) > _INT_MAX:
-        raise ValueError(f"masked_matmul: dims {(M, K, N)} exceed int32")
-    out = torch.empty((M, N), dtype=x.dtype, device=x.device)
-    if M == 0 or N == 0:
-        return out
+        raise ValueError(f"{fn}: dims {(M, K, N)} exceed int32")
+    if min(M, K, N) == 0:
+        return None
+    out = torch.empty(out_shape, dtype=a.dtype, device=a.device)
     lib = _build.load("masked_matmul")
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    code = getattr(lib, _FN[x.dtype])(
-        x.data_ptr(), w.data_ptr(), m.data_ptr(), out.data_ptr(), M, K, N,
-        x.stride(0), w.stride(0), m.stride(0), out.stride(0), stream,
+    stream = torch.cuda.current_stream(a.device).cuda_stream
+    code = getattr(lib, f"{fn}_{_SUFFIX[a.dtype]}")(
+        a.data_ptr(), b.data_ptr(), m.data_ptr(), out.data_ptr(), M, K, N,
+        a.stride(0), b.stride(0), m.stride(0), out.stride(0), stream,
     )
-    _build.check(code, "masked_matmul")
-    launches += 1
+    _build.check(code, fn)
     return out

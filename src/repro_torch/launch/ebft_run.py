@@ -1,13 +1,16 @@
-"""The paper's pipeline as a driver, forward half (port of
-``repro.launch.ebft_run``): build the dense model, take its perplexity,
-prune (Wanda or magnitude) through the calibration walk, take the pruned
-model's perplexity with every masked linear on the masked matmul kernel.
+"""The paper's pipeline as one command (port of ``repro.launch.ebft_run``):
+build the dense model, take its perplexity, prune (Wanda or magnitude)
+through the calibration walk, take the pruned model's perplexity, tune it
+block by block with EBFT (``--epochs`` > 0) and take the tuned model's
+perplexity. Every masked linear runs on the masked matmul kernel, and each
+tuning step backpropagates through the kernels' backward.
 
     python -m repro_torch.launch.ebft_run --arch tiny_dense --pretrain-steps 0 \
-        --epochs 0 --method wanda --sparsity 0.7
+        --epochs 8 --method wanda --sparsity 0.7 --device cpu
 
-Runs on the card unless ``--device cpu``. Pretraining and EBFT tuning
-are not ported yet: a run that asks for them raises.
+Runs on the card unless ``--device cpu``. Pretraining is not ported yet: a
+run that asks for it raises. The bench JSON holds the reference's
+``phases``, ``perplexity``, ``blocks`` and ``ebft`` sections.
 """
 from __future__ import annotations
 
@@ -15,13 +18,14 @@ import argparse
 import dataclasses
 import json
 import time
-from typing import Any, Dict, Optional
+from typing import Any, Dict, List, Optional
 
 import torch
 
 from repro_torch import resolve_device
 from repro_torch.configs import get_config
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core import ebft
 from repro_torch.core.evaluate import perplexity
 from repro_torch.core.masks import prune
 from repro_torch.data.tokens import CorpusConfig, SyntheticCorpus, calibration_set, eval_set
@@ -44,6 +48,7 @@ class RunSpec:
     pattern: str = ""
     calib_samples: int = 64
     pretrain_steps: int = 200
+    lr: float = 1e-2
     epochs: int = 10
     bench_out: str = "BENCH_ebft.json"
 
@@ -55,6 +60,8 @@ class RunResult:
     sparsity: float
     masks: Any
     pruned: Any
+    tuned: Any = None  # the EBFT-tuned params (``epochs`` > 0)
+    reports: List[ebft.BlockReport] = dataclasses.field(default_factory=list)
 
 
 def _parse(argv) -> tuple:
@@ -94,13 +101,13 @@ class _phase:
 
 def run(cfg: ModelConfig, spec: RunSpec, device=None,
         params: Optional[Any] = None) -> RunResult:
-    """eval_dense -> prune -> pruned eval, as the reference's
-    ``ebft_run.py`` does before tuning. ``params`` defaults to the port's
-    init seeded with ``spec.seed``."""
-    if spec.pretrain_steps > 0 or spec.epochs > 0:
+    """eval_dense -> prune -> pruned eval, then with ``spec.epochs`` > 0
+    EBFT -> tuned eval, as the reference's ``ebft_run.py``. ``params``
+    defaults to the port's init seeded with ``spec.seed``."""
+    if spec.pretrain_steps > 0:
         raise NotImplementedError(
-            "pretraining and EBFT tuning are not ported yet (ROADMAP.md queue A, "
-            "item 5: slice 2); run with --pretrain-steps 0 --epochs 0")
+            "pretraining is not ported yet (ROADMAP.md queue A, item 11); "
+            "run with --pretrain-steps 0")
     device = resolve_device(device)
     model = build(cfg)
     corpus = SyntheticCorpus(CorpusConfig(vocab_size=cfg.vocab_size, seed=spec.seed))
@@ -124,7 +131,41 @@ def run(cfg: ModelConfig, spec: RunSpec, device=None,
     with _phase(device) as sp:
         ppl[spec.method] = perplexity(model, pruned, ev, masks=masks)
     phases["eval_pruned"] = sp.duration
-    return RunResult(ppl, phases, sparsity_of(masks, params), masks, pruned)
+    res = RunResult(ppl, phases, sparsity_of(masks, params), masks, pruned)
+    if spec.epochs > 0:
+        ecfg = ebft.EBFTConfig(lr=spec.lr, epochs=spec.epochs)
+        with _phase(device) as sp:
+            res.tuned, res.reports = ebft.finetune(model, params, pruned, masks, calib, ecfg)
+        phases["ebft"] = sp.duration
+        with _phase(device) as sp:
+            ppl["EBFT"] = perplexity(model, res.tuned, ev, masks=masks)
+        phases["eval_ebft"] = sp.duration
+    return res
+
+
+def bench_record(spec: RunSpec, res: RunResult) -> Dict[str, Any]:
+    """The bench JSON: the reference's ``phases``, ``perplexity``,
+    ``blocks`` and ``ebft`` sections (``dispatch``, ``walk_phases``,
+    ``mesh`` and ``kernel_tuning`` wait for ``obs/``, ROADMAP.md A.12)."""
+    reports = res.reports
+    out: Dict[str, Any] = {"run_spec": dataclasses.asdict(spec), "phases": res.phases,
+                           "perplexity": res.perplexity}
+    if spec.epochs > 0:
+        out["blocks"] = [r.asdict() for r in reports]
+        out["ebft"] = {
+            "num_blocks": len(reports),
+            "mean_e_drop": _mean_drop(reports),
+            "peak_live_block_bytes": max((r.live_bytes for r in reports), default=None),
+            "fused_epochs": False,   # the per-epoch loop
+            "prefetch_depth": 0,     # the teacher runs just before each visit
+            "early_stops": {reason: sum(1 for r in reports if r.early_stop == reason)
+                            for reason in {r.early_stop for r in reports}},
+        }
+    return out
+
+
+def _mean_drop(reports) -> float:
+    return sum(r.loss_before - r.loss_after for r in reports) / max(len(reports), 1)
 
 
 def main(argv=None) -> RunResult:
@@ -135,10 +176,13 @@ def main(argv=None) -> RunResult:
     print(f"{spec.method} ppl {' ' * (10 - len(spec.method))}"
           f"{res.perplexity[spec.method]:8.2f}   ({res.phases['prune']:.0f}s, "
           f"sparsity {res.sparsity:.4f})")
+    if spec.epochs > 0:
+        print(f"EBFT ppl           {res.perplexity['EBFT']:8.2f}   "
+              f"({res.phases['ebft']:.0f}s, {len(res.reports)} blocks, "
+              f"mean E drop {_mean_drop(res.reports):.3e})")
     if spec.bench_out:
         with open(spec.bench_out, "w") as f:
-            json.dump({"run_spec": dataclasses.asdict(spec), "phases": res.phases,
-                       "perplexity": res.perplexity}, f, indent=2)
+            json.dump(bench_record(spec, res), f, indent=2)
         print(f"wrote {spec.bench_out}")
     return res
 

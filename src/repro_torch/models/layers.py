@@ -4,7 +4,11 @@
 Params are plain dicts of tensors in the reference's layouts. The linear
 projections take an optional block-mask dict: a masked leaf goes through
 the ``masked_matmul`` kernel, an unmasked one is a plain ``torch.matmul``
-(the reference leaves the dense contraction to XLA).
+(the reference leaves the dense contraction to XLA). Under autograd the
+masked linears and the card's flash attention are ``torch.autograd``
+Functions whose backward is a kernel too (``MaskedMatmulFn``,
+``FlashAttentionFn``), the gradient the reference takes of
+``apply_masks`` + einsum and of its attention.
 """
 from __future__ import annotations
 

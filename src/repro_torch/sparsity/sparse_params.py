@@ -171,3 +171,34 @@ def threshold_gaps(scores: torch.Tensor, sparsity: float,
     were taken in another order must have a gap near 0."""
     thr = thresholds(scores, sparsity, pattern)
     return (scores - thr).abs() / thr.abs().clamp_min(1e-30)
+
+
+# ---------------------------------------------------------------------------
+# N:M compressed representation (for kernels/nm_spmm)
+# ---------------------------------------------------------------------------
+def nm_compress(w: torch.Tensor, mask: torch.Tensor, n: int, m: int):
+    """Dense (R, O) weight + N:M mask -> (values (R//m*n, O), idx
+    (R//m*n, O) int8), as the reference's bit for bit.
+
+    idx holds each kept slot's offset within its M-group (0..m-1), the
+    layout the nm_spmm kernel consumes. Kept slots come first within each
+    group, in offset order (a stable sort); a group with fewer than n kept
+    slots pads with its first dropped ones (value 0), one with more keeps
+    its first n."""
+    R, O = w.shape
+    G = R // m
+    wg = (w * mask).reshape(G, m, O)
+    mg = mask.reshape(G, m, O)
+    order = torch.argsort(-mg.to(torch.float32), dim=1, stable=True)  # kept (1) first
+    top = order[:, :n, :]  # (G, n, O) offsets of kept slots
+    vals = torch.gather(wg, 1, top)
+    return vals.reshape(G * n, O), top.to(torch.int8).reshape(G * n, O)
+
+
+def nm_decompress(vals: torch.Tensor, idx: torch.Tensor, n: int, m: int) -> torch.Tensor:
+    """Inverse of :func:`nm_compress` -> dense (R, O)."""
+    GN, O = vals.shape
+    G = GN // n
+    dense = torch.zeros((G, m, O), dtype=vals.dtype, device=vals.device)
+    dense.scatter_(1, idx.reshape(G, n, O).long(), vals.reshape(G, n, O))
+    return dense.reshape(G * m, O)

@@ -4,10 +4,14 @@ the shapes and dtypes of ``tests/test_kernels.py``; and the wrappers'
 contract (CPU tensor -> plain version, anything else -> kernel or raise).
 
 Stated tolerances, as the reference kernel tests: masked matmul 2e-5 in
-f32 and 2e-2 in bf16; flash attention 1e-4 in f32 and 3e-2 in bf16.
+f32 and 2e-2 in bf16; flash attention 1e-4 in f32 and 3e-2 in bf16. The
+gradients (``MaskedMatmulFn``, ``FlashAttentionFn``) are held to
+``jax.grad`` of the reference oracles at 1e-5 in f32 (the same sums in
+another order) and to ``torch.autograd.gradcheck`` in f64.
 """
 from __future__ import annotations
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -204,3 +208,174 @@ def test_entry_points_refuse_to_run_without_a_card():
     with pytest.raises(RuntimeError, match="no CUDA device"):
         resolve_device(None)
     assert resolve_device("cpu").type == "cpu"
+
+
+# ---------------------------------------------------------------------------
+# gradients: the kernels under autograd (MaskedMatmulFn, FlashAttentionFn)
+# ---------------------------------------------------------------------------
+def _leaf(a, dtype=torch.float32):
+    return torch.tensor(np.asarray(a, np.float64), dtype=dtype).requires_grad_(True)
+
+
+@pytest.mark.parametrize("m,k,n", [(8, 32, 16), (5, 33, 7)])
+def test_masked_matmul_gradients_equal_jax_grad(m, k, n):
+    """The Function's backward (the plain dX and dW on the CPU) against
+    jax.grad of the reference oracle, f32 at 1e-5; pruned slots of dW are
+    exactly 0."""
+    rng = np.random.default_rng(k)
+    x, w = rng.normal(size=(m, k)).astype(np.float32), rng.normal(size=(k, n)).astype(np.float32)
+    mask = rng.random((k, n)) > 0.5
+    dy = rng.normal(size=(m, n)).astype(np.float32)
+    jx, jw = jax.grad(lambda a, b: jnp.sum(masked_matmul_ref(a, b, jnp.asarray(mask)) * dy),
+                      argnums=(0, 1))(jnp.asarray(x), jnp.asarray(w))
+    tx, tw = _leaf(x), _leaf(w)
+    out = MM.masked_matmul(tx, tw, torch.tensor(mask))
+    assert type(out.grad_fn).__name__ == "MaskedMatmulFnBackward"
+    gx, gw = torch.autograd.grad(out, (tx, tw), torch.tensor(dy))
+    np.testing.assert_allclose(gx.numpy(), np.asarray(jx), rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(gw.numpy(), np.asarray(jw), rtol=1e-5, atol=1e-5)
+    assert bool((gw[~torch.tensor(mask)] == 0.0).all())
+    torch.testing.assert_close(gx, MM.masked_matmul_dx(torch.tensor(dy), tw.detach(),
+                                                       torch.tensor(mask)), rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("needs", ["x", "w", "both"])
+def test_masked_matmul_gradcheck_f64(needs):
+    rng = np.random.default_rng(1)
+    x = _leaf(rng.normal(size=(6, 10)), torch.float64).requires_grad_(needs != "w")
+    w = _leaf(rng.normal(size=(10, 4)), torch.float64).requires_grad_(needs != "x")
+    mask = torch.tensor(rng.random((10, 4)) > 0.4)
+    assert torch.autograd.gradcheck(lambda a, b: MM.masked_matmul(a, b, mask), (x, w))
+
+
+def test_masked_matmul_without_grad_is_the_plain_forward():
+    x, w = torch.randn(4, 8, requires_grad=True), torch.randn(8, 3)
+    m = torch.rand(8, 3) > 0.5
+    with torch.no_grad():
+        out = MM.masked_matmul(x, w, m)
+    assert out.grad_fn is None
+    torch.testing.assert_close(out, masked_matmul_plain(x.detach(), w, m), rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_masked_matmul_grad_plain_versions_match_jax_vjp(dtype):
+    rng = np.random.default_rng(5)
+    (xj, xt), (wj, wt), (dj, dt) = (_pair(rng, s, dtype) for s in ((16, 128), (128, 64), (16, 64)))
+    mask = rng.random((128, 64)) > 0.5
+    _, vjp = jax.vjp(lambda a, b: masked_matmul_ref(a, b, jnp.asarray(mask)), xj, wj)
+    jx, jw = vjp(dj)
+    dx = MM.masked_matmul_dx(dt, wt, torch.tensor(mask))
+    dw = MM.masked_matmul_dw(xt, dt, torch.tensor(mask))
+    assert dx.dtype == dw.dtype == xt.dtype
+    _close(dx, jx, dtype)
+    _close(dw, jw * mask, dtype, bf16=5e-2)  # dW sums 16 products of O(1) in bf16
+
+
+def test_masked_matmul_grad_wrappers_validate():
+    with pytest.raises(ValueError, match="inconsistent operand shapes"):
+        MM.masked_matmul_dx(torch.zeros(4, 5), torch.zeros(8, 4), torch.zeros(8, 4))
+    with pytest.raises(ValueError, match="inconsistent operand shapes"):
+        MM.masked_matmul_dw(torch.zeros(4, 8), torch.zeros(3, 5), torch.zeros(8, 5))
+    with pytest.raises(ValueError, match="operands on"):
+        MM.masked_matmul_dx(torch.zeros(4, 4), torch.zeros(8, 4, device="meta"),
+                            torch.zeros(8, 4))
+    t = torch.empty(4, 4, device="meta")
+    with pytest.raises(ValueError, match="no kernel for device"):
+        MM.masked_matmul_dw(t, t, torch.empty(4, 4, dtype=torch.bool, device="meta"))
+    before = (MM.dx_launches, MM.dw_launches)
+    MM.masked_matmul_dx(torch.zeros(2, 4), torch.zeros(3, 4), torch.ones(3, 4))
+    MM.masked_matmul_dw(torch.zeros(2, 3), torch.zeros(2, 4), torch.ones(3, 4))
+    assert (MM.dx_launches, MM.dw_launches) == before  # the plain versions are no launch
+
+
+def test_grad_kernels_without_nvcc_raise(monkeypatch, tmp_path):
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(_build, "_LIBS", {})
+    monkeypatch.setattr(_build.shutil, "which", lambda name: None)
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path / "no-cuda"))
+    m = torch.ones(8, 4, dtype=torch.bool)
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        MM._launch_dx(torch.zeros(2, 4), torch.zeros(8, 4), m)
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        MM._launch_dw(torch.zeros(2, 8), torch.zeros(2, 4), m)
+    q = torch.zeros(1, 4, 16)
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        FA._launch_bwd(q, q, q, q, q, torch.zeros(1, 4), True, 0)
+
+
+def _attn_inputs(rng, bh, sq, sk, d):
+    return [rng.normal(size=(bh, s, d)).astype(np.float32) for s in (sq, sk, sk, sq)]
+
+
+@pytest.mark.parametrize("causal,sq,sk,q_offset", [(True, 32, 32, 0), (False, 24, 40, 0),
+                                                   (True, 8, 40, 32), (True, 20, 33, 13)])
+def test_flash_attention_gradients_equal_jax_grad(causal, sq, sk, q_offset):
+    """FlashAttentionFn's backward (the plain formula on the CPU) against
+    jax.grad of the reference oracle, f32 at 1e-5; its forward's
+    log-sum-exp against jax's."""
+    rng = np.random.default_rng(sq + sk)
+    q, k, v, do = _attn_inputs(rng, 3, sq, sk, 16)
+    kw = dict(causal=causal, q_offset=q_offset)
+    _, vjp = jax.vjp(lambda a, b, c: flash_attention_ref(a, b, c, **kw),
+                     *map(jnp.asarray, (q, k, v)))
+    want = vjp(jnp.asarray(do))
+    leaves = [_leaf(a) for a in (q, k, v)]
+    out = FA.flash_attention(*leaves, **kw)
+    assert type(out.grad_fn).__name__ == "FlashAttentionFnBackward"
+    got = torch.autograd.grad(out, leaves, torch.tensor(do))
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-5, atol=1e-5)
+    s = jnp.einsum("bqd,bkd->bqk", q, k) / np.sqrt(16)
+    if causal:
+        s = jnp.where(q_offset + jnp.arange(sq)[:, None] >= jnp.arange(sk)[None, :], s, -1e30)
+    _, lse = flash_attention_plain(*map(torch.tensor, (q, k, v)), **kw, return_lse=True)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(jax.nn.logsumexp(s, axis=-1)),
+                               rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("causal,q_offset", [(True, 0), (False, 0), (True, 5)])
+def test_flash_attention_gradcheck_f64(causal, q_offset):
+    rng = np.random.default_rng(2)
+    q, k, v, _ = _attn_inputs(rng, 2, 6, 9, 8)
+    leaves = [_leaf(a, torch.float64) for a in (q, k, v)]
+    assert torch.autograd.gradcheck(
+        lambda a, b, c: FA.flash_attention(a, b, c, causal=causal, q_offset=q_offset), leaves)
+
+
+def test_flash_attention_bshd_carries_the_gradient():
+    rng = np.random.default_rng(4)
+    q, k, v = (_leaf(rng.normal(size=(2, 16, 4, 16))) for _ in range(3))
+    out = FA.flash_attention_bshd(q, k, v, causal=True)
+    (out.square().sum()).backward()
+    assert all(t.grad is not None and float(t.grad.abs().sum()) > 0 for t in (q, k, v))
+
+
+def test_flash_attention_bwd_validates_shapes():
+    q = torch.zeros(1, 4, 16)
+    with pytest.raises(ValueError, match="inconsistent shapes"):
+        FA.flash_attention_bwd(q, q, q, q, q, torch.zeros(1, 5))
+    before = FA.bwd_launches
+    FA.flash_attention_bwd(q, q, q, q, q, torch.zeros(1, 4))
+    assert FA.bwd_launches == before
+
+
+def test_a_library_is_stale_when_a_shared_header_is_newer(monkeypatch, tmp_path):
+    """``csrc/*.cuh`` headers are shared by several sources: touching one
+    rebuilds every library."""
+    import os
+
+    csrc, build = tmp_path / "csrc", tmp_path / "build"
+    csrc.mkdir()
+    build.mkdir()
+    monkeypatch.setattr(_build, "CSRC", csrc)
+    monkeypatch.setattr(_build, "BUILD_DIR", build)
+    (csrc / "k.cu").write_text("")
+    assert _build._stale("k")  # no library yet
+    lib = build / "libk.so"
+    lib.write_text("")
+    os.utime(csrc / "k.cu", (1, 1))
+    os.utime(lib, (2, 2))
+    assert not _build._stale("k")
+    (csrc / "tile.cuh").write_text("")
+    os.utime(csrc / "tile.cuh", (3, 3))
+    assert _build._stale("k")

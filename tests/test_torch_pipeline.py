@@ -91,12 +91,13 @@ def test_spec_defaults_mirror_reference():
 
     ref = RefSpec()
     for f in ("arch", "seed", "seq", "method", "sparsity", "pattern", "calib_samples",
-              "pretrain_steps", "epochs"):
+              "pretrain_steps", "lr", "epochs"):
         assert getattr(ebft_run.RunSpec(), f) == getattr(ref, f), f
 
 
-@pytest.mark.parametrize("argv", [[], ["--pretrain-steps", "0"], ["--epochs", "0"]])
+@pytest.mark.parametrize("argv", [[], ["--pretrain-steps", "5"], ["--epochs", "0"]])
 def test_unported_tuning_raises(argv):
+    """Pretraining (the default 200 steps) is not ported yet."""
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         ebft_run.main(argv + ["--device", "cpu", "--bench-out", ""])
 
