@@ -82,6 +82,20 @@ def _refuses(name, fn) -> None:
     raise AssertionError(f"{name}: the wrapper launched on operands it must refuse")
 
 
+def check_repeat(name, fn, first) -> bool:
+    """A second launch on the same inputs must give the same bits (every
+    sum is taken in a fixed order, no atomics)."""
+    import torch
+
+    again = fn()
+    torch.cuda.synchronize()
+    firsts = first if isinstance(first, (tuple, list)) else (first,)
+    agains = again if isinstance(again, (tuple, list)) else (again,)
+    if not all(torch.equal(a, b) for a, b in zip(firsts, agains)):
+        raise AssertionError(f"{name}: a repeated launch gave other bits")
+    return True
+
+
 def check_scaled(name, out, ref, dtype: str) -> float:
     """Max abs error within tol x max(1, max |ref|): for sums of thousands
     of products (gradients), whose large entries carry the rounding of
@@ -138,9 +152,11 @@ def phase_masked_matmul(g):
             row = dict(phase="masked_matmul", leaf=name, dtype=dtype, M=M_ROWS, K=K, N=N,
                        max_abs_err=err, tol=TOL[dtype], ms=ms, plain_ms=plain_ms,
                        library_ms=library_ms, bound_ms=b_ms, bound_by=b_by)
-            emit(row)
             if dtype == "bfloat16" and name == "w_up":
+                row["deterministic"] = check_repeat(
+                    f"masked_matmul {name} {dtype}", lambda: masked_matmul(x, w2, m2), out)
                 summary = row  # the slice's heaviest launch
+            emit(row)
             del w, m, x, out, ref, wm
     # an all-zero mask gives exactly zero
     x = torch.randn(256, 4096, device="cuda", generator=g)
@@ -168,8 +184,15 @@ def phase_masked_matmul(g):
     w = torch.randn(1001, 336, device="cuda", generator=g).to(torch.bfloat16)
     _refuses("masked_matmul unaligned bf16",
              lambda: masked_matmul(x, w, torch.ones_like(w, dtype=torch.bool)))
+    # the bf16 kernel reads the mask by TMA: its row stride must be a
+    # multiple of 16 bytes
+    x = torch.randn(777, 1000, device="cuda", generator=g).to(torch.bfloat16)
+    w = torch.randn(1000, 336, device="cuda", generator=g).to(torch.bfloat16)
+    m = torch.ones(1000, 344, device="cuda", dtype=torch.bool)[:, :336]
+    _refuses("masked_matmul bf16 mask row stride 344", lambda: masked_matmul(x, w, m))
     emit(dict(phase="masked_matmul", case="all-zero mask", exact_zero=True))
     emit(dict(phase="masked_matmul", case="unaligned bf16", refused=True))
+    emit(dict(phase="masked_matmul", case="bf16 mask row stride 344", refused=True))
     return summary
 
 
@@ -274,9 +297,11 @@ def phase_masked_matmul_bwd(g):
                            K=K, N=N, max_abs_err=err, tol=TOL[dtype], ms=timed_ms(kern),
                            plain_ms=timed_ms(plain), library_ms=timed_ms(lib), bound_ms=b_ms,
                            bound_by=b_by)
-                emit(row)
                 if dtype == "bfloat16" and name == "w_up":
+                    row["deterministic"] = check_repeat(f"masked_matmul_{op} {name} {dtype}",
+                                                        kern, out)
                     summary[op] = row
+                emit(row)
             del w, m, x, dy, dx, dw, wm
     # ragged edges (K and N not multiples of the tile), x and dy strided
     # column slices; bf16 with dims and offsets that keep 16-byte alignment
@@ -360,10 +385,21 @@ def phase_flash_attention_bwd(g):
                 b_ms, b_by = bound_ms(nbytes, 10.0 * BH * d * pairs, dtype)
                 row.update(bound_ms=b_ms, bound_by=b_by)
                 if dtype == "bfloat16" and (BH, Sq, causal) == (256, 2048, True):
+                    row["deterministic"] = check_repeat(
+                        f"flash_attention_bwd {(BH, Sq, Sk, d)} {dtype}",
+                        lambda: FA.flash_attention_bwd(q, k, v, o, do, lse, **kw),
+                        FA.flash_attention_bwd(q, k, v, o, do, lse, **kw))
                     summary = row
             emit(row)
             del q, k, v, do, o, lse
             torch.cuda.empty_cache()
+    # the bf16 backward reads its operands by TMA: 16-byte-aligned only
+    buf = torch.randn(8 * 200 * 64 + 8, device="cuda", generator=g).to(torch.bfloat16)
+    ok, bad = buf[8:].view(8, 200, 64), buf[1:1 + 8 * 200 * 64].view(8, 200, 64)
+    lse = torch.zeros(8, 200, device="cuda")
+    _refuses("flash_attention_bwd unaligned bf16",
+             lambda: FA.flash_attention_bwd(ok, ok, ok, ok, bad, lse))
+    emit(dict(phase="flash_attention_bwd", case="unaligned bf16", refused=True))
     return summary
 
 
@@ -855,7 +891,9 @@ def main() -> int:
                             replaces=pallas[base], launches=launches[name],
                             max_abs_err=row["max_abs_err"], ms=row["ms"],
                             plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
-                            bound_by=row["bound_by"], library_ms=row.get("library_ms")))
+                            bound_by=row["bound_by"], library_ms=row.get("library_ms"),
+                            vs_library=(row["ms"] / row["library_ms"]
+                                        if row.get("library_ms") else None)))
     print(smi(), flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -35,12 +35,16 @@
 // With a non-null `lse` either forward also writes the f32 row
 // log-sum-exp of the scaled, masked scores, m + log(max(l, 1e-30)), which
 // the backward reads; the no-grad callers pass null and write nothing.
-// No TMA, wgmma, pipelining or warp specialisation yet.
+// The forward loads its tiles with plain 16-byte loads and multiplies with
+// mma.sync; moving it onto TMA and wgmma, as the bf16 backward below is,
+// is later work.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cmath>
 #include <cstdint>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -417,8 +421,6 @@ int launch_tc(const void* q, const void* k, const void* v, void* o, float* lse, 
   return static_cast<int>(cudaGetLastError());
 }
 
-bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
-
 // ------------------------------------------------------------ backward ---
 // dQ, dK, dV of the forward above from its output o, the upstream gradient
 // dO and the f32 row log-sum-exp of the scaled, masked scores (written by
@@ -426,28 +428,26 @@ bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 //     D  = rowsum(dO * O)
 //     dV = P^T dO,   dS = P * (dO V^T - D),   dQ = scale dS K,   dK = scale dS^T Q.
 // The forward rounds p to v's dtype before PV; its gradient passes that
-// cast straight through, as JAX's astype does, so P here is the f32 P.
+// cast straight through, as JAX's astype does, so the formula takes the
+// unrounded P. The f32 kernels below compute it and dS in f32 throughout;
+// the bf16 kernels (after them) round P and dS to bf16 where they become
+// the A operand of the second products.
 // What bounds it on an H100: five products of 2*d operations per
 // unmasked (query, key) pair against 8 rows of d values of I/O per row,
-// so, as the forward, it is bound by operations; this first version runs
-// them on the SIMT units, far from that bound.
+// so, as the forward, it is bound by operations.
 // Three kernels, no atomics, so the result does not depend on the order
-// blocks run in: a warp per row for D; one block per 32-key tile that walks
-// the 32-row query tiles at or below the shifted diagonal and keeps its dK
-// and dV rows in registers; one block per 32-row query tile that walks the
-// key tiles up to the diagonal for dQ (it recomputes P and dS). Both input
-// types compute in IEEE f32 FMAs on the SIMT units: simple and right first,
-// the tensor cores are later work.
+// blocks run in: a warp per row for D; one block per key tile that walks
+// the query tiles at or below the shifted diagonal and keeps its dK and dV
+// rows in registers; one block per query tile that walks the key tiles up
+// to the diagonal for dQ (it recomputes P and dS). The f32 kernels use
+// 32 x 32 tiles and IEEE f32 FMAs on the SIMT units (no TF32, for the 2e-5
+// tolerance); the bf16 kernels use 64 x 64 tiles and wgmma.
 constexpr int B_Q = 32, B_K = 32, B_THREADS = 256;
 
 template <typename T>
 __device__ __forceinline__ float to_f(T x) { return static_cast<float>(x); }
 template <typename T>
 __device__ __forceinline__ T from_f(float x) { return static_cast<T>(x); }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
 
 template <int HD>
 constexpr size_t bwd_smem_bytes() {
@@ -675,6 +675,334 @@ int bwd_dispatch(const void* q, const void* k, const void* v, const void* o, con
   }
 }
 
+
+// ------------------------------------------- backward, bf16 on wgmma ---
+// The same function on the tensor cores, transposed where that keeps P and
+// dS in registers. Every product is a wgmma m64nNk16 with f32 accumulators:
+//   dK/dV kernel, one block (one warpgroup) per 64-key tile, walking the
+//   64-row query tiles at or below the shifted diagonal:
+//     S^T  = K Q^T   and  dP^T = V dO^T   (SS: K, V resident; Q, dO
+//                                          streamed; all K-major, N = 64)
+//     P^T, dS^T in registers, rounded to bf16 pairs, become the A operand of
+//     dV  += P^T dO  and  dK  += dS^T Q   (RS: dO, Q read MN-major, N = d);
+//   dQ kernel, one block per 64-row query tile, walking the key tiles up to
+//     the diagonal:
+//     S = Q K^T, dP = dO V^T (SS), then dQ += dS K (RS: K read MN-major).
+// P and dS are rounded to bf16 before the second products (as the forward
+// rounds p before PV); S, dP and every sum stay f32, and the plain version
+// (flash_attention_bwd_plain) stays f32 as the oracle. The dQ kernel
+// recomputes S and dP, so a pair costs 7 products of 2*d operations
+// instead of 5: the price of writing dQ without atomics, so that the result
+// does not depend on the order blocks run in and a repeat gives the same
+// bits. No product goes through the SIMT units or shared memory stores.
+// The streamed tiles (Q and dO, or K and V) arrive by TMA into a ring of
+// two stages: the tile after next is requested as soon as every thread is
+// done with a stage, so it lands while the next one is multiplied; two
+// blocks share an SM and cover each other's elementwise phases. Tiles are
+// stored in the TMA swizzle of a 2*min(d, 64)-byte row (hopper.cuh); rows
+// past Sq or Sk are filled with zeros, and P is set to 0 there. Operands
+// must be 16-byte aligned (the TMA's rule; (BH, S, d) tensors of any S then
+// have 16-byte strides).
+constexpr int T_BQ = 64, T_BK = 64, T_THREADS = 128;
+
+template <int HD>
+struct TcTile {
+  static constexpr int EPR = HD < 64 ? HD : 64;  // values in a row of an atom
+  static constexpr int W = 2 * EPR;              // its bytes: 128, 64 or 32
+  static constexpr int ATOMS = HD / EPR;
+  static constexpr int BYTES = 64 * HD * 2;      // a 64-row tile, 1024-byte multiple
+  static constexpr int ATOM = 64 * W;
+  // operand rows = tile rows, reduction along d: step kk of 16 values
+  static __device__ __forceinline__ uint64_t kmajor(const uint8_t* t, int kk) {
+    return hp::desc(t + (kk * 16 / EPR) * ATOM + (kk * 16 % EPR) * 2, W, 0);
+  }
+  // reduction along the tile rows, N = d: step kk of 16 rows
+  static __device__ __forceinline__ uint64_t mnmajor(const uint8_t* t, int kk) {
+    return hp::desc(t + kk * 16 * W, W, ATOM);
+  }
+  // rows [row0, row0 + 64) of head bh of a (BH, S, d) map
+  static __device__ __forceinline__ void load(uint8_t* dst, const CUtensorMap* map,
+                                              uint64_t* bar, int row0, int bh) {
+#pragma unroll
+    for (int a = 0; a < ATOMS; ++a) hp::tma_load_3d(dst + a * ATOM, map, bar, a * EPR, row0, bh);
+  }
+};
+
+// an m64n64 accumulator -> the A operands of four 16-deep steps
+__device__ __forceinline__ void to_a_operand(const float (&d)[32], uint32_t (&a)[4][4]) {
+#pragma unroll
+  for (int c = 0; c < 4; ++c)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) a[c][r] = pack2(d[8 * c + 2 * r], d[8 * c + 2 * r + 1]);
+}
+
+template <int HD>
+constexpr size_t tc_bwd_smem() {  // 2 resident + 2 stages x 2 streamed tiles, stats, barriers
+  return 1024 + 6 * TcTile<HD>::BYTES + 2 * T_BQ * sizeof(float) + 4 * sizeof(uint64_t);
+}
+
+template <int HD>
+__global__ void __launch_bounds__(T_THREADS, 2)
+bwd_dkdv_tc(const __grid_constant__ CUtensorMap map_q, const __grid_constant__ CUtensorMap map_k,
+            const __grid_constant__ CUtensorMap map_v, const __grid_constant__ CUtensorMap map_do,
+            const float* __restrict__ lse, const float* __restrict__ D,
+            __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv, int Sq, int Sk,
+            int causal, int q_offset, float scale) {
+  using T = TcTile<HD>;
+  extern __shared__ uint8_t t_smem_raw[];
+  uint8_t* sm = t_smem_raw + ((1024 - (hp::smem_u32(t_smem_raw) & 1023)) & 1023);
+  uint8_t* Ks = sm;
+  uint8_t* Vs = Ks + T::BYTES;
+  uint8_t* stage = Vs + T::BYTES;  // stage s: Q at stage + 2s BYTES, dO after it
+  float* lse_s = reinterpret_cast<float*>(stage + 4 * T::BYTES);  // lse * log2(e)
+  float* D_s = lse_s + T_BQ;
+  uint64_t* bar = reinterpret_cast<uint64_t*>(D_s + T_BQ);  // resident, full[0], full[1]
+
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32, g = lane / 4, q4 = lane % 4;
+  const int k0 = blockIdx.x * T_BK, bh = blockIdx.y;
+  const int qt0 = causal ? max(0, k0 - q_offset) / T_BQ : 0;
+  const int ntiles = max(0, (Sq + T_BQ - 1) / T_BQ - qt0);
+  const float scale_log2 = scale * 1.4426950408889634f;
+
+  if (tid == 0) {
+    for (int i = 0; i < 3; ++i) hp::mbar_init(&bar[i], 1);
+    hp::mbar_fence_init();
+    hp::mbar_expect_tx(&bar[0], 2 * T::BYTES);
+    T::load(Ks, &map_k, &bar[0], k0, bh);
+    T::load(Vs, &map_v, &bar[0], k0, bh);
+    for (int i = 0; i < 2 && i < ntiles; ++i) {
+      hp::mbar_expect_tx(&bar[1 + i], 2 * T::BYTES);
+      T::load(stage + 2 * i * T::BYTES, &map_q, &bar[1 + i], (qt0 + i) * T_BQ, bh);
+      T::load(stage + (2 * i + 1) * T::BYTES, &map_do, &bar[1 + i], (qt0 + i) * T_BQ, bh);
+    }
+  }
+  __syncthreads();
+
+  float dk_acc[HD / 2], dv_acc[HD / 2];
+#pragma unroll
+  for (int i = 0; i < HD / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+  hp::mbar_wait(&bar[0], 0);  // also when no tile is visited: no copy outlives the block
+
+  for (int it = 0; it < ntiles; ++it) {
+    const int s = it & 1, q0 = (qt0 + it) * T_BQ;
+    const uint8_t* Qs = stage + 2 * s * T::BYTES;
+    const uint8_t* dOs = Qs + T::BYTES;
+    hp::mbar_wait(&bar[1 + s], (it >> 1) & 1);
+    float st[32], dpt[32];
+    hp::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk)
+      hp::wgmma_ss<0, 0>(st, T::kmajor(Ks, kk), T::kmajor(Qs, kk), kk);
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk)
+      hp::wgmma_ss<0, 0>(dpt, T::kmajor(Vs, kk), T::kmajor(dOs, kk), kk);
+    hp::wgmma_commit();
+    {  // the query tile's statistics, while the products run
+      const int r = tid % T_BQ;
+      const bool in = q0 + r < Sq;
+      const long long gq = (long long)bh * Sq + q0 + r;
+      if (tid < T_BQ) lse_s[r] = in ? lse[gq] * 1.4426950408889634f : 0.f;
+      else D_s[r] = in ? D[gq] : 0.f;
+    }
+    __syncthreads();
+    hp::wgmma_wait<0>();
+    hp::fence_regs(st);
+    hp::fence_regs(dpt);
+    // st[i]: key row 16 warp + g + 8 ((i / 2) % 2), query column 8 (i / 4) + 2 q4 + i % 2
+    const bool edge = (causal && q_offset + q0 < k0 + T_BK - 1) || q0 + T_BQ > Sq;
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int kr = warp * 16 + g + 8 * ((i >> 1) & 1), qc = 8 * (i >> 2) + 2 * q4 + (i & 1);
+      float p = exp2f(st[i] * scale_log2 - lse_s[qc]);
+      if (edge && ((causal && q_offset + q0 + qc < k0 + kr) || q0 + qc >= Sq)) p = 0.f;
+      dpt[i] = p * (dpt[i] - D_s[qc]);
+      st[i] = p;
+    }
+    uint32_t pa[4][4], dsa[4][4];
+    to_a_operand(st, pa);
+    to_a_operand(dpt, dsa);
+    hp::wgmma_fence();
+#pragma unroll
+    for (int c = 0; c < T_BQ / 16; ++c) {
+      hp::wgmma_rs(dv_acc, pa[c], T::mnmajor(dOs, c), 1);
+      hp::wgmma_rs(dk_acc, dsa[c], T::mnmajor(Qs, c), 1);
+    }
+    hp::wgmma_commit();
+    hp::wgmma_wait<0>();
+    hp::fence_regs(dv_acc);
+    hp::fence_regs(dk_acc);
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      hp::fence_regs(pa[c]);
+      hp::fence_regs(dsa[c]);
+    }
+    __syncthreads();  // stage s and the statistics are free
+    if (tid == 0 && it + 2 < ntiles) {
+      hp::mbar_expect_tx(&bar[1 + s], 2 * T::BYTES);
+      T::load(stage + 2 * s * T::BYTES, &map_q, &bar[1 + s], q0 + 2 * T_BQ, bh);
+      T::load(stage + (2 * s + 1) * T::BYTES, &map_do, &bar[1 + s], q0 + 2 * T_BQ, bh);
+    }
+  }
+  // dk_acc[4j + 2h + e]: key row 16 warp + g + 8h, column 8j + 2 q4 + e
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = k0 + warp * 16 + g + 8 * h;
+    if (r >= Sk) continue;
+    const long long base = ((long long)bh * Sk + r) * HD;
+#pragma unroll
+    for (int j = 0; j < HD / 8; ++j) {
+      const int c = 8 * j + 2 * q4;
+      *reinterpret_cast<uint32_t*>(dk + base + c) =
+          pack2(dk_acc[4 * j + 2 * h] * scale, dk_acc[4 * j + 2 * h + 1] * scale);
+      *reinterpret_cast<uint32_t*>(dv + base + c) =
+          pack2(dv_acc[4 * j + 2 * h], dv_acc[4 * j + 2 * h + 1]);
+    }
+  }
+}
+
+template <int HD>
+__global__ void __launch_bounds__(T_THREADS, 2)
+bwd_dq_tc(const __grid_constant__ CUtensorMap map_q, const __grid_constant__ CUtensorMap map_k,
+          const __grid_constant__ CUtensorMap map_v, const __grid_constant__ CUtensorMap map_do,
+          const float* __restrict__ lse, const float* __restrict__ D,
+          __nv_bfloat16* __restrict__ dq, int Sq, int Sk, int causal, int q_offset, float scale) {
+  using T = TcTile<HD>;
+  extern __shared__ uint8_t t_smem_raw[];
+  uint8_t* sm = t_smem_raw + ((1024 - (hp::smem_u32(t_smem_raw) & 1023)) & 1023);
+  uint8_t* Qs = sm;
+  uint8_t* dOs = Qs + T::BYTES;
+  uint8_t* stage = dOs + T::BYTES;  // stage s: K at stage + 2s BYTES, V after it
+  uint64_t* bar = reinterpret_cast<uint64_t*>(stage + 4 * T::BYTES + 2 * T_BQ * sizeof(float));
+
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32, g = lane / 4, q4 = lane % 4;
+  const int q0 = blockIdx.x * T_BQ, bh = blockIdx.y;
+  int ntiles = (Sk + T_BK - 1) / T_BK;
+  if (causal) ntiles = min(ntiles, (q_offset + q0 + T_BQ - 1) / T_BK + 1);  // skip tiles above
+  const float scale_log2 = scale * 1.4426950408889634f;
+
+  if (tid == 0) {
+    for (int i = 0; i < 3; ++i) hp::mbar_init(&bar[i], 1);
+    hp::mbar_fence_init();
+    hp::mbar_expect_tx(&bar[0], 2 * T::BYTES);
+    T::load(Qs, &map_q, &bar[0], q0, bh);
+    T::load(dOs, &map_do, &bar[0], q0, bh);
+    for (int i = 0; i < 2 && i < ntiles; ++i) {
+      hp::mbar_expect_tx(&bar[1 + i], 2 * T::BYTES);
+      T::load(stage + 2 * i * T::BYTES, &map_k, &bar[1 + i], i * T_BK, bh);
+      T::load(stage + (2 * i + 1) * T::BYTES, &map_v, &bar[1 + i], i * T_BK, bh);
+    }
+  }
+  __syncthreads();
+
+  // this thread's query rows 16 warp + g + 8h: log2-scaled lse and D
+  float lse2[2], Dr[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = q0 + warp * 16 + g + 8 * h;
+    const long long gq = (long long)bh * Sq + r;
+    lse2[h] = r < Sq ? lse[gq] * 1.4426950408889634f : 0.f;
+    Dr[h] = r < Sq ? D[gq] : 0.f;
+  }
+  float dq_acc[HD / 2];
+#pragma unroll
+  for (int i = 0; i < HD / 2; ++i) dq_acc[i] = 0.f;
+  hp::mbar_wait(&bar[0], 0);
+
+  for (int it = 0; it < ntiles; ++it) {
+    const int s = it & 1, k0 = it * T_BK;
+    const uint8_t* Ks = stage + 2 * s * T::BYTES;
+    const uint8_t* Vs = Ks + T::BYTES;
+    hp::mbar_wait(&bar[1 + s], (it >> 1) & 1);
+    float sa[32], dp[32];
+    hp::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk)
+      hp::wgmma_ss<0, 0>(sa, T::kmajor(Qs, kk), T::kmajor(Ks, kk), kk);
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk)
+      hp::wgmma_ss<0, 0>(dp, T::kmajor(dOs, kk), T::kmajor(Vs, kk), kk);
+    hp::wgmma_commit();
+    hp::wgmma_wait<0>();
+    hp::fence_regs(sa);
+    hp::fence_regs(dp);
+    // sa[i]: query row 16 warp + g + 8 ((i / 2) % 2), key column 8 (i / 4) + 2 q4 + i % 2
+    const bool edge = (causal && q_offset + q0 < k0 + T_BK - 1) || k0 + T_BK > Sk ||
+                      q0 + T_BQ > Sq;
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int h = (i >> 1) & 1, qr = warp * 16 + g + 8 * h;
+      const int kc = 8 * (i >> 2) + 2 * q4 + (i & 1);
+      float p = exp2f(sa[i] * scale_log2 - lse2[h]);
+      if (edge && ((causal && q_offset + q0 + qr < k0 + kc) || k0 + kc >= Sk || q0 + qr >= Sq))
+        p = 0.f;
+      dp[i] = p * (dp[i] - Dr[h]);
+    }
+    uint32_t dsa[4][4];
+    to_a_operand(dp, dsa);
+    hp::wgmma_fence();
+#pragma unroll
+    for (int c = 0; c < T_BK / 16; ++c) hp::wgmma_rs(dq_acc, dsa[c], T::mnmajor(Ks, c), 1);
+    hp::wgmma_commit();
+    hp::wgmma_wait<0>();
+    hp::fence_regs(dq_acc);
+#pragma unroll
+    for (int c = 0; c < 4; ++c) hp::fence_regs(dsa[c]);
+    __syncthreads();  // stage s is free
+    if (tid == 0 && it + 2 < ntiles) {
+      hp::mbar_expect_tx(&bar[1 + s], 2 * T::BYTES);
+      T::load(stage + 2 * s * T::BYTES, &map_k, &bar[1 + s], k0 + 2 * T_BK, bh);
+      T::load(stage + (2 * s + 1) * T::BYTES, &map_v, &bar[1 + s], k0 + 2 * T_BK, bh);
+    }
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = q0 + warp * 16 + g + 8 * h;
+    if (r >= Sq) continue;
+    const long long base = ((long long)bh * Sq + r) * HD;
+#pragma unroll
+    for (int j = 0; j < HD / 8; ++j)
+      *reinterpret_cast<uint32_t*>(dq + base + 8 * j + 2 * q4) =
+          pack2(dq_acc[4 * j + 2 * h] * scale, dq_acc[4 * j + 2 * h + 1] * scale);
+  }
+}
+
+// a (BH, S, d) bf16 tensor as a TMA map read in 64-row tiles
+template <int HD>
+bool head_map(CUtensorMap* map, const void* base, int BH, int S) {
+  const uint64_t dims[3] = {HD, uint64_t(S), uint64_t(BH)};
+  const uint64_t strides[2] = {HD * 2, uint64_t(S) * HD * 2};
+  const uint32_t box[3] = {TcTile<HD>::EPR, 64, 1};
+  return hp::make_map(map, base, 3, dims, strides, box);
+}
+
+template <int HD>
+int launch_bwd_tc(const void* q, const void* k, const void* v, const void* o, const void* dO,
+                  const float* lse, float* D, void* dq, void* dk, void* dv, int BH, int Sq,
+                  int Sk, int causal, int q_offset, float scale, cudaStream_t stream) {
+  CUtensorMap mq, mk, mv, mdo;
+  if (!(head_map<HD>(&mq, q, BH, Sq) && head_map<HD>(&mk, k, BH, Sk) &&
+        head_map<HD>(&mv, v, BH, Sk) && head_map<HD>(&mdo, dO, BH, Sq)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  constexpr size_t smem = tc_bwd_smem<HD>();
+  cudaError_t err = cudaFuncSetAttribute(bwd_dkdv_tc<HD>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(bwd_dq_tc<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  using bf = __nv_bfloat16;
+  const long long rows = (long long)BH * Sq;
+  bwd_rowdot_kernel<bf><<<(unsigned)((rows + B_THREADS / 32 - 1) / (B_THREADS / 32)), B_THREADS,
+                          0, stream>>>(static_cast<const bf*>(o), static_cast<const bf*>(dO), D,
+                                       rows, HD);
+  bwd_dkdv_tc<HD><<<dim3((Sk + T_BK - 1) / T_BK, BH), T_THREADS, smem, stream>>>(
+      mq, mk, mv, mdo, lse, D, static_cast<bf*>(dk), static_cast<bf*>(dv), Sq, Sk, causal,
+      q_offset, scale);
+  bwd_dq_tc<HD><<<dim3((Sq + T_BQ - 1) / T_BQ, BH), T_THREADS, smem, stream>>>(
+      mq, mk, mv, mdo, lse, D, static_cast<bf*>(dq), Sq, Sk, causal, q_offset, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // lse (BH, Sq) f32 receives the row log-sum-exp when it is not null
@@ -699,7 +1027,7 @@ extern "C" int flash_attention_bf16(const void* q, const void* k, const void* v,
                                     void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* l = static_cast<float*>(lse);
-  if (!(aligned16(q) && aligned16(k) && aligned16(v) && aligned16(o)))
+  if (!(hp::aligned(q, 16) && hp::aligned(k, 16) && hp::aligned(v, 16) && hp::aligned(o, 16)))
     return static_cast<int>(cudaErrorInvalidValue);
   switch (d) {
     case 16: return launch_tc<16>(q, k, v, o, l, BH, Sq, Sk, causal, q_offset, scale, st);
@@ -725,6 +1053,17 @@ extern "C" int flash_attention_bwd_bf16(const void* q, const void* k, const void
                                         void* dq, void* dk, void* dv, int BH, int Sq, int Sk,
                                         int d, int causal, int q_offset, float scale,
                                         void* stream) {
-  return bwd_dispatch<__nv_bfloat16>(q, k, v, o, dO, lse, D, dq, dk, dv, BH, Sq, Sk, d, causal,
-                                     q_offset, scale, stream);
+  if (!(hp::aligned(q, 16) && hp::aligned(k, 16) && hp::aligned(v, 16) && hp::aligned(o, 16) &&
+        hp::aligned(dO, 16)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float* l = static_cast<const float*>(lse);
+  float* Db = static_cast<float*>(D);
+  switch (d) {
+    case 16: return launch_bwd_tc<16>(q, k, v, o, dO, l, Db, dq, dk, dv, BH, Sq, Sk, causal, q_offset, scale, st);
+    case 32: return launch_bwd_tc<32>(q, k, v, o, dO, l, Db, dq, dk, dv, BH, Sq, Sk, causal, q_offset, scale, st);
+    case 64: return launch_bwd_tc<64>(q, k, v, o, dO, l, Db, dq, dk, dv, BH, Sq, Sk, causal, q_offset, scale, st);
+    case 128: return launch_bwd_tc<128>(q, k, v, o, dO, l, Db, dq, dk, dv, BH, Sq, Sk, causal, q_offset, scale, st);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }

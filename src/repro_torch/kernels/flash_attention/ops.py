@@ -134,6 +134,8 @@ def _launch_bwd(q, k, v, o, do, lse, causal: bool, q_offset: int):
         raise ValueError("flash_attention_bwd: o and do must be contiguous, in q's dtype")
     if lse.dtype != torch.float32 or not lse.is_contiguous():
         raise ValueError("flash_attention_bwd: lse must be a contiguous f32 (BH, Sq) tensor")
+    if q.dtype == torch.bfloat16 and any(t.data_ptr() % 16 for t in (q, k, v, o, do)):
+        raise ValueError("flash_attention_bwd: the bf16 kernel takes 16-byte-aligned operands")
     BH, Sq, d = q.shape
     Sk = k.shape[1]
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)

@@ -48,7 +48,12 @@ def flash_attention_bwd_plain(q, k, v, o, do, lse, *, causal: bool = True, q_off
     the upstream gradient ``do`` and the row log-sum-exp ``lse``, all in
     f32: P = exp(s - lse), D = rowsum(do ⊙ o), dv = Pᵀ do,
     dS = P ⊙ (do vᵀ - D), dq = scale dS k, dk = scale dSᵀ q. The forward's
-    cast of p to v's dtype passes its gradient straight through."""
+    cast of p to v's dtype passes its gradient straight through.
+
+    It is the f32 oracle of both backward kernels: the f32 kernel computes
+    the same in IEEE f32; the bf16 kernel rounds P and dS to bf16 before
+    the products that give dv, dk and dq, and is held to this version
+    within 2e-2 × max(1, max |oracle|) (``chip_smoke.py``)."""
     scale = 1.0 / math.sqrt(q.shape[-1])
     p = torch.exp(_scores(q, k, causal, q_offset) - _acc(lse)[..., None])
     do32 = _acc(do)

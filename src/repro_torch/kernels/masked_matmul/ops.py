@@ -145,13 +145,15 @@ def _run(fn: str, a: torch.Tensor, b: torch.Tensor, m: torch.Tensor, out_shape,
     for name, t in (("first operand", a), ("second operand", b), ("mask", m)):
         if t.stride(1) != 1:
             raise ValueError(f"{fn}: {name} needs unit column stride, got strides {t.stride()}")
+    # the bf16 kernel reads every operand by TMA: 16-byte-aligned bases and
+    # row strides of 16 bytes (8 values, 16 mask bytes)
     if a.dtype == torch.bfloat16 and not (
             K % 8 == 0 and N % 8 == 0
-            and a.stride(0) % 8 == 0 and b.stride(0) % 8 == 0 and m.stride(0) % 8 == 0
-            and a.data_ptr() % 16 == 0 and b.data_ptr() % 16 == 0 and m.data_ptr() % 8 == 0):
+            and a.stride(0) % 8 == 0 and b.stride(0) % 8 == 0 and m.stride(0) % 16 == 0
+            and a.data_ptr() % 16 == 0 and b.data_ptr() % 16 == 0 and m.data_ptr() % 16 == 0):
         raise ValueError(f"{fn}: the bf16 kernel takes K, N and row strides that are "
-                         "multiples of 8, on 16-byte-aligned matrices and an "
-                         "8-byte-aligned mask")
+                         "multiples of 8, a mask row stride that is a multiple of 16, on "
+                         "16-byte-aligned matrices and mask")
     if max(M, K, N) > _INT_MAX:
         raise ValueError(f"{fn}: dims {(M, K, N)} exceed int32")
     if min(M, K, N) == 0:

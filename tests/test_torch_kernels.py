@@ -178,19 +178,27 @@ def _bf16(*shape):
     return torch.zeros(*shape, dtype=torch.bfloat16)
 
 
-@pytest.mark.parametrize("case", ["K", "N", "x stride", "x address"])
+@pytest.mark.parametrize("case", ["K", "N", "x stride", "x address", "mask stride",
+                                  "mask address"])
 def test_bf16_masked_matmul_launch_rejects_unaligned_operands(case):
-    """The bf16 kernel loads 16-byte chunks; it takes no other operands."""
+    """The bf16 kernel reads every operand by TMA: 16-byte-aligned bases,
+    row strides of 16 bytes (8 bf16 values, 16 mask bytes); it takes no
+    other operands."""
     K, N, x = 16, 16, _bf16(4, 16)
+    m = torch.ones(K, N, dtype=torch.bool)
     if case == "K":
-        K, x = 12, _bf16(4, 12)
+        K, x, m = 12, _bf16(4, 12), torch.ones(12, N, dtype=torch.bool)
     elif case == "N":
-        N = 12
+        N, m = 12, torch.ones(K, 12, dtype=torch.bool)
     elif case == "x stride":
         x = _bf16(4, 20)[:, :16]
-    else:
+    elif case == "x address":
         x = _bf16(4 * 16 + 1)[1:].view(4, 16)
-    w, m = _bf16(K, N), torch.ones(K, N, dtype=torch.bool)
+    elif case == "mask stride":  # 24 bytes: a multiple of 8, not of 16
+        m = torch.ones(K, 24, dtype=torch.bool)[:, :16]
+    else:
+        m = torch.ones(K * N + 8, dtype=torch.bool)[8:].view(K, N)
+    w = _bf16(K, N)
     with pytest.raises(ValueError, match="bf16 kernel takes"):
         MM._launch(x, w, m)
 
@@ -200,6 +208,17 @@ def test_bf16_flash_attention_launch_rejects_unaligned_operands():
     k = _bf16(1 * 4 * 16 + 1)[1:].view(1, 4, 16)
     with pytest.raises(ValueError, match="16-byte-aligned"):
         FA._launch(q, k, q, True, 0)
+
+
+@pytest.mark.parametrize("which", ["q", "k", "v", "o", "do"])
+def test_bf16_flash_attention_bwd_rejects_unaligned_operands(which):
+    """The bf16 backward reads q, k, v and do by TMA (and o row by row):
+    16-byte-aligned operands only, refused before any launch."""
+    ops = {n: _bf16(1, 4, 16) for n in ("q", "k", "v", "o", "do")}
+    ops[which] = _bf16(1 * 4 * 16 + 1)[1:].view(1, 4, 16)
+    with pytest.raises(ValueError, match="16-byte-aligned"):
+        FA._launch_bwd(ops["q"], ops["k"], ops["v"], ops["o"], ops["do"],
+                       torch.zeros(1, 4), True, 0)
 
 
 def test_entry_points_refuse_to_run_without_a_card():
