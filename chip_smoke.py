@@ -205,12 +205,16 @@ def _causal_pairs(sq: int, sk: int, causal: bool, q_offset: int) -> int:
 def phase_flash_attention(g):
     """Kernel vs plain: (256, 2048, 128) causal, a non-causal case and a
     q_offset > 0 case with Sq < Sk, in f32 and bf16; plus every compiled
-    head width at a small shape."""
+    head width at a small shape. In every case the row log-sum-exp that the
+    forward writes for the backward is held to the plain one."""
     import torch
     import torch.nn.functional as F
 
+    from repro_torch.kernels.flash_attention import ops as FA
     from repro_torch.kernels.flash_attention.ops import flash_attention
-    from repro_torch.kernels.flash_attention.ref import flash_attention_plain
+    from repro_torch.kernels.flash_attention.ref import (
+        flash_attention_lse_plain, flash_attention_plain,
+    )
 
     cases = [(256, 2048, 2048, 128, True, 0), (64, 1024, 1024, 128, False, 0),
              (64, 512, 2048, 128, True, 1536), (8, 200, 333, 64, True, 133),
@@ -226,10 +230,17 @@ def phase_flash_attention(g):
             out = flash_attention(q, k, v, **kw)
             ref = flash_attention_plain(q, k, v, **kw)
             torch.cuda.synchronize()
-            err = check_close(f"flash_attention {(BH, Sq, Sk, d, causal, off)} {dtype}",
-                              out, ref, dtype)
+            tag = f"flash_attention {(BH, Sq, Sk, d, causal, off)} {dtype}"
+            err = check_close(tag, out, ref, dtype)
+            o_lse, lse = FA._launch(q, k, v, causal, off, with_lse=True)
+            lse_err = check_close(f"{tag} lse", lse, flash_attention_lse_plain(q, k, **kw),
+                                  dtype)
+            if not torch.equal(o_lse, out):
+                raise AssertionError(f"{tag}: writing the lse changed the output")
             row = dict(phase="flash_attention", dtype=dtype, BH=BH, Sq=Sq, Sk=Sk, d=d,
-                       causal=causal, q_offset=off, max_abs_err=err, tol=TOL[dtype])
+                       causal=causal, q_offset=off, max_abs_err=err, max_abs_err_lse=lse_err,
+                       tol=TOL[dtype])
+            del o_lse, lse
             if BH >= 64:
                 row["ms"] = timed_ms(lambda: flash_attention(q, k, v, **kw))
                 row["plain_ms"] = timed_ms(lambda: flash_attention_plain(q, k, v, **kw))
@@ -241,6 +252,8 @@ def phase_flash_attention(g):
                 b_ms, b_by = bound_ms(nbytes, 4.0 * BH * d * pairs, dtype)
                 row.update(bound_ms=b_ms, bound_by=b_by)
                 if dtype == "bfloat16" and (BH, Sq, causal) == (256, 2048, True):
+                    row["deterministic"] = check_repeat(
+                        tag, lambda: flash_attention(q, k, v, **kw), out)
                     summary = row
             emit(row)
             del q, k, v, out, ref
@@ -596,14 +609,14 @@ def phase_nm_pack(res, cfg, tokens, launches, microbatch=8):
                 packed += vals.numel() * vals.element_size() + idx.numel()
                 dense_bytes += w2.numel() * w2.element_size()
                 if i == 0 and path[-1] == "w_up":  # timed below, outside the path
-                    timing = (x, vals, idx, SP.nm_decompress(vals, idx, n, m), err, err_mm)
+                    timing = (x, vals, idx, SP.nm_decompress(vals, idx, n, m), out, err, err_mm)
             h = model.apply_block(res.tuned, i, bp, h, pos, mb)
     torch.cuda.synchronize()
     launches["nm_spmm"] = NM.launches
     expected = 7 * model.num_blocks
     if launches["nm_spmm"] != expected:
         raise AssertionError(f"nm_pack: {launches['nm_spmm']} nm_spmm launches, want {expected}")
-    x, vals, idx, wd, err, err_mm = timing
+    x, vals, idx, wd, out, err, err_mm = timing
     M, (K, N) = x.shape[0], wd.shape
     nbytes = (x.numel() + M * N) * x.element_size() + vals.numel() * vals.element_size() + \
         idx.numel()  # the compressed weight's bytes
@@ -613,12 +626,14 @@ def phase_nm_pack(res, cfg, tokens, launches, microbatch=8):
                    tol=TOL["bfloat16"], ms=timed_ms(lambda: NM.nm_spmm(x, vals, idx, n=n, m=m)),
                    plain_ms=timed_ms(lambda: nm_spmm_plain(x, vals, idx, n=n, m=m)),
                    library_ms=timed_ms(lambda: torch.matmul(x, wd)), bound_ms=b_ms,
-                   bound_by=b_by)
+                   bound_by=b_by, deterministic=check_repeat(
+                       "nm_spmm w_up", lambda: NM.nm_spmm(x, vals, idx, n=n, m=m), out))
     # the f32 kernel, 1:4, ragged edges (K, N not multiples of the tile)
-    # and a strided x; the bf16 wrapper refuses an x it cannot take
+    # and a strided x; in bf16 an N whose rows of vals and idx the TMA
+    # takes (16-byte strides); the bf16 wrapper refuses operands it cannot take
     g = torch.Generator(device="cuda").manual_seed(1)
     for dtype, (nn, mm), K, N in (("float32", (2, 4), 1000, 333), ("float32", (1, 4), 4096, 336),
-                                  ("bfloat16", (2, 4), 1000, 333), ("bfloat16", (1, 4), 4096, 11008)):
+                                  ("bfloat16", (2, 4), 1000, 336), ("bfloat16", (1, 4), 4096, 11008)):
         dt = getattr(torch, dtype)
         xs = torch.randn(777, K + 8, device="cuda", generator=g).to(dt)[:, :K]
         ws = (torch.randn(K, N, device="cuda", generator=g) / math.sqrt(K)).to(dt)
@@ -634,7 +649,14 @@ def phase_nm_pack(res, cfg, tokens, launches, microbatch=8):
                             2, 4)
     _refuses("nm_spmm unaligned bf16",
              lambda: NM.nm_spmm(xs.view(777, 1000), vs, ix, n=2, m=4))
+    vs, ix = SP.nm_compress(torch.ones(1000, 333, device="cuda", dtype=torch.bfloat16),
+                            SP.nm_mask(torch.rand(1000, 333, device="cuda", generator=g), 2, 4),
+                            2, 4)
+    _refuses("nm_spmm bf16 N=333",
+             lambda: NM.nm_spmm(torch.zeros(777, 1000, device="cuda", dtype=torch.bfloat16),
+                                vs, ix, n=2, m=4))
     emit(dict(phase="nm_spmm", case="unaligned bf16", refused=True))
+    emit(dict(phase="nm_spmm", case="bf16 N=333 (vals and idx row strides)", refused=True))
     emit(dict(phase="nm_pack", pattern="2:4", leaves=len(errs),
               max_abs_err=max(e for e, _ in errs),
               max_abs_err_vs_masked_matmul=max(e for _, e in errs),

@@ -12,11 +12,14 @@ own that imports that checkout's ``repro_torch``, in the order old, new,
 new, old. Every process makes the same inputs from seed 0 and times, with
 ``chip_smoke.timed_ms``, the masked matmul forward, dX and dW at the
 Llama-7B leaf shapes of ``chip_smoke.LEAVES`` (M = ``chip_smoke.M_ROWS``
-rows, a 30% mask) and the flash attention backward at (256, 2048, 2048,
-128) causal, each beside the PyTorch call that computes the same function.
+rows, a 30% mask), the flash attention forward and backward at (256,
+2048, 2048, 128) causal, and nm_spmm at 2:4 on w_up (x of M rows against
+a (4096, 11008) weight), each beside the PyTorch call that computes the
+same function (``torch.matmul``, ``scaled_dot_product_attention``).
 It prints one JSON line per run and kernel, with the sha256 of the
-checkout's ``csrc/*.cu`` and ``*.cuh`` files and the card's name and power
-limit.
+checkout's ``csrc/*.cu`` and ``*.cuh`` files, the sha256 of the kernel's
+output (``out``: two checkouts whose kernels give the same bits on these
+inputs print the same digest) and the card's name and power limit.
 """
 from __future__ import annotations
 
@@ -30,8 +33,9 @@ from pathlib import Path
 import chip_smoke as cs
 
 ROOT = Path(__file__).resolve().parent
-KERNELS = ["masked_matmul", "flash_attention"]
+KERNELS = ["masked_matmul", "flash_attention", "nm_spmm"]
 ATTN = (256, 2048, 128)  # (B * H, S, head width)
+NM_SHAPE = (4096, 11008)  # w_up, (K, N)
 
 
 def sources_sha(tree: Path) -> str:
@@ -42,6 +46,23 @@ def sources_sha(tree: Path) -> str:
         h.update(p.name.encode())
         h.update(p.read_bytes())
     return h.hexdigest()[:16]
+
+
+def digest(t) -> str:
+    """The first 16 hex digits of the sha256 of a tensor's bytes (or a
+    tuple's)."""
+    import torch
+
+    h = hashlib.sha256()
+    for x in t if isinstance(t, tuple) else (t,):
+        h.update(x.contiguous().view(torch.uint8).cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+def _row(base, kernel, fn, library, **kw) -> None:
+    """Time ``fn`` and ``library`` and print the row with ``fn``'s digest."""
+    cs.emit(dict(base, kernel=kernel, **kw, ms=cs.timed_ms(fn), library_ms=cs.timed_ms(library),
+                 out=digest(fn())))
 
 
 def _build_of(tree: Path):
@@ -67,6 +88,8 @@ def time_tree(tag: str, tree: str) -> None:
     _build_of(tree)
     from repro_torch.kernels.flash_attention import ops as FA
     from repro_torch.kernels.masked_matmul import ops as MM
+    from repro_torch.kernels.nm_spmm import ops as NM
+    from repro_torch.sparsity import sparse_params as SP
 
     base = dict(version=tag, sources=sources_sha(tree), card=cs.smi())
     bf = torch.bfloat16
@@ -83,17 +106,28 @@ def time_tree(tag: str, tree: str) -> None:
             ("dx", lambda: MM.masked_matmul_dx(dy, w, m), lambda: dy @ wm.T),
             ("dw", lambda: MM.masked_matmul_dw(x, dy, m), lambda: (x.T @ dy) * m),
         ):
-            cs.emit(dict(base, kernel=f"masked_matmul_{op}", leaf=name, ms=cs.timed_ms(kern),
-                         library_ms=cs.timed_ms(lib)))
+            _row(base, f"masked_matmul_{op}", kern, lib, leaf=name)
         del x, w, m, dy, wm
     q, k, v, do = (torch.randn(*ATTN, device="cuda", generator=g).to(bf) for _ in range(4))
+    _row(base, "flash_attention", lambda: FA.flash_attention(q, k, v, causal=True),
+         lambda: F.scaled_dot_product_attention(q[None], k[None], v[None], is_causal=True),
+         shape=list(ATTN), causal=True)
     o, lse = FA._launch(q, k, v, True, 0, with_lse=True)
     leaves = [t[None].clone().requires_grad_(True) for t in (q, k, v)]
     out = F.scaled_dot_product_attention(*leaves, is_causal=True)
-    cs.emit(dict(base, kernel="flash_attention_bwd", shape=list(ATTN), causal=True,
-                 ms=cs.timed_ms(lambda: FA.flash_attention_bwd(q, k, v, o, do, lse, causal=True)),
-                 library_ms=cs.timed_ms(lambda: torch.autograd.grad(
-                     out, leaves, do[None], retain_graph=True))))
+    _row(base, "flash_attention_bwd",
+         lambda: FA.flash_attention_bwd(q, k, v, o, do, lse, causal=True),
+         lambda: torch.autograd.grad(out, leaves, do[None], retain_graph=True),
+         shape=list(ATTN), causal=True)
+    del q, k, v, do, o, lse, leaves, out
+    K, N = NM_SHAPE
+    x = torch.randn(cs.M_ROWS, K, device="cuda", generator=g).to(bf)
+    w = (torch.randn(K, N, device="cuda", generator=g) / math.sqrt(K)).to(bf)
+    vals, idx = SP.nm_compress(w, SP.nm_mask(torch.rand(K, N, device="cuda", generator=g), 2, 4),
+                               2, 4)
+    wd = SP.nm_decompress(vals, idx, 2, 4)
+    _row(base, "nm_spmm", lambda: NM.nm_spmm(x, vals, idx, n=2, m=4), lambda: x @ wd,
+         leaf="w_up", pattern="2:4")
 
 
 def _child(call: str) -> list:

@@ -14,10 +14,10 @@
 // operations per byte where the card stops waiting on HBM: it is bound by
 // operations, and the S x S scores must never reach device memory.
 //
-// Design: one thread block handles one (bh, 64-row query tile) and loops
-// over key tiles with the online-softmax recurrence; the TPU kernel's
-// sequential key grid axis and its VMEM scratch (m, l, acc) become that
-// loop, shared memory and registers. Semantics follow the TPU kernel:
+// Design: one thread block handles one (bh, query tile) and loops over key
+// tiles with the online-softmax recurrence; the TPU kernel's sequential key
+// grid axis and its VMEM scratch (m, l, acc) become that loop, shared
+// memory and registers. Semantics follow the TPU kernel:
 //   * q and k are upcast to f32 and the scores are f32 products;
 //   * causal masking is shifted by q_offset; key tiles wholly above the
 //     diagonal are never visited, and only tiles that cross it are masked,
@@ -27,17 +27,15 @@
 //   * the normaliser is clamped at 1e-30.
 // Keys past the end of a ragged last tile contribute exactly zero.
 // Two kernels share these semantics:
-//   * bf16: both products on the tensor cores (mma.sync m16n8k16), one
-//     warp per 16 query rows, 64-key tiles; it takes 16-byte-aligned
+//   * bf16 (flash_fwd_tc): 128-row query tiles, two consumer warpgroups and
+//     a TMA warp; both products on wgmma, K and V streamed by TMA through
+//     a ring, P kept in registers (see the kernel); it takes 16-byte-aligned
 //     operands only and refuses others with cudaErrorInvalidValue;
 //   * f32 (no TF32: IEEE products for the 2e-5 tolerance): SIMT fp32 FMAs,
 //     64-row query and 32-key tiles.
 // With a non-null `lse` either forward also writes the f32 row
 // log-sum-exp of the scaled, masked scores, m + log(max(l, 1e-30)), which
 // the backward reads; the no-grad callers pass null and write nothing.
-// The forward loads its tiles with plain 16-byte loads and multiplies with
-// mma.sync; moving it onto TMA and wgmma, as the bf16 backward below is,
-// is later work.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -216,208 +214,262 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse, int
   return static_cast<int>(cudaGetLastError());
 }
 
-// ------------------------------------------------- bf16 on tensor cores ---
-// One warp per 16 query rows, 64-key tiles. Both products run as
-// mma.sync m16n8k16 (bf16 in, f32 accumulate: bf16 x bf16 products are exact
-// in f32, so the scores equal the upcast-q/k scores up to summation order).
-// The score accumulators are laid out as the A operand of the next product,
-// so p goes from registers to the PV product without shared memory. With
-// g = lane / 4 and t = lane % 4, a thread holds rows g and g + 8 of its
-// warp's 16, columns 2t and 2t + 1 of every 8-wide n-tile.
-constexpr int TC_BQ = 64, TC_BKV = 64, TC_THREADS = 128;
-
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
+// ----------------------------------------------------- bf16 on wgmma ---
+// Tiles of the bf16 kernels (forward and backward), every product a wgmma
+// m64nNk16 with f32 accumulators. A tile of ROWS rows of a (BH, S, d)
+// tensor is stored in the TMA swizzle of a 2*min(d, 64)-byte row
+// (hopper.cuh): atom a holds its d values a*64 .. a*64 + 63 of every row.
+// It is read K-major (rows = the operand's M or N, reduction along d) or
+// MN-major (reduction along the rows, N = d). Rows past S arrive as zeros.
+template <int HD, int ROWS = 64>
+struct TcTile {
+  static constexpr int EPR = HD < 64 ? HD : 64;  // values in a row of an atom
+  static constexpr int W = 2 * EPR;              // its bytes: 128, 64 or 32
+  static constexpr int ATOMS = HD / EPR;
+  static constexpr int BYTES = ROWS * HD * 2;    // a 1024-byte multiple
+  static constexpr int ATOM = ROWS * W;
+  static_assert(ROWS % 64 == 0, "tiles load in 64-row boxes");
+  // operand rows = tile rows, reduction along d: step kk of 16 values
+  static __device__ __forceinline__ uint64_t kmajor(const uint8_t* t, int kk) {
+    return hp::desc(t + (kk * 16 / EPR) * ATOM + (kk * 16 % EPR) * 2, W, 0);
+  }
+  // reduction along the tile rows, N = d: step kk of 16 rows
+  static __device__ __forceinline__ uint64_t mnmajor(const uint8_t* t, int kk) {
+    return hp::desc(t + kk * 16 * W, W, ATOM);
+  }
+  // rows [row0, row0 + ROWS) of head bh of a (BH, S, d) map, in 64-row boxes
+  static __device__ __forceinline__ void load(uint8_t* dst, const CUtensorMap* map,
+                                              uint64_t* bar, int row0, int bh) {
+#pragma unroll
+    for (int a = 0; a < ATOMS; ++a)
+#pragma unroll
+      for (int r = 0; r < ROWS; r += 64)
+        hp::tma_load_3d(dst + a * ATOM + r * W, map, bar, a * EPR, row0 + r, bh);
+  }
+};
 
 // two values -> one register, the first in the low half (lower column)
 __device__ __forceinline__ uint32_t pack2(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
 }
-__device__ __forceinline__ uint32_t pack2(__nv_bfloat16 lo, __nv_bfloat16 hi) {
-  __nv_bfloat162 v;
-  v.x = lo;
-  v.y = hi;
-  return *reinterpret_cast<uint32_t*>(&v);
+
+// an m64nN accumulator (R = N / 2 values a thread) -> the bf16 A operands
+// of its N / 16 steps of 16 (hopper.cuh: the accumulator layout is the
+// register A layout)
+template <int R>
+__device__ __forceinline__ void to_a_operand(const float (&d)[R], uint32_t (&a)[R / 8][4]) {
+#pragma unroll
+  for (int c = 0; c < R / 8; ++c)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) a[c][r] = pack2(d[8 * c + 2 * r], d[8 * c + 2 * r + 1]);
 }
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
+
+// a (BH, S, d) bf16 tensor as a TMA map read in 64-row boxes
+template <int HD>
+bool head_map(CUtensorMap* map, const void* base, int BH, int S) {
+  const uint64_t dims[3] = {HD, uint64_t(S), uint64_t(BH)};
+  const uint64_t strides[2] = {HD * 2, uint64_t(S) * HD * 2};
+  const uint32_t box[3] = {TcTile<HD>::EPR, 64, 1};
+  return hp::make_map(map, base, 3, dims, strides, box);
+}
+
+// The bf16 forward. One block per (bh, 128-row query tile); two consumer
+// warpgroups take 64 query rows each and one more warp issues the TMA
+// loads. Q is loaded once; K and V stream in FW_BKV-key tiles through a
+// ring of FW_STAGES stages (mbarriers `full`, `empty`): the producer asks
+// for the tile FW_STAGES ahead as soon as both warpgroups have freed a
+// stage. 128-key tiles and 3 stages ran faster than 64-key tiles or 2
+// stages; a software pipeline that issued the next tile's S beside this
+// tile's PV (with registers moved to the consumers by setmaxnreg) ran
+// slower (PERF.md).
+// Per key tile a warpgroup computes
+//     S = Q K^T      wgmma SS m64n{FW_BKV}k16, both operands K-major;
+// then the online softmax in registers on the accumulator layout, and
+//     O += P V       wgmma RS m64n{d}k16: P rounded to bf16 in place into
+//                    the register A operand, V read MN-major from its tile,
+// so P never touches shared memory. The reference's semantics stay: f32
+// scores scaled by 1/sqrt(d); key tiles wholly above a warpgroup's shifted
+// diagonal are skipped and only tiles crossing it are masked, with -1e30;
+// keys past Sk give p == 0 exactly (their score is -inf); the normaliser
+// sums the unrounded p; m, l and O stay f32; l is clamped at 1e-30, and
+// with non-null `lse` the kernel writes m + log(max(l, 1e-30)). The
+// exponentials are exp2f of the score times log2(e) less m times log2(e)
+// (one FMA), not expf of the difference: the same value up to the rounding
+// of that argument. The blocks of one head run side by side, so its K and
+// V come from HBM once and from L2 for its other query tiles (with the
+// head as the fastest grid index, the 132 blocks on the card read 132
+// heads' K and V: about 2.3 GB from HBM at (256, 2048, 128)); within a
+// head the longest query tiles (under a causal mask) go first.
+constexpr int FW_BQ = 128, FW_BKV = 128, FW_STAGES = 3;
+constexpr int FW_CONSUMERS = FW_BQ / 64, FW_CTHREADS = 128 * FW_CONSUMERS;
+constexpr int FW_THREADS = FW_CTHREADS + 32;
+constexpr float LOG2E = 1.4426950408889634f;
+
+template <int HD>
+constexpr size_t fw_smem() {  // Q, the ring of K and V tiles, barriers
+  return 1024 + FW_CONSUMERS * TcTile<HD>::BYTES + 2 * FW_STAGES * TcTile<HD, FW_BKV>::BYTES +
+         (2 * FW_STAGES + 1) * sizeof(uint64_t);
 }
 
 template <int HD>
-constexpr size_t tc_smem_bytes() {
-  return sizeof(__nv_bfloat16) * (TC_BQ + 2 * TC_BKV) * (HD + 8);
-}
+__global__ void __launch_bounds__(FW_THREADS, 1)
+flash_fwd_tc(const __grid_constant__ CUtensorMap map_q, const __grid_constant__ CUtensorMap map_k,
+             const __grid_constant__ CUtensorMap map_v, __nv_bfloat16* __restrict__ o,
+             float* __restrict__ lse, int Sq, int Sk, int causal, int q_offset, float scale) {
+  using QT = TcTile<HD>;          // a warpgroup's 64 query rows
+  using KT = TcTile<HD, FW_BKV>;  // a key tile, or a value tile
+  extern __shared__ uint8_t t_smem_raw[];
+  uint8_t* sm = t_smem_raw + ((1024 - (hp::smem_u32(t_smem_raw) & 1023)) & 1023);
+  uint8_t* Qs = sm;                                // warpgroup w's rows at w * QT::BYTES
+  uint8_t* stage = Qs + FW_CONSUMERS * QT::BYTES;  // stage s: K at 2s KT::BYTES, V after
+  uint64_t* full = reinterpret_cast<uint64_t*>(stage + 2 * FW_STAGES * KT::BYTES);
+  uint64_t* empty = full + FW_STAGES;
+  uint64_t* qbar = empty + FW_STAGES;
 
-template <int HD>
-__global__ void __launch_bounds__(TC_THREADS)
-flash_tc_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
-                float* __restrict__ lse, int Sq, int Sk, int causal, int q_offset,
-                float scale) {
-  static_assert(HD % 16 == 0, "head_dim must be a multiple of 16");
-  constexpr int LD = HD + 8;  // padded rows: conflict-free fragment loads
-  constexpr int KSTEPS = HD / 16, NT_S = TC_BKV / 8, NT_O = HD / 8, CH = HD / 8;
-  extern __shared__ __align__(16) unsigned char tc_smem[];
-  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(tc_smem);
-  __nv_bfloat16* Ks = Qs + TC_BQ * LD;
-  __nv_bfloat16* Vs = Ks + TC_BKV * LD;
+  // a head's query tiles run side by side (they share its K and V in L2),
+  // the longest (causal) first
+  const int tid = threadIdx.x, bh = blockIdx.y;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * FW_BQ;
+  int ntiles = (Sk + FW_BKV - 1) / FW_BKV;
+  if (causal) ntiles = min(ntiles, (q_offset + q0 + FW_BQ - 1) / FW_BKV + 1);  // skip tiles above
 
-  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
-  const int g = lane / 4, t = lane % 4;
-  const int q0 = blockIdx.x * TC_BQ;
-  const long long bh = blockIdx.y;
-  const __nv_bfloat16* qb = q + bh * Sq * HD;
-  const __nv_bfloat16* kb = k + bh * Sk * HD;
-  const __nv_bfloat16* vb = v + bh * Sk * HD;
-  __nv_bfloat16* ob = o + bh * Sq * HD;
-
-  // rows [row0, row0 + rows) of src, zero past `limit`, in 16-byte chunks
-  auto load_tile = [&](__nv_bfloat16* dst, const __nv_bfloat16* src, int row0,
-                       int limit, int rows) {
-    for (int c = tid; c < rows * CH; c += TC_THREADS) {
-      const int r = c / CH, cc = (c % CH) * 8;
-      uint4 val = make_uint4(0, 0, 0, 0);
-      if (row0 + r < limit)
-        val = *reinterpret_cast<const uint4*>(src + (long long)(row0 + r) * HD + cc);
-      *reinterpret_cast<uint4*>(dst + r * LD + cc) = val;
+  if (tid == 0) {
+    for (int s = 0; s < FW_STAGES; ++s) {
+      hp::mbar_init(&full[s], 1);
+      hp::mbar_init(&empty[s], 4 * FW_CONSUMERS);  // one per consumer warp
     }
-  };
-
-  load_tile(Qs, qb, q0, Sq, TC_BQ);
+    hp::mbar_init(qbar, 1);
+    hp::mbar_fence_init();
+  }
   __syncthreads();
-  uint32_t qf[KSTEPS][4];
-#pragma unroll
-  for (int kk = 0; kk < KSTEPS; ++kk) {
-    const __nv_bfloat16* p0 = Qs + (warp * 16 + g) * LD + kk * 16 + 2 * t;
-    qf[kk][0] = ld32(p0);
-    qf[kk][1] = ld32(p0 + 8 * LD);
-    qf[kk][2] = ld32(p0 + 8);
-    qf[kk][3] = ld32(p0 + 8 * LD + 8);
+
+  if (tid >= FW_CTHREADS) {  // ------------------------------------ TMA warp ---
+    if (tid == FW_CTHREADS) {
+      hp::mbar_expect_tx(qbar, FW_CONSUMERS * QT::BYTES);
+      for (int w = 0; w < FW_CONSUMERS; ++w)
+        QT::load(Qs + w * QT::BYTES, &map_q, qbar, q0 + 64 * w, bh);
+      for (int it = 0; it < ntiles; ++it) {
+        const int s = it % FW_STAGES;
+        hp::mbar_wait(&empty[s], ((it / FW_STAGES) & 1) ^ 1);
+        hp::mbar_expect_tx(&full[s], 2 * KT::BYTES);
+        KT::load(stage + 2 * s * KT::BYTES, &map_k, &full[s], it * FW_BKV, bh);
+        KT::load(stage + (2 * s + 1) * KT::BYTES, &map_v, &full[s], it * FW_BKV, bh);
+      }
+    }
+    return;
   }
+  // ----------------------------------------------------------------- consumers ---
+  const int wg = tid / 128, lane = tid % 32, warp = (tid % 128) / 32, g = lane / 4, q4 = lane % 4;
+  const int qw0 = q0 + 64 * wg;  // this warpgroup's first query row
+  int my_tiles = ntiles;         // the key tiles not wholly above its diagonal
+  if (causal) my_tiles = min(ntiles, (q_offset + qw0 + 63) / FW_BKV + 1);
+  const uint8_t* Qw = Qs + wg * QT::BYTES;
+  float oacc[HD / 2];
+#pragma unroll
+  for (int i = 0; i < HD / 2; ++i) oacc[i] = 0.f;
+  float m_r[2] = {NEG, NEG}, l_r[2] = {0.f, 0.f};  // rows 16 warp + g + 8h
+  hp::mbar_wait(qbar, 0);
 
-  float oacc[NT_O][4];
+  for (int it = 0; it < ntiles; ++it) {
+    const int s = it % FW_STAGES, k0 = it * FW_BKV;
+    // also for a skipped tile: no copy outlives the block
+    hp::mbar_wait(&full[s], (it / FW_STAGES) & 1);
+    if (it < my_tiles) {
+      const uint8_t* Ks = stage + 2 * s * KT::BYTES;
+      const uint8_t* Vs = Ks + KT::BYTES;
+      float sa[FW_BKV / 2];
+      hp::wgmma_fence();
 #pragma unroll
-  for (int j = 0; j < NT_O; ++j)
+      for (int kk = 0; kk < HD / 16; ++kk)
+        hp::wgmma_ss<0, 0>(sa, QT::kmajor(Qw, kk), KT::kmajor(Ks, kk), kk);
+      hp::wgmma_commit();
+      hp::wgmma_wait<0>();
+      hp::fence_regs(sa);
+      // sa[i]: query row 16 warp + g + 8 ((i / 2) % 2), key 8 (i / 4) + 2 q4 + i % 2
+      const bool edge = (causal && q_offset + qw0 < k0 + FW_BKV - 1) || k0 + FW_BKV > Sk;
+      float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
-    for (int e = 0; e < 4; ++e) oacc[j][e] = 0.f;
-  float m_r[2] = {NEG, NEG}, l_r[2] = {0.f, 0.f};  // rows g and g + 8
-
-  const int q_pos0 = q_offset + q0;
-  int n_kt = (Sk + TC_BKV - 1) / TC_BKV;
-  if (causal) n_kt = min(n_kt, (q_pos0 + TC_BQ - 1) / TC_BKV + 1);  // skip tiles above
-
-  for (int kt = 0; kt < n_kt; ++kt) {
-    const int k0 = kt * TC_BKV;
-    __syncthreads();  // the previous tile's K/V reads are done
-    load_tile(Ks, kb, k0, Sk, TC_BKV);
-    load_tile(Vs, vb, k0, Sk, TC_BKV);
-    __syncthreads();
-
-    float s[NT_S][4];
-#pragma unroll
-    for (int j = 0; j < NT_S; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < KSTEPS; ++kk) {
-        const __nv_bfloat16* kp = Ks + (j * 8 + g) * LD + kk * 16 + 2 * t;
-        mma_bf16(s[j], qf[kk], ld32(kp), ld32(kp + 8));
-      }
-    }
-    const bool diag = causal && (q_pos0 < k0 + TC_BKV - 1);
-#pragma unroll
-    for (int j = 0; j < NT_S; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int kpos = k0 + j * 8 + 2 * t + (e & 1);
-        const int qpos = q_pos0 + warp * 16 + g + (e >> 1) * 8;
-        float val = s[j][e] * scale;
-        if (diag && qpos < kpos) val = NEG;
-        if (kpos >= Sk) val = -INFINITY;  // past the end: p == 0 exactly
-        s[j][e] = val;
-      }
-    }
-
-    float corr[2];
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      float mx = -INFINITY;
-#pragma unroll
-      for (int j = 0; j < NT_S; ++j) mx = fmaxf(mx, fmaxf(s[j][2 * h], s[j][2 * h + 1]));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-      const float m_new = fmaxf(m_r[h], mx);
-      float sum = 0.f;
-#pragma unroll
-      for (int j = 0; j < NT_S; ++j) {
-#pragma unroll
-        for (int e = 2 * h; e < 2 * h + 2; ++e) {
-          const float p = expf(s[j][e] - m_new);
-          s[j][e] = p;
-          sum += p;  // the normaliser sums the unrounded p
+      for (int i = 0; i < FW_BKV / 2; ++i) {
+        const int h = (i >> 1) & 1;
+        float val = sa[i] * scale;
+        if (edge) {
+          const int kpos = k0 + 8 * (i >> 2) + 2 * q4 + (i & 1);
+          const int qpos = q_offset + qw0 + warp * 16 + g + 8 * h;
+          if (causal && qpos < kpos) val = NEG;
+          if (kpos >= Sk) val = -INFINITY;  // past the end: p == 0 exactly
         }
+        sa[i] = val;
+        mx[h] = fmaxf(mx[h], val);
       }
-      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-      sum += __shfl_xor_sync(0xffffffffu, sum, 2);
-      corr[h] = expf(m_r[h] - m_new);
-      l_r[h] = l_r[h] * corr[h] + sum;
-      m_r[h] = m_new;
-    }
+      float mb[2], corr[2], sum[2] = {0.f, 0.f};
 #pragma unroll
-    for (int j = 0; j < NT_O; ++j) {
-      oacc[j][0] *= corr[0];
-      oacc[j][1] *= corr[0];
-      oacc[j][2] *= corr[1];
-      oacc[j][3] *= corr[1];
-    }
-
-#pragma unroll
-    for (int kk = 0; kk < TC_BKV / 16; ++kk) {
-      // p rounded to bf16 (v's dtype) as the A operand of PV
-      const uint32_t pa[4] = {pack2(s[2 * kk][0], s[2 * kk][1]),
-                              pack2(s[2 * kk][2], s[2 * kk][3]),
-                              pack2(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-                              pack2(s[2 * kk + 1][2], s[2 * kk + 1][3])};
-#pragma unroll
-      for (int j = 0; j < NT_O; ++j) {
-        const __nv_bfloat16* vp = Vs + (kk * 16 + 2 * t) * LD + j * 8 + g;
-        mma_bf16(oacc[j], pa, pack2(vp[0], vp[LD]), pack2(vp[8 * LD], vp[9 * LD]));
+      for (int h = 0; h < 2; ++h) {
+        mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+        mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+        const float m_new = fmaxf(m_r[h], mx[h]);
+        corr[h] = exp2f((m_r[h] - m_new) * LOG2E);
+        mb[h] = m_new * LOG2E;
+        m_r[h] = m_new;
       }
+#pragma unroll
+      for (int i = 0; i < FW_BKV / 2; ++i) {
+        const int h = (i >> 1) & 1;
+        const float p = exp2f(fmaf(sa[i], LOG2E, -mb[h]));
+        sa[i] = p;
+        sum[h] += p;  // the normaliser sums the unrounded p
+      }
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        sum[h] += __shfl_xor_sync(0xffffffffu, sum[h], 1);
+        sum[h] += __shfl_xor_sync(0xffffffffu, sum[h], 2);
+        l_r[h] = l_r[h] * corr[h] + sum[h];
+      }
+#pragma unroll
+      for (int i = 0; i < HD / 2; ++i) oacc[i] *= corr[(i >> 1) & 1];
+      uint32_t pa[FW_BKV / 16][4];  // p rounded to bf16 (v's dtype), the A operand of PV
+      to_a_operand(sa, pa);
+      hp::wgmma_fence();
+#pragma unroll
+      for (int c = 0; c < FW_BKV / 16; ++c) hp::wgmma_rs(oacc, pa[c], KT::mnmajor(Vs, c), 1);
+      hp::wgmma_commit();
+      hp::wgmma_wait<0>();
+      hp::fence_regs(oacc);
+#pragma unroll
+      for (int c = 0; c < FW_BKV / 16; ++c) hp::fence_regs(pa[c]);
     }
+    __syncwarp();
+    if (lane == 0) hp::mbar_arrive(&empty[s]);  // this warp is done with stage s
   }
-
+  // oacc[4j + 2h + e]: row 16 warp + g + 8h, column 8j + 2 q4 + e
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
-    const int r = q0 + warp * 16 + g + h * 8;
+    const int r = qw0 + warp * 16 + g + 8 * h;
     if (r >= Sq) continue;
     const float l = fmaxf(l_r[h], 1e-30f);
-    if (lse != nullptr && t == 0) lse[bh * Sq + r] = m_r[h] + logf(l);
+    if (lse != nullptr && q4 == 0) lse[(long long)bh * Sq + r] = m_r[h] + logf(l);
+    const long long base = ((long long)bh * Sq + r) * HD;
 #pragma unroll
-    for (int j = 0; j < NT_O; ++j)
-      *reinterpret_cast<uint32_t*>(ob + (long long)r * HD + j * 8 + 2 * t) =
-          pack2(oacc[j][2 * h] / l, oacc[j][2 * h + 1] / l);
+    for (int j = 0; j < HD / 8; ++j)
+      *reinterpret_cast<uint32_t*>(o + base + 8 * j + 2 * q4) =
+          pack2(oacc[4 * j + 2 * h] / l, oacc[4 * j + 2 * h + 1] / l);
   }
 }
 
 template <int HD>
-int launch_tc(const void* q, const void* k, const void* v, void* o, float* lse, int BH,
-              int Sq, int Sk, int causal, int q_offset, float scale, cudaStream_t stream) {
-  constexpr size_t smem = tc_smem_bytes<HD>();
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_tc_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+int launch_fwd_tc(const void* q, const void* k, const void* v, void* o, float* lse, int BH,
+                  int Sq, int Sk, int causal, int q_offset, float scale, cudaStream_t stream) {
+  CUtensorMap mq, mk, mv;
+  if (!(head_map<HD>(&mq, q, BH, Sq) && head_map<HD>(&mk, k, BH, Sk) &&
+        head_map<HD>(&mv, v, BH, Sk)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  constexpr size_t smem = fw_smem<HD>();
+  cudaError_t err = cudaFuncSetAttribute(flash_fwd_tc<HD>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  dim3 grid((Sq + TC_BQ - 1) / TC_BQ, BH);
-  flash_tc_kernel<HD><<<grid, TC_THREADS, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), lse, Sq, Sk,
-      causal, q_offset, scale);
+  const dim3 grid((Sq + FW_BQ - 1) / FW_BQ, BH);
+  flash_fwd_tc<HD><<<grid, FW_THREADS, smem, stream>>>(mq, mk, mv, static_cast<__nv_bfloat16*>(o),
+                                                      lse, Sq, Sk, causal, q_offset, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -706,37 +758,6 @@ int bwd_dispatch(const void* q, const void* k, const void* v, const void* o, con
 constexpr int T_BQ = 64, T_BK = 64, T_THREADS = 128;
 
 template <int HD>
-struct TcTile {
-  static constexpr int EPR = HD < 64 ? HD : 64;  // values in a row of an atom
-  static constexpr int W = 2 * EPR;              // its bytes: 128, 64 or 32
-  static constexpr int ATOMS = HD / EPR;
-  static constexpr int BYTES = 64 * HD * 2;      // a 64-row tile, 1024-byte multiple
-  static constexpr int ATOM = 64 * W;
-  // operand rows = tile rows, reduction along d: step kk of 16 values
-  static __device__ __forceinline__ uint64_t kmajor(const uint8_t* t, int kk) {
-    return hp::desc(t + (kk * 16 / EPR) * ATOM + (kk * 16 % EPR) * 2, W, 0);
-  }
-  // reduction along the tile rows, N = d: step kk of 16 rows
-  static __device__ __forceinline__ uint64_t mnmajor(const uint8_t* t, int kk) {
-    return hp::desc(t + kk * 16 * W, W, ATOM);
-  }
-  // rows [row0, row0 + 64) of head bh of a (BH, S, d) map
-  static __device__ __forceinline__ void load(uint8_t* dst, const CUtensorMap* map,
-                                              uint64_t* bar, int row0, int bh) {
-#pragma unroll
-    for (int a = 0; a < ATOMS; ++a) hp::tma_load_3d(dst + a * ATOM, map, bar, a * EPR, row0, bh);
-  }
-};
-
-// an m64n64 accumulator -> the A operands of four 16-deep steps
-__device__ __forceinline__ void to_a_operand(const float (&d)[32], uint32_t (&a)[4][4]) {
-#pragma unroll
-  for (int c = 0; c < 4; ++c)
-#pragma unroll
-    for (int r = 0; r < 4; ++r) a[c][r] = pack2(d[8 * c + 2 * r], d[8 * c + 2 * r + 1]);
-}
-
-template <int HD>
 constexpr size_t tc_bwd_smem() {  // 2 resident + 2 stages x 2 streamed tiles, stats, barriers
   return 1024 + 6 * TcTile<HD>::BYTES + 2 * T_BQ * sizeof(float) + 4 * sizeof(uint64_t);
 }
@@ -762,7 +783,7 @@ bwd_dkdv_tc(const __grid_constant__ CUtensorMap map_q, const __grid_constant__ C
   const int k0 = blockIdx.x * T_BK, bh = blockIdx.y;
   const int qt0 = causal ? max(0, k0 - q_offset) / T_BQ : 0;
   const int ntiles = max(0, (Sq + T_BQ - 1) / T_BQ - qt0);
-  const float scale_log2 = scale * 1.4426950408889634f;
+  const float scale_log2 = scale * LOG2E;
 
   if (tid == 0) {
     for (int i = 0; i < 3; ++i) hp::mbar_init(&bar[i], 1);
@@ -801,7 +822,7 @@ bwd_dkdv_tc(const __grid_constant__ CUtensorMap map_q, const __grid_constant__ C
       const int r = tid % T_BQ;
       const bool in = q0 + r < Sq;
       const long long gq = (long long)bh * Sq + q0 + r;
-      if (tid < T_BQ) lse_s[r] = in ? lse[gq] * 1.4426950408889634f : 0.f;
+      if (tid < T_BQ) lse_s[r] = in ? lse[gq] * LOG2E : 0.f;
       else D_s[r] = in ? D[gq] : 0.f;
     }
     __syncthreads();
@@ -878,7 +899,7 @@ bwd_dq_tc(const __grid_constant__ CUtensorMap map_q, const __grid_constant__ CUt
   const int q0 = blockIdx.x * T_BQ, bh = blockIdx.y;
   int ntiles = (Sk + T_BK - 1) / T_BK;
   if (causal) ntiles = min(ntiles, (q_offset + q0 + T_BQ - 1) / T_BK + 1);  // skip tiles above
-  const float scale_log2 = scale * 1.4426950408889634f;
+  const float scale_log2 = scale * LOG2E;
 
   if (tid == 0) {
     for (int i = 0; i < 3; ++i) hp::mbar_init(&bar[i], 1);
@@ -900,7 +921,7 @@ bwd_dq_tc(const __grid_constant__ CUtensorMap map_q, const __grid_constant__ CUt
   for (int h = 0; h < 2; ++h) {
     const int r = q0 + warp * 16 + g + 8 * h;
     const long long gq = (long long)bh * Sq + r;
-    lse2[h] = r < Sq ? lse[gq] * 1.4426950408889634f : 0.f;
+    lse2[h] = r < Sq ? lse[gq] * LOG2E : 0.f;
     Dr[h] = r < Sq ? D[gq] : 0.f;
   }
   float dq_acc[HD / 2];
@@ -966,15 +987,6 @@ bwd_dq_tc(const __grid_constant__ CUtensorMap map_q, const __grid_constant__ CUt
   }
 }
 
-// a (BH, S, d) bf16 tensor as a TMA map read in 64-row tiles
-template <int HD>
-bool head_map(CUtensorMap* map, const void* base, int BH, int S) {
-  const uint64_t dims[3] = {HD, uint64_t(S), uint64_t(BH)};
-  const uint64_t strides[2] = {HD * 2, uint64_t(S) * HD * 2};
-  const uint32_t box[3] = {TcTile<HD>::EPR, 64, 1};
-  return hp::make_map(map, base, 3, dims, strides, box);
-}
-
 template <int HD>
 int launch_bwd_tc(const void* q, const void* k, const void* v, const void* o, const void* dO,
                   const float* lse, float* D, void* dq, void* dk, void* dv, int BH, int Sq,
@@ -1030,10 +1042,10 @@ extern "C" int flash_attention_bf16(const void* q, const void* k, const void* v,
   if (!(hp::aligned(q, 16) && hp::aligned(k, 16) && hp::aligned(v, 16) && hp::aligned(o, 16)))
     return static_cast<int>(cudaErrorInvalidValue);
   switch (d) {
-    case 16: return launch_tc<16>(q, k, v, o, l, BH, Sq, Sk, causal, q_offset, scale, st);
-    case 32: return launch_tc<32>(q, k, v, o, l, BH, Sq, Sk, causal, q_offset, scale, st);
-    case 64: return launch_tc<64>(q, k, v, o, l, BH, Sq, Sk, causal, q_offset, scale, st);
-    case 128: return launch_tc<128>(q, k, v, o, l, BH, Sq, Sk, causal, q_offset, scale, st);
+    case 16: return launch_fwd_tc<16>(q, k, v, o, l, BH, Sq, Sk, causal, q_offset, scale, st);
+    case 32: return launch_fwd_tc<32>(q, k, v, o, l, BH, Sq, Sk, causal, q_offset, scale, st);
+    case 64: return launch_fwd_tc<64>(q, k, v, o, l, BH, Sq, Sk, causal, q_offset, scale, st);
+    case 128: return launch_fwd_tc<128>(q, k, v, o, l, BH, Sq, Sk, causal, q_offset, scale, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

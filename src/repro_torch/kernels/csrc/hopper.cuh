@@ -1,5 +1,6 @@
 // Hopper (sm_90a) building blocks shared by the bf16 kernels of
-// masked_matmul.cu and flash_attention.cu, written as inline PTX:
+// masked_matmul.cu, nm_spmm.cu (through gemm.cuh) and flash_attention.cu,
+// written as inline PTX:
 //   * mbarriers (init, arrive, arrive with an expected byte count, wait on
 //     a phase parity);
 //   * TMA tile loads (cp.async.bulk.tensor, 2-D and 3-D) and the host-side
@@ -120,7 +121,8 @@ inline EncodeTiledFn encode_tiled() {
 inline CUtensorMapSwizzle swizzle_for(int row_bytes) {
   return row_bytes == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
          : row_bytes == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
-                           : CU_TENSOR_MAP_SWIZZLE_32B;
+         : row_bytes == 32 ? CU_TENSOR_MAP_SWIZZLE_32B
+                           : CU_TENSOR_MAP_SWIZZLE_NONE;
 }
 
 // The TMA reads only from bases aligned to 16 bytes.
@@ -132,7 +134,9 @@ inline bool aligned(const void* p, uintptr_t bytes) {
 // contiguous, strides[i] the byte stride of dimension i + 1 (each a
 // multiple of 16, the base 16-byte aligned), read in boxes of `box`
 // values. bf16 boxes take the swizzle of a box row (box[0] * 2 bytes: 128,
-// 64 or 32); uint8 boxes (`bytes`) are stored unswizzled, row after row.
+// 64 or 32; a row of another width is stored unswizzled, for tiles that
+// the threads read and wgmma never does); uint8 boxes (`bytes`) are stored
+// unswizzled, row after row.
 // Returns false when the map cannot be made.
 inline bool make_map(CUtensorMap* map, const void* base, int rank, const uint64_t* dims,
                      const uint64_t* strides, const uint32_t* box, bool bytes = false) {

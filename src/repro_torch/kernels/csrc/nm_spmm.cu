@@ -9,34 +9,39 @@
 //
 // What bounds it on an H100: the product does the dense 2*M*K*N operations
 // (the compressed weight saves bytes, not multiplies: Hopper's sparse
-// tensor cores want their own metadata layout, which is later work), and
-// at the slice's shapes (M = 16384 rows against 4096 x 4096 .. 11008 x
+// tensor cores want their own 2:4 metadata layout, which is later work),
+// and at the slice's shapes (M = 16384 rows against 4096 x 4096 .. 11008 x
 // 4096 weights) that is far above the ~295 operations per byte where the
 // bf16 tensor cores stop waiting on HBM: it is bound by operations. The
 // weight's bytes are the compressed vals + idx, n/m of the values plus one
 // int8 each.
 //
-// Design: one thread block owns one output tile and loops over K inside
-// the block, as masked_matmul. Each K step rebuilds the (BK, BN) weight
-// tile in shared memory from its BK/m*n compressed rows: a thread takes a
-// (group, column), reads the group's n values and offsets, and writes all m
-// dense slots by compare-and-accumulate, dense[o] = sum_s vals[s] *
-// (idx[s] == o), as the TPU kernel does in VMEM (no scatter; an offset
-// outside [0, m) adds nothing; slot s = 0..n-1 in order). The dense tile
-// then feeds the same products as masked_matmul:
-//   * bf16: WMMA 16x16x16 with f32 accumulators. The next K step's x tile
-//     (16-byte chunks) and its compressed entries are loaded into
-//     registers while the current step's products run, so no K step waits
-//     on a global load of the weight. n and m are template arguments, so
-//     the entries stay in registers and each dense slot costs n compares.
-//     A thread takes 4 adjacent columns of a group where N, the row
-//     strides and the pointers allow (8-byte value loads, 4-byte offset
-//     loads, 8-byte stores of the dense tile), else one column. K and x's
-//     row stride must be multiples of 8 and x 16-byte aligned (else
-//     cudaErrorInvalidValue);
+// Design: each K step rebuilds the dense weight tile from its compressed
+// rows by compare-and-accumulate, dense[o] = sum_s vals[s] * (idx[s] == o),
+// as the TPU kernel does in VMEM (no scatter; an offset outside [0, m) adds
+// nothing; slots s = 0..n-1 summed in order, from 0, in the weight's dtype).
+//   * bf16: the wgmma main loop of gemm.cuh, shared with masked_matmul.cu
+//     (a 256 x 128 output tile, four consumer warpgroups of
+//     wgmma.m64n128k16, a TMA ring filled by a lone warp). Each stage holds
+//     x's 256 x 64 tile (K-major, 128-byte swizzle) and the step's
+//     compressed rows of vals (bf16, rows of 256 bytes) and idx (int8,
+//     rows of 128 bytes), both unswizzled, by TMA. The B-tile policy NmB
+//     has the consumers decompress them into the dense 64 x 128 MN-major
+//     tile in the 128-byte swizzle wgmma reads: each thread takes two rows
+//     and 8 adjacent columns, reads the row's group's n slots, selects and
+//     adds them as bf16 pairs (four offsets compared at a time) and stores
+//     16-byte chunks at their swizzled place, while the previous stage's
+//     products run; then the fence to the async proxy and the named
+//     barrier, as masked_matmul's mask multiply. The dense tile lives
+//     outside the ring, in DENSE_BUFS buffers used in turn; the ring is as
+//     deep as shared memory allows for the (n, m) at hand (gemm::stages_for:
+//     4 at 2:4, 3 at 8:8). n and m are template arguments, over every
+//     (n, m) with m in {1, 2, 4, 8}. It takes what the TMA takes: K, N and
+//     the row strides of x and vals multiples of 8, idx's a multiple of 16,
+//     16-byte-aligned operands (else cudaErrorInvalidValue);
 //   * f32: the register-blocked SIMT GEMM with IEEE fp32 FMAs (no TF32).
 // m must divide the K step (m in {1, 2, 4, 8}) and 1 <= n <= m.
-#include "wmma_tile.cuh"
+#include "gemm.cuh"
 
 namespace {
 
@@ -132,138 +137,101 @@ nm_f32_kernel(const float* __restrict__ x, const float* __restrict__ vals,
 }
 
 // --------------------------------------------------------------- bf16 ---
-using wt::BK;
-using wt::BM;
-using wt::BN;
-using wt::THREADS;
-constexpr int A_LD = BK + 8, B_LD = BN + 8;
+// The dense B tile lives outside the ring, in DENSE_BUFS buffers used in
+// turn, so a stage holds only what the TMA brings and the ring is 4 deep
+// at 2:4 (a dense tile in each stage left room for 3 and ran slower,
+// PERF.md). Three buffers suffice: a consumer forming step kt's tile has
+// met every other at the named barrier of step kt - 1, which each reached
+// after its products of step kt - 3 were done (wgmma_wait<1>).
+constexpr int DENSE_BUFS = 3;
 
-// A K step's compressed entries for one thread, held in registers: UNITS
-// units of one group and W adjacent columns, each with its NN (value,
-// offset) rows, two bf16 values or four int8 offsets to a register. W = 4
-// loads and stores 8 bytes of values (4 of offsets) at a time; W = 1 is
-// for operands that are not aligned for that. A unit past the matrix has
-// offsets -1, which add nothing.
-template <int NN, int MM, int W>
-struct Staged {
-  static constexpr int PER_ROW = BN / W, TOTAL = (BK / MM) * PER_ROW;
-  static constexpr int UNITS = TOTAL > THREADS ? TOTAL / THREADS : 1;
-  static constexpr int VR = (W + 1) / 2, IR = (W + 3) / 4;
-  static_assert(TOTAL % THREADS == 0 || TOTAL < THREADS, "units must tile the step");
-  uint32_t v[UNITS][NN][VR];
-  uint32_t ix[UNITS][NN][IR];
+// 0x80 in each byte of t that is zero, 0 in the others (exact per byte)
+__device__ __forceinline__ uint32_t zero_bytes(uint32_t t) {
+  return ~(((t & 0x7F7F7F7Fu) + 0x7F7F7F7Fu) | t | 0x7F7F7F7Fu);
+}
 
-  __device__ __forceinline__ void load(const uint16_t* __restrict__ vals,
-                                       const int8_t* __restrict__ idx, long long ldv,
-                                       long long ldi, int g0, int col0, int G, int N, int tid) {
-#pragma unroll
-    for (int u = 0; u < UNITS; ++u) {
-      const int p = tid + THREADS * u;
-      const int g = g0 + p / PER_ROW, j = col0 + (p % PER_ROW) * W;
-      const bool in = p < TOTAL && g < G && j < N;  // W = 4 needs N % 4 == 0
-#pragma unroll
-      for (int s = 0; s < NN; ++s) {
-        const long long row = static_cast<long long>(g) * NN + s;
-        if (!in) {
-#pragma unroll
-          for (int r = 0; r < VR; ++r) v[u][s][r] = 0u;
-#pragma unroll
-          for (int r = 0; r < IR; ++r) ix[u][s][r] = 0xFFFFFFFFu;
-        } else if constexpr (W == 4) {
-          const uint2 t = *reinterpret_cast<const uint2*>(vals + row * ldv + j);
-          v[u][s][0] = t.x;
-          v[u][s][1] = t.y;
-          ix[u][s][0] = *reinterpret_cast<const uint32_t*>(idx + row * ldi + j);
-        } else {
-          v[u][s][0] = vals[row * ldv + j];
-          ix[u][s][0] = static_cast<uint8_t>(idx[row * ldi + j]);
-        }
-      }
-    }
+// prmt in its default mode: selector nibble 8 + b gives byte b's sign bit
+// replicated over a byte, so 0x9988 widens the flags of bytes 0 and 1 to
+// two 16-bit masks, 0xBBAA those of bytes 2 and 3
+__device__ __forceinline__ uint32_t widen(uint32_t flags, uint32_t sel) {
+  uint32_t r;
+  asm("prmt.b32 %0, %1, %2, %3;\n" : "=r"(r) : "r"(flags), "r"(0u), "r"(sel));
+  return r;
+}
+
+template <int NN, int MM>
+struct NmB {
+  struct Maps {
+    CUtensorMap vals, idx;
+  };
+  static constexpr int ROWS = gm::BK / MM * NN;  // compressed rows of a step
+  static constexpr int V_BYTES = ROWS * gm::BN * 2, I_BYTES = ROWS * gm::BN;
+  static constexpr bool B_MN = true, FORMS = true;
+  static constexpr int TX = V_BYTES + I_BYTES;
+  static constexpr int STAGE = TX, EXTRA = DENSE_BUFS * gm::B_BYTES;
+  static constexpr int STAGES = gm::stages_for(STAGE, EXTRA);
+  static_assert(V_BYTES % 1024 == 0 && I_BYTES % 1024 == 0, "1024-byte stage parts");
+  static_assert(gm::BK * (gm::BN / 8) == 2 * gm::CTHREADS, "two dense chunks a thread");
+
+  static __device__ __forceinline__ void load(uint8_t* sb, const Maps& maps, uint64_t* bar,
+                                              int k0, int col0) {
+    hp::tma_load_2d(sb, &maps.vals, bar, col0, k0 / MM * NN);
+    hp::tma_load_2d(sb + V_BYTES, &maps.idx, bar, col0, k0 / MM * NN);
   }
 
-  // the dense (BK, BN) tile into Bs: dense[o] = sum_s vals[s] * (idx[s] == o)
-  __device__ __forceinline__ void decompress(__nv_bfloat16* Bs, int ld, int tid) const {
+  // the dense tile: thread tid writes rows r0 and r0 + 1 (r0 = 2 (tid / 16))
+  // at columns 8c .. 8c + 7 (c = tid % 16), four bf16 pairs a row, from the
+  // n slots of the row's group. Slot s adds its value where its offset byte
+  // equals the row's offset o: the bytes of idx ^ (o * 0x01010101) that
+  // are zero flag the matches, and prmt's sign replication widens each flag
+  // to its value's 16 bits. The sum is taken in bf16 from 0, slot after
+  // slot, as the TPU kernel's `dense + where(onehot, vals, 0)` in the
+  // weight's dtype.
+  static __device__ __forceinline__ const uint8_t* form(uint8_t* sb, uint8_t* extra, int kt,
+                                                        int tid) {
+    uint8_t* dense = extra + (kt % DENSE_BUFS) * gm::B_BYTES;
+    const uint8_t* sv = sb;  // the step's compressed rows: vals, then idx
+    const uint8_t* si = sv + V_BYTES;
+    const int c = tid % 16, r0 = 2 * (tid / 16);
 #pragma unroll
-    for (int u = 0; u < UNITS; ++u) {
-      const int p = tid + THREADS * u;
-      if (p >= TOTAL) continue;
-      const int gl = p / PER_ROW, c = (p % PER_ROW) * W;
+    for (int r = 0; r < 2; ++r) {  // a row at a time: few registers live beside the products
+      const int row = r0 + r, grow = (row / MM) * NN;  // the group's first compressed row
+      const uint32_t o4 = static_cast<uint32_t>(row % MM) * 0x01010101u;
+      __nv_bfloat162 acc[4];
 #pragma unroll
-      for (int o = 0; o < MM; ++o) {
-        float acc[W];
+      for (int j = 0; j < 4; ++j) acc[j] = __float2bfloat162_rn(0.f);
 #pragma unroll
-        for (int w = 0; w < W; ++w) {
-          acc[w] = 0.f;
+      for (int s = 0; s < NN; ++s) {
+        const uint4 v = *reinterpret_cast<const uint4*>(sv + (grow + s) * (gm::BN * 2) + c * 16);
+        const uint2 ix = *reinterpret_cast<const uint2*>(si + (grow + s) * gm::BN + c * 8);
+        const uint32_t vw[4] = {v.x, v.y, v.z, v.w};
+        const uint32_t hit[2] = {zero_bytes(ix.x ^ o4), zero_bytes(ix.y ^ o4)};
 #pragma unroll
-          for (int s = 0; s < NN; ++s) {
-            const int off = static_cast<int8_t>((ix[u][s][w / 4] >> (8 * (w % 4))) & 0xFFu);
-            if (off == o)
-              acc[w] += __uint_as_float(((v[u][s][w / 2] >> (16 * (w % 2))) & 0xFFFFu) << 16);
-          }
-        }
-        __nv_bfloat16* dst = Bs + (gl * MM + o) * ld + c;
-        if constexpr (W == 4) {
-          const __nv_bfloat162 lo = __floats2bfloat162_rn(acc[0], acc[1]);
-          const __nv_bfloat162 hi = __floats2bfloat162_rn(acc[2], acc[3]);
-          *reinterpret_cast<uint2*>(dst) = make_uint2(*reinterpret_cast<const uint32_t*>(&lo),
-                                                      *reinterpret_cast<const uint32_t*>(&hi));
-        } else {
-          dst[0] = __float2bfloat16(acc[0]);
+        for (int j = 0; j < 4; ++j) {
+          // 0xFFFF over each value of pair j whose offset matched
+          const uint32_t sel = vw[j] & widen(hit[j / 2], (j % 2) ? 0xBBAAu : 0x9988u);
+          acc[j] = __hadd2(acc[j], *reinterpret_cast<const __nv_bfloat162*>(&sel));
         }
       }
+      *reinterpret_cast<uint4*>(dense + (c / 8) * gm::ATOM + row * 128 +
+                                (((c % 8) ^ (row & 7)) << 4)) =
+          *reinterpret_cast<const uint4*>(acc);
     }
+    return dense;
   }
 };
 
-template <int NN, int MM, int W>
-__global__ void __launch_bounds__(THREADS, 2)
-nm_bf16_kernel(const __nv_bfloat16* __restrict__ x, const uint16_t* __restrict__ vals,
-               const int8_t* __restrict__ idx, __nv_bfloat16* __restrict__ out, int M, int K,
-               int N, long long ldx, long long ldv, long long ldi, long long ldo) {
-  __shared__ __align__(32) __nv_bfloat16 As[BM * A_LD];
-  __shared__ __align__(32) __nv_bfloat16 Bs[BK * B_LD];
-  __shared__ __align__(32) float Cs[THREADS / 32][16 * 16];
-  constexpr int CHUNKS = (BM * BK) / (8 * THREADS);
-  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
-  const int wm = warp / 4, wn = warp % 4;
-  const int row0 = blockIdx.y * BM, col0 = blockIdx.x * BN;
-  const int G = K / MM;
-
-  uint4 ra[CHUNKS];
-  auto load = [&](int k0) {
-#pragma unroll
-    for (int i = 0; i < CHUNKS; ++i) {
-      const int c = tid + THREADS * i;
-      const int r = c / (BK / 8), kc = (c % (BK / 8)) * 8;
-      const int gr = row0 + r, gk = k0 + kc;
-      ra[i] = (gr < M && gk < K) ? *reinterpret_cast<const uint4*>(x + gr * ldx + gk)
-                                 : make_uint4(0, 0, 0, 0);
-    }
-  };
-
-  Staged<NN, MM, W> st;
-  wt::AccFrag acc[4][2];
-  wt::zero(acc);
-  load(0);
-  st.load(vals, idx, ldv, ldi, 0, col0, G, N, tid);
-  for (int k0 = 0; k0 < K; k0 += BK) {
-#pragma unroll
-    for (int i = 0; i < CHUNKS; ++i) {
-      const int c = tid + THREADS * i;
-      *reinterpret_cast<uint4*>(As + (c / (BK / 8)) * A_LD + (c % (BK / 8)) * 8) = ra[i];
-    }
-    st.decompress(Bs, B_LD, tid);
-    __syncthreads();
-    if (k0 + BK < K) {  // in flight during the products
-      load(k0 + BK);
-      st.load(vals, idx, ldv, ldi, (k0 + BK) / MM, col0, G, N, tid);
-    }
-    wt::mma_step<false, false>(acc, As, A_LD, Bs, B_LD, wm, wn);
-    __syncthreads();
-  }
-  wt::store_acc<false>(acc, Cs[warp], out, row0 + wm * 64, col0 + wn * 32, M, N, ldo, nullptr,
-                       0, lane);
+template <int NN, int MM>
+int launch_bf16(const void* x, const void* vals, const void* idx, void* out, int M, int K, int N,
+                long long ldx, long long ldv, long long ldi, long long ldo, void* stream) {
+  CUtensorMap map_x{};
+  typename NmB<NN, MM>::Maps maps{};
+  const int rows = K / MM * NN;
+  if (!(gm::map_a(&map_x, x, M, K, ldx, false) &&
+        gm::map2(&maps.vals, vals, rows, N, ldv, gm::BN, NmB<NN, MM>::ROWS) &&
+        gm::map2(&maps.idx, idx, rows, N, ldi, gm::BN, NmB<NN, MM>::ROWS, true)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return gm::launch<false, NmB<NN, MM>, false>(map_x, maps, nullptr, out, M, K, N, 0, ldo, stream);
 }
 
 bool nm_ok(int K, int n, int m) {
@@ -288,29 +256,21 @@ extern "C" int nm_spmm_f32(const void* x, const void* vals, const void* idx, voi
 extern "C" int nm_spmm_bf16(const void* x, const void* vals, const void* idx, void* out, int M,
                             int K, int N, int n, int m, long long ldx, long long ldv,
                             long long ldi, long long ldo, void* stream) {
-  if (!(nm_ok(K, n, m) && K % 8 == 0 && ldx % 8 == 0 && wt::aligned(x, 16)))
+  // what the TMA takes: 16-byte-aligned bases, row strides of 16 bytes;
+  // and N % 8 == 0, so an output pair is wholly in or out
+  if (!(nm_ok(K, n, m) && K % 8 == 0 && N % 8 == 0 && ldx % 8 == 0 && ldv % 8 == 0 &&
+        ldi % 16 == 0 && hp::aligned(x, 16) && hp::aligned(vals, 16) && hp::aligned(idx, 16)))
     return static_cast<int>(cudaErrorInvalidValue);
-  dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
-  using Kernel = decltype(&nm_bf16_kernel<1, 1, 1>);
-#define NM_ROW(W)                                                                          \
-  {{},                                                                                     \
-   {nm_bf16_kernel<1, 1, W>},                                                              \
-   {nm_bf16_kernel<1, 2, W>, nm_bf16_kernel<2, 2, W>},                                     \
-   {},                                                                                     \
-   {nm_bf16_kernel<1, 4, W>, nm_bf16_kernel<2, 4, W>, nm_bf16_kernel<3, 4, W>,             \
-    nm_bf16_kernel<4, 4, W>},                                                              \
-   {}, {}, {},                                                                             \
-   {nm_bf16_kernel<1, 8, W>, nm_bf16_kernel<2, 8, W>, nm_bf16_kernel<3, 8, W>,             \
-    nm_bf16_kernel<4, 8, W>, nm_bf16_kernel<5, 8, W>, nm_bf16_kernel<6, 8, W>,             \
-    nm_bf16_kernel<7, 8, W>, nm_bf16_kernel<8, 8, W>}}
-  // every (n, m) with 1 <= n <= m, m in {1, 2, 4, 8}, at [w4][m][n - 1]
-  static const Kernel table[2][9][8] = {NM_ROW(1), NM_ROW(4)};
-#undef NM_ROW
-  const bool w4 = N % 4 == 0 && ldv % 4 == 0 && ldi % 4 == 0 && wt::aligned(vals, 8) &&
-                  wt::aligned(idx, 4);
-  table[w4][m][n - 1]<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(x), static_cast<const uint16_t*>(vals),  // bf16 bits
-      static_cast<const int8_t*>(idx), static_cast<__nv_bfloat16*>(out), M, K, N, ldx, ldv, ldi,
-      ldo);
-  return static_cast<int>(cudaGetLastError());
+  using Launch = decltype(&launch_bf16<1, 1>);
+  // every (n, m) with 1 <= n <= m, m in {1, 2, 4, 8}, at [m][n - 1]
+  static const Launch table[9][8] = {
+      {},
+      {launch_bf16<1, 1>},
+      {launch_bf16<1, 2>, launch_bf16<2, 2>},
+      {},
+      {launch_bf16<1, 4>, launch_bf16<2, 4>, launch_bf16<3, 4>, launch_bf16<4, 4>},
+      {}, {}, {},
+      {launch_bf16<1, 8>, launch_bf16<2, 8>, launch_bf16<3, 8>, launch_bf16<4, 8>,
+       launch_bf16<5, 8>, launch_bf16<6, 8>, launch_bf16<7, 8>, launch_bf16<8, 8>}};
+  return table[m][n - 1](x, vals, idx, out, M, K, N, ldx, ldv, ldi, ldo, stream);
 }

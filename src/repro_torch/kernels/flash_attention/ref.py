@@ -43,6 +43,16 @@ def flash_attention_plain(
     return o
 
 
+def flash_attention_lse_plain(q, k, *, causal: bool = True, q_offset: int = 0) -> torch.Tensor:
+    """The row log-sum-exp (BH, Sq) of the scaled, masked scores, in f32:
+    m + log(max(l, 1e-30)) with m the row max and l = sum exp(s - m), as the
+    forward kernel writes it for the backward."""
+    s = _scores(q, k, causal, q_offset)
+    mx = s.amax(dim=-1, keepdim=True)
+    l = torch.exp(s - mx).sum(dim=-1, keepdim=True).clamp_min(1e-30)
+    return (mx + torch.log(l)).squeeze(-1)
+
+
 def flash_attention_bwd_plain(q, k, v, o, do, lse, *, causal: bool = True, q_offset: int = 0):
     """dq, dk, dv of :func:`flash_attention_plain` from its output ``o``,
     the upstream gradient ``do`` and the row log-sum-exp ``lse``, all in

@@ -55,10 +55,13 @@ def _launch(x, vals, idx, n: int, m: int) -> torch.Tensor:
     N = vals.shape[1]
     if K % m:
         raise ValueError(f"nm_spmm: K={K} is not a multiple of m={m}")
-    if x.dtype == torch.bfloat16 and not (K % 8 == 0 and x.stride(0) % 8 == 0
-                                          and x.data_ptr() % 16 == 0):
-        raise ValueError("nm_spmm: the bf16 kernel takes K and x's row stride multiples of "
-                         "8, on a 16-byte-aligned x")
+    if x.dtype == torch.bfloat16 and not (
+            K % 8 == 0 and N % 8 == 0 and x.stride(0) % 8 == 0 and vals.stride(0) % 8 == 0
+            and idx.stride(0) % 16 == 0 and all(t.data_ptr() % 16 == 0 for t in (x, vals, idx))):
+        # every operand goes by TMA: 16-byte-aligned bases, row strides of 16 bytes
+        raise ValueError("nm_spmm: the bf16 kernel takes K, N and the row strides of x and vals "
+                         "multiples of 8, idx's row stride a multiple of 16, and 16-byte-aligned "
+                         "operands")
     if max(M, K, N) > _INT_MAX:
         raise ValueError(f"nm_spmm: dims {(M, K, N)} exceed int32")
     if min(M, K, N) == 0:

@@ -55,3 +55,18 @@ def test_the_parser_sees_a_changed_signature(tmp_path, monkeypatch):
     (tmp_path / "nm_spmm.cu").write_text(bad)
     monkeypatch.setattr(_build, "CSRC", tmp_path)
     assert _entry_points("nm_spmm")["nm_spmm_bf16"] != _build.SIGNATURES["nm_spmm"]["nm_spmm_bf16"]
+
+
+def _includes(path) -> set:
+    return set(re.findall(r'#include\s+"([^"]+)"', path.read_text()))
+
+
+def test_the_bf16_gemms_share_one_main_loop():
+    """masked_matmul and nm_spmm run the wgmma/TMA main loop of one header;
+    the WMMA tile loop they once shared is gone."""
+    sources = {p.name: _includes(p) for p in _build.CSRC.glob("*.c*")}
+    assert not (_build.CSRC / "wmma_tile.cuh").exists()
+    assert not any("wmma_tile.cuh" in inc for inc in sources.values())
+    assert "gemm.cuh" in sources["masked_matmul.cu"]
+    assert "gemm.cuh" in sources["nm_spmm.cu"]
+    assert "hopper.cuh" in sources["gemm.cuh"]

@@ -24,7 +24,9 @@ from repro.kernels.masked_matmul.ref import masked_matmul_ref
 from repro_torch import interop, resolve_device
 from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention import ops as FA
-from repro_torch.kernels.flash_attention.ref import flash_attention_plain
+from repro_torch.kernels.flash_attention.ref import (
+    flash_attention_lse_plain, flash_attention_plain,
+)
 from repro_torch.kernels.masked_matmul import ops as MM
 from repro_torch.kernels.masked_matmul.ref import masked_matmul_plain
 
@@ -113,6 +115,29 @@ def test_flash_attention_plain_q_offset(sq, q_offset):
     out = FA.flash_attention(qt, kt, vt, causal=True, q_offset=q_offset)
     ref = RFA.flash_attention(qj, kj, vj, causal=True, q_offset=q_offset, interpret=True)
     _close(out, ref, "float32", f32=1e-4)
+
+
+@pytest.mark.parametrize("causal,sq,sk,q_offset", [(True, 64, 64, 0), (False, 64, 96, 0),
+                                                    (True, 32, 128, 96), (True, 1, 128, 127)])
+def test_flash_attention_lse_plain_matches_the_reference_attention(causal, sq, sk, q_offset):
+    """The plain row log-sum-exp, which the forward kernels write for the
+    backward, against the JAX reference on the same inputs: it equals
+    ``jax.nn.logsumexp`` of the reference's masked f32 scores, and
+    exp(scores - lse) @ v is the reference's attention."""
+    rng = np.random.default_rng(sq + sk + q_offset)
+    qj, qt = _pair(rng, (2, sq, 32), "float32")
+    kj, kt = _pair(rng, (2, sk, 32), "float32")
+    vj, _ = _pair(rng, (2, sk, 32), "float32")
+    lse = flash_attention_lse_plain(qt, kt, causal=causal, q_offset=q_offset)
+    assert lse.shape == (2, sq) and lse.dtype == torch.float32
+    s = jnp.einsum("bqd,bkd->bqk", qj, kj) / np.sqrt(32.0)
+    if causal:
+        keep = (q_offset + jnp.arange(sq))[:, None] >= jnp.arange(sk)[None, :]
+        s = jnp.where(keep, s, -1e30)
+    _close(lse, jax.nn.logsumexp(s, axis=-1), "float32", f32=1e-5)
+    o = jnp.einsum("bqk,bkd->bqd", jnp.exp(s - jnp.asarray(lse.numpy())[..., None]), vj)
+    np.testing.assert_allclose(np.asarray(o), np.asarray(
+        flash_attention_ref(qj, kj, vj, causal=causal, q_offset=q_offset)), rtol=1e-5, atol=1e-5)
 
 
 def test_flash_attention_bshd_matches_reference_adapter():

@@ -128,3 +128,36 @@ def test_nm_spmm_wrapper_contract(monkeypatch, tmp_path):
     monkeypatch.setenv("CUDA_HOME", str(tmp_path / "no-cuda"))
     with pytest.raises(RuntimeError, match="nvcc not found"):
         NM._launch(x, v, i, 2, 4)
+
+
+@pytest.mark.parametrize("case", ["aligned", "N", "vals stride", "idx stride", "vals address",
+                                  "idx address"])
+def test_bf16_nm_spmm_launch_rejects_operands_the_tma_cannot_take(case, monkeypatch):
+    """The bf16 kernel reads x, vals and idx by TMA: 16-byte-aligned bases
+    and row strides of 16 bytes (8 bf16 values, 16 offset bytes), so N a
+    multiple of 8. The wrapper refuses other operands before any launch;
+    aligned ones reach the library."""
+    def load(name):
+        raise RuntimeError("launched")
+
+    monkeypatch.setattr(_build, "load", load)
+    K, N, n, m = 16, 16, 2, 4
+    x = torch.zeros(4, K, dtype=torch.bfloat16)
+    vals = torch.zeros(K // m * n, N, dtype=torch.bfloat16)
+    idx = torch.zeros(K // m * n, N, dtype=torch.int8)
+    if case == "N":
+        vals, idx = vals[:, :12].contiguous(), idx[:, :12].contiguous()
+    elif case == "vals stride":  # 40 bytes
+        vals = torch.zeros(K // m * n, 20, dtype=torch.bfloat16)[:, :N]
+    elif case == "idx stride":  # 24 bytes: a multiple of 8, not of 16
+        idx = torch.zeros(K // m * n, 24, dtype=torch.int8)[:, :N]
+    elif case == "vals address":
+        vals = torch.zeros(vals.numel() + 1, dtype=torch.bfloat16)[1:].view(vals.shape)
+    elif case == "idx address":
+        idx = torch.zeros(idx.numel() + 8, dtype=torch.int8)[8:].view(idx.shape)
+    if case == "aligned":
+        with pytest.raises(RuntimeError, match="launched"):
+            NM._launch(x, vals, idx, n, m)
+    else:
+        with pytest.raises(ValueError, match="bf16 kernel takes"):
+            NM._launch(x, vals, idx, n, m)
