@@ -5,15 +5,17 @@
 
 Builds the hand-written CUDA kernels from ``src/repro_torch/kernels/csrc``
 into ``build/kernels/``, holds each against its plain PyTorch version at
-the Llama-7B shapes of the slice (the masked matmul and its dX and dW, the
-flash attention forward and backward, the N:M sparse matmul), drives the
-prune -> EBFT -> evaluate slice (``repro_torch.launch.ebft_run.run``) on
-Llama-7B at full width with 4 of its 32 layers in bf16 (Wanda 0.7, the
-main path; and 2:4, whose tuned weights are re-packed and run through
-``nm_spmm``), and cross-checks tiny_dense (prune and EBFT) on the card
-against the CPU. Every phase prints one JSON line; any failed check
-raises, so the script exits non-zero. The last three lines are the card's
-name and power limit, the per-kernel summary, and
+the Llama-7B shapes of the slice (the masked matmul and its dX, dW and dM,
+the flash attention forward and backward, the N:M sparse matmul), drives
+the pipeline (``repro_torch.launch.ebft_run.run``) on Llama-7B at full
+width with 4 of its 32 layers in bf16: Wanda 0.7 -> EBFT (the main path);
+2:4, whose tuned weights are re-packed and run through ``nm_spmm``;
+SparseGPT 0.7 -> EBFT with the DSnoT and mask-tuning baselines (path A);
+FLAP at 26% structured sparsity -> EBFT with 200 LoRA steps (path B). It
+cross-checks tiny_dense (the Wanda, SparseGPT, DSnoT and FLAP prunes,
+EBFT, mask tuning, LoRA) on the card against the CPU. Every phase prints one JSON line; any
+failed check raises, so the script exits non-zero. The last three lines
+are the card's name and power limit, the per-kernel summary, and
 ``{"ok": true, "device": ...}``. Without a card it exits non-zero and
 prints no result.
 """
@@ -337,6 +339,66 @@ def phase_masked_matmul_bwd(g):
     return summary
 
 
+def phase_masked_matmul_dm(g):
+    """dM = (X^T dY) * W, the mask's gradient under mask tuning, kernel vs
+    plain at the four Llama-7B leaf shapes with M = 16384 rows, f32 and
+    bf16, plus a ragged and a strided case and the bf16 refusals. It sums
+    M products: checked within tol x max |plain|; the bf16 w_up launch
+    must repeat bit for bit."""
+    import torch
+
+    from repro_torch.kernels.masked_matmul import ops as MM
+    from repro_torch.kernels.masked_matmul.ref import masked_matmul_dm_plain
+
+    summary = None
+    for dtype in ("float32", "bfloat16"):
+        dt = getattr(torch, dtype)
+        for name, shape, n_red in LEAVES:
+            R = math.prod(shape[:n_red])
+            w = (torch.randn(shape, device="cuda", generator=g) / math.sqrt(R)).to(dt)
+            w2 = w.reshape(R, -1)
+            K, N = w2.shape
+            x = torch.randn(M_ROWS, K, device="cuda", generator=g).to(dt)
+            dy = torch.randn(M_ROWS, N, device="cuda", generator=g).to(dt)
+            kern = lambda: MM.masked_matmul_dm(x, dy, w2)  # noqa: E731
+            dm = kern()
+            torch.cuda.synchronize()
+            err = check_scaled(f"masked_matmul_dm {name} {dtype}", dm,
+                               masked_matmul_dm_plain(x, dy, w2), dtype)
+            # reads x, dy and w, writes dm; the product is dense (every
+            # slot of the mask takes a gradient): 2*M*K*N operations
+            nbytes = (x.numel() + dy.numel() + 2 * w2.numel()) * x.element_size()
+            b_ms, b_by = bound_ms(nbytes, 2.0 * M_ROWS * K * N, dtype)
+            row = dict(phase="masked_matmul_dm", leaf=name, dtype=dtype, M=M_ROWS, K=K, N=N,
+                       max_abs_err=err, tol=TOL[dtype], ms=timed_ms(kern),
+                       plain_ms=timed_ms(lambda: masked_matmul_dm_plain(x, dy, w2)),
+                       library_ms=timed_ms(lambda: torch.matmul(x.T, dy) * w2),
+                       bound_ms=b_ms, bound_by=b_by,
+                       deterministic=check_repeat(f"masked_matmul_dm {name} {dtype}", kern, dm))
+            if dtype == "bfloat16" and name == "w_up":
+                summary = row
+            emit(row)
+            del w, w2, x, dy, dm
+    # ragged edges (K and N not multiples of the tile), x and dy strided
+    # column slices; bf16 with dims and offsets that keep 16-byte alignment
+    for dtype, case, K, N, off in (("float32", "ragged+strided", 1001, 333, 101),
+                                    ("bfloat16", "ragged+strided", 1000, 336, 104)):
+        dt = getattr(torch, dtype)
+        x = torch.randn(777, 1200, device="cuda", generator=g).to(dt)[:, off:off + K]
+        dy = torch.randn(777, 1200, device="cuda", generator=g).to(dt)[:, off:off + N]
+        w = (torch.randn(K, N, device="cuda", generator=g) / 32).to(dt)
+        err = check_scaled(f"masked_matmul_dm {case} {dtype}", MM.masked_matmul_dm(x, dy, w),
+                           masked_matmul_dm_plain(x, dy, w), dtype)
+        emit(dict(phase="masked_matmul_dm", case=case, dtype=dtype, M=777, K=K, N=N,
+                  max_abs_err=err, tol=TOL[dtype]))
+    x = torch.randn(777, 1000, device="cuda", generator=g).to(torch.bfloat16)
+    dy = torch.randn(777, 336, device="cuda", generator=g).to(torch.bfloat16)
+    w = torch.randn(1000, 340, device="cuda", generator=g).to(torch.bfloat16)[:, :336]
+    _refuses("masked_matmul_dm bf16 w row stride 340", lambda: MM.masked_matmul_dm(x, dy, w))
+    emit(dict(phase="masked_matmul_dm", case="bf16 w row stride 340", refused=True))
+    return summary
+
+
 def phase_flash_attention_bwd(g):
     """The backward kernel (through ``FlashAttentionFn``) against the plain
     formula and against autograd of the plain attention in f32: (256, 2048, 128)
@@ -451,7 +513,8 @@ def _counters():
     from repro_torch.kernels.nm_spmm import ops as NM
 
     return {"masked_matmul": (MM, "launches"), "masked_matmul_dx": (MM, "dx_launches"),
-            "masked_matmul_dw": (MM, "dw_launches"), "flash_attention": (FA, "launches"),
+            "masked_matmul_dw": (MM, "dw_launches"), "masked_matmul_dm": (MM, "dm_launches"),
+            "flash_attention": (FA, "launches"),
             "flash_attention_bwd": (FA, "bwd_launches"), "nm_spmm": (NM, "launches")}
 
 
@@ -462,6 +525,40 @@ def reset_counts() -> None:
 
 def read_counts() -> dict:
     return {name: getattr(mod, attr) for name, (mod, attr) in _counters().items()}
+
+
+def llama_cfg(layers: int = 4, dtype: str = "bfloat16"):
+    """Llama-7B at its published widths, cut to ``layers`` of its 32 layers,
+    with the flash attention kernel."""
+    from repro_torch.configs import get_config
+
+    return get_config("llama_7b").replace(num_layers=layers, dtype=dtype, param_dtype=dtype,
+                                          attn_impl="flash")
+
+
+def run_path(tokens, **spec_kw):
+    """``ebft_run.run`` on ``llama_cfg()`` with the run's own calibration
+    segments, EBFT at the reference's EBFTConfig defaults (lr 2e-4, 10
+    epochs, patience 2) and ``spec_kw``; every kernel count is set to 0
+    just before it and read just after. Returns (cfg, spec, result,
+    launches, wall seconds); the peak memory counter starts at the run."""
+    import torch
+
+    from repro_torch.launch import ebft_run
+
+    calib, _ = tokens
+    cfg = llama_cfg()
+    spec = ebft_run.RunSpec(arch="llama_7b", seed=0, seq=calib.shape[1],
+                            calib_samples=len(calib), pretrain_steps=0, lr=2e-4, epochs=10,
+                            bench_out="", **spec_kw)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    res = ebft_run.run(cfg, spec, "cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return cfg, spec, res, read_counts(), wall
 
 
 def phase_slice(method_cfg, tokens, microbatch=8, every_block_drops=True):
@@ -485,25 +582,13 @@ def phase_slice(method_cfg, tokens, microbatch=8, every_block_drops=True):
     import torch
 
     from repro_torch import tree as T
-    from repro_torch.configs import get_config
     from repro_torch.launch import ebft_run
     from repro_torch.sparsity import sparse_params as SP
 
     sparsity, pattern = method_cfg
     calib, ev = tokens
-    cfg = get_config("llama_7b").replace(num_layers=4, dtype="bfloat16",
-                                         param_dtype="bfloat16", attn_impl="flash")
-    spec = ebft_run.RunSpec(arch="llama_7b", seed=0, seq=calib.shape[1], method="wanda",
-                            sparsity=sparsity, pattern=pattern, calib_samples=len(calib),
-                            pretrain_steps=0, lr=2e-4, epochs=10, bench_out="")
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    reset_counts()
-    t0 = time.perf_counter()
-    res = ebft_run.run(cfg, spec, "cuda")
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = read_counts()
+    cfg, spec, res, launches, wall = run_path(tokens, method="wanda", sparsity=sparsity,
+                                              pattern=pattern)
     L = cfg.num_layers
     n_cal = math.ceil(len(calib) / microbatch)
     n_ev = math.ceil(ebft_run.EVAL_SAMPLES / microbatch)
@@ -516,7 +601,7 @@ def phase_slice(method_cfg, tokens, microbatch=8, every_block_drops=True):
     # 7 masked linears and one attention backward.
     masked_fwd = L * (n_cal + 2 * n_ev + 3 * n_cal) + steps
     expected = {"masked_matmul": 7 * masked_fwd, "masked_matmul_dx": 7 * steps,
-                "masked_matmul_dw": 7 * steps,
+                "masked_matmul_dw": 7 * steps, "masked_matmul_dm": 0,
                 "flash_attention": masked_fwd + L * (n_ev + 2 * n_cal),
                 "flash_attention_bwd": steps, "nm_spmm": 0}
     pat = tuple(int(x) for x in pattern.split(":")) if pattern else None
@@ -666,6 +751,253 @@ def phase_nm_pack(res, cfg, tokens, launches, microbatch=8):
     return summary
 
 
+# ---------------------------------------------------------------------------
+# the paper's baselines on the card: paths A and B, each through
+# ebft_run.run at the main path's size
+def _check_finite_and_drop(tag, res):
+    """Every perplexity is finite and EBFT's mean block loss drops."""
+    for k, v in res.perplexity.items():
+        if not math.isfinite(v):
+            raise AssertionError(f"{tag}: {k} perplexity is {v}")
+    before = sum(r.loss_before for r in res.reports) / len(res.reports)
+    after = sum(r.loss_after for r in res.reports) / len(res.reports)
+    if not after < before:
+        raise AssertionError(f"{tag}: EBFT's mean block loss {before} -> {after} did not drop")
+    return before, after
+
+
+def _check_launches(tag, launches, expected):
+    if launches != expected:
+        raise AssertionError(f"{tag}: launches {launches} != expected {expected}")
+
+
+def _column_counts(path, m):
+    """Kept slots of each output column of an (L, ...) mask leaf: (L, O)."""
+    from repro_torch.sparsity import sparse_params as SP
+
+    return SP.to_matrix_stacked(path[-1], m)[0].sum(dim=-2)
+
+
+def _sparsegpt_block0_errors(cfg, params, res, calib, microbatch):
+    """Block 0's layer output error ||X W - X W'||^2 on the calibration
+    set, for each leaf, with W' SparseGPT's updated weights and with the
+    dense weights under the same mask. X is the leaf's input tapped from the
+    dense block on the embedding, what SparseGPT's Gram was taken of."""
+    import torch
+
+    from repro_torch import tree as T
+    from repro_torch.core.pruning import common as C
+    from repro_torch.models.model import build
+    from repro_torch.sparsity import sparse_params as SP
+    from repro_torch.sparsity.taps import dense_taps
+
+    model = build(cfg)
+    bp, mb, pb = (model.get_block(t, 0) for t in (params, res.masks, res.pruned))
+    errs = {}
+    with torch.no_grad():
+        for s in range(0, len(calib), microbatch):
+            h, pos = model.embed_tokens(
+                params, {"tokens": torch.as_tensor(calib[s:s + microbatch], device="cuda")})
+            taps = dense_taps(bp, cfg, h, pos)
+            for names, w in C.iter_prunable(bp):
+                x = C.lookup_tap(taps, names).float()
+                w2 = SP.to_matrix(names[-1], w)[0].float()
+                m2 = SP.to_matrix(names[-1], T.get_path(mb, names))[0]
+                wn = SP.to_matrix(names[-1], T.get_path(pb, names))[0].float()
+                ref = x @ w2
+                e = errs.setdefault(names[-1], [0.0, 0.0])
+                e[0] += float(torch.square(ref - x @ wn).sum())
+                e[1] += float(torch.square(ref - x @ (w2 * m2)).sum())
+                del x, ref
+    for name, (e_upd, e_mask) in errs.items():
+        if not e_upd < e_mask:
+            raise AssertionError(f"sparsegpt: block 0 {name}: the updated weights' error {e_upd} "
+                                 f"is not below the mask alone's {e_mask}")
+    return {name: dict(updated=e[0], mask_only=e[1]) for name, e in errs.items()}
+
+
+def phase_path_a(tokens, microbatch=8):
+    """Path A: SparseGPT 0.7 -> EBFT -> the DSnoT and mask-tuning baselines,
+    on Llama-7B (4 of 32 layers, bf16, flash attention), through
+    ``ebft_run.run``. Raises unless every perplexity is finite; every
+    128-row block of every output column of every pruned leaf keeps
+    round(128 * 0.3); EBFT's mean block loss drops; on block 0 SparseGPT's
+    updated weights give a smaller layer output error than the dense
+    weights under the same mask, leaf by leaf; DSnoT keeps each column's
+    kept count of its init masks and raises no column's |E|; mask tuning's
+    weights are the dense ones under its masks, bit for bit, and every
+    column keeps round(R * 0.3); and the launch counts are the loop's:
+    7 dM per mask-tuning step, 7 dW per EBFT step only."""
+    import torch
+
+    from repro_torch import tree as T
+    from repro_torch.launch import ebft_run
+    from repro_torch.models.model import build
+    from repro_torch.sparsity import sparse_params as SP
+
+    sparsity = 0.7
+    calib, _ = tokens
+    cfg, spec, res, launches, wall = run_path(tokens, method="sparsegpt", sparsity=sparsity,
+                                              baselines="dsnot,mask")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    L = cfg.num_layers
+    n_cal = math.ceil(len(calib) / microbatch)
+    n_ev = math.ceil(ebft_run.EVAL_SAMPLES / microbatch)
+    steps = sum(r.epochs_run for r in res.reports) * n_cal
+    ds, mt = res.baselines["dsnot"], res.baselines["mask"]
+    mt_steps = sum(len(h) for h in mt["histories"]) * n_cal
+    # block forwards through the masked linears: SparseGPT's walk, the
+    # pruned and tuned evals, EBFT (before, after, each step, the student);
+    # DSnoT's own SparseGPT walk, its walk and eval; mask tuning's steps,
+    # student advance and eval. Attention also runs in the dense eval, each
+    # calibration walk's taps (SparseGPT, DSnoT's two) and the teachers
+    # (EBFT, mask tuning). A mask-tuning step's backward runs dM of the 7
+    # masked linears and dX of the 4 whose input takes a gradient (wo, w_up,
+    # w_gate, w_down), and no dW: the weights are frozen.
+    fwd = L * (n_cal + 2 * n_ev + 3 * n_cal) + steps + L * (2 * n_cal + n_ev) + \
+        mt_steps + L * (n_cal + n_ev)
+    expected = {"masked_matmul": 7 * fwd, "masked_matmul_dx": 7 * steps + 4 * mt_steps,
+                "masked_matmul_dw": 7 * steps, "masked_matmul_dm": 7 * mt_steps,
+                "flash_attention": fwd + L * (n_ev + 5 * n_cal),
+                "flash_attention_bwd": steps + mt_steps, "nm_spmm": 0}
+    mean_before, mean_after = _check_finite_and_drop("path A", res)
+    for path, m in T.leaves_with_path(res.masks):
+        if not SP.is_prunable(path, m):
+            continue
+        mat = SP.to_matrix_stacked(path[-1], m)[0]
+        bs = min(128, mat.shape[-2])  # SparseGPT's block: 128 rows, or all R below that
+        keep = max(1, int(round(bs * (1 - sparsity))))
+        blocks = mat.reshape(L, mat.shape[-2] // bs, bs, mat.shape[-1]).sum(dim=-2)
+        if not bool((blocks == keep).all()):
+            raise AssertionError(f"sparsegpt: {path} 128-row blocks keep "
+                                 f"{torch.unique(blocks).tolist()}, want {keep}")
+        if bool((T.get_path(res.pruned, path)[~m] != 0).any()):
+            raise AssertionError(f"sparsegpt: {path} pruned slots are not exactly 0")
+        if not torch.equal(_column_counts(path, T.get_path(ds["masks"], path)),
+                           _column_counts(path, m)):
+            raise AssertionError(f"dsnot: {path} changed a column's kept count")
+    worst_e, e_before, e_after = 0.0, 0.0, 0.0
+    for key, (before, after, scale) in ds["errors"].items():
+        worst_e = max(worst_e, float(((after - before) / scale.clamp_min(1e-30)).max()))
+        e_before += float(before.sum())
+        e_after += float(after.sum())
+    if worst_e > 1e-6:
+        raise AssertionError(f"dsnot: a column's |E| grew by {worst_e:.2e} of its sum |c|")
+    model = build(cfg)
+    dense = model.init(torch.Generator(device="cuda").manual_seed(spec.seed))
+    for path, w in T.leaves_with_path(mt["params"]):
+        m = T.get_path(mt["masks"], path)
+        if not torch.equal(w, T.get_path(dense, path) * m):
+            raise AssertionError(f"mask tuning: {path} weights are not the dense ones under "
+                                 "its masks")
+        if SP.is_prunable(path, m):
+            want = max(1, int(round(SP.to_matrix_stacked(path[-1], m)[0].shape[-2]
+                                    * (1 - sparsity))))
+            if not bool((_column_counts(path, m) == want).all()):
+                raise AssertionError(f"mask tuning: {path} columns keep other than {want}")
+    sgpt_errors = _sparsegpt_block0_errors(cfg, dense, res, calib, microbatch)
+    del dense
+    row = dict(phase="path_a", arch="llama_7b", num_layers=L, reduced="num_layers 32->4",
+               dtype="bfloat16", seq=spec.seq, method="sparsegpt", sparsity=sparsity,
+               baselines=spec.baselines, calib_samples=len(calib),
+               eval_samples=ebft_run.EVAL_SAMPLES, perplexity=res.perplexity,
+               achieved_sparsity=res.sparsity, phases_s=res.phases, wall_s=wall,
+               peak_mem_gib=peak, ebft_mean_loss=[mean_before, mean_after],
+               ebft_blocks=[dict(block=r.index, loss_before=r.loss_before,
+                                 loss_after=r.loss_after, epochs_run=r.epochs_run,
+                                 early_stop=r.early_stop) for r in res.reports],
+               sparsegpt_block0_error=sgpt_errors,
+               dsnot_sum_abs_e=[e_before, e_after], dsnot_worst_e_growth=worst_e,
+               mask_tune_histories=mt["histories"], launches=launches,
+               expected_launches=expected)
+    emit(row)
+    _check_launches("path A", launches, expected)
+    return launches
+
+
+def phase_path_b(tokens, microbatch=8):
+    """Path B: FLAP at 26% structured sparsity -> EBFT -> 200 LoRA steps
+    (the paper's structured comparison of EBFT against LoRA), on Llama-7B
+    (4 of 32 layers, bf16, flash attention), through ``ebft_run.run``.
+    Raises unless every mask is constant along each unit (a head's wq and
+    wo slices, and under MHA its wk and wv; a channel's w_up, w_gate and
+    w_down slices); round(units * 0.74) units stay, at least one head and
+    one channel per block; EBFT's mean block loss drops; LoRA's merged
+    weights are exactly 0 in pruned slots and its LM losses are finite; and
+    the launch counts are the loop's."""
+    import torch
+
+    from repro_torch import tree as T
+    from repro_torch.core.pruning.flap import remaining_param_fraction
+    from repro_torch.launch import ebft_run
+    from repro_torch.models.model import build
+    from repro_torch.sparsity import sparse_params as SP
+
+    sparsity = 0.26
+    calib, _ = tokens
+    cfg, spec, res, launches, wall = run_path(tokens, method="flap", sparsity=sparsity,
+                                              baselines="lora")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    L, H = cfg.num_layers, cfg.num_heads
+    n_cal = math.ceil(len(calib) / microbatch)
+    n_ev = math.ceil(ebft_run.EVAL_SAMPLES / microbatch)
+    steps = sum(r.epochs_run for r in res.reports) * n_cal
+    lo = res.baselines["lora"]
+    n_lora = len(lo["losses"])
+    # block forwards through the masked linears: the pruned and tuned evals,
+    # EBFT (before, after, each step, the student), each LoRA step's forward
+    # (one microbatch of 8) and LoRA's eval; FLAP's scoring walk runs the
+    # dense stream. Attention also runs in the dense eval, FLAP's taps and
+    # advances, and EBFT's teacher. A LoRA step's backward runs dW of all 28
+    # masked linears and dX of all but block 0's wq, wk and wv (their input,
+    # the normed embedding, takes no gradient).
+    fwd = L * (2 * n_ev + 3 * n_cal) + steps + L * n_lora + L * n_ev
+    expected = {"masked_matmul": 7 * fwd, "masked_matmul_dx": 7 * steps + (7 * L - 3) * n_lora,
+                "masked_matmul_dw": 7 * steps + 7 * L * n_lora, "masked_matmul_dm": 0,
+                "flash_attention": fwd + L * (n_ev + 3 * n_cal),
+                "flash_attention_bwd": steps + L * n_lora, "nm_spmm": 0}
+    mean_before, mean_after = _check_finite_and_drop("path B", res)
+    model = build(cfg)
+    kept_units, units = 0, L * (H + cfg.d_ff)
+    for i in range(L):
+        mb = model.get_block(res.masks, i)
+        heads, ch = mb["attn"]["wo"][:, 0, 0], mb["mlp"]["w_down"][:, 0]
+        want = {"wq": heads[None, :, None], "wk": heads[None, :, None],
+                "wv": heads[None, :, None], "wo": heads[:, None, None],
+                "w_up": ch[None, :], "w_gate": ch[None, :], "w_down": ch[:, None]}
+        if cfg.num_kv_heads != H:  # GQA keeps the shared kv heads
+            want["wk"] = want["wv"] = torch.ones_like(heads[:1])[None, :, None]
+        for path, m in T.leaves_with_path(mb):
+            if SP.is_prunable(path, m) and not torch.equal(m, want[path[-1]].expand(m.shape)):
+                raise AssertionError(f"flap: block {i} {path} is not constant along its units")
+        if int(heads.sum()) < 1 or int(ch.sum()) < 1:
+            raise AssertionError(f"flap: block {i} lost every head or every channel")
+        kept_units += int(heads.sum()) + int(ch.sum())
+    want_units = int(round(units * (1 - sparsity)))
+    if kept_units != want_units:
+        raise AssertionError(f"flap: {kept_units} units stay, want {want_units}")
+    for path, w in T.leaves_with_path(lo["params"]):
+        m = T.get_path(res.masks, path)
+        if SP.is_prunable(path, m) and bool((w[~m] != 0).any()):
+            raise AssertionError(f"lora: {path} merged weights are not 0 in pruned slots")
+    losses = torch.stack(lo["losses"]).float().cpu()
+    if not bool(torch.isfinite(losses).all()):
+        raise AssertionError("lora: a LM loss is not finite")
+    row = dict(phase="path_b", arch="llama_7b", num_layers=L, reduced="num_layers 32->4",
+               dtype="bfloat16", seq=spec.seq, method="flap", sparsity=sparsity,
+               baselines=spec.baselines, calib_samples=len(calib),
+               eval_samples=ebft_run.EVAL_SAMPLES, perplexity=res.perplexity,
+               remaining_param_fraction=remaining_param_fraction(res.masks, res.pruned),
+               kept_units=kept_units, units=units, phases_s=res.phases, wall_s=wall,
+               peak_mem_gib=peak, ebft_mean_loss=[mean_before, mean_after],
+               lora_steps=n_lora, lora_loss_first=float(losses[0]),
+               lora_loss_last=float(losses[-1]), lora_s=res.phases["baseline_lora"],
+               launches=launches, expected_launches=expected)
+    emit(row)
+    _check_launches("path B", launches, expected)
+    return launches
+
+
 # largest relative gap to its threshold of a block-0 slot whose mask two
 # attention paths may flip: block 0's statistics come from the dense block
 # on the embedding, so the paths' scores there differ by rounding alone
@@ -807,6 +1139,7 @@ def phase_tiny_crosscheck():
     if worst > 1e-6:
         raise AssertionError(f"tiny cross-check: a mask flipped {worst:.2e} from its threshold")
     phase_tiny_ebft(model, weights, out["cpu"]["masks"], calib, ev)
+    phase_tiny_baselines(model, weights, calib, ev, corpus)
 
 
 def phase_tiny_ebft(model, weights, masks_cpu, calib, ev, rel=1e-4):
@@ -849,6 +1182,182 @@ def phase_tiny_ebft(model, weights, masks_cpu, calib, ev, rel=1e-4):
                              f"{ppl_rel:.2e} (limit {rel:.0e})")
 
 
+def _rel_norm(a, b) -> float:
+    a, b = a.detach().double().cpu(), b.detach().double().cpu()
+    return float((a - b).norm() / b.norm().clamp_min(1e-30))
+
+
+def _mask_flips(masks_a, masks_b, gap_fn, tie):
+    """Slots where two full mask trees differ, per (block, path): each must
+    lie within ``tie`` (relative) of its comparison group's threshold, as
+    ``gap_fn(block, path, diff)`` measures it; returns {path: [flips per
+    block]}."""
+    from repro_torch import tree as T
+    from repro_torch.sparsity import sparse_params as SP
+
+    out = {}
+    for path, m in T.leaves_with_path(masks_b):
+        if not SP.is_prunable(path, m):
+            continue
+        diff = T.get_path(masks_a, path).cpu() != m.cpu()
+        out["/".join(path[1:])] = [int(diff[i].sum()) for i in range(m.shape[0])]
+        for i in range(m.shape[0]):
+            if diff[i].any():
+                gap = gap_fn(i, path, SP.to_matrix(path[-1], diff[i])[0])
+                if gap > tie:
+                    raise AssertionError(f"tiny baselines: {path} block {i} flipped a slot "
+                                         f"{gap:.2e} from its threshold (limit {tie:.0e})")
+    return out
+
+
+def phase_tiny_baselines(model, weights, calib, ev, corpus, rel=1e-4):
+    """SparseGPT, DSnoT and FLAP prunes, mask tuning and 20 LoRA steps on
+    tiny_dense in f32, from the same weights on the card (kernels) and on
+    the CPU (plain versions); mask tuning and LoRA start from the CPU's
+    SparseGPT masks and LoRA from one CPU-drawn adapter init. The prunes'
+    masks agree but for slots near their threshold: SparseGPT's within 1e-4
+    of its block scores' threshold (its scores pass through an inverse and
+    a Cholesky factor of a Gram damped by 1% of its diagonal mean), FLAP's
+    units within 1e-5 of the global threshold; DSnoT's masks (from Wanda's,
+    which agree here) equal; and where they agree, weights and perplexities
+    within rel 1e-4. Mask tuning's masks may differ only where the two
+    runs' final scores moved (|sA - tA| <= |sA - sB| + |tA - tB|): Adam's
+    sign-like steps turn rounding in a near-zero gradient into a move of
+    up to lr a step, as the reference's own run moves under a 1e-6 change of
+    its start. Its epoch histories agree within rel 1e-4 up to the first
+    block whose masks differ (the streams are the same until then), and its
+    perplexity too when no block's do. LoRA's 20 steps: LM losses, merged
+    weights and perplexity within rel 1e-4."""
+    import torch
+
+    from repro_torch import interop
+    from repro_torch import tree as T
+    from repro_torch.core import lora as LORA
+    from repro_torch.core import mask_tuning as MT
+    from repro_torch.core.evaluate import perplexity
+    from repro_torch.core.masks import prune
+    from repro_torch.core.pruning import flap as FLAP
+    from repro_torch.data.tokens import corpus_iterator
+    from repro_torch.sparsity import sparse_params as SP
+
+    runs = {"sparsegpt": 0.5, "dsnot": 0.5, "flap": 0.3}
+    out = {dev: {} for dev in ("cuda", "cpu")}
+    for dev in ("cuda", "cpu"):
+        params = interop.params_to_torch(weights, dev)
+        for method, sp in runs.items():
+            scores = {}
+            masks, pruned = prune(model, params, calib, method=method, sparsity=sp,
+                                  scores_out=scores)
+            out[dev][method] = dict(masks=masks, pruned=pruned, scores=scores,
+                                    ppl=perplexity(model, pruned, ev, masks=masks))
+    row = dict(phase="tiny_baselines", arch="tiny_dense", dtype="float32", rtol=rel)
+    cpu, card = out["cpu"], out["cuda"]
+    # SparseGPT: every tiny leaf has R <= 128, one block per column
+    row["sparsegpt_flips"] = _mask_flips(card["sparsegpt"]["masks"], cpu["sparsegpt"]["masks"],
+                                         lambda i, p, d: float(SP.threshold_gaps(
+                                             cpu["sparsegpt"]["scores"][(i, *p[1:])], 0.5)[d]
+                                             .max()), 1e-4)
+    row["dsnot_flips"] = _mask_flips(card["dsnot"]["masks"], cpu["dsnot"]["masks"],
+                                     lambda i, p, d: math.inf, 0.0)
+
+    # FLAP: each unit (a head, a channel) whose mask differs must lie near
+    # the global threshold of the CPU's standardised scores
+    std = [{k: FLAP._standardize(cpu["flap"]["scores"][(i, k)]) for k in ("heads", "channels")}
+           for i in range(model.num_blocks)]
+    allv = torch.cat([v for b in std for v in b.values()])
+    thr = torch.sort(allv).values[-max(1, int(round(allv.numel() * (1 - runs["flap"]))))]
+    row["flap_flips"] = 0
+    for i in range(model.num_blocks):
+        units = [{"heads": mb["attn"]["wo"][:, 0, 0].cpu(), "channels": mb["mlp"]["w_down"][:, 0]
+                  .cpu()} for mb in (model.get_block(out[d]["flap"]["masks"], i) for d in out)]
+        for kind, d in ((k, units[0][k] != units[1][k]) for k in units[0]):
+            if d.any():
+                gap = float(((std[i][kind] - thr).abs() / thr.abs())[d].max())
+                if gap > 1e-5:
+                    raise AssertionError(f"tiny baselines: flap block {i} flipped a unit {gap:.2e} "
+                                         "from the threshold (limit 1e-5)")
+                row["flap_flips"] += int(d.sum())
+    flipped = {m for m in ("sparsegpt", "dsnot")
+               if any(any(v) for v in row[f"{m}_flips"].values())}
+    if row["flap_flips"]:
+        flipped.add("flap")
+    for method in runs:
+        if method in flipped:
+            continue
+        for path, w in T.leaves_with_path(cpu[method]["pruned"]):
+            if _rel_norm(T.get_path(card[method]["pruned"], path), w) > rel:
+                raise AssertionError(f"tiny baselines: {method} {path} weights differ")
+        if abs(card[method]["ppl"] / cpu[method]["ppl"] - 1) > rel:
+            raise AssertionError(f"tiny baselines: {method} ppl {card[method]['ppl']} vs "
+                                 f"{cpu[method]['ppl']}")
+    row["ppl"] = {m: [card[m]["ppl"], cpu[m]["ppl"]] for m in runs}
+
+    masks0 = cpu["sparsegpt"]["masks"]
+    pruned0 = cpu["sparsegpt"]["pruned"]
+    lcfg = LORA.LoRAConfig(steps=20, lr=1e-3)
+    init = LORA.init_lora(pruned0, lcfg, torch.Generator().manual_seed(0))
+    res = {}
+    for dev in ("cuda", "cpu"):
+        params = interop.params_to_torch(weights, dev)
+        masks = T.tree_map(lambda m: m.to(dev), masks0)
+        hist, scores, losses = [], {}, []
+        mt, mt_masks = MT.finetune_masks(model, params, masks, 0.5, calib, histories=hist,
+                                         scores_out=scores)
+        lp = LORA.finetune_lora(model, T.tree_map(lambda t: t.to(dev), pruned0), masks,
+                                corpus_iterator(corpus, batch=8, seq_len=calib.shape[1],
+                                                seed=9),
+                                lcfg, lora=T.tree_map(lambda t: t.to(dev), init), losses=losses)
+        res[dev] = dict(hist=hist, scores=scores, masks=mt_masks,
+                        mt_ppl=perplexity(model, mt, ev, masks=mt_masks), lora=lp,
+                        losses=[float(v) for v in losses],
+                        lora_ppl=perplexity(model, lp, ev, masks=masks))
+    # mask tuning: each slot whose tuned mask differs must be explained by
+    # how far the two runs' final scores and thresholds moved, |sA - tA| <=
+    # |sA - sB| + |tA - tB| (the hard threshold is the same rule on each
+    # side); how far they moved is reported per block
+    nb = model.num_blocks
+    mt = dict(flips=[0] * nb, worst_score_move_rel=[0.0] * nb, worst_flip_gap_rel=[0.0] * nb)
+    for (i, *path), sa in res["cuda"]["scores"].items():
+        sa, sb = sa.double().cpu(), res["cpu"]["scores"][(i, *path)].double()
+        ta, tb = SP.thresholds(sa, 0.5), SP.thresholds(sb, 0.5)
+        move = (sa - sb).abs() + (ta - tb).abs()
+        d = SP.to_matrix(path[-1], T.get_path(res["cuda"]["masks"]["blocks"], path)[i].cpu()
+                         != T.get_path(res["cpu"]["masks"]["blocks"], path)[i])[0]
+        mt["worst_score_move_rel"][i] = max(mt["worst_score_move_rel"][i],
+                                            float((move / ta.abs()).max()))
+        if d.any():
+            lhs = (sa - ta).abs()[d]
+            if bool((lhs > move[d] * (1 + 1e-9)).any()):
+                raise AssertionError(f"tiny baselines: mask tuning {path} block {i} flipped a "
+                                     "slot farther from its threshold than the scores moved")
+            mt["flips"][i] += int(d.sum())
+            mt["worst_flip_gap_rel"][i] = max(mt["worst_flip_gap_rel"][i],
+                                              float((lhs / ta.abs()[d]).max()))
+    mt.update(histories_cuda=res["cuda"]["hist"], histories_cpu=res["cpu"]["hist"],
+              ppl=[res["cuda"]["mt_ppl"], res["cpu"]["mt_ppl"]])
+    row["mask_tune"] = mt
+    # up to the first block whose masks flipped, the two runs see the same
+    # streams: their epoch histories, and with no flip the perplexity, agree
+    first = next((i for i, n in enumerate(mt["flips"]) if n), nb)
+    for b in range(first):
+        for x, y in zip(res["cuda"]["hist"][b], res["cpu"]["hist"][b]):
+            if abs(x / y - 1) > rel:
+                emit(row)
+                raise AssertionError(f"tiny baselines: mask tuning block {b} history differs")
+    if first == nb and abs(res["cuda"]["mt_ppl"] / res["cpu"]["mt_ppl"] - 1) > rel:
+        emit(row)
+        raise AssertionError("tiny baselines: mask tuning ppl differs")
+    worst = max(abs(x / y - 1) for x, y in zip(res["cuda"]["losses"], res["cpu"]["losses"]))
+    for path, w in T.leaves_with_path(res["cpu"]["lora"]):
+        worst = max(worst, _rel_norm(T.get_path(res["cuda"]["lora"], path), w))
+    lora_rel = abs(res["cuda"]["lora_ppl"] / res["cpu"]["lora_ppl"] - 1)
+    row["lora"] = dict(steps=lcfg.steps, worst_loss_or_weight_rel=worst,
+                       ppl=[res["cuda"]["lora_ppl"], res["cpu"]["lora_ppl"]], ppl_rel=lora_rel)
+    emit(row)
+    if worst > rel or lora_rel > rel:
+        raise AssertionError(f"tiny baselines: LoRA card vs CPU rel {worst:.2e} / {lora_rel:.2e}")
+
+
 # ---------------------------------------------------------------------------
 def main() -> int:
     import torch
@@ -861,6 +1370,7 @@ def main() -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    t_start = time.perf_counter()
     card = smi()
     print(card, flush=True)
     emit(dict(phase="device", card=card, torch=torch.__version__, cuda=torch.version.cuda,
@@ -874,6 +1384,7 @@ def main() -> int:
     g = torch.Generator(device="cuda").manual_seed(0)
     rows = {"masked_matmul": phase_masked_matmul(g)}
     rows.update({f"masked_matmul_{op}": r for op, r in phase_masked_matmul_bwd(g).items()})
+    rows["masked_matmul_dm"] = phase_masked_matmul_dm(g)
     rows["flash_attention"] = phase_flash_attention(g)
     rows["flash_attention_bwd"] = phase_flash_attention_bwd(g)
     torch.cuda.empty_cache()
@@ -884,23 +1395,42 @@ def main() -> int:
     # the run's segments, sampled as ebft_run.run samples them (seed 0)
     corpus = SyntheticCorpus(CorpusConfig(vocab_size=32000, seed=0))
     tokens = calibration_set(corpus, 16, 2048), eval_set(corpus, EVAL_SAMPLES, 2048)
-    # the main path: its launches are the ones reported
+    # the main path: its launches are the ones reported, but for nm_spmm
+    # (the N:M path) and dM (path A, mask tuning)
+    walls = {}
+    t0 = time.perf_counter()
     launches, res, _ = phase_slice((0.7, ""), tokens)
+    walls["wanda"] = time.perf_counter() - t0
     del res
     torch.cuda.empty_cache()
     # the N:M path: 2:4 prune, EBFT, re-pack, nm_spmm
+    t0 = time.perf_counter()
     nm_launches, res, cfg = phase_slice((0.5, "2:4"), tokens, every_block_drops=False)
     rows["nm_spmm"] = phase_nm_pack(res, cfg, tokens, nm_launches)
+    walls["2:4"] = time.perf_counter() - t0
     launches["nm_spmm"] = nm_launches["nm_spmm"]
     del res
-    # the same at f32, where the two attention paths differ only in the
-    # order of their sums
     torch.cuda.empty_cache()
+    # path A: SparseGPT, EBFT, DSnoT and mask tuning; path B: FLAP, EBFT, LoRA
+    t0 = time.perf_counter()
+    by_path = {"A": phase_path_a(tokens)}
+    walls["A"] = time.perf_counter() - t0
+    launches["masked_matmul_dm"] = by_path["A"]["masked_matmul_dm"]
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    by_path["B"] = phase_path_b(tokens)
+    walls["B"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    # the Wanda prune at f32, where the two attention paths differ only in
+    # the order of their sums
     cfg32 = get_config("llama_7b").replace(num_layers=4, attn_impl="flash")
     spec32 = RunSpec(arch="llama_7b", seed=0, seq=2048, sparsity=0.7, calib_samples=16,
                      pretrain_steps=0, epochs=0, bench_out="")
     phase_mask_flips(cfg32, spec32, None, tokens)
+    t0 = time.perf_counter()
     phase_tiny_crosscheck()
+    walls["tiny"] = time.perf_counter() - t0
+    emit(dict(phase="walls", seconds=walls, total_s=time.perf_counter() - t_start))
 
     root = "src/repro_torch/kernels/csrc/"
     pallas = {"masked_matmul": "src/repro/kernels/masked_matmul/masked_matmul.py:49",
@@ -908,9 +1438,10 @@ def main() -> int:
               "nm_spmm": "src/repro/kernels/nm_spmm/nm_spmm.py:62"}
     kernels = []
     for name, row in rows.items():
-        base = name.replace("_dx", "").replace("_dw", "").replace("_bwd", "")
+        base = name.replace("_dx", "").replace("_dw", "").replace("_dm", "").replace("_bwd", "")
         kernels.append(dict(name=name, route="cuda", source=root + base + ".cu",
                             replaces=pallas[base], launches=launches[name],
+                            launches_path_a=by_path["A"][name], launches_path_b=by_path["B"][name],
                             max_abs_err=row["max_abs_err"], ms=row["ms"],
                             plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
                             bound_by=row["bound_by"], library_ms=row.get("library_ms"),

@@ -10,7 +10,7 @@ Each checkout builds its kernels into its own ``build/kernels/`` (both
 builds run together, before any timing) and is timed in a process of its
 own that imports that checkout's ``repro_torch``, in the order old, new,
 new, old. Every process makes the same inputs from seed 0 and times, with
-``chip_smoke.timed_ms``, the masked matmul forward, dX and dW at the
+``chip_smoke.timed_ms``, the masked matmul forward, dX, dW and dM at the
 Llama-7B leaf shapes of ``chip_smoke.LEAVES`` (M = ``chip_smoke.M_ROWS``
 rows, a 30% mask), the flash attention forward and backward at (256,
 2048, 2048, 128) causal, and nm_spmm at 2:4 on w_up (x of M rows against
@@ -101,11 +101,12 @@ def time_tree(tag: str, tree: str) -> None:
         m = torch.rand(K, N, device="cuda", generator=g) < 0.3
         dy = torch.randn(cs.M_ROWS, N, device="cuda", generator=g).to(bf)
         wm = w * m.to(bf)
-        for op, kern, lib in (
-            ("forward", lambda: MM.masked_matmul(x, w, m), lambda: x @ wm),
-            ("dx", lambda: MM.masked_matmul_dx(dy, w, m), lambda: dy @ wm.T),
-            ("dw", lambda: MM.masked_matmul_dw(x, dy, m), lambda: (x.T @ dy) * m),
-        ):
+        ops = [("forward", lambda: MM.masked_matmul(x, w, m), lambda: x @ wm),
+               ("dx", lambda: MM.masked_matmul_dx(dy, w, m), lambda: dy @ wm.T),
+               ("dw", lambda: MM.masked_matmul_dw(x, dy, m), lambda: (x.T @ dy) * m)]
+        if hasattr(MM, "masked_matmul_dm"):  # an older tree may have no dM kernel
+            ops.append(("dm", lambda: MM.masked_matmul_dm(x, dy, w), lambda: (x.T @ dy) * w))
+        for op, kern, lib in ops:
             _row(base, f"masked_matmul_{op}", kern, lib, leaf=name)
         del x, w, m, dy, wm
     q, k, v, do = (torch.randn(*ATTN, device="cuda", generator=g).to(bf) for _ in range(4))

@@ -7,8 +7,9 @@ in microbatches; the per-linear input activations are tapped
 (``sparsity/taps.py``) and per-leaf statistics accumulated in f32:
 
     n        total tokens seen
-    sum      sum_t X[t]      (R,)
-    sumsq    sum_t X[t]^2    (R,)   -- Wanda's ||X_j||_2^2
+    sum      sum_t X[t]         (R,)   -- DSnoT's expected input (the mean)
+    sumsq    sum_t X[t]^2       (R,)   -- Wanda's ||X_j||_2^2, FLAP's fluctuation
+    hessian  sum_t X[t] X[t]^T  (R, R) -- SparseGPT's Gram (opt-in)
 
 The sums are taken in another order than XLA's, so a score that sits on
 its comparison group's threshold can land on the other side of it.
@@ -21,7 +22,9 @@ from typing import Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch import tree as T
 from repro_torch.core import reconstruction as R
+from repro_torch.sparsity import sparse_params as SP
 from repro_torch.sparsity.taps import dense_taps
 
 
@@ -30,44 +33,79 @@ def tap_key(path_names: Tuple[str, ...]) -> str:
     return "/".join(path_names[-2:])
 
 
+def lookup_tap(taps: Dict[str, torch.Tensor], names: Tuple[str, ...]):
+    k2 = tap_key(names)
+    if k2 in taps:
+        return taps[k2]
+    return taps.get(names[-1])
+
+
+def iter_prunable(block_params) -> List[Tuple[Tuple[str, ...], torch.Tensor]]:
+    """(path_names, leaf) for every prunable leaf of a block."""
+    return [(names, leaf) for names, leaf in T.leaves_with_path(block_params)
+            if SP.is_prunable(names, leaf)]
+
+
 @dataclasses.dataclass
 class LeafStats:
     n: float
     sum: torch.Tensor    # (R,)
     sumsq: torch.Tensor  # (R,)
+    hessian: Optional[torch.Tensor] = None  # (R, R)
+
+    @property
+    def mean(self):
+        return self.sum / max(self.n, 1.0)
 
     @property
     def col_norm(self):
         return torch.sqrt(self.sumsq.clamp_min(0.0))
 
+    @property
+    def fluctuation(self):
+        """sum_t (X[t] - mean)^2 per column (FLAP's variance mass)."""
+        return (self.sumsq - self.n * torch.square(self.mean)).clamp_min(0.0)
 
-def _acc_stats(x: torch.Tensor) -> LeafStats:
+
+def full_f32_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` in f32 as the reference takes it: refuses to run where the
+    card's f32 matmul is set to round its inputs to TF32."""
+    if a.is_cuda and torch.backends.cuda.matmul.allow_tf32:
+        raise RuntimeError("an f32 matmul of the pruning methods ran with TF32 allowed; "
+                           "set torch.backends.cuda.matmul.allow_tf32 = False")
+    return a @ b
+
+
+def _acc_stats(x: torch.Tensor, want_hessian: bool = False) -> LeafStats:
     """x: (T, R) activation matrix for one microbatch."""
     x32 = x.float()
-    return LeafStats(float(x.shape[0]), x32.sum(dim=0), x32.square().sum(dim=0))
+    h = full_f32_matmul(x32.T, x32) if want_hessian else None
+    return LeafStats(float(x.shape[0]), x32.sum(dim=0), x32.square().sum(dim=0), h)
 
 
 def _merge(a: Optional[LeafStats], b: LeafStats) -> LeafStats:
     if a is None:
         return b
-    return LeafStats(a.n + b.n, a.sum + b.sum, a.sumsq + b.sumsq)
+    h = None
+    if b.hessian is not None:
+        h = b.hessian if a.hessian is None else a.hessian + b.hessian
+    return LeafStats(a.n + b.n, a.sum + b.sum, a.sumsq + b.sumsq, h)
 
 
 def collect_block_stats(model, bp, block_index: int, h_mb: List[torch.Tensor],
-                        pos_mb: List[torch.Tensor]) -> Dict[str, LeafStats]:
-    """Run the taps over each microbatch of the stream; accumulate stats."""
+                        pos_mb: List[torch.Tensor],
+                        want_hessian: bool = False) -> Dict[str, LeafStats]:
+    """Run the taps over each microbatch of the stream; accumulate stats
+    (with ``want_hessian``, each leaf's f32 Gram too)."""
     stats: Dict[str, LeafStats] = {}
     for h, pos in zip(h_mb, pos_mb):
         for key, x in dense_taps(bp, model.cfg, h, pos).items():
-            stats[key] = _merge(stats.get(key), _acc_stats(x))
+            stats[key] = _merge(stats.get(key), _acc_stats(x, want_hessian))
     return stats
 
 
 def stats_for_leaf(stats: Dict[str, LeafStats], names: Tuple[str, ...]) -> Optional[LeafStats]:
-    k2 = tap_key(names)
-    if k2 in stats:
-        return stats[k2]
-    return stats.get(names[-1])
+    return lookup_tap(stats, names)
 
 
 def _make_batches(calib: np.ndarray, microbatch: int, device) -> List[Dict[str, torch.Tensor]]:

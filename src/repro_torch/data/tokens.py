@@ -64,11 +64,21 @@ class SyntheticCorpus:
             0, max(2, V // 8), size=(cfg.n_templates, cfg.template_len)
         )
 
+        # The sampling CDFs, built once as ``Generator.choice(V, p=p)``
+        # builds them on every call (``cdf = p.cumsum(); cdf /= cdf[-1]``,
+        # then one ``random()`` searched with side="right"): the same draws,
+        # bit for bit, in O(log V) a token instead of O(V).
+        self._cdf_unigram = _cdf(self.unigram)
+        self._cdf_next = [
+            _cdf(cfg.markov_weight * self.cluster_next[c]
+                 + (1 - cfg.markov_weight) * self.unigram)
+            for c in range(R)
+        ]
+
     def sample(self, rng: np.random.Generator, length: int) -> np.ndarray:
         cfg = self.cfg
         out = np.empty(length, dtype=np.int32)
-        # vectorised-ish: draw in chunks, falling back to the Markov kernel
-        prev = int(rng.choice(cfg.vocab_size, p=self.unigram))
+        prev = _choice(rng, self._cdf_unigram)
         i = 0
         while i < length:
             if rng.random() < cfg.template_rate:
@@ -78,15 +88,21 @@ class SyntheticCorpus:
                 i += n
                 prev = int(out[i - 1])
                 continue
-            c = self.tok2cluster[prev]
-            p = (
-                cfg.markov_weight * self.cluster_next[c]
-                + (1 - cfg.markov_weight) * self.unigram
-            )
-            prev = int(rng.choice(cfg.vocab_size, p=p))
+            prev = _choice(rng, self._cdf_next[self.tok2cluster[prev]])
             out[i] = prev
             i += 1
         return out
+
+
+def _cdf(p: np.ndarray) -> np.ndarray:
+    cdf = p.cumsum()
+    cdf /= cdf[-1]
+    return cdf
+
+
+def _choice(rng: np.random.Generator, cdf: np.ndarray) -> int:
+    """``int(rng.choice(len(cdf), p=p))`` for the ``cdf`` of ``p``."""
+    return int(cdf.searchsorted(rng.random(), side="right"))
 
 
 def corpus_iterator(

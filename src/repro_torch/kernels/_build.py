@@ -31,7 +31,7 @@ P, I, LL, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 SIGNATURES: Dict[str, Dict[str, list]] = {
     "masked_matmul": {
         f"masked_matmul{op}_{dt}": [P, P, P, P, I, I, I, LL, LL, LL, LL, P]
-        for op in ("", "_dx", "_dw") for dt in ("f32", "bf16")
+        for op in ("", "_dx", "_dw", "_dm") for dt in ("f32", "bf16")
     },
     "flash_attention": {
         **{fn: [P, P, P, P, P, I, I, I, I, I, I, F, P]

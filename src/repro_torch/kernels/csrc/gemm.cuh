@@ -13,7 +13,9 @@
 // form and start the next. Blocks walk the output tiles in groups of GROUP
 // tile rows, column by column, so the blocks on the card at one time share
 // their A and B tiles in L2. The epilogue writes bf16 pairs straight from
-// the accumulators; with C_MASK it writes 0 wherever the uint8 mask cm is 0.
+// the accumulators, as they are (EPI_NONE), with 0 wherever the uint8 mask
+// `ce` is 0 (EPI_MASK), or times the bf16 matrix `ce`, read as a pair beside
+// the output pair and multiplied in f32 before the one rounding (EPI_SCALE).
 // Each output is a sum in a fixed order: a repeated launch gives the same
 // bits.
 //
@@ -52,6 +54,9 @@ constexpr int A_BYTES = BM * BK * 2;                // 32 KB
 constexpr int B_BYTES = BK * BN * 2;                // 16 KB
 constexpr int ATOM = 64 * 128;                      // 64 rows of 128 bytes
 constexpr int SMEM_MAX = 232448;                    // a block's shared memory on sm_90
+
+// the epilogue: C as it is, C where the mask is not 0, or C times a matrix
+enum Epilogue { EPI_NONE = 0, EPI_MASK = 1, EPI_SCALE = 2 };
 
 // the deepest ring (at most 4) whose stages, with `extra` bytes beside them,
 // the 1024-byte alignment slack and two mbarriers a stage, fit in SMEM_MAX
@@ -131,11 +136,11 @@ struct PlainB {
   }
 };
 
-template <bool A_MN, class BT, bool C_MASK>
+template <bool A_MN, class BT, int EPI>
 __global__ void __launch_bounds__(THREADS, 1)
 gemm(const __grid_constant__ CUtensorMap map_a, const __grid_constant__ typename BT::Maps maps_b,
-     const uint8_t* __restrict__ cm, __nv_bfloat16* __restrict__ C, int Mc, int Kc, int Nc,
-     long long ldcm, long long ldc) {
+     const void* __restrict__ ce, __nv_bfloat16* __restrict__ C, int Mc, int Kc, int Nc,
+     long long ldce, long long ldc) {
   static_assert(BT::STAGES >= 2, "the ring needs two stages");
   constexpr int STAGES = BT::STAGES, STAGE = A_BYTES + BT::STAGE;
   extern __shared__ uint8_t gm_smem_raw[];
@@ -221,10 +226,15 @@ gemm(const __grid_constant__ CUtensorMap map_a, const __grid_constant__ typename
         const int gr = row0 + wg * 64 + warp * 16 + g + 8 * h;
         if (gr >= Mc) continue;
         float v0 = acc[4 * j + 2 * h], v1 = acc[4 * j + 2 * h + 1];
-        if (C_MASK) {
-          const uint8_t* mp = cm + gr * ldcm + gc;
+        if constexpr (EPI == EPI_MASK) {
+          const uint8_t* mp = static_cast<const uint8_t*>(ce) + gr * ldce + gc;
           if (mp[0] == 0) v0 = 0.f;
           if (mp[1] == 0) v1 = 0.f;
+        } else if constexpr (EPI == EPI_SCALE) {
+          const float2 sc = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(
+              static_cast<const __nv_bfloat16*>(ce) + gr * ldce + gc));
+          v0 *= sc.x;
+          v1 *= sc.y;
         }
         *reinterpret_cast<__nv_bfloat162*>(C + gr * ldc + gc) = __floats2bfloat162_rn(v0, v1);
       }
@@ -248,10 +258,10 @@ inline bool map_a(CUtensorMap* map, const void* A, int Mc, int Kc, long long lda
   return mn ? map2(map, A, Kc, Mc, lda, 64, 64) : map2(map, A, Mc, Kc, lda, 64, BM);
 }
 
-template <bool A_MN, class BT, bool C_MASK>
-int launch(const CUtensorMap& map_a, const typename BT::Maps& maps_b, const void* cm, void* C,
-           int Mc, int Kc, int Nc, long long ldcm, long long ldc, void* stream) {
-  auto kernel = gemm<A_MN, BT, C_MASK>;
+template <bool A_MN, class BT, int EPI>
+int launch(const CUtensorMap& map_a, const typename BT::Maps& maps_b, const void* ce, void* C,
+           int Mc, int Kc, int Nc, long long ldce, long long ldc, void* stream) {
+  auto kernel = gemm<A_MN, BT, EPI>;
   constexpr size_t smem = smem_bytes<BT>();
   static_assert(smem <= SMEM_MAX, "the ring does not fit in shared memory");
   cudaError_t err =
@@ -259,8 +269,7 @@ int launch(const CUtensorMap& map_a, const typename BT::Maps& maps_b, const void
   if (err != cudaSuccess) return static_cast<int>(err);
   const long long tiles = (long long)((Mc + BM - 1) / BM) * ((Nc + BN - 1) / BN);
   kernel<<<(unsigned)tiles, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
-      map_a, maps_b, static_cast<const uint8_t*>(cm), static_cast<__nv_bfloat16*>(C), Mc, Kc,
-      Nc, ldcm, ldc);
+      map_a, maps_b, ce, static_cast<__nv_bfloat16*>(C), Mc, Kc, Nc, ldce, ldc);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -231,7 +231,8 @@ int launch_bf16(const void* x, const void* vals, const void* idx, void* out, int
         gm::map2(&maps.vals, vals, rows, N, ldv, gm::BN, NmB<NN, MM>::ROWS) &&
         gm::map2(&maps.idx, idx, rows, N, ldi, gm::BN, NmB<NN, MM>::ROWS, true)))
     return static_cast<int>(cudaErrorInvalidValue);
-  return gm::launch<false, NmB<NN, MM>, false>(map_x, maps, nullptr, out, M, K, N, 0, ldo, stream);
+  return gm::launch<false, NmB<NN, MM>, gm::EPI_NONE>(map_x, maps, nullptr, out, M, K, N, 0, ldo,
+                                                      stream);
 }
 
 bool nm_ok(int K, int n, int m) {

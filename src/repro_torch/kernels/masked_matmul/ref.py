@@ -27,3 +27,11 @@ def masked_matmul_dw_plain(x: torch.Tensor, dy: torch.Tensor, m: torch.Tensor) -
     wherever the mask is 0."""
     g = torch.matmul(_acc(x).T, _acc(dy))
     return torch.where(m != 0, g, torch.zeros_like(g)).to(x.dtype)
+
+
+def masked_matmul_dm_plain(x: torch.Tensor, dy: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """dm = (xᵀ @ dy) ⊙ w, the gradient of ``x @ (w ⊙ m)`` with respect to
+    the mask: accumulated in f32, multiplied by w in f32, one rounding to
+    x's dtype; pruned slots are not zeroed."""
+    g = torch.matmul(_acc(x).T, _acc(dy))
+    return (g * _acc(w)).to(x.dtype)

@@ -1,12 +1,16 @@
 """The paper's pipeline as one command (port of ``repro.launch.ebft_run``):
-build the dense model, take its perplexity, prune (Wanda or magnitude)
-through the calibration walk, take the pruned model's perplexity, tune it
-block by block with EBFT (``--epochs`` > 0) and take the tuned model's
-perplexity. Every masked linear runs on the masked matmul kernel, and each
-tuning step backpropagates through the kernels' backward.
+build the dense model, take its perplexity, prune (magnitude, Wanda,
+SparseGPT, DSnoT or FLAP) through the calibration walk, take the pruned
+model's perplexity, tune it block by block with EBFT (``--epochs`` > 0) and
+take the tuned model's perplexity; then the baselines the paper sets EBFT
+against (``--baselines``, a comma list of ``dsnot``, ``mask``, ``lora``):
+DSnoT's training-free reselection of the method's masks, mask tuning, and
+200 LoRA steps on the LM loss, each with its perplexity. Every masked
+linear runs on the masked matmul kernel, and each tuning step
+backpropagates through the kernels' backward.
 
     python -m repro_torch.launch.ebft_run --arch tiny_dense --pretrain-steps 0 \
-        --epochs 8 --method wanda --sparsity 0.7 --device cpu
+        --epochs 8 --method sparsegpt --sparsity 0.7 --baselines dsnot,mask,lora --device cpu
 
 Runs on the card unless ``--device cpu``. Pretraining is not ported yet: a
 run that asks for it raises. The bench JSON holds the reference's
@@ -25,14 +29,19 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.configs import get_config
 from repro_torch.configs.base import ModelConfig
-from repro_torch.core import ebft
+from repro_torch.core import ebft, lora, mask_tuning
 from repro_torch.core.evaluate import perplexity
-from repro_torch.core.masks import prune
-from repro_torch.data.tokens import CorpusConfig, SyntheticCorpus, calibration_set, eval_set
+from repro_torch.core.masks import METHODS, prune
+from repro_torch.core.pruning.flap import remaining_param_fraction
+from repro_torch.data.tokens import (
+    CorpusConfig, SyntheticCorpus, calibration_set, corpus_iterator, eval_set,
+)
 from repro_torch.models.model import build
 from repro_torch.sparsity.sparse_params import sparsity_of
 
 EVAL_SAMPLES = 16  # held-out segments, as the reference's eval_set
+BASELINES = ("dsnot", "mask", "lora")
+LORA = lora.LoRAConfig(steps=200, lr=1e-3)  # the reference driver's LoRA run
 
 
 @dataclasses.dataclass(frozen=True)
@@ -50,6 +59,7 @@ class RunSpec:
     pretrain_steps: int = 200
     lr: float = 1e-2
     epochs: int = 10
+    baselines: str = ""  # comma list of BASELINES
     bench_out: str = "BENCH_ebft.json"
 
 
@@ -62,13 +72,20 @@ class RunResult:
     pruned: Any
     tuned: Any = None  # the EBFT-tuned params (``epochs`` > 0)
     reports: List[ebft.BlockReport] = dataclasses.field(default_factory=list)
+    # per baseline run: "dsnot" and "mask" {"masks", "params"} (DSnoT also
+    # "errors", each leaf's per-column |E| before and after, as
+    # ``prune``'s scores_out; mask tuning "histories", each block's epoch
+    # mean losses); "lora" {"params", "losses", each step's LM loss as a
+    # 0-d device tensor}
+    baselines: Dict[str, Dict[str, Any]] = dataclasses.field(default_factory=dict)
 
 
 def _parse(argv) -> tuple:
     ap = argparse.ArgumentParser(prog="repro_torch.launch.ebft_run", description=__doc__)
+    choices = {"method": METHODS}
     for f in dataclasses.fields(RunSpec):
         ap.add_argument("--" + f.name.replace("_", "-"), type=type(f.default),
-                        default=f.default)
+                        default=f.default, choices=choices.get(f.name))
     ap.add_argument("--device", default=None,
                     help="cuda (the default) or cpu; never falls back")
     args = vars(ap.parse_args(argv))
@@ -102,12 +119,17 @@ class _phase:
 def run(cfg: ModelConfig, spec: RunSpec, device=None,
         params: Optional[Any] = None) -> RunResult:
     """eval_dense -> prune -> pruned eval, then with ``spec.epochs`` > 0
-    EBFT -> tuned eval, as the reference's ``ebft_run.py``. ``params``
-    defaults to the port's init seeded with ``spec.seed``."""
+    EBFT -> tuned eval, then each of ``spec.baselines`` with its eval, as
+    the reference's ``ebft_run.py``. ``params`` defaults to the port's init
+    seeded with ``spec.seed``."""
     if spec.pretrain_steps > 0:
         raise NotImplementedError(
             "pretraining is not ported yet (ROADMAP.md queue A, item 11); "
             "run with --pretrain-steps 0")
+    wants = set(spec.baselines.split(",")) if spec.baselines else set()
+    if wants - set(BASELINES):
+        raise ValueError(f"unknown baselines {sorted(wants - set(BASELINES))}; "
+                         f"a comma list of {BASELINES}")
     device = resolve_device(device)
     model = build(cfg)
     corpus = SyntheticCorpus(CorpusConfig(vocab_size=cfg.vocab_size, seed=spec.seed))
@@ -140,6 +162,32 @@ def run(cfg: ModelConfig, spec: RunSpec, device=None,
         with _phase(device) as sp:
             ppl["EBFT"] = perplexity(model, res.tuned, ev, masks=masks)
         phases["eval_ebft"] = sp.duration
+    # each baseline's phase holds its evaluation, as the reference's
+    if "dsnot" in wants:
+        errors: Dict = {}
+        with _phase(device) as sp:
+            ds_masks, ds = prune(model, params, calib, method="dsnot", sparsity=spec.sparsity,
+                                 pattern=pattern, scores_out=errors,
+                                 dsnot_init=spec.method if spec.method != "dsnot" else "wanda")
+            ppl["DSnoT"] = perplexity(model, ds, ev, masks=ds_masks)
+        phases["baseline_dsnot"] = sp.duration
+        res.baselines["dsnot"] = dict(masks=ds_masks, params=ds, errors=errors)
+    if "mask" in wants:
+        histories: List[List[float]] = []
+        with _phase(device) as sp:
+            mt, mt_masks = mask_tuning.finetune_masks(model, params, masks, spec.sparsity, calib,
+                                                      pattern=pattern, histories=histories)
+            ppl["mask-tune"] = perplexity(model, mt, ev, masks=mt_masks)
+        phases["baseline_mask"] = sp.duration
+        res.baselines["mask"] = dict(masks=mt_masks, params=mt, histories=histories)
+    if "lora" in wants:
+        losses: List[torch.Tensor] = []
+        with _phase(device) as sp:
+            it = corpus_iterator(corpus, batch=8, seq_len=spec.seq, seed=9)
+            lr_params = lora.finetune_lora(model, pruned, masks, it, LORA, losses=losses)
+            ppl["LoRA"] = perplexity(model, lr_params, ev, masks=masks)
+        phases["baseline_lora"] = sp.duration
+        res.baselines["lora"] = dict(params=lr_params, losses=losses)
     return res
 
 
@@ -176,10 +224,16 @@ def main(argv=None) -> RunResult:
     print(f"{spec.method} ppl {' ' * (10 - len(spec.method))}"
           f"{res.perplexity[spec.method]:8.2f}   ({res.phases['prune']:.0f}s, "
           f"sparsity {res.sparsity:.4f})")
+    if spec.method == "flap":
+        print(f"FLAP remaining params {remaining_param_fraction(res.masks, res.pruned):.4f}")
     if spec.epochs > 0:
         print(f"EBFT ppl           {res.perplexity['EBFT']:8.2f}   "
               f"({res.phases['ebft']:.0f}s, {len(res.reports)} blocks, "
               f"mean E drop {_mean_drop(res.reports):.3e})")
+    for name, key in (("DSnoT", "dsnot"), ("mask-tune", "mask"), ("LoRA", "lora")):
+        if name in res.perplexity:
+            print(f"{name + ' ppl':<19}{res.perplexity[name]:8.2f}   "
+                  f"({res.phases['baseline_' + key]:.0f}s)")
     if spec.bench_out:
         with open(spec.bench_out, "w") as f:
             json.dump(bench_record(spec, res), f, indent=2)

@@ -1,6 +1,6 @@
-"""Adam and AdamW, written out (port of ``repro.optim.optimizers``; no
-``torch.optim``, whose foreach and fused variants order the arithmetic
-differently from the reference's formula).
+"""Adam, AdamW and global-norm clipping, written out (port of
+``repro.optim.optimizers``; no ``torch.optim``, whose foreach and fused
+variants order the arithmetic differently from the reference's formula).
 
 The interface is the reference's (init, update) pair on plain dicts:
 
@@ -84,3 +84,15 @@ def adam(lr: Schedule, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
 
 def adamw(lr: Schedule, weight_decay: float = 0.1, **kw) -> Optimizer:
     return adam(lr, weight_decay=weight_decay, **kw)
+
+
+# ---------------------------------------------------------------------------
+@torch.no_grad()
+def clip_by_global_norm(grads, max_norm: float):
+    """Scale every gradient by ``min(1, max_norm / ‖g‖)``, the norm taken
+    over all leaves in f32. Returns (scaled grads, the norm), as the
+    reference; the norm stays on the device."""
+    leaves = [g for _, g in T.leaves_with_path(grads)]
+    gn = torch.sqrt(sum(torch.sum(torch.square(g.to(torch.float32))) for g in leaves))
+    scale = torch.clamp(max_norm / torch.clamp_min(gn, 1e-12), max=1.0)
+    return T.tree_map(lambda g: g * scale.to(g.dtype), grads), gn

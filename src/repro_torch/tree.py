@@ -35,7 +35,7 @@ def get_path(tree: Any, names: Path) -> Any:
 
 
 def set_path(tree: dict, names: Path, value: Any) -> None:
-    """In-place set of a nested-dict path."""
+    """In-place set of a nested-dict path; missing dicts on the way are made."""
     for n in names[:-1]:
-        tree = tree[n]
+        tree = tree.setdefault(n, {})
     tree[names[-1]] = value

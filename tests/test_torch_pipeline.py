@@ -38,6 +38,16 @@ def test_tokens_equal_reference(vocab, seed):
         np.testing.assert_array_equal(got, want)
 
 
+def test_sampler_equals_reference_on_long_segments():
+    """The port's sampler builds each Markov CDF once (the reference's
+    ``rng.choice`` builds it per token): the same tokens, bit for bit, on
+    LoRA-sized batches of the Llama vocabulary."""
+    ref = RTOK.SyntheticCorpus(RTOK.CorpusConfig(vocab_size=32000, seed=1))
+    port = TOK.SyntheticCorpus(TOK.CorpusConfig(vocab_size=32000, seed=1))
+    np.testing.assert_array_equal(next(TOK.corpus_iterator(port, 2, 2048, seed=9)),
+                                  next(RTOK.corpus_iterator(ref, 2, 2048, seed=9)))
+
+
 @pytest.mark.parametrize("method,sparsity,pattern",
                          [("wanda", 0.7, ""), ("wanda", 0.5, "2:4"), ("magnitude", 0.5, "")])
 def test_run_matches_reference_path(method, sparsity, pattern):

@@ -228,6 +228,9 @@ def test_map_prunable_touches_only_prunable_leaves(setup):
 
 
 def test_unported_methods_raise(setup):
+    """Every method of the reference is ported; a method that neither
+    package has raises ValueError."""
     _, _, model, params, calib = setup
-    with pytest.raises(NotImplementedError, match="sparsegpt"):
-        MASKS.prune(model, params, calib, method="sparsegpt")
+    with pytest.raises(ValueError, match="unknown pruning method 'obs'"):
+        MASKS.prune(model, params, calib, method="obs")
+    assert MASKS.METHODS == ("magnitude", "wanda", "sparsegpt", "dsnot", "flap")
