@@ -36,6 +36,10 @@ HBM_BYTES_S = 3.35e12
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 M_ROWS = 8 * 2048  # B * S of the slice's microbatch
+# the main path's pretraining: the reference driver's default step count,
+# on batches of M_ROWS tokens
+PRETRAIN_STEPS = 200
+PRETRAIN_BATCH = 8
 
 
 def emit(obj) -> None:
@@ -109,6 +113,23 @@ def check_scaled(name, out, ref, dtype: str) -> float:
         raise AssertionError(f"{name}: kernel disagrees with its plain version "
                              f"(max abs err {err}, tol {tol} x {scale})")
     return err
+
+
+def check_bounded(name, out, ref, bound, tol: float):
+    """Element by element: |out - ref| <= tol x bound, with ``bound`` the
+    sum of the magnitudes of the products the element sums (|x| @ |w|), so
+    every output carries the rounding of its own terms. Returns the max abs
+    error and the largest ratio |out - ref| / bound."""
+    import torch
+
+    diff = (out.float() - ref.float()).abs()
+    bad = diff > tol * bound
+    if bool(bad.any()):
+        raise AssertionError(f"{name}: kernel disagrees with its plain version at "
+                             f"{int(bad.sum())} elements (max abs err {float(diff.max())}, "
+                             f"limit {tol} x |x| @ |w| per element)")
+    ratio = torch.where(bound > 0, diff / bound.clamp_min(1e-30), torch.zeros_like(diff))
+    return float(diff.max()), float(ratio.max())
 
 
 def bound_ms(nbytes: float, flops: float, dtype: str):
@@ -536,38 +557,61 @@ def llama_cfg(layers: int = 4, dtype: str = "bfloat16"):
                                           attn_impl="flash")
 
 
-def run_path(tokens, **spec_kw):
+def run_path(tokens, params=None, **spec_kw):
     """``ebft_run.run`` on ``llama_cfg()`` with the run's own calibration
     segments, EBFT at the reference's EBFTConfig defaults (lr 2e-4, 10
     epochs, patience 2) and ``spec_kw``; every kernel count is set to 0
-    just before it and read just after. Returns (cfg, spec, result,
-    launches, wall seconds); the peak memory counter starts at the run."""
+    just before it and read just after. Without ``params`` the run
+    pretrains the seeded init for PRETRAIN_STEPS steps on batches of
+    PRETRAIN_BATCH, and its pretraining is measured apart through the train
+    step's stage hook (``on_stage``): the launches in it and its peak
+    memory, read as its last step ends. With ``params`` (the pretrained
+    weights) it runs from them and does not pretrain. Returns (cfg, spec,
+    result, launches, wall seconds, the pretraining's record or None); the
+    peak memory counter starts at the run."""
     import torch
 
     from repro_torch.launch import ebft_run
 
     calib, _ = tokens
     cfg = llama_cfg()
+    steps = 0 if params is not None else PRETRAIN_STEPS
     spec = ebft_run.RunSpec(arch="llama_7b", seed=0, seq=calib.shape[1],
-                            calib_samples=len(calib), pretrain_steps=0, lr=2e-4, epochs=10,
-                            bench_out="", **spec_kw)
+                            calib_samples=len(calib), pretrain_steps=steps,
+                            batch=PRETRAIN_BATCH, lr=2e-4, epochs=10, bench_out="", **spec_kw)
+    pre = {}
+    ends = [0]
+
+    def on_stage(stage):  # the driver's pretraining step calls it; it runs first in the run
+        if stage != "update":
+            return
+        ends[0] += 1
+        if ends[0] == steps:
+            torch.cuda.synchronize()
+            pre.update(launches=read_counts(),
+                       peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30)
+
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
     t0 = time.perf_counter()
-    res = ebft_run.run(cfg, spec, "cuda")
+    res = ebft_run.run(cfg, spec, "cuda", params=params, on_stage=on_stage)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    return cfg, spec, res, read_counts(), wall
+    return cfg, spec, res, read_counts(), wall, (pre or None)
 
 
-def phase_slice(method_cfg, tokens, microbatch=8, every_block_drops=True):
+def phase_slice(method_cfg, tokens, params=None, microbatch=8, every_block_drops=True):
     """The slice on Llama-7B (4 of 32 layers, bf16, flash attention):
+    pretraining (without ``params``; ``phase_pretrain`` reports it), then
     prune, EBFT with the reference's EBFTConfig defaults (lr 2e-4, 10
     epochs, patience 2), evaluate; then its masks held against a second
     prune (``phase_mask_flips``). ``tokens`` are the run's own calibration
     and eval segments. Every kernel count is set to 0 just before the run;
-    returns the counts read just after it, and the run.
+    returns the counts read just after it, the run, its config and the
+    pretraining's record. On the main path (the run that pretrains) EBFT
+    must end below the pruned perplexity, the reference's own ordering
+    test; on the others the ordering is printed.
 
     The mean block loss must drop, and so must every block's that ran to
     its last epoch. With ``every_block_drops`` every block's loss must end
@@ -587,8 +631,8 @@ def phase_slice(method_cfg, tokens, microbatch=8, every_block_drops=True):
 
     sparsity, pattern = method_cfg
     calib, ev = tokens
-    cfg, spec, res, launches, wall = run_path(tokens, method="wanda", sparsity=sparsity,
-                                              pattern=pattern)
+    cfg, spec, res, launches, wall, pre = run_path(tokens, params, method="wanda",
+                                                   sparsity=sparsity, pattern=pattern)
     L = cfg.num_layers
     n_cal = math.ceil(len(calib) / microbatch)
     n_ev = math.ceil(ebft_run.EVAL_SAMPLES / microbatch)
@@ -597,13 +641,14 @@ def phase_slice(method_cfg, tokens, microbatch=8, every_block_drops=True):
     # prune walk's advances, the pruned and the tuned eval, and in EBFT per
     # block the mean loss before and after, each step, the student advance.
     # Attention also runs in the dense eval, the prune walk's taps replay
-    # and the teacher advances. Each step's backward runs dX and dW of the
-    # 7 masked linears and one attention backward.
+    # and the teacher advances, and in each pretraining step's forward and
+    # backward (whose linears are unmasked). Each EBFT step's backward runs
+    # dX and dW of the 7 masked linears and one attention backward.
     masked_fwd = L * (n_cal + 2 * n_ev + 3 * n_cal) + steps
     expected = {"masked_matmul": 7 * masked_fwd, "masked_matmul_dx": 7 * steps,
                 "masked_matmul_dw": 7 * steps, "masked_matmul_dm": 0,
-                "flash_attention": masked_fwd + L * (n_ev + 2 * n_cal),
-                "flash_attention_bwd": steps, "nm_spmm": 0}
+                "flash_attention": masked_fwd + L * (n_ev + 2 * n_cal + spec.pretrain_steps),
+                "flash_attention_bwd": steps + L * spec.pretrain_steps, "nm_spmm": 0}
     pat = tuple(int(x) for x in pattern.split(":")) if pattern else None
     blocks = [dict(block=r.index, loss_before=r.loss_before, loss_after=r.loss_after,
                    dropped=r.loss_after < r.loss_before, epochs_run=r.epochs_run,
@@ -615,8 +660,9 @@ def phase_slice(method_cfg, tokens, microbatch=8, every_block_drops=True):
                eval_samples=ebft_run.EVAL_SAMPLES,
                ebft=dict(lr=spec.lr, epochs=spec.epochs, patience=2,
                          every_block_drops=every_block_drops),
-               perplexity=res.perplexity, achieved_sparsity=res.sparsity, blocks=blocks,
-               phases_s=res.phases, wall_s=wall,
+               pretrain_steps=spec.pretrain_steps, perplexity=res.perplexity,
+               ebft_below_pruned=res.perplexity["EBFT"] < res.perplexity["wanda"],
+               achieved_sparsity=res.sparsity, blocks=blocks, phases_s=res.phases, wall_s=wall,
                peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
                live_block_bytes=max(r.live_bytes for r in res.reports),
                launches=launches, expected_launches=expected)
@@ -638,21 +684,26 @@ def phase_slice(method_cfg, tokens, microbatch=8, every_block_drops=True):
     mean_after = sum(b["loss_after"] for b in blocks) / len(blocks)
     if not mean_after < mean_before:
         raise AssertionError(f"ebft: mean block loss {mean_before} -> {mean_after} did not drop")
+    if params is None and not res.perplexity["EBFT"] < res.perplexity["wanda"]:
+        raise AssertionError(f"ebft: EBFT perplexity {res.perplexity['EBFT']} is not below "
+                             f"the pruned model's {res.perplexity['wanda']}")
     _check_pruned(res, cfg, 1.0 - sparsity, pat)
     for path, m in T.leaves_with_path(res.masks):
         if SP.is_prunable(path, m) and bool((T.get_path(res.tuned, path)[~m] != 0).any()):
             raise AssertionError(f"ebft: {path} tuned weights are not 0 in pruned slots")
     # the masks the run tuned with must equal a repeat of its prune
-    phase_mask_flips(cfg, spec, pat, tokens, run_masks=res.masks)
-    return launches, res, cfg
+    phase_mask_flips(cfg, spec, pat, tokens, res.dense, run_masks=res.masks)
+    return launches, res, cfg, pre
 
 
 def phase_nm_pack(res, cfg, tokens, launches, microbatch=8):
     """The 2:4 run's tuned weights re-packed with ``nm_compress`` and run
     through ``nm_spmm`` on the run's own block inputs (the tuned student
     stream's first calibration microbatch, M = 16384 rows), held against
-    ``masked_matmul`` on the same tuned weights and against the plain
-    version. Adds the nm_spmm launches to ``launches`` (the path's counts,
+    ``masked_matmul`` on the same tuned weights, bit for bit (both run the
+    same wgmma main loop on the same operands), and against the plain
+    version element by element within tol x (|x| @ |w * m|) of that
+    element. Adds the nm_spmm launches to ``launches`` (the path's counts,
     set to 0 before its run)."""
     import torch
 
@@ -668,7 +719,7 @@ def phase_nm_pack(res, cfg, tokens, launches, microbatch=8):
     calib, _ = tokens
     n, m = 2, 4
     batch = {"tokens": torch.as_tensor(calib[:microbatch], device="cuda")}
-    errs, packed, dense_bytes, timing = [], 0, 0, None
+    errs, scales, packed, dense_bytes, timing = [], [], 0, 0, None
     with torch.no_grad():
         h, pos = model.embed_tokens(res.tuned, batch)
         for i in range(model.num_blocks):
@@ -687,10 +738,19 @@ def phase_nm_pack(res, cfg, tokens, launches, microbatch=8):
                 ref_mm = masked_matmul(x, w2, m2)
                 plain = nm_spmm_plain(x, vals, idx, n=n, m=m)
                 torch.cuda.synchronize()
-                err = check_close(f"nm_spmm block {i} {path[-1]}", out, plain, "bfloat16")
-                err_mm = check_close(f"nm_spmm vs masked_matmul block {i} {path[-1]}", out,
-                                     ref_mm, "bfloat16")
-                errs.append((err, err_mm))
+                # the pretrained model's block inputs reach |x| ~ 1e5: each
+                # output is held within tol of the magnitude of its own terms
+                absprod = x.float().abs() @ (w2 * m2).float().abs()
+                err, ratio = check_bounded(f"nm_spmm block {i} {path[-1]}", out, plain, absprod,
+                                           TOL["bfloat16"])
+                del absprod
+                if not torch.equal(out, ref_mm):
+                    raise AssertionError(f"nm_spmm block {i} {path[-1]}: not bit for bit equal "
+                                         f"to masked_matmul (max abs diff "
+                                         f"{float((out.float() - ref_mm.float()).abs().max())})")
+                err_mm = 0.0
+                errs.append((err, ratio))
+                scales.append((float(x.float().abs().max()), float(plain.float().abs().max())))
                 packed += vals.numel() * vals.element_size() + idx.numel()
                 dense_bytes += w2.numel() * w2.element_size()
                 if i == 0 and path[-1] == "w_up":  # timed below, outside the path
@@ -708,7 +768,8 @@ def phase_nm_pack(res, cfg, tokens, launches, microbatch=8):
     b_ms, b_by = bound_ms(nbytes, 2.0 * M * (K // m * n) * N, "bfloat16")
     summary = dict(phase="nm_spmm", leaf="w_up", block=0, dtype="bfloat16", M=M, K=K, N=N,
                    n=n, m=m, max_abs_err=err, max_abs_err_vs_masked_matmul=err_mm,
-                   tol=TOL["bfloat16"], ms=timed_ms(lambda: NM.nm_spmm(x, vals, idx, n=n, m=m)),
+                   limit=f"{TOL['bfloat16']} x |x| @ |w*m| per element; bitwise vs masked_matmul",
+                   ms=timed_ms(lambda: NM.nm_spmm(x, vals, idx, n=n, m=m)),
                    plain_ms=timed_ms(lambda: nm_spmm_plain(x, vals, idx, n=n, m=m)),
                    library_ms=timed_ms(lambda: torch.matmul(x, wd)), bound_ms=b_ms,
                    bound_by=b_by, deterministic=check_repeat(
@@ -743,8 +804,10 @@ def phase_nm_pack(res, cfg, tokens, launches, microbatch=8):
     emit(dict(phase="nm_spmm", case="unaligned bf16", refused=True))
     emit(dict(phase="nm_spmm", case="bf16 N=333 (vals and idx row strides)", refused=True))
     emit(dict(phase="nm_pack", pattern="2:4", leaves=len(errs),
-              max_abs_err=max(e for e, _ in errs),
-              max_abs_err_vs_masked_matmul=max(e for _, e in errs),
+              max_abs_err=max(e for e, _ in errs), max_abs_err_vs_masked_matmul=0.0,
+              max_abs_x=max(a for a, _ in scales), max_abs_out=max(b for _, b in scales),
+              worst_err_over_abs_terms=max(r for _, r in errs),
+              limit=f"{TOL['bfloat16']} x |x| @ |w*m| per element; bitwise vs masked_matmul",
               packed_mib=packed / 2**20, dense_mib=dense_bytes / 2**20,
               launches=launches["nm_spmm"], expected_launches=expected))
     emit(summary)
@@ -816,10 +879,61 @@ def _sparsegpt_block0_errors(cfg, params, res, calib, microbatch):
     return {name: dict(updated=e[0], mask_only=e[1]) for name, e in errs.items()}
 
 
-def phase_path_a(tokens, microbatch=8):
+def _sparsegpt_gram_readings(cfg, params, calib, microbatch):
+    """Block 0's SparseGPT Grams on the weights ``params``, for each distinct
+    leaf input (wq's serves wk and wv, w_up's w_gate), summed over the
+    calibration set two ways: in f32 by the card's GEMM (the reference's
+    sum, and the port's before it summed in f64) and in f64 (the port's
+    sum). For each: the smallest eigenvalue (taken in f64), the damping
+    SparseGPT adds (1% of the diagonal mean), and whether SparseGPT's f32
+    inverse and Cholesky (``sparsegpt._hinv_upper``, the reference's steps)
+    complete on the sum rounded to f32."""
+    import torch
+
+    from repro_torch.core.pruning import common as C
+    from repro_torch.core.pruning import sparsegpt as SG
+    from repro_torch.models.model import build
+    from repro_torch.sparsity.taps import dense_taps
+
+    model = build(cfg)
+    bp = model.get_block(params, 0)
+    leaves = [n for n in C.iter_prunable(bp) if n[0][-1] in ("wq", "wo", "w_up", "w_down")]
+    sums = {}
+    with torch.no_grad():
+        for s in range(0, len(calib), microbatch):
+            h, pos = model.embed_tokens(
+                params, {"tokens": torch.as_tensor(calib[s:s + microbatch], device="cuda")})
+            taps = dense_taps(bp, cfg, h, pos)
+            for names, _ in leaves:
+                x = C.lookup_tap(taps, names)
+                x32, x64 = x.float(), x.double()
+                h32, h64 = C.full_f32_matmul(x32.T, x32), x64.T @ x64
+                if names[-1] in sums:
+                    h32, h64 = sums[names[-1]][0] + h32, sums[names[-1]][1] + h64
+                sums[names[-1]] = (h32, h64)
+            del taps, h
+    out = {}
+    for name, (h32, h64) in sums.items():
+        row = dict(R=h32.shape[0])
+        for tag, H in (("f32_sum", h32), ("f64_sum", h64)):
+            try:
+                chol = bool(torch.isfinite(SG._hinv_upper(H.float())).all())
+            except torch.linalg.LinAlgError:
+                chol = False
+            row[tag] = dict(eig_min=float(torch.linalg.eigvalsh(H.double())[0]),
+                            damp=0.01 * float(torch.diagonal(H).double().mean()),
+                            diag_max=float(torch.diagonal(H).max()), f32_cholesky=chol)
+        out[name] = row
+    del sums
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_path_a(tokens, dense, microbatch=8):
     """Path A: SparseGPT 0.7 -> EBFT -> the DSnoT and mask-tuning baselines,
-    on Llama-7B (4 of 32 layers, bf16, flash attention), through
-    ``ebft_run.run``. Raises unless every perplexity is finite; every
+    on Llama-7B (4 of 32 layers, bf16, flash attention) from the pretrained
+    weights ``dense``, through ``ebft_run.run``. Raises unless every
+    perplexity is finite; every
     128-row block of every output column of every pruned leaf keeps
     round(128 * 0.3); EBFT's mean block loss drops; on block 0 SparseGPT's
     updated weights give a smaller layer output error than the dense
@@ -832,13 +946,14 @@ def phase_path_a(tokens, microbatch=8):
 
     from repro_torch import tree as T
     from repro_torch.launch import ebft_run
-    from repro_torch.models.model import build
     from repro_torch.sparsity import sparse_params as SP
 
     sparsity = 0.7
     calib, _ = tokens
-    cfg, spec, res, launches, wall = run_path(tokens, method="sparsegpt", sparsity=sparsity,
-                                              baselines="dsnot,mask")
+    grams = _sparsegpt_gram_readings(llama_cfg(), dense, calib, microbatch)
+    emit(dict(phase="path_a", sparsegpt_block0_grams=grams))
+    cfg, spec, res, launches, wall, _ = run_path(tokens, dense, method="sparsegpt",
+                                                 sparsity=sparsity, baselines="dsnot,mask")
     peak = torch.cuda.max_memory_allocated() / 2**30
     L = cfg.num_layers
     n_cal = math.ceil(len(calib) / microbatch)
@@ -883,8 +998,6 @@ def phase_path_a(tokens, microbatch=8):
         e_after += float(after.sum())
     if worst_e > 1e-6:
         raise AssertionError(f"dsnot: a column's |E| grew by {worst_e:.2e} of its sum |c|")
-    model = build(cfg)
-    dense = model.init(torch.Generator(device="cuda").manual_seed(spec.seed))
     for path, w in T.leaves_with_path(mt["params"]):
         m = T.get_path(mt["masks"], path)
         if not torch.equal(w, T.get_path(dense, path) * m):
@@ -896,11 +1009,11 @@ def phase_path_a(tokens, microbatch=8):
             if not bool((_column_counts(path, m) == want).all()):
                 raise AssertionError(f"mask tuning: {path} columns keep other than {want}")
     sgpt_errors = _sparsegpt_block0_errors(cfg, dense, res, calib, microbatch)
-    del dense
     row = dict(phase="path_a", arch="llama_7b", num_layers=L, reduced="num_layers 32->4",
                dtype="bfloat16", seq=spec.seq, method="sparsegpt", sparsity=sparsity,
                baselines=spec.baselines, calib_samples=len(calib),
                eval_samples=ebft_run.EVAL_SAMPLES, perplexity=res.perplexity,
+               ebft_below_pruned=res.perplexity["EBFT"] < res.perplexity["sparsegpt"],
                achieved_sparsity=res.sparsity, phases_s=res.phases, wall_s=wall,
                peak_mem_gib=peak, ebft_mean_loss=[mean_before, mean_after],
                ebft_blocks=[dict(block=r.index, loss_before=r.loss_before,
@@ -915,19 +1028,25 @@ def phase_path_a(tokens, microbatch=8):
     return launches
 
 
-def phase_path_b(tokens, microbatch=8):
+def phase_path_b(tokens, dense, microbatch=8):
     """Path B: FLAP at 26% structured sparsity -> EBFT -> 200 LoRA steps
     (the paper's structured comparison of EBFT against LoRA), on Llama-7B
-    (4 of 32 layers, bf16, flash attention), through ``ebft_run.run``.
+    (4 of 32 layers, bf16, flash attention) from the pretrained weights
+    ``dense``, through ``ebft_run.run``.
     Raises unless every mask is constant along each unit (a head's wq and
     wo slices, and under MHA its wk and wv; a channel's w_up, w_gate and
-    w_down slices); round(units * 0.74) units stay, at least one head and
-    one channel per block; EBFT's mean block loss drops; LoRA's merged
+    w_down slices); a repeat of the prune gives the run's masks, and from
+    its raw scores, standardised here, every unit clearly above the global
+    threshold (the round(units * 0.74)-th largest) stays and every unit
+    clearly below it goes, keeping at least one head and one channel per
+    block (FLAP keeps every unit tied at the threshold); EBFT's mean block
+    loss drops; LoRA's merged
     weights are exactly 0 in pruned slots and its LM losses are finite; and
     the launch counts are the loop's."""
     import torch
 
     from repro_torch import tree as T
+    from repro_torch.core.masks import prune
     from repro_torch.core.pruning.flap import remaining_param_fraction
     from repro_torch.launch import ebft_run
     from repro_torch.models.model import build
@@ -935,8 +1054,8 @@ def phase_path_b(tokens, microbatch=8):
 
     sparsity = 0.26
     calib, _ = tokens
-    cfg, spec, res, launches, wall = run_path(tokens, method="flap", sparsity=sparsity,
-                                              baselines="lora")
+    cfg, spec, res, launches, wall, _ = run_path(tokens, dense, method="flap",
+                                                 sparsity=sparsity, baselines="lora")
     peak = torch.cuda.max_memory_allocated() / 2**30
     L, H = cfg.num_layers, cfg.num_heads
     n_cal = math.ceil(len(calib) / microbatch)
@@ -974,8 +1093,59 @@ def phase_path_b(tokens, microbatch=8):
             raise AssertionError(f"flap: block {i} lost every head or every channel")
         kept_units += int(heads.sum()) + int(ch.sum())
     want_units = int(round(units * (1 - sparsity)))
-    if kept_units != want_units:
-        raise AssertionError(f"flap: {kept_units} units stay, want {want_units}")
+    scores = {}
+    rep_masks, _ = prune(model, dense, calib, method="flap", sparsity=sparsity,
+                         scores_out=scores)
+    for path, m in T.leaves_with_path(res.masks):
+        if not torch.equal(m, T.get_path(rep_masks, path)):
+            raise AssertionError(f"flap: a repeat of the prune gave other masks at {path}")
+    # each block's raw scores standardised here in f64, apart from the
+    # program's own code: z = (s - mean) / sqrt(mean((s - mean)^2)). A unit
+    # clearly above the global threshold (the want_units-th largest z) must
+    # stay, one clearly below must go unless it is its block's only head or
+    # channel left. The program standardises in f32, so its z carries a few
+    # ulps of (|s| + |mean|) / std: units within 1e-6 x max(1, |mean| / std)
+    # of the threshold may fall either way (FLAP keeps the ones its f32
+    # rounding ties to the threshold)
+    z, spread = {}, 1.0
+    for i in range(L):
+        for k in ("heads", "channels"):
+            v = scores[(i, k)].double()
+            c = v - v.sum() / v.numel()
+            sd = max(math.sqrt(float((c * c).sum()) / v.numel()), 1e-9)
+            z[(i, k)] = c / sd
+            spread = max(spread, abs(float(v.sum() / v.numel())) / sd)
+    allz = torch.cat(list(z.values()))
+    thr = float(torch.sort(allz).values[-want_units])
+    eps = 1e-6 * spread
+    near, wrong, gap_kept, gap_dropped = {}, [], 0.0, 0.0
+    for i in range(L):
+        mb = model.get_block(res.masks, i)
+        unit = {"heads": mb["attn"]["wo"][:, 0, 0], "channels": mb["mlp"]["w_down"][:, 0]}
+        for k, kept in unit.items():
+            zi = z[(i, k)]
+            above, below = zi > thr + eps, zi < thr - eps
+            if bool((above & ~kept).any()):
+                wrong.append(f"block {i} {k}: {int((above & ~kept).sum())} above dropped")
+            extra = int((below & kept).sum())
+            if extra and not (extra == 1 and int(kept.sum()) == 1):
+                wrong.append(f"block {i} {k}: {extra} below kept")
+            if bool(kept.any()):
+                gap_kept = max(gap_kept, float((thr - zi[kept]).max()))
+            if bool((~kept).any()):
+                gap_dropped = max(gap_dropped, float((zi[~kept] - thr).max()))
+            band = ~above & ~below
+            if bool(band.any()):
+                raw = scores[(i, k)].double()
+                near[f"block {i} {k}"] = dict(
+                    within=int(band.sum()), kept=int((band & kept).sum()), of=zi.numel(),
+                    exactly_at=int((zi == thr).sum()),
+                    z_minus_threshold=[float((zi[band] - thr).min()), float((zi[band] - thr).max())],
+                    raw=[float(raw[band].min()), float(raw[band].max())],
+                    raw_max=float(raw.max()), mean_over_std=float(raw.mean() / raw.std(correction=0)))
+    if wrong or kept_units < want_units:
+        raise AssertionError(f"flap: {kept_units} units stay ({want_units} wanted) and the "
+                             f"masks disagree with the standardised scores: {wrong}")
     for path, w in T.leaves_with_path(lo["params"]):
         m = T.get_path(res.masks, path)
         if SP.is_prunable(path, m) and bool((w[~m] != 0).any()):
@@ -987,8 +1157,13 @@ def phase_path_b(tokens, microbatch=8):
                dtype="bfloat16", seq=spec.seq, method="flap", sparsity=sparsity,
                baselines=spec.baselines, calib_samples=len(calib),
                eval_samples=ebft_run.EVAL_SAMPLES, perplexity=res.perplexity,
+               ebft_below_pruned=res.perplexity["EBFT"] < res.perplexity["flap"],
+               ebft_below_lora=res.perplexity["EBFT"] < res.perplexity["LoRA"],
                remaining_param_fraction=remaining_param_fraction(res.masks, res.pruned),
-               kept_units=kept_units, units=units, phases_s=res.phases, wall_s=wall,
+               kept_units=kept_units, units=units, want_units=want_units,
+               unit_sparsity=1 - kept_units / units, threshold_z=thr, band_eps=eps,
+               near_threshold=near, widest_gap_kept_below=gap_kept,
+               widest_gap_dropped_above=gap_dropped, phases_s=res.phases, wall_s=wall,
                peak_mem_gib=peak, ebft_mean_loss=[mean_before, mean_after],
                lora_steps=n_lora, lora_loss_first=float(losses[0]),
                lora_loss_last=float(losses[-1]), lora_s=res.phases["baseline_lora"],
@@ -998,14 +1173,250 @@ def phase_path_b(tokens, microbatch=8):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# pretraining, the train step and checkpoints
+def _train_flops(cfg, batch: int, seq: int) -> float:
+    """Model FLOPs of one training step: 6 x (non-embedding + head
+    parameters) x tokens for the linears, and for the causal attention 4 d
+    (forward: QK^T, PV) and 10 d (backward: S again, dV, dP, dQ, dK) per
+    (query, key) pair per layer, d = d_model."""
+    d, ff, L = cfg.d_model, cfg.d_ff, cfg.num_layers
+    hd = cfg.resolved_head_dim
+    attn = d * hd * (2 * cfg.num_heads + 2 * cfg.num_kv_heads)
+    mlp = d * ff * (3 if cfg.mlp_act == "swiglu" else 2)
+    linears = L * (attn + mlp) + d * cfg.padded_vocab
+    pairs = batch * seq * (seq + 1) // 2
+    return 6.0 * linears * batch * seq + L * pairs * 14.0 * d
+
+
+def phase_pretrain(cfg, res, pre, launches, seq=2048):
+    """The main path's pretraining (PRETRAIN_STEPS AdamW steps at lr 3e-3 on
+    batches of PRETRAIN_BATCH x 2048 tokens): the loss and grad norm at the
+    steps the driver records, seconds per step, peak memory and the model
+    FLOP rate. Raises unless every loss and grad norm is finite, the mean of
+    the last 10 recorded losses is below the step-0 loss, each attention
+    kernel (forward and backward) ran steps x layers times in it and no
+    masked-matmul kernel ran. Returns the pretraining's launches."""
+    L, steps, batch = cfg.num_layers, PRETRAIN_STEPS, PRETRAIN_BATCH
+    hist = res.pretrain_losses
+    per_step = res.phases["pretrain"] / steps
+    flops = _train_flops(cfg, batch, seq)
+    want = {k: 0 for k in launches}
+    want.update(flash_attention=steps * L, flash_attention_bwd=steps * L)
+    row = dict(phase="pretrain", arch="llama_7b", num_layers=L, reduced="num_layers 32->4",
+               dtype=cfg.dtype, steps=steps, batch=batch, seq=seq,
+               lr=3e-3, optimizer="adamw (weight decay 0.1), clip 1.0",
+               loss=[dict(step=i, loss=loss, grad_norm=gn) for i, loss, gn in hist],
+               seconds=res.phases["pretrain"], s_per_step=per_step,
+               tokens_per_s=batch * seq / per_step, flops_per_step=flops,
+               tflops=flops / per_step / 1e12,
+               mfu=flops / per_step / PEAK_FLOPS["bfloat16"],
+               peak_mem_gib=pre["peak_mem_gib"], launches=pre["launches"],
+               expected_launches=want)
+    emit(row)
+    if not all(math.isfinite(x) for _, loss, gn in hist for x in (loss, gn)):
+        raise AssertionError(f"pretrain: a loss or grad norm is not finite: {hist}")
+    last = [loss for _, loss, _ in hist[-10:]]
+    if not sum(last) / len(last) < hist[0][1]:
+        raise AssertionError(f"pretrain: the last losses {last} average no lower than the "
+                             f"step-0 loss {hist[0][1]}")
+    if pre["launches"] != want:
+        raise AssertionError(f"pretrain: launches {pre['launches']} != expected {want}")
+    return pre["launches"]
+
+
+def phase_pretrain_split(cfg, dense, steps=4):
+    """Where a pretraining step's time goes: the driver's own pretraining
+    (``ebft_run.pretrain``, on a copy of the pretrained weights) for one
+    warm-up step and ``steps`` timed ones, read through the train step's
+    stage hook: CUDA events as the forward and backward, the global-norm
+    clip and the AdamW update end, and the host's time between steps (the
+    batch's sampling and copy to the card, and the loop)."""
+    import torch
+
+    from repro_torch.data.tokens import CorpusConfig, SyntheticCorpus
+    from repro_torch.launch import ebft_run
+    from repro_torch.models.model import build
+
+    ev, sums, step, last_end = {}, dict(data=0.0, forward_backward=0.0, clip=0.0,
+                                        optimizer=0.0, step=0.0), [0], [None]
+
+    def on_stage(stage):
+        if stage == "start":
+            torch.cuda.synchronize()
+            if step[0] > 0:  # the first step warms up
+                sums["data"] += time.perf_counter() - last_end[0]
+        ev[stage] = torch.cuda.Event(enable_timing=True)
+        ev[stage].record()
+        if stage == "update":
+            torch.cuda.synchronize()
+            last_end[0] = time.perf_counter()
+            if step[0] > 0:
+                for k, (a, b) in dict(forward_backward=("start", "grads"), clip=("grads", "clip"),
+                                      optimizer=("clip", "update"),
+                                      step=("start", "update")).items():
+                    sums[k] += ev[a].elapsed_time(ev[b]) / 1e3
+            step[0] += 1
+
+    corpus = SyntheticCorpus(CorpusConfig(vocab_size=cfg.vocab_size, seed=0))
+    ebft_run.pretrain(build(cfg), dense, corpus, steps + 1, PRETRAIN_BATCH, 2048,
+                      ebft_run.PRETRAIN_LR, on_stage=on_stage)
+    split = {k: v / steps for k, v in sums.items()}
+    flops = _train_flops(cfg, PRETRAIN_BATCH, 2048)
+    emit(dict(phase="pretrain_split", steps=steps, s_per_step=split,
+              forward_backward_tflops=flops / split["forward_backward"] / 1e12,
+              bound_s=flops / PEAK_FLOPS["bfloat16"]))
+    return split
+
+
+def _rel_tree(a, b) -> float:
+    """Largest relative L2 distance of a leaf of ``a`` from ``b``'s."""
+    from repro_torch import tree as T
+
+    return max(_rel_norm(x, T.get_path(b, p)) for p, x in T.leaves_with_path(a))
+
+
+def phase_checkpoint(dense):
+    """The pretrained bf16 weights at full width through ``ckpt.save``
+    (async) and ``restore`` onto the card, bit for bit, with the bytes on
+    disk and the seconds; the disk's free space is checked first and too
+    little fails the phase. Then ``Trainer`` on tiny_dense (f32, flash
+    attention on the card): six straight steps equal three steps, a
+    restore from disk and three more, bit for bit, weights and AdamW state
+    both."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from repro_torch import tree as T
+    from repro_torch.checkpoint import ckpt as CK
+    from repro_torch.configs import get_config
+    from repro_torch.data.tokens import CorpusConfig, SyntheticCorpus
+    from repro_torch.models.model import build
+    from repro_torch.optim.optimizers import adamw
+    from repro_torch.training.train_loop import Trainer, make_train_step
+
+    root = os.path.join(ROOT, "build", "ckpt_smoke")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    try:
+        nbytes = sum(t.numel() * t.element_size() for _, t in T.leaves_with_path(dense))
+        free = shutil.disk_usage(root).free
+        if free < 2 * nbytes:
+            raise AssertionError(f"checkpoint: {free} bytes free, the weights need {nbytes}")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        CK.save(os.path.join(root, "full"), {"params": dense}, step=PRETRAIN_STEPS,
+                async_write=True)
+        t_snap = time.perf_counter() - t0
+        CK.wait_all()
+        t_save = time.perf_counter() - t0
+        d = os.path.join(root, "full", f"step_{PRETRAIN_STEPS:08d}")
+        on_disk = sum(os.path.getsize(os.path.join(d, f)) for f in os.listdir(d))
+        t0 = time.perf_counter()
+        back = CK.restore(os.path.join(root, "full"), {"params": dense})["params"]
+        torch.cuda.synchronize()
+        t_restore = time.perf_counter() - t0
+        for path, t in T.leaves_with_path(dense):
+            r = T.get_path(back, path)
+            if not (r.device == t.device and r.dtype == t.dtype and torch.equal(r, t)):
+                raise AssertionError(f"checkpoint: {path} came back other than it was saved")
+        del back
+        row = dict(phase="checkpoint", leaves=len(list(T.leaves_with_path(dense))),
+                   tensor_bytes=nbytes, bytes_on_disk=on_disk, free_bytes=free,
+                   snapshot_s=t_snap, save_s=t_save, restore_s=t_restore, bit_exact=True)
+
+        cfg = get_config("tiny_dense").replace(attn_impl="flash")
+        model = build(cfg)
+        params0 = model.init(torch.Generator(device="cuda").manual_seed(0))
+        corpus = SyntheticCorpus(CorpusConfig(vocab_size=cfg.vocab_size, seed=0))
+
+        def data_fn(step):
+            r = np.random.default_rng(1000 + step)
+            return {"tokens": torch.as_tensor(
+                np.stack([corpus.sample(r, 128) for _ in range(8)]), device="cuda")}
+
+        opt = adamw(1e-3)
+        step = make_train_step(model.loss, opt)
+        p = T.tree_map(lambda t: t.clone(), params0)  # the step writes in place
+        s = opt.init(p)
+        for i in range(6):
+            p, s, _, _ = step(p, s, data_fn(i), None)
+        straight = {"params": p, "opt_state": s}
+        ck = os.path.join(root, "tiny")
+        tr = Trainer(step_fn=step, data_fn=data_fn, ckpt_dir=ck, ckpt_every=3, log_every=1)
+        p = T.tree_map(lambda t: t.clone(), params0)
+        p, s, _ = tr.run(p, opt.init(p), 0, 3)
+        tree = CK.restore(ck, {"params": model.init(torch.Generator(device="cuda")
+                                                    .manual_seed(1)), "opt_state": s})
+        p, s, _ = tr.run(tree["params"], tree["opt_state"], CK.latest_step(ck), 3)
+        resumed = {"params": p, "opt_state": s}
+        differ = [p_ for p_, t in T.leaves_with_path(straight)
+                  if not torch.equal(t, T.get_path(resumed, p_))]
+        row.update(tiny_resume_bit_exact=not differ, tiny_resume_differing_leaves=len(differ),
+                   tiny_resume_rel=_rel_tree(resumed, straight))
+        emit(row)
+        if differ:
+            raise AssertionError(f"checkpoint: resumed training differs from straight in {differ}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def phase_tiny_pretrain(steps=20, loss_rtol=1e-5, param_rtol=1e-4):
+    """``make_train_step`` (AdamW at lr 3e-3, clip 1.0) on tiny_dense in
+    f32 for ``steps`` steps from the same weights and batches on the card
+    (flash attention kernels, cuBLAS without TF32) and on the CPU: every
+    loss within rel 1e-5 and each final weight leaf within rel 1e-4 (its
+    relative L2 distance). Adam's sign-like first steps turn rounding in a
+    near-zero gradient into a move of up to lr, so the weights part further
+    than the losses; both runs repeat bit for bit, so the margin is fixed."""
+    import torch
+
+    from repro_torch import tree as T
+    from repro_torch.configs import get_config
+    from repro_torch.data.tokens import CorpusConfig, SyntheticCorpus, corpus_iterator
+    from repro_torch.launch import ebft_run
+    from repro_torch.models.model import build
+    from repro_torch.optim.optimizers import adamw
+    from repro_torch.training.train_loop import make_train_step
+
+    cfg = get_config("tiny_dense").replace(attn_impl="flash")
+    model = build(cfg)
+    init = model.init(torch.Generator().manual_seed(0))
+    it = corpus_iterator(SyntheticCorpus(CorpusConfig(vocab_size=cfg.vocab_size, seed=0)),
+                         batch=8, seq_len=128, seed=1)
+    batches = [next(it) for _ in range(steps)]
+
+    def train(dev):
+        p = T.tree_map(lambda t: t.to(dev, copy=True), init)
+        opt = adamw(ebft_run.PRETRAIN_LR)
+        step, s, losses = make_train_step(model.loss, opt), opt.init(p), []
+        for b in batches:
+            p, s, m, _ = step(p, s, {"tokens": torch.as_tensor(b, device=dev)}, None)
+            losses.append(m["loss"])
+        return [float(x) for x in losses], T.tree_map(lambda t: t.cpu(), p)
+
+    card, cpu = train("cuda"), train("cpu")
+    loss_rel = max(abs(a / b - 1) for a, b in zip(card[0], cpu[0]))
+    param_rel = _rel_tree(card[1], cpu[1])
+    emit(dict(phase="tiny_pretrain", arch="tiny_dense", dtype="float32", steps=steps,
+              losses_cuda=card[0], losses_cpu=cpu[0], worst_loss_rel=loss_rel,
+              worst_param_rel=param_rel, loss_rtol=loss_rtol, param_rtol=param_rtol))
+    if not all(math.isfinite(x) for x in card[0]) or loss_rel > loss_rtol:
+        raise AssertionError(f"tiny pretrain: card vs CPU loss rel {loss_rel:.2e}")
+    if param_rel > param_rtol:
+        raise AssertionError(f"tiny pretrain: card vs CPU weights rel {param_rel:.2e}")
+
+
 # largest relative gap to its threshold of a block-0 slot whose mask two
 # attention paths may flip: block 0's statistics come from the dense block
 # on the embedding, so the paths' scores there differ by rounding alone
 FIRST_BLOCK_GAP = {"bfloat16": 1e-2, "float32": 1e-4}
 
 
-def phase_mask_flips(cfg, spec, pattern, tokens, run_masks=None):
-    """Prune the run's weights twice more: as the run did (with
+def phase_mask_flips(cfg, spec, pattern, tokens, params, run_masks=None):
+    """Prune the run's weights ``params`` twice more: as the run did (with
     ``run_masks``, the masks must equal them), and with the plain attention
     ("chunked") in place of the kernel, whose output differs in rounding
     and summation order, so its masks may differ in slots near their
@@ -1018,8 +1429,6 @@ def phase_mask_flips(cfg, spec, pattern, tokens, run_masks=None):
     with masks that differ, so their flips need not be near-ties. The
     pruned perplexity under each set of masks, both through the kernels,
     shows what the flips alone do to it."""
-    import torch
-
     from repro_torch import tree as T
     from repro_torch.core.evaluate import perplexity
     from repro_torch.core.masks import prune
@@ -1028,14 +1437,12 @@ def phase_mask_flips(cfg, spec, pattern, tokens, run_masks=None):
 
     calib, ev = tokens
     model = build(cfg)
-    params = model.init(torch.Generator(device="cuda").manual_seed(spec.seed))
     masks, pruned, scores = {}, {}, {}
     for impl in ("flash", "chunked"):
         scores[impl] = {}
         masks[impl], pruned[impl] = prune(
             build(cfg.replace(attn_impl=impl)), params, calib, method="wanda",
             sparsity=spec.sparsity, pattern=pattern, scores_out=scores[impl])
-    del params
     repeat_diff, flips, slots, worst_move = 0, 0, 0, 0.0
     per_block, gap_per_block = [0] * cfg.num_layers, [0.0] * cfg.num_layers
     for path, m_a in T.leaves_with_path(masks["flash"]):
@@ -1360,6 +1767,10 @@ def phase_tiny_baselines(model, weights, calib, ev, corpus, rel=1e-4):
 
 # ---------------------------------------------------------------------------
 def main() -> int:
+    # cuBLAS picks its workspace per stream; a fixed configuration makes a
+    # product repeat bit for bit, which the resumed training run relies on.
+    # It must be set before the first product.
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     import torch
 
     if not torch.cuda.is_available():
@@ -1390,22 +1801,30 @@ def main() -> int:
     torch.cuda.empty_cache()
     from repro_torch.data.tokens import CorpusConfig, SyntheticCorpus, calibration_set, eval_set
     from repro_torch.configs import get_config
+    from repro_torch import tree as T
     from repro_torch.launch.ebft_run import EVAL_SAMPLES, RunSpec
 
     # the run's segments, sampled as ebft_run.run samples them (seed 0)
     corpus = SyntheticCorpus(CorpusConfig(vocab_size=32000, seed=0))
     tokens = calibration_set(corpus, 16, 2048), eval_set(corpus, EVAL_SAMPLES, 2048)
-    # the main path: its launches are the ones reported, but for nm_spmm
-    # (the N:M path) and dM (path A, mask tuning)
+    # the main path: pretraining, Wanda 0.7, EBFT; its launches are the ones
+    # reported, but for nm_spmm (the N:M path) and dM (path A, mask tuning)
     walls = {}
     t0 = time.perf_counter()
-    launches, res, _ = phase_slice((0.7, ""), tokens)
+    launches, res, cfg, pre = phase_slice((0.7, ""), tokens)
+    pre_launches = phase_pretrain(cfg, res, pre, launches)
     walls["wanda"] = time.perf_counter() - t0
+    dense = res.dense  # every later path starts from the pretrained weights
     del res
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    phase_pretrain_split(cfg, dense)
+    phase_checkpoint(dense)
+    walls["pretrain_split+checkpoint"] = time.perf_counter() - t0
     torch.cuda.empty_cache()
     # the N:M path: 2:4 prune, EBFT, re-pack, nm_spmm
     t0 = time.perf_counter()
-    nm_launches, res, cfg = phase_slice((0.5, "2:4"), tokens, every_block_drops=False)
+    nm_launches, res, cfg, _ = phase_slice((0.5, "2:4"), tokens, dense, every_block_drops=False)
     rows["nm_spmm"] = phase_nm_pack(res, cfg, tokens, nm_launches)
     walls["2:4"] = time.perf_counter() - t0
     launches["nm_spmm"] = nm_launches["nm_spmm"]
@@ -1413,12 +1832,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     # path A: SparseGPT, EBFT, DSnoT and mask tuning; path B: FLAP, EBFT, LoRA
     t0 = time.perf_counter()
-    by_path = {"A": phase_path_a(tokens)}
+    by_path = {"A": phase_path_a(tokens, dense)}
     walls["A"] = time.perf_counter() - t0
     launches["masked_matmul_dm"] = by_path["A"]["masked_matmul_dm"]
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    by_path["B"] = phase_path_b(tokens)
+    by_path["B"] = phase_path_b(tokens, dense)
     walls["B"] = time.perf_counter() - t0
     torch.cuda.empty_cache()
     # the Wanda prune at f32, where the two attention paths differ only in
@@ -1426,9 +1845,12 @@ def main() -> int:
     cfg32 = get_config("llama_7b").replace(num_layers=4, attn_impl="flash")
     spec32 = RunSpec(arch="llama_7b", seed=0, seq=2048, sparsity=0.7, calib_samples=16,
                      pretrain_steps=0, epochs=0, bench_out="")
-    phase_mask_flips(cfg32, spec32, None, tokens)
+    phase_mask_flips(cfg32, spec32, None, tokens, T.tree_map(lambda t: t.float(), dense))
+    del dense
+    torch.cuda.empty_cache()
     t0 = time.perf_counter()
     phase_tiny_crosscheck()
+    phase_tiny_pretrain()
     walls["tiny"] = time.perf_counter() - t0
     emit(dict(phase="walls", seconds=walls, total_s=time.perf_counter() - t_start))
 
@@ -1441,6 +1863,7 @@ def main() -> int:
         base = name.replace("_dx", "").replace("_dw", "").replace("_dm", "").replace("_bwd", "")
         kernels.append(dict(name=name, route="cuda", source=root + base + ".cu",
                             replaces=pallas[base], launches=launches[name],
+                            launches_pretrain=pre_launches[name],
                             launches_path_a=by_path["A"][name], launches_path_b=by_path["B"][name],
                             max_abs_err=row["max_abs_err"], ms=row["ms"],
                             plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],

@@ -20,7 +20,7 @@ fused path; capturing the epoch loop in a CUDA graph is later work. Only
 one block's weights, masks and Adam moments are live at a time; the
 teacher and student streams advance microbatch-wise
 (``core/pruning/common.py``). The hybrid family's shared block waits for
-that family (ROADMAP.md queue A.9).
+that family (ROADMAP.md queue A.5).
 """
 from __future__ import annotations
 
@@ -43,7 +43,7 @@ Params = Any
 @dataclasses.dataclass
 class EBFTConfig:
     """The reference's fields that the port reads, with its defaults. A
-    ``mesh_plan`` is refused (distribution is ROADMAP.md queue A.14)."""
+    ``mesh_plan`` is refused (distribution is ROADMAP.md queue A.8)."""
 
     lr: float = 2e-4
     epochs: int = 10          # paper: T = 10
@@ -148,7 +148,7 @@ def finetune(model, dense_params: Params, pruned_params: Params, masks: Params,
     ecfg = ecfg or EBFTConfig()
     if ecfg.mesh_plan is not None:
         raise NotImplementedError("EBFT over a device mesh is not ported yet "
-                                  "(ROADMAP.md queue A.14)")
+                                  "(ROADMAP.md queue A.8)")
     student = apply_masks(pruned_params, masks)
     reports: List[BlockReport] = []
 

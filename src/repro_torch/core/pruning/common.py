@@ -9,10 +9,16 @@ in microbatches; the per-linear input activations are tapped
     n        total tokens seen
     sum      sum_t X[t]         (R,)   -- DSnoT's expected input (the mean)
     sumsq    sum_t X[t]^2       (R,)   -- Wanda's ||X_j||_2^2, FLAP's fluctuation
-    hessian  sum_t X[t] X[t]^T  (R, R) -- SparseGPT's Gram (opt-in)
+    hessian  sum_t X[t] X[t]^T  (R, R) -- SparseGPT's Gram (opt-in), in f64
 
 The sums are taken in another order than XLA's, so a score that sits on
-its comparison group's threshold can land on the other side of it.
+its comparison group's threshold can land on the other side of it. The
+Gram is summed in f64 and rounded to f32 where SparseGPT takes it; the
+reference sums it in f32. From there SparseGPT works in f32, as the
+reference. On the card, a pretrained Llama-width block's f32 sum (the
+GEMM's f32 accumulation over 16384 rows a microbatch) left a Gram further
+from positive semi-definite than SparseGPT's 1% damping reaches, and its
+Cholesky failed; the readings are in PERF.md (``chip_smoke.py``, path A).
 """
 from __future__ import annotations
 
@@ -79,7 +85,10 @@ def full_f32_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 def _acc_stats(x: torch.Tensor, want_hessian: bool = False) -> LeafStats:
     """x: (T, R) activation matrix for one microbatch."""
     x32 = x.float()
-    h = full_f32_matmul(x32.T, x32) if want_hessian else None
+    h = None
+    if want_hessian:
+        x64 = x.double()
+        h = x64.T @ x64
     return LeafStats(float(x.shape[0]), x32.sum(dim=0), x32.square().sum(dim=0), h)
 
 
@@ -96,7 +105,7 @@ def collect_block_stats(model, bp, block_index: int, h_mb: List[torch.Tensor],
                         pos_mb: List[torch.Tensor],
                         want_hessian: bool = False) -> Dict[str, LeafStats]:
     """Run the taps over each microbatch of the stream; accumulate stats
-    (with ``want_hessian``, each leaf's f32 Gram too)."""
+    (with ``want_hessian``, each leaf's f64 Gram too)."""
     stats: Dict[str, LeafStats] = {}
     for h, pos in zip(h_mb, pos_mb):
         for key, x in dense_taps(bp, model.cfg, h, pos).items():

@@ -28,7 +28,7 @@ def execution_plan(model) -> List[Segment]:
     """The dense family's plan: one segment visiting every block once."""
     if model.cfg.family != "dense":
         raise NotImplementedError(
-            f"execution plan for family {model.cfg.family!r} (ROADMAP.md queue A.9)")
+            f"execution plan for family {model.cfg.family!r} (ROADMAP.md queue A.5)")
     return [Segment([(i, 0) for i in range(model.num_blocks)], model.embed_tokens)]
 
 
@@ -47,7 +47,7 @@ def block_kind(model, i: int) -> str:
     """Blocks of one kind behave alike; the dense family has one kind."""
     if model.cfg.family != "dense":
         raise NotImplementedError(
-            f"block kinds of family {model.cfg.family!r} (ROADMAP.md queue A.9)")
+            f"block kinds of family {model.cfg.family!r} (ROADMAP.md queue A.5)")
     return "block"
 
 

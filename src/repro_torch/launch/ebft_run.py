@@ -1,32 +1,34 @@
 """The paper's pipeline as one command (port of ``repro.launch.ebft_run``):
-build the dense model, take its perplexity, prune (magnitude, Wanda,
-SparseGPT, DSnoT or FLAP) through the calibration walk, take the pruned
-model's perplexity, tune it block by block with EBFT (``--epochs`` > 0) and
+build the dense model, pretrain it on the synthetic corpus
+(``--pretrain-steps``, AdamW at lr 3e-3), take its perplexity, prune
+(magnitude, Wanda, SparseGPT, DSnoT or FLAP) through the calibration walk,
+take the pruned model's perplexity, tune it block by block with EBFT
+(``--epochs``; at 0 every block reports its loss and runs no epoch) and
 take the tuned model's perplexity; then the baselines the paper sets EBFT
 against (``--baselines``, a comma list of ``dsnot``, ``mask``, ``lora``):
 DSnoT's training-free reselection of the method's masks, mask tuning, and
 200 LoRA steps on the LM loss, each with its perplexity. Every masked
-linear runs on the masked matmul kernel, and each tuning step
-backpropagates through the kernels' backward.
+linear runs on the masked matmul kernel, each tuning step backpropagates
+through the kernels' backward, and each pretraining step through the
+attention kernel's.
 
-    python -m repro_torch.launch.ebft_run --arch tiny_dense --pretrain-steps 0 \
+    python -m repro_torch.launch.ebft_run --arch tiny_dense --pretrain-steps 200 \
         --epochs 8 --method sparsegpt --sparsity 0.7 --baselines dsnot,mask,lora --device cpu
 
-Runs on the card unless ``--device cpu``. Pretraining is not ported yet: a
-run that asks for it raises. The bench JSON holds the reference's
-``phases``, ``perplexity``, ``blocks`` and ``ebft`` sections.
+Runs on the card unless ``--device cpu``. The bench JSON holds the
+reference's ``phases``, ``perplexity``, ``blocks`` and ``ebft`` sections.
 """
 from __future__ import annotations
 
-import argparse
 import dataclasses
 import json
 import time
-from typing import Any, Dict, List, Optional
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 
 from repro_torch import resolve_device
+from repro_torch import tree as T
 from repro_torch.configs import get_config
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import ebft, lora, mask_tuning
@@ -36,12 +38,17 @@ from repro_torch.core.pruning.flap import remaining_param_fraction
 from repro_torch.data.tokens import (
     CorpusConfig, SyntheticCorpus, calibration_set, corpus_iterator, eval_set,
 )
+from repro_torch.launch.api import parse
 from repro_torch.models.model import build
+from repro_torch.optim.optimizers import adamw
 from repro_torch.sparsity.sparse_params import sparsity_of
+from repro_torch.training.train_loop import make_train_step
 
 EVAL_SAMPLES = 16  # held-out segments, as the reference's eval_set
 BASELINES = ("dsnot", "mask", "lora")
 LORA = lora.LoRAConfig(steps=200, lr=1e-3)  # the reference driver's LoRA run
+PRETRAIN_LR = 3e-3  # the reference driver's, a constant
+PRETRAIN_LOG_EVERY = 20  # the loss is read on the host at these steps and the last
 
 
 @dataclasses.dataclass(frozen=True)
@@ -57,6 +64,7 @@ class RunSpec:
     pattern: str = ""
     calib_samples: int = 64
     pretrain_steps: int = 200
+    batch: int = 32  # pretraining batch
     lr: float = 1e-2
     epochs: int = 10
     baselines: str = ""  # comma list of BASELINES
@@ -68,29 +76,20 @@ class RunResult:
     perplexity: Dict[str, float]
     phases: Dict[str, float]
     sparsity: float
+    dense: Any  # the weights the run pruned from (pretrained when steps > 0)
     masks: Any
     pruned: Any
-    tuned: Any = None  # the EBFT-tuned params (``epochs`` > 0)
+    tuned: Any = None  # the EBFT-tuned params
     reports: List[ebft.BlockReport] = dataclasses.field(default_factory=list)
+    # pretraining's (step, loss, grad norm) at every PRETRAIN_LOG_EVERY-th
+    # step and the last
+    pretrain_losses: List[Tuple[int, float, float]] = dataclasses.field(default_factory=list)
     # per baseline run: "dsnot" and "mask" {"masks", "params"} (DSnoT also
     # "errors", each leaf's per-column |E| before and after, as
     # ``prune``'s scores_out; mask tuning "histories", each block's epoch
     # mean losses); "lora" {"params", "losses", each step's LM loss as a
     # 0-d device tensor}
     baselines: Dict[str, Dict[str, Any]] = dataclasses.field(default_factory=dict)
-
-
-def _parse(argv) -> tuple:
-    ap = argparse.ArgumentParser(prog="repro_torch.launch.ebft_run", description=__doc__)
-    choices = {"method": METHODS}
-    for f in dataclasses.fields(RunSpec):
-        ap.add_argument("--" + f.name.replace("_", "-"), type=type(f.default),
-                        default=f.default, choices=choices.get(f.name))
-    ap.add_argument("--device", default=None,
-                    help="cuda (the default) or cpu; never falls back")
-    args = vars(ap.parse_args(argv))
-    device = args.pop("device")
-    return RunSpec(**args), device
 
 
 def _sync(device: torch.device) -> None:
@@ -116,16 +115,38 @@ class _phase:
         return False
 
 
-def run(cfg: ModelConfig, spec: RunSpec, device=None,
-        params: Optional[Any] = None) -> RunResult:
-    """eval_dense -> prune -> pruned eval, then with ``spec.epochs`` > 0
-    EBFT -> tuned eval, then each of ``spec.baselines`` with its eval, as
-    the reference's ``ebft_run.py``. ``params`` defaults to the port's init
-    seeded with ``spec.seed``."""
-    if spec.pretrain_steps > 0:
-        raise NotImplementedError(
-            "pretraining is not ported yet (ROADMAP.md queue A, item 11); "
-            "run with --pretrain-steps 0")
+def pretrain(model, params, corpus, steps: int, batch: int, seq: int, lr: float,
+             on_stage: Optional[Callable[[str], None]] = None
+             ) -> Tuple[Any, List[Tuple[int, float, float]]]:
+    """``steps`` AdamW steps (``make_train_step``: clip 1.0) on batches of
+    ``corpus_iterator(corpus, batch, seq, seed=1)``, as the reference's
+    ``pretrain``. Trains a copy: ``params`` are left as they are. Returns
+    the trained weights and (step, loss, grad norm) at every
+    ``PRETRAIN_LOG_EVERY``-th step and the last, the only steps at which
+    the host waits for the device. ``on_stage`` is ``make_train_step``'s
+    stage hook."""
+    params = T.tree_map(lambda p: p.detach().clone(), params)
+    device = params["embed"]["tok"].device
+    opt = adamw(lr)
+    step = make_train_step(model.loss, opt, on_stage=on_stage)
+    opt_state = opt.init(params)
+    it = corpus_iterator(corpus, batch=batch, seq_len=seq, seed=1)
+    history = []
+    for i in range(steps):
+        tokens = torch.as_tensor(next(it), device=device)
+        params, opt_state, metrics, _ = step(params, opt_state, {"tokens": tokens}, None)
+        if i % PRETRAIN_LOG_EVERY == 0 or i == steps - 1:
+            history.append((i, float(metrics["loss"]), float(metrics["grad_norm"])))
+    return params, history
+
+
+def run(cfg: ModelConfig, spec: RunSpec, device=None, params: Optional[Any] = None,
+        on_stage: Optional[Callable[[str], None]] = None) -> RunResult:
+    """pretrain (``spec.pretrain_steps`` > 0) -> eval_dense -> prune ->
+    pruned eval -> EBFT -> tuned eval, then each of ``spec.baselines`` with
+    its eval, as the reference's ``ebft_run.py``. ``params`` defaults to
+    the port's init seeded with ``spec.seed``; they are not changed.
+    ``on_stage`` is handed to each pretraining step (``make_train_step``)."""
     wants = set(spec.baselines.split(",")) if spec.baselines else set()
     if wants - set(BASELINES):
         raise ValueError(f"unknown baselines {sorted(wants - set(BASELINES))}; "
@@ -137,12 +158,18 @@ def run(cfg: ModelConfig, spec: RunSpec, device=None,
         params = model.init(torch.Generator(device=device).manual_seed(spec.seed))
     elif params["embed"]["tok"].device.type != device.type:
         raise ValueError(f"params live on {params['embed']['tok'].device}, the run on {device}")
+    phases: Dict[str, float] = {}
+    ppl: Dict[str, float] = {}
+    history: List[Tuple[int, float, float]] = []
+    if spec.pretrain_steps > 0:
+        with _phase(device) as sp:
+            params, history = pretrain(model, params, corpus, spec.pretrain_steps, spec.batch,
+                                       spec.seq, PRETRAIN_LR, on_stage)
+        phases["pretrain"] = sp.duration
     calib = calibration_set(corpus, spec.calib_samples, spec.seq)
     ev = eval_set(corpus, EVAL_SAMPLES, spec.seq)
     pattern = tuple(int(x) for x in spec.pattern.split(":")) if spec.pattern else None
 
-    phases: Dict[str, float] = {}
-    ppl: Dict[str, float] = {}
     with _phase(device) as sp:
         ppl["dense"] = perplexity(model, params, ev)
     phases["eval_dense"] = sp.duration
@@ -150,18 +177,16 @@ def run(cfg: ModelConfig, spec: RunSpec, device=None,
         masks, pruned = prune(model, params, calib, method=spec.method,
                               sparsity=spec.sparsity, pattern=pattern)
     phases["prune"] = sp.duration
+    ppl[spec.method] = perplexity(model, pruned, ev, masks=masks)  # not a phase, as the reference
+    res = RunResult(ppl, phases, sparsity_of(masks, params), params, masks, pruned,
+                    pretrain_losses=history)
+    ecfg = ebft.EBFTConfig(lr=spec.lr, epochs=spec.epochs)
     with _phase(device) as sp:
-        ppl[spec.method] = perplexity(model, pruned, ev, masks=masks)
-    phases["eval_pruned"] = sp.duration
-    res = RunResult(ppl, phases, sparsity_of(masks, params), masks, pruned)
-    if spec.epochs > 0:
-        ecfg = ebft.EBFTConfig(lr=spec.lr, epochs=spec.epochs)
-        with _phase(device) as sp:
-            res.tuned, res.reports = ebft.finetune(model, params, pruned, masks, calib, ecfg)
-        phases["ebft"] = sp.duration
-        with _phase(device) as sp:
-            ppl["EBFT"] = perplexity(model, res.tuned, ev, masks=masks)
-        phases["eval_ebft"] = sp.duration
+        res.tuned, res.reports = ebft.finetune(model, params, pruned, masks, calib, ecfg)
+    phases["ebft"] = sp.duration
+    with _phase(device) as sp:
+        ppl["EBFT"] = perplexity(model, res.tuned, ev, masks=masks)
+    phases["eval_ebft"] = sp.duration
     # each baseline's phase holds its evaluation, as the reference's
     if "dsnot" in wants:
         errors: Dict = {}
@@ -194,13 +219,12 @@ def run(cfg: ModelConfig, spec: RunSpec, device=None,
 def bench_record(spec: RunSpec, res: RunResult) -> Dict[str, Any]:
     """The bench JSON: the reference's ``phases``, ``perplexity``,
     ``blocks`` and ``ebft`` sections (``dispatch``, ``walk_phases``,
-    ``mesh`` and ``kernel_tuning`` wait for ``obs/``, ROADMAP.md A.12)."""
+    ``mesh`` and ``kernel_tuning`` wait for ``obs/``, ROADMAP.md A.2)."""
     reports = res.reports
-    out: Dict[str, Any] = {"run_spec": dataclasses.asdict(spec), "phases": res.phases,
-                           "perplexity": res.perplexity}
-    if spec.epochs > 0:
-        out["blocks"] = [r.asdict() for r in reports]
-        out["ebft"] = {
+    return {
+        "run_spec": dataclasses.asdict(spec), "phases": res.phases,
+        "perplexity": res.perplexity, "blocks": [r.asdict() for r in reports],
+        "ebft": {
             "num_blocks": len(reports),
             "mean_e_drop": _mean_drop(reports),
             "peak_live_block_bytes": max((r.live_bytes for r in reports), default=None),
@@ -208,8 +232,8 @@ def bench_record(spec: RunSpec, res: RunResult) -> Dict[str, Any]:
             "prefetch_depth": 0,     # the teacher runs just before each visit
             "early_stops": {reason: sum(1 for r in reports if r.early_stop == reason)
                             for reason in {r.early_stop for r in reports}},
-        }
-    return out
+        },
+    }
 
 
 def _mean_drop(reports) -> float:
@@ -217,19 +241,22 @@ def _mean_drop(reports) -> float:
 
 
 def main(argv=None) -> RunResult:
-    spec, device = _parse(argv)
+    spec, device = parse(RunSpec, argv, "repro_torch.launch.ebft_run", __doc__,
+                         {"method": METHODS})
     cfg = get_config(spec.arch)
     res = run(cfg, spec, device)
+    if res.pretrain_losses:
+        print(f"pretrained {spec.pretrain_steps} steps, final loss "
+              f"{res.pretrain_losses[-1][1]:.3f}")
     print(f"dense ppl          {res.perplexity['dense']:8.2f}")
     print(f"{spec.method} ppl {' ' * (10 - len(spec.method))}"
           f"{res.perplexity[spec.method]:8.2f}   ({res.phases['prune']:.0f}s, "
           f"sparsity {res.sparsity:.4f})")
     if spec.method == "flap":
         print(f"FLAP remaining params {remaining_param_fraction(res.masks, res.pruned):.4f}")
-    if spec.epochs > 0:
-        print(f"EBFT ppl           {res.perplexity['EBFT']:8.2f}   "
-              f"({res.phases['ebft']:.0f}s, {len(res.reports)} blocks, "
-              f"mean E drop {_mean_drop(res.reports):.3e})")
+    print(f"EBFT ppl           {res.perplexity['EBFT']:8.2f}   "
+          f"({res.phases['ebft']:.0f}s, {len(res.reports)} blocks, "
+          f"mean E drop {_mean_drop(res.reports):.3e})")
     for name, key in (("DSnoT", "dsnot"), ("mask-tune", "mask"), ("LoRA", "lora")):
         if name in res.perplexity:
             print(f"{name + ' ppl':<19}{res.perplexity[name]:8.2f}   "

@@ -229,7 +229,10 @@ def mlp_block(p: Params, x: torch.Tensor, act: str, masks: Optional[Params] = No
 # Embedding / head
 # ---------------------------------------------------------------------------
 def embed(tok_emb: torch.Tensor, tokens: torch.Tensor, dtype) -> torch.Tensor:
-    return tok_emb[tokens].to(dtype)
+    """The rows of ``tok_emb`` at ``tokens``. ``F.embedding``'s backward sums
+    a repeated token's rows in a fixed order (indexing's accumulates them in
+    parallel on the CPU), so a training step repeats bit for bit."""
+    return F.embedding(tokens, tok_emb).to(dtype)
 
 
 def lm_logits(head_w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:

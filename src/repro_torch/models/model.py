@@ -74,7 +74,7 @@ def _set_tree(tree: Params, i: int, sub: Params) -> None:
 def build(cfg: ModelConfig) -> Model:
     if cfg.family != "dense":
         raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet (ROADMAP.md queue A.9)")
+            f"family {cfg.family!r} is not ported yet (ROADMAP.md queue A.5)")
     return _build_dense(cfg)
 
 

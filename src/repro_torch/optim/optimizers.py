@@ -1,4 +1,4 @@
-"""Adam, AdamW and global-norm clipping, written out (port of
+"""SGD with momentum, Adam, AdamW and global-norm clipping, written out (port of
 ``repro.optim.optimizers``; no ``torch.optim``, whose foreach and fused
 variants order the arithmetic differently from the reference's formula).
 
@@ -9,9 +9,9 @@ The interface is the reference's (init, update) pair on plain dicts:
     updates, state = opt.update(grads, state, params)
     params = apply_updates(params, updates)
 
-``lr`` may be a float or a schedule ``f(step) -> lr``. The moments are f32
-and the step an int32 tensor on the params' device, so an update makes no
-host round-trip.
+``lr`` may be a float or a schedule ``f(step) -> lr`` (``optim/schedules.py``).
+The moments are f32 and the step an int32 tensor on the params' device, so
+an update makes no host round-trip.
 """
 from __future__ import annotations
 
@@ -43,6 +43,34 @@ def apply_updates(params, updates):
     Returns ``params``."""
     T.tree_map(lambda p, u: p.copy_(p + u.to(p.dtype)), params, updates)
     return params
+
+
+def sgd(lr: Schedule, momentum: float = 0.0, nesterov: bool = False) -> Optimizer:
+    """SGD; with ``momentum`` its f32 buffer ``mu`` (None without), and
+    with ``nesterov`` the look-ahead update."""
+
+    def init(params):
+        leaf = next(p for _, p in T.leaves_with_path(params))
+        mu = T.tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32, device=p.device),
+                        params) if momentum else None
+        return {"step": torch.zeros((), dtype=torch.int32, device=leaf.device), "mu": mu}
+
+    @torch.no_grad()
+    def update(grads, state, params=None):
+        step = state["step"] + 1
+        lr_t = _lr_at(lr, step)
+        if momentum:
+            mu = T.tree_map(lambda m, g: momentum * m + g.to(torch.float32), state["mu"], grads)
+            if nesterov:
+                upd = T.tree_map(lambda m, g: -(lr_t * (momentum * m + g.to(torch.float32))),
+                                 mu, grads)
+            else:
+                upd = T.tree_map(lambda m: -lr_t * m, mu)
+            return upd, {"step": step, "mu": mu}
+        upd = T.tree_map(lambda g: -lr_t * g.to(torch.float32), grads)
+        return upd, {"step": step, "mu": None}
+
+    return Optimizer(init, update)
 
 
 def adam(lr: Schedule, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,

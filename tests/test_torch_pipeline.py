@@ -25,6 +25,16 @@ from repro_torch.models.model import build
 REL = 1e-4
 
 
+@pytest.fixture()
+def one_thread():
+    """One intra-op thread: the tiny models gain nothing from more, and
+    under several test workers on few cores the threads' waits dominate."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.mark.parametrize("vocab,seed", [(512, 0), (32000, 3)])
 def test_tokens_equal_reference(vocab, seed):
     ref = RTOK.SyntheticCorpus(RTOK.CorpusConfig(vocab_size=vocab, seed=seed))
@@ -69,7 +79,7 @@ def test_run_matches_reference_path(method, sparsity, pattern):
     res = ebft_run.run(get_config("tiny_dense"), spec, "cpu", params=params)
     assert res.perplexity["dense"] == pytest.approx(ref_dense, rel=REL)
     assert res.perplexity[method] == pytest.approx(ref_sparse, rel=REL)
-    assert set(res.phases) == {"eval_dense", "prune", "eval_pruned"}
+    assert set(res.phases) == {"eval_dense", "prune", "ebft", "eval_ebft"}
     assert res.sparsity == pytest.approx(sparsity, abs=0.02)
 
 
@@ -91,7 +101,7 @@ def test_main_cli_writes_bench(tmp_path):
                          "--calib-samples", "8", "--seq", "32", "--device", "cpu",
                          "--bench-out", str(out)])
     data = json.loads(out.read_text())
-    assert set(data["phases"]) == {"eval_dense", "prune", "eval_pruned"}
+    assert set(data["phases"]) == {"eval_dense", "prune", "ebft", "eval_ebft"}
     assert data["perplexity"] == res.perplexity
     assert data["run_spec"]["method"] == "wanda"
 
@@ -101,15 +111,23 @@ def test_spec_defaults_mirror_reference():
 
     ref = RefSpec()
     for f in ("arch", "seed", "seq", "method", "sparsity", "pattern", "calib_samples",
-              "pretrain_steps", "lr", "epochs"):
+              "pretrain_steps", "batch", "lr", "epochs"):
         assert getattr(ebft_run.RunSpec(), f) == getattr(ref, f), f
 
 
 @pytest.mark.parametrize("argv", [[], ["--pretrain-steps", "5"], ["--epochs", "0"]])
-def test_unported_tuning_raises(argv):
-    """Pretraining (the default 200 steps) is not ported yet."""
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ebft_run.main(argv + ["--device", "cpu", "--bench-out", ""])
+def test_unported_tuning_raises(argv, tmp_path, one_thread):
+    """Pretraining (the default 200 steps, or 5) and ``--epochs 0`` run
+    through to EBFT and raise nothing, on small batches; the bench JSON's
+    phases are the reference's."""
+    out = tmp_path / "bench.json"
+    res = ebft_run.main(argv + ["--device", "cpu", "--bench-out", str(out), "--batch", "8",
+                                "--seq", "32", "--calib-samples", "8"])
+    steps = int(argv[1]) if argv[:1] == ["--pretrain-steps"] else 200
+    assert list(json.loads(out.read_text())["phases"]) == [
+        "pretrain", "eval_dense", "prune", "ebft", "eval_ebft"]
+    assert [s for s, _, _ in res.pretrain_losses][-1] == steps - 1
+    assert all(np.isfinite(loss) for _, loss, _ in res.pretrain_losses)
 
 
 def test_run_refuses_params_on_another_device():
@@ -120,3 +138,36 @@ def test_run_refuses_params_on_another_device():
     spec = ebft_run.RunSpec(pretrain_steps=0, epochs=0, calib_samples=8, seq=16)
     with pytest.raises(ValueError, match="params live on"):
         ebft_run.run(cfg, spec, "cpu", params=params)
+
+
+def test_epochs_0_output_matches_reference(tmp_path, one_thread):
+    """``--epochs 0`` as the reference's driver writes it, on the same
+    weights: the same phases, perplexities, blocks (each ``epochs_run`` 0)
+    and ``ebft`` keys, and an EBFT perplexity equal to the pruned one within
+    rel 1e-6; each perplexity the reference's within rel 1e-4."""
+    from repro.launch import ebft_run as ref_ebft_run
+
+    argv = ["--arch", "tiny_dense", "--pretrain-steps", "0", "--epochs", "0",
+            "--calib-samples", "8", "--seq", "32"]
+    ref_out = tmp_path / "ref.json"
+    ref_ebft_run.main(argv + ["--kernel-tune", "off", "--bench-out", str(ref_out)])
+    ref = json.loads(ref_out.read_text())
+
+    spec = ebft_run.RunSpec(pretrain_steps=0, epochs=0, calib_samples=8, seq=32)
+    ref_params = ref_build(ref_get_config("tiny_dense")).init(jax.random.PRNGKey(spec.seed))
+    params = interop.params_to_torch(jax.tree.map(np.asarray, ref_params), "cpu")
+    port = ebft_run.bench_record(spec, ebft_run.run(get_config("tiny_dense"), spec, "cpu",
+                                                    params=params))
+    assert list(port["phases"]) == ["eval_dense", "prune", "ebft", "eval_ebft"]
+    assert set(port["phases"]) == set(ref["phases"])
+    assert set(port["perplexity"]) == set(ref["perplexity"]) == {"dense", "wanda", "EBFT"}
+    assert set(port["ebft"]) == set(ref["ebft"])
+    assert len(port["blocks"]) == len(ref["blocks"]) == 2
+    for b, rb in zip(port["blocks"], ref["blocks"]):
+        assert set(b) <= set(rb) and b["epochs_run"] == rb["epochs_run"] == 0
+        assert b["loss_after"] == pytest.approx(b["loss_before"], rel=1e-6)
+    for out in (port, ref):
+        ppl = out["perplexity"]
+        assert ppl["EBFT"] == pytest.approx(ppl["wanda"], rel=1e-6)
+    for k, v in ref["perplexity"].items():
+        assert port["perplexity"][k] == pytest.approx(v, rel=REL), k

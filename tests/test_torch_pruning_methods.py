@@ -98,6 +98,55 @@ def test_hinv_upper_raises_where_the_reference_gets_nan():
         SGPT._hinv_upper(torch.tensor(H))
 
 
+def _outlier_stats(seed, R=256, T_=512, microbatches=4, n_out=3, mag=1e3):
+    """Both packages' statistics of the same microbatches of activations
+    with a few outlier channels (about ``mag`` times the rest, with a 5%
+    spread), as a pretrained model's block inputs have them."""
+    rng = np.random.default_rng(seed)
+    ch = rng.choice(R, n_out, replace=False)
+    ref_st = port_st = None
+    for _ in range(microbatches):
+        x = rng.normal(size=(T_, R)).astype(np.float32)
+        x[:, ch] = (mag * (1 + 0.05 * rng.normal(size=(T_, n_out)))).astype(np.float32)
+        ref_st = RC._merge(ref_st, RC._acc_stats(jnp.asarray(x), True))
+        port_st = C._merge(port_st, C._acc_stats(torch.tensor(x), True))
+    return rng, ref_st, port_st
+
+
+def test_sparsegpt_on_outlier_channels_matches_reference():
+    """The port sums the Gram in f64, the reference in f32. On activations
+    with outlier channels the two Grams agree within rel 1e-6, the
+    reference stays finite, and SparseGPT from each Gram gives the same
+    masks and weights within rel 1e-4."""
+    rng, ref_st, port_st = _outlier_stats(11)
+    Hr, Hp = np.asarray(ref_st.hessian), port_st.hessian
+    assert Hp.dtype == torch.float64
+    assert _rel(Hp.numpy(), Hr) <= 1e-6
+    W = rng.normal(size=(256, 48)).astype(np.float32)
+    rw, rm = RSGPT.prune_matrix(jnp.asarray(W), jnp.asarray(Hr), 0.7)
+    assert bool(np.isfinite(np.asarray(rw)).all())
+    pw, pm = SGPT.prune_matrix(torch.tensor(W), Hp, 0.7)
+    np.testing.assert_array_equal(pm.numpy(), np.asarray(rm) != 0)
+    assert _rel(pw.numpy(), rw) <= W_RTOL
+
+
+def test_gram_past_the_damping_gives_nan_in_the_reference_and_raises_in_the_port():
+    """A Gram whose smallest eigenvalue lies about 3.2 times the damping
+    below 0, as an f32 sum of a pretrained Llama-width block's inputs left
+    it on the card (PERF.md): the outlier-channel Gram moved along its
+    smallest eigenvector. The reference's f32 steps give NaN; the port's
+    raise."""
+    _, ref_st, _ = _outlier_stats(11)
+    H = np.asarray(ref_st.hessian, np.float64)
+    ev, V = np.linalg.eigh(H)
+    damp = 0.01 * float(np.mean(np.diag(H)))
+    bad = (H - 3.2 * damp * np.outer(V[:, 0], V[:, 0])).astype(np.float32)
+    assert np.linalg.eigvalsh(bad.astype(np.float64))[0] < -2 * damp
+    assert bool(jnp.isnan(RSGPT._hinv_upper(jnp.asarray(bad))).any())
+    with pytest.raises(torch.linalg.LinAlgError):
+        SGPT._hinv_upper(torch.tensor(bad))
+
+
 def test_leaf_prune_without_a_gram_is_wanda():
     rng = np.random.default_rng(0)
     leaf = torch.tensor(rng.normal(size=(16, 2, 4)).astype(np.float32))
