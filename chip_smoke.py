@@ -18,6 +18,16 @@ failed check raises, so the script exits non-zero. The last three lines
 are the card's name and power limit, the per-kernel summary, and
 ``{"ok": true, "device": ...}``. Without a card it exits non-zero and
 prints no result.
+
+Every path runs inside an obs run (``repro_torch.obs``): each writes its
+artifact in the reference's schema to ``chiprun_out/`` (the main path's
+is ``chiprun_out/BENCH_ebft.json``) and must pass ``validate_payload``.
+The ``obs`` phase prints the main path's ``walk_phases``, its span tree's
+top two levels (each phase with the event time of its kernel launches,
+``kernel_s``) and each kernel's in-run CUDA-event times, and reruns its
+EBFT with obs off and on: the tuned weights must equal the main run's bit
+for bit. The summary line carries each kernel's in-run times beside its
+isolated ones.
 """
 from __future__ import annotations
 
@@ -40,6 +50,9 @@ M_ROWS = 8 * 2048  # B * S of the slice's microbatch
 # on batches of M_ROWS tokens
 PRETRAIN_STEPS = 200
 PRETRAIN_BATCH = 8
+# the sections of the pipeline's artifact (BENCH_ebft.json), all required
+OBS_REQUIRE = ["blocks", "phases", "perplexity", "ebft", "dispatch", "walk_phases", "mesh",
+               "kernel_tuning"]
 
 
 def emit(obj) -> None:
@@ -557,7 +570,7 @@ def llama_cfg(layers: int = 4, dtype: str = "bfloat16"):
                                           attn_impl="flash")
 
 
-def run_path(tokens, params=None, **spec_kw):
+def run_path(tokens, params=None, tag="main", **spec_kw):
     """``ebft_run.run`` on ``llama_cfg()`` with the run's own calibration
     segments, EBFT at the reference's EBFTConfig defaults (lr 2e-4, 10
     epochs, patience 2) and ``spec_kw``; every kernel count is set to 0
@@ -566,12 +579,18 @@ def run_path(tokens, params=None, **spec_kw):
     PRETRAIN_BATCH, and its pretraining is measured apart through the train
     step's stage hook (``on_stage``): the launches in it and its peak
     memory, read as its last step ends. With ``params`` (the pretrained
-    weights) it runs from them and does not pretrain. Returns (cfg, spec,
-    result, launches, wall seconds, the pretraining's record or None); the
-    peak memory counter starts at the run."""
+    weights) it runs from them and does not pretrain.
+
+    The run is observed (``repro_torch.obs``): its artifact, in the
+    reference's schema, is written to ``chiprun_out/BENCH_ebft.json`` (the
+    main path) or ``chiprun_out/BENCH_ebft_<tag>.json`` and must pass
+    ``validate_payload`` with every section ``ebft_run`` writes. Returns
+    (cfg, spec, result, launches, wall seconds, the pretraining's record or
+    None, the artifact); the peak memory counter starts at the run."""
     import torch
 
     from repro_torch.launch import ebft_run
+    from repro_torch.launch.api import start_obs_run
 
     calib, _ = tokens
     cfg = llama_cfg()
@@ -594,11 +613,33 @@ def run_path(tokens, params=None, **spec_kw):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
+    obs_run = start_obs_run(spec, "ebft", "cuda", name=f"chip_smoke/{tag}", console=False)
     t0 = time.perf_counter()
     res = ebft_run.run(cfg, spec, "cuda", params=params, on_stage=on_stage)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    return cfg, spec, res, read_counts(), wall, (pre or None)
+    launches = read_counts()
+    summ = obs_run.payload()["metrics"]
+    artifact = finish_obs(obs_run, ebft_run.bench_record(spec, res, summ),
+                          "BENCH_ebft.json" if tag == "main" else f"BENCH_ebft_{tag}.json")
+    return cfg, spec, res, launches, wall, (pre or None), artifact
+
+
+def finish_obs(obs_run, extra, name=None):
+    """Finish an obs run with ``extra`` (and write it to ``chiprun_out/name``);
+    the artifact must pass ``validate_payload``, with every section the
+    pipeline writes when ``extra`` is the pipeline's."""
+    from repro_torch.obs.run import validate_payload
+
+    path = None
+    if name:
+        os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
+        path = os.path.join(ROOT, "chiprun_out", name)
+    payload = obs_run.finish(extra=extra, summary_path=path)
+    problems = validate_payload(payload, require=OBS_REQUIRE if "phases" in extra else list(extra))
+    if problems:
+        raise AssertionError(f"obs artifact {name}: {problems}")
+    return payload
 
 
 def phase_slice(method_cfg, tokens, params=None, microbatch=8, every_block_drops=True):
@@ -608,8 +649,8 @@ def phase_slice(method_cfg, tokens, params=None, microbatch=8, every_block_drops
     epochs, patience 2), evaluate; then its masks held against a second
     prune (``phase_mask_flips``). ``tokens`` are the run's own calibration
     and eval segments. Every kernel count is set to 0 just before the run;
-    returns the counts read just after it, the run, its config and the
-    pretraining's record. On the main path (the run that pretrains) EBFT
+    returns the counts read just after it, the run, its config, the
+    pretraining's record and the run's obs artifact. On the main path (the run that pretrains) EBFT
     must end below the pruned perplexity, the reference's own ordering
     test; on the others the ordering is printed.
 
@@ -631,8 +672,9 @@ def phase_slice(method_cfg, tokens, params=None, microbatch=8, every_block_drops
 
     sparsity, pattern = method_cfg
     calib, ev = tokens
-    cfg, spec, res, launches, wall, pre = run_path(tokens, params, method="wanda",
-                                                   sparsity=sparsity, pattern=pattern)
+    cfg, spec, res, launches, wall, pre, artifact = run_path(
+        tokens, params, tag="main" if params is None else pattern.replace(":", "_"),
+        method="wanda", sparsity=sparsity, pattern=pattern)
     L = cfg.num_layers
     n_cal = math.ceil(len(calib) / microbatch)
     n_ev = math.ceil(ebft_run.EVAL_SAMPLES / microbatch)
@@ -693,7 +735,109 @@ def phase_slice(method_cfg, tokens, params=None, microbatch=8, every_block_drops
             raise AssertionError(f"ebft: {path} tuned weights are not 0 in pruned slots")
     # the masks the run tuned with must equal a repeat of its prune
     phase_mask_flips(cfg, spec, pat, tokens, res.dense, run_masks=res.masks)
-    return launches, res, cfg, pre
+    return launches, res, cfg, pre, artifact
+
+
+def kernel_stats(metrics) -> dict:
+    """Per kernel row, from an obs artifact's metrics: the launches booked
+    (``calls``), the mean and median of their CUDA-event times in ms, their
+    sum in s, the dense-equivalent FLOPs and bytes booked (the reference's
+    accounting: 2·M·K·N for every masked GEMM, which PERF.md's ``Bound``
+    column does not use), and the roofline ideal of the last launch."""
+    out = {}
+    for key, h in metrics.items():
+        if not (key.startswith("kernels/") and key.endswith("/exec_s")):
+            continue
+        name = key[len("kernels/"):-len("/exec_s")]
+        base = f"kernels/{name}"
+        out[name] = dict(calls=int(metrics[f"{base}/calls"]["value"]), mean_ms=h["mean"] * 1e3,
+                         p50_ms=h["p50"] * 1e3, total_s=h["sum"],
+                         flops=metrics[f"{base}/flops"]["value"],
+                         bytes=metrics[f"{base}/bytes"]["value"],
+                         last_launch_roofline_ideal_ms=(
+                             metrics[f"{base}/roofline_ideal_s"]["last"] * 1e3))
+    return out
+
+
+def top_spans(artifact, depth: int = 2):
+    """The span forest's top ``depth`` levels: name, seconds and attrs."""
+    def node(n, d):
+        out = dict(name=n["name"], s=n["duration_s"], **n.get("attrs", {}))
+        if d > 1 and n.get("children"):
+            out["children"] = [node(c, d - 1) for c in n["children"]]
+        return out
+    return [node(n, depth) for n in artifact["trace"]]
+
+
+def _phase_span(artifact, name, **attrs):
+    return next(n for n in artifact["trace"] if n["name"] == name and
+                all(n.get("attrs", {}).get(k) == v for k, v in attrs.items()))
+
+
+def phase_obs(cfg, res, artifact, launches, tokens):
+    """What the main path's obs artifact shows, and what obs costs. Prints
+    the walk's phase seconds (``walk_phases``), the span tree's top two
+    levels, and per kernel its in-run CUDA-event times, which must count
+    exactly the launches the wrappers counted. Then reruns the main path's
+    EBFT (``ebft.finetune`` on the same dense and pruned weights, masks and
+    calibration segments) with obs off and with obs on, each from an empty
+    peak-memory counter, and requires the tuned weights of both to equal
+    the main run's (obs on) bit for bit. The obs-on rerun splits EBFT's
+    time into its kernels' event time and the rest."""
+    import torch
+
+    from repro_torch import tree as T
+    from repro_torch.core import ebft
+    from repro_torch.models.model import build
+    from repro_torch.obs.run import start_run
+
+    stats = kernel_stats(artifact["metrics"])
+    for name, n in launches.items():
+        if stats.get(name, {}).get("calls", 0) != n:
+            raise AssertionError(f"obs: {name} booked {stats.get(name, {}).get('calls')} "
+                                 f"launches, the wrapper counted {n}")
+    calib, _ = tokens
+    model = build(cfg)
+    ecfg = ebft.EBFTConfig(lr=2e-4, epochs=10)
+    reruns = {}
+    for mode in ("off", "on"):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        start_mem = torch.cuda.memory_allocated()
+        obs_run = start_run("chip_smoke/ebft_rerun", config="llama_7b", device="cuda",
+                            console=False) if mode == "on" else None
+        t0 = time.perf_counter()
+        tuned, reports = ebft.finetune(model, res.dense, res.pruned, res.masks, calib, ecfg)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        row = dict(seconds=secs, peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
+                   peak_over_start_gib=(torch.cuda.max_memory_allocated() - start_mem) / 2**30)
+        if obs_run is not None:
+            rerun = finish_obs(obs_run, {"blocks": [r.asdict() for r in reports]})
+            k = kernel_stats(rerun["metrics"])
+            row.update(kernel_s=sum(v["total_s"] for v in k.values()),
+                       kernels={n: dict(calls=v["calls"], total_s=v["total_s"])
+                                for n, v in k.items()})
+            row["rest_s"] = secs - row["kernel_s"]
+        bitwise = all(torch.equal(a, T.get_path(res.tuned, p))
+                      for p, a in T.leaves_with_path(tuned))
+        row["tuned_bitwise_equal_to_main_run"] = bitwise
+        reruns[mode] = row
+        del tuned, reports
+        if not bitwise:
+            raise AssertionError(f"obs: the EBFT rerun with obs {mode} tuned other bits "
+                                 "than the main run")
+    ebft_span = _phase_span(artifact, "phase/ebft")
+    emit(dict(phase="obs", walk_phases=artifact["walk_phases"],
+              spans=top_spans(artifact), kernels_in_run=stats,
+              ebft_split=dict(phase_s=res.phases["ebft"], kernel_s=ebft_span["attrs"]["kernel_s"],
+                              kernel_launches=ebft_span["attrs"]["kernel_launches"],
+                              rest_s=res.phases["ebft"] - ebft_span["attrs"]["kernel_s"],
+                              walk_phases=artifact["walk_phases"]),
+              dispatch=artifact["dispatch"], ebft_reruns=reruns,
+              artifact="chiprun_out/BENCH_ebft.json"))
+    return stats
 
 
 def phase_nm_pack(res, cfg, tokens, launches, microbatch=8):
@@ -704,8 +848,12 @@ def phase_nm_pack(res, cfg, tokens, launches, microbatch=8):
     same wgmma main loop on the same operands), and against the plain
     version element by element within tol x (|x| @ |w * m|) of that
     element. Adds the nm_spmm launches to ``launches`` (the path's counts,
-    set to 0 before its run)."""
+    set to 0 before its run). The 28 launches run inside an obs run, so
+    they carry in-run event times; returns the kernel row and that run's
+    artifact."""
     import torch
+
+    from repro_torch.obs.run import start_run
 
     from repro_torch import tree as T
     from repro_torch.kernels.masked_matmul.ops import masked_matmul
@@ -720,6 +868,8 @@ def phase_nm_pack(res, cfg, tokens, launches, microbatch=8):
     n, m = 2, 4
     batch = {"tokens": torch.as_tensor(calib[:microbatch], device="cuda")}
     errs, scales, packed, dense_bytes, timing = [], [], 0, 0, None
+    obs_run = start_run("chip_smoke/nm_pack", config="llama_7b", pattern="2:4", device="cuda",
+                        console=False)
     with torch.no_grad():
         h, pos = model.embed_tokens(res.tuned, batch)
         for i in range(model.num_blocks):
@@ -757,6 +907,7 @@ def phase_nm_pack(res, cfg, tokens, launches, microbatch=8):
                     timing = (x, vals, idx, SP.nm_decompress(vals, idx, n, m), out, err, err_mm)
             h = model.apply_block(res.tuned, i, bp, h, pos, mb)
     torch.cuda.synchronize()
+    artifact = finish_obs(obs_run, {"nm_pack": {"leaves": len(errs)}}, "BENCH_nm_pack.json")
     launches["nm_spmm"] = NM.launches
     expected = 7 * model.num_blocks
     if launches["nm_spmm"] != expected:
@@ -811,7 +962,7 @@ def phase_nm_pack(res, cfg, tokens, launches, microbatch=8):
               packed_mib=packed / 2**20, dense_mib=dense_bytes / 2**20,
               launches=launches["nm_spmm"], expected_launches=expected))
     emit(summary)
-    return summary
+    return summary, artifact
 
 
 # ---------------------------------------------------------------------------
@@ -952,8 +1103,8 @@ def phase_path_a(tokens, dense, microbatch=8):
     calib, _ = tokens
     grams = _sparsegpt_gram_readings(llama_cfg(), dense, calib, microbatch)
     emit(dict(phase="path_a", sparsegpt_block0_grams=grams))
-    cfg, spec, res, launches, wall, _ = run_path(tokens, dense, method="sparsegpt",
-                                                 sparsity=sparsity, baselines="dsnot,mask")
+    cfg, spec, res, launches, wall, _, artifact = run_path(
+        tokens, dense, tag="A", method="sparsegpt", sparsity=sparsity, baselines="dsnot,mask")
     peak = torch.cuda.max_memory_allocated() / 2**30
     L = cfg.num_layers
     n_cal = math.ceil(len(calib) / microbatch)
@@ -1025,7 +1176,7 @@ def phase_path_a(tokens, dense, microbatch=8):
                expected_launches=expected)
     emit(row)
     _check_launches("path A", launches, expected)
-    return launches
+    return launches, artifact
 
 
 def phase_path_b(tokens, dense, microbatch=8):
@@ -1054,8 +1205,8 @@ def phase_path_b(tokens, dense, microbatch=8):
 
     sparsity = 0.26
     calib, _ = tokens
-    cfg, spec, res, launches, wall, _ = run_path(tokens, dense, method="flap",
-                                                 sparsity=sparsity, baselines="lora")
+    cfg, spec, res, launches, wall, _, artifact = run_path(
+        tokens, dense, tag="B", method="flap", sparsity=sparsity, baselines="lora")
     peak = torch.cuda.max_memory_allocated() / 2**30
     L, H = cfg.num_layers, cfg.num_heads
     n_cal = math.ceil(len(calib) / microbatch)
@@ -1170,7 +1321,7 @@ def phase_path_b(tokens, dense, microbatch=8):
                launches=launches, expected_launches=expected)
     emit(row)
     _check_launches("path B", launches, expected)
-    return launches
+    return launches, artifact
 
 
 # ---------------------------------------------------------------------------
@@ -1361,6 +1512,66 @@ def phase_checkpoint(dense):
             raise AssertionError(f"checkpoint: resumed training differs from straight in {differ}")
     finally:
         shutil.rmtree(root, ignore_errors=True)
+
+
+def phase_train_obs(cfg, steps=20):
+    """``launch/train``'s ``run`` at the main path's width and depth (AdamW
+    at lr 3e-3 on batches of PRETRAIN_BATCH x 2048 tokens, from the seeded
+    init) with obs off, on, on, off: seconds per step over the whole of
+    ``Trainer.run``, peak memory, and with obs on the profiled step's
+    fenced steady-state time (``train/step/exec_s``) and the attention
+    launches booked. With obs on the step is fenced (``ProfiledFn``), so
+    the host's next batch no longer overlaps the card's step; this phase
+    measures what that costs. Raises unless the four runs record the same
+    losses bit for bit, every loss is finite, the obs runs book every
+    attention launch and leave no event pair pending, and the first obs
+    run's artifact, with its ``trained`` section, passes
+    ``validate_payload``."""
+    import torch
+
+    from repro_torch.launch import train
+    from repro_torch.launch.api import start_obs_run
+    from repro_torch.obs import profile as OP
+
+    rows = []
+    for i, mode in enumerate(("off", "on", "on", "off")):
+        spec = train.TrainSpec(arch="llama_7b", steps=steps, batch=PRETRAIN_BATCH, seq=2048,
+                               lr=3e-3, no_obs=mode == "off")
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        obs_run = start_obs_run(spec, "train", "cuda", name="chip_smoke/train", console=False)
+        res = train.run(cfg, spec, "cuda", say=lambda line: None)
+        launches = read_counts()
+        row = dict(obs=mode, seconds=res.seconds, s_per_step=res.seconds / steps,
+                   peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
+                   history=res.history, pending_pairs=len(OP._PENDING))
+        if obs_run is not None:
+            art = finish_obs(obs_run, {"trained": train.trained_record(spec, res)},
+                             "BENCH_train.json" if i == 1 else None)
+            m = art["metrics"]
+            row.update(step_exec_s_mean=m["train/step/exec_s"]["mean"],
+                       step_exec_s_p50=m["train/step/exec_s"]["p50"],
+                       step_first_s=m["train/step/compile_s"]["last"],
+                       booked={k: int(m[f"kernels/{k}/calls"]["value"])
+                               for k in ("flash_attention", "flash_attention_bwd")})
+            if row["booked"] != {k: launches[k] for k in row["booked"]}:
+                raise AssertionError(f"train_obs: booked {row['booked']}, launched {launches}")
+        rows.append(row)
+        del res
+    emit(dict(phase="train_obs", arch="llama_7b", num_layers=cfg.num_layers, steps=steps,
+              batch=PRETRAIN_BATCH, seq=2048, runs=rows,
+              s_per_step_off=[r["s_per_step"] for r in rows if r["obs"] == "off"],
+              s_per_step_on=[r["s_per_step"] for r in rows if r["obs"] == "on"],
+              artifact="chiprun_out/BENCH_train.json"))
+    if any(r["history"] != rows[0]["history"] for r in rows):
+        raise AssertionError("train_obs: obs on and off recorded different losses: "
+                             f"{[r['history'] for r in rows]}")
+    if not all(math.isfinite(loss) for _, loss in rows[0]["history"]):
+        raise AssertionError(f"train_obs: a loss is not finite: {rows[0]['history']}")
+    if any(r["pending_pairs"] for r in rows):
+        raise AssertionError("train_obs: event pairs left pending after a training run")
 
 
 def phase_tiny_pretrain(steps=20, loss_rtol=1e-5, param_rtol=1e-4):
@@ -1811,9 +2022,12 @@ def main() -> int:
     # reported, but for nm_spmm (the N:M path) and dM (path A, mask tuning)
     walls = {}
     t0 = time.perf_counter()
-    launches, res, cfg, pre = phase_slice((0.7, ""), tokens)
+    launches, res, cfg, pre, art_main = phase_slice((0.7, ""), tokens)
     pre_launches = phase_pretrain(cfg, res, pre, launches)
     walls["wanda"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    in_run = phase_obs(cfg, res, art_main, launches, tokens)
+    walls["obs"] = time.perf_counter() - t0
     dense = res.dense  # every later path starts from the pretrained weights
     del res
     torch.cuda.empty_cache()
@@ -1821,24 +2035,42 @@ def main() -> int:
     phase_pretrain_split(cfg, dense)
     phase_checkpoint(dense)
     walls["pretrain_split+checkpoint"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    phase_train_obs(cfg)
+    walls["train_obs"] = time.perf_counter() - t0
     torch.cuda.empty_cache()
     # the N:M path: 2:4 prune, EBFT, re-pack, nm_spmm
     t0 = time.perf_counter()
-    nm_launches, res, cfg, _ = phase_slice((0.5, "2:4"), tokens, dense, every_block_drops=False)
-    rows["nm_spmm"] = phase_nm_pack(res, cfg, tokens, nm_launches)
+    nm_launches, res, cfg, _, art_24 = phase_slice((0.5, "2:4"), tokens, dense,
+                                                   every_block_drops=False)
+    rows["nm_spmm"], art_nm = phase_nm_pack(res, cfg, tokens, nm_launches)
     walls["2:4"] = time.perf_counter() - t0
     launches["nm_spmm"] = nm_launches["nm_spmm"]
     del res
     torch.cuda.empty_cache()
     # path A: SparseGPT, EBFT, DSnoT and mask tuning; path B: FLAP, EBFT, LoRA
     t0 = time.perf_counter()
-    by_path = {"A": phase_path_a(tokens, dense)}
+    by_path, arts = {}, {"main": art_main, "2:4": art_24, "nm_pack": art_nm}
+    by_path["A"], arts["A"] = phase_path_a(tokens, dense)
     walls["A"] = time.perf_counter() - t0
     launches["masked_matmul_dm"] = by_path["A"]["masked_matmul_dm"]
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    by_path["B"] = phase_path_b(tokens, dense)
+    by_path["B"], arts["B"] = phase_path_b(tokens, dense)
     walls["B"] = time.perf_counter() - t0
+    # the kernels the main path does not launch carry the in-run times of
+    # the run that does: dM from path A (mask tuning), nm_spmm from the re-pack
+    in_run["masked_matmul_dm"] = kernel_stats(arts["A"]["metrics"])["masked_matmul_dm"]
+    in_run["nm_spmm"] = kernel_stats(art_nm["metrics"])["nm_spmm"]
+    for name, n in (("masked_matmul_dm", launches["masked_matmul_dm"]),
+                    ("nm_spmm", launches["nm_spmm"])):
+        if in_run[name]["calls"] != n:
+            raise AssertionError(f"obs: {name} booked {in_run[name]['calls']} launches, "
+                                 f"the wrapper counted {n}")
+    emit(dict(phase="obs_paths", spans={tag: top_spans(a, depth=1) for tag, a in arts.items()}))
+    # the seven rows' in-run event times: a mean over every shape the run
+    # gave the kernel, so not comparable with one shape's ``bound_ms``
+    emit(dict(phase="obs_kernels", kernels_in_run=in_run))
     torch.cuda.empty_cache()
     # the Wanda prune at f32, where the two attention paths differ only in
     # the order of their sums

@@ -21,6 +21,15 @@ one block's weights, masks and Adam moments are live at a time; the
 teacher and student streams advance microbatch-wise
 (``core/pruning/common.py``). The hybrid family's shared block waits for
 that family (ROADMAP.md queue A.5).
+
+Observability, at the reference's call sites and names: ``finetune``
+opens ``ebft/walk`` (``fused=False``, ``prefetch_depth=0``) and
+``tune_block`` opens ``ebft/block``, books the ``ebft/live_block_bytes``
+gauges, the per-block series (losses, epochs, dispatches, host syncs)
+and the ``ebft/early_stop/<reason>`` counters, all host numbers the loop
+has already read. The tuning step and the loss evaluation go through
+``FirstCallTimer``s kept per block kind, so their first call lands in
+``ebft/walk/tune_compile_s``.
 """
 from __future__ import annotations
 
@@ -33,6 +42,9 @@ import torch
 from repro_torch import tree as T
 from repro_torch.core import reconstruction as R
 from repro_torch.core.pruning import common as C
+from repro_torch.obs import metrics as OM
+from repro_torch.obs import trace as OT
+from repro_torch.obs.profile import DispatchLedger, FirstCallTimer, ebft_live_block_bytes
 from repro_torch.optim.optimizers import adam, apply_updates
 from repro_torch.optim.schedules import plateau_early_stop
 from repro_torch.sparsity.sparse_params import apply_masks
@@ -55,12 +67,14 @@ class EBFTConfig:
 
 @dataclasses.dataclass
 class BlockReport:
-    """The reference's fields for one device. ``path`` is always "legacy"
+    """The reference's fields, on one device. ``path`` is always "legacy"
     (the per-epoch loop). ``dispatches`` counts the loop's steps as the
     reference's legacy ledger does (a loss evaluation or a training step
     per microbatch, one reduction per pass, the final masking);
     ``host_syncs`` the scalars it reads back (two means and one per
-    epoch)."""
+    epoch). On one device ``device_dispatches`` equals ``dispatches``,
+    ``live_bytes_per_shard`` equals ``live_bytes`` and
+    ``collective_bytes`` is 0."""
 
     index: int
     kind: str
@@ -73,69 +87,90 @@ class BlockReport:
     path: str = "legacy"
     dispatches: int = 0
     host_syncs: int = 0
+    device_dispatches: int = 0       # dispatches x participating devices
+    live_bytes_per_shard: int = 0    # live_bytes per device
+    collective_bytes: int = 0        # gradient all-reduce wire bytes
 
     def asdict(self) -> Dict[str, Any]:
         return dataclasses.asdict(self)
 
 
-def _bytes(tree) -> int:
-    return sum(t.numel() * t.element_size() for _, t in T.leaves_with_path(tree))
+def _loss_and_grads(model, i: int, bw, leaves, mask_bp, h, target, pos):
+    with torch.enable_grad():
+        loss = R.block_loss(model, i, bw, mask_bp, h, target, pos)
+        return loss, torch.autograd.grad(loss, leaves)
 
 
 def tune_block(model, i: int, bp: Params, mask_bp: Params, data: List[Tuple],
-               ecfg: EBFTConfig) -> Tuple[Params, BlockReport]:
+               ecfg: EBFTConfig, step_cache: Dict) -> Tuple[Params, BlockReport]:
     """Tune block ``i`` on ``data`` = [(h, target, positions), ...]
     microbatches. ``bp`` is not modified: the weights being tuned are fresh
     leaf tensors (clones of its views) that Adam updates in place under
-    ``torch.no_grad()``. Returns the tuned, re-masked block and its report."""
+    ``torch.no_grad()``. ``step_cache`` (one dict per walk) keeps the
+    block kind's first-call timers across blocks. Returns the tuned,
+    re-masked block and its report."""
     kind = R.block_kind(model, i)
+    if kind not in step_cache:
+        step_cache[kind] = (FirstCallTimer(R.block_loss), FirstCallTimer(_loss_and_grads))
+    eval_loss, step = step_cache[kind]
     bw = T.tree_map(lambda t: t.detach().clone().requires_grad_(True), bp)
     leaves = [t for _, t in T.leaves_with_path(bw)]
     opt = adam(ecfg.lr)
     n_mb = len(data)
-    dispatches = host_syncs = 0
+    ledger = DispatchLedger("ebft/tune")
 
-    def loss_fn(h, target, pos):
-        return R.block_loss(model, i, bw, mask_bp, h, target, pos)
+    with OT.span("ebft/block", index=i, kind=kind) as sp:
+        def eval_mean() -> float:
+            with torch.no_grad():
+                losses = [eval_loss(model, i, bw, mask_bp, *mb) for mb in data]
+            ledger.dispatch(n_mb + 1)
+            ledger.host_sync()
+            return float(torch.stack(losses).mean())
 
-    def eval_mean() -> float:
-        nonlocal dispatches, host_syncs
+        before = eval_mean()
+        state = opt.init(bw)
+        history: List[float] = [before]
+        epochs_run = 0
+        early_stop = "max_epochs"
+        for _ in range(ecfg.epochs):
+            losses = []
+            for mb in data:
+                loss, grads = step(model, i, bw, leaves, mask_bp, *mb)
+                it = iter(grads)
+                updates, state = opt.update(T.tree_map(lambda _: next(it), bw), state, bw)
+                apply_updates(bw, updates)
+                losses.append(loss.detach())
+            ledger.dispatch(n_mb + 1)
+            ledger.host_sync()
+            epochs_run += 1
+            history.append(float(torch.stack(losses).mean()))
+            if plateau_early_stop(history, ecfg.patience, ecfg.rel_tol):
+                early_stop = "plateau"
+                break
+        after = eval_mean()
         with torch.no_grad():
-            losses = [loss_fn(*mb) for mb in data]
-        dispatches += n_mb + 1
-        host_syncs += 1
-        return float(torch.stack(losses).mean())
-
-    before = eval_mean()
-    state = opt.init(bw)
-    history: List[float] = [before]
-    epochs_run = 0
-    early_stop = "max_epochs"
-    for _ in range(ecfg.epochs):
-        losses = []
-        for mb in data:
-            with torch.enable_grad():
-                loss = loss_fn(*mb)
-                grads = torch.autograd.grad(loss, leaves)
-            it = iter(grads)
-            updates, state = opt.update(T.tree_map(lambda _: next(it), bw), state, bw)
-            apply_updates(bw, updates)
-            losses.append(loss.detach())
-        dispatches += n_mb + 1
-        host_syncs += 1
-        epochs_run += 1
-        history.append(float(torch.stack(losses).mean()))
-        if plateau_early_stop(history, ecfg.patience, ecfg.rel_tol):
-            early_stop = "plateau"
-            break
-    after = eval_mean()
-    with torch.no_grad():
-        tuned = apply_masks(T.tree_map(lambda t: t.detach(), bw), mask_bp)
-    dispatches += 1
-    live = _bytes(tuned) + _bytes(mask_bp) + 2 * 4 * sum(t.numel() for t in leaves)
-    return tuned, BlockReport(
-        i, kind, epochs_run, before, after, early_stop, history, live, "legacy",
-        dispatches, host_syncs)
+            tuned = apply_masks(T.tree_map(lambda t: t.detach(), bw), mask_bp)
+        ledger.dispatch()
+        # the streaming claim, measured: only this block's weights, masks
+        # and Adam moments are optimizer-live now
+        live = ebft_live_block_bytes(tuned, mask_bp)
+        report = BlockReport(
+            i, kind, epochs_run, before, after, early_stop, history, live, "legacy",
+            ledger.dispatches, ledger.host_syncs, ledger.device_dispatches, live, 0)
+        if OT.enabled():
+            OM.gauge("ebft/live_block_bytes").set(live)  # summary max = peak
+            OM.gauge("ebft/live_block_bytes_per_shard").set(live)
+            OM.series("ebft/loss_before").append(before, step=i)
+            OM.series("ebft/loss_after").append(after, step=i)
+            OM.series("ebft/epochs_run").append(epochs_run, step=i)
+            OM.series("ebft/dispatches_per_block").append(report.dispatches, step=i)
+            OM.series("ebft/host_syncs_per_block").append(report.host_syncs, step=i)
+            OM.counter(f"ebft/early_stop/{early_stop}").inc()
+            sp.set(epochs=epochs_run, loss_before=before, loss_after=after,
+                   early_stop=early_stop, live_bytes=live, path=report.path,
+                   dispatches=report.dispatches, host_syncs=report.host_syncs,
+                   devices=ledger.devices)
+    return tuned, report
 
 
 def finetune(model, dense_params: Params, pruned_params: Params, masks: Params,
@@ -149,18 +184,22 @@ def finetune(model, dense_params: Params, pruned_params: Params, masks: Params,
     if ecfg.mesh_plan is not None:
         raise NotImplementedError("EBFT over a device mesh is not ported yet "
                                   "(ROADMAP.md queue A.8)")
-    student = apply_masks(pruned_params, masks)
-    reports: List[BlockReport] = []
+    with OT.span("ebft/walk", epochs=ecfg.epochs, lr=ecfg.lr, microbatch=ecfg.microbatch,
+                 fused=False, prefetch_depth=0, mesh_devices=1):
+        student = apply_masks(pruned_params, masks)
+        reports: List[BlockReport] = []
+        step_cache: Dict = {}
 
-    def visit(i, bp, ctx):
-        data = list(zip(ctx["h_mb"], ctx["target_mb"], ctx["pos_mb"]))
-        tuned, rep = tune_block(model, i, bp, model.get_block(masks, i), data, ecfg)
-        reports.append(rep)
-        if log:
-            log(f"block {i:3d} [{rep.kind}] epochs={rep.epochs_run} "
-                f"E: {rep.loss_before:.3e} -> {rep.loss_after:.3e}")
-        return tuned
+        def visit(i, bp, ctx):
+            data = list(zip(ctx["h_mb"], ctx["target_mb"], ctx["pos_mb"]))
+            tuned, rep = tune_block(model, i, bp, model.get_block(masks, i), data, ecfg,
+                                    step_cache)
+            reports.append(rep)
+            if log:
+                log(f"block {i:3d} [{rep.kind}] epochs={rep.epochs_run} "
+                    f"E: {rep.loss_before:.3e} -> {rep.loss_after:.3e}")
+            return tuned
 
-    result = C.walk_blocks(model, dense_params, calib, visit, microbatch=ecfg.microbatch,
-                           params_student=student, masks=masks, dual_stream=True)
+        result = C.walk_blocks(model, dense_params, calib, visit, microbatch=ecfg.microbatch,
+                               params_student=student, masks=masks, dual_stream=True)
     return result, reports

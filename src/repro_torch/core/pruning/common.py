@@ -30,6 +30,9 @@ import torch
 
 from repro_torch import tree as T
 from repro_torch.core import reconstruction as R
+from repro_torch.obs import metrics as OM
+from repro_torch.obs import trace as OT
+from repro_torch.obs.profile import DispatchLedger, FirstCallTimer, compile_clock
 from repro_torch.sparsity import sparse_params as SP
 from repro_torch.sparsity.taps import dense_taps
 
@@ -147,6 +150,21 @@ def walk_blocks(model, params, calib: np.ndarray, visit_fn: Callable, microbatch
     masked matmul kernel; the teacher runs dense. Returns the updated
     params (``params_student``, updated in place; never ``params`` in
     dual-stream mode).
+
+    Observability (dual-stream mode, as the reference's stacked walk): each
+    visit is wrapped in the spans ``walk/teacher``, ``walk/tune`` and
+    ``walk/student`` (``block=i``), each fencing its result, so a live run
+    adds three synchronises a block. Their seconds, less the first calls'
+    host time (``FirstCallTimer`` on the advances, drained from the
+    compile clock per phase), go to the histograms
+    ``ebft/walk/{teacher,tune,student}_s`` and the first calls' to
+    ``…_compile_s``. A ``DispatchLedger("ebft/walk")`` counts one dispatch
+    per microbatch advance: each stream's ``h0`` per segment, then the
+    teacher's and the student's advance per block. The reference counts
+    one per scanned advance of the stacked microbatches; the port's loop
+    advances microbatch by microbatch, and that is its unit. The
+    reference's ``ebft/walk/prefetch_inflight`` gauge has no counterpart
+    (no prefetcher).
     """
     out_params = params_student if params_student is not None else params
     if dual_stream and out_params is params:
@@ -154,6 +172,11 @@ def walk_blocks(model, params, calib: np.ndarray, visit_fn: Callable, microbatch
                          "(set_block writes in place; the teacher must stay dense)")
     device = params["embed"]["tok"].device
     batch_all = _make_batches(calib, microbatch, device)
+    span = OT.span if dual_stream else (lambda name, **attrs: OT.NULL_SPAN)
+    ledger = DispatchLedger("ebft/walk")
+    clock = compile_clock()
+    clock.take()  # drop first-call time booked before this walk started
+    adv = FirstCallTimer(R.advance_with)
     for seg in R.execution_plan(model):
         hs_mb, ht_mb, pos_mb = [], [], []
         with torch.no_grad():
@@ -163,21 +186,36 @@ def walk_blocks(model, params, calib: np.ndarray, visit_fn: Callable, microbatch
                 pos_mb.append(pos)
                 if dual_stream:
                     ht_mb.append(seg.h0(params, b)[0])
+        if dual_stream:
+            ledger.dispatch(2 * len(batch_all))
+        clock.take()  # segment setup is not a phase
         for (i, site) in seg.visits:
             ctx = dict(h_mb=hs_mb, pos_mb=pos_mb, site=site)
             if dual_stream:
                 dense_bp = model.get_block(params, i)
-                with torch.no_grad():
-                    ht_mb = [R.advance_with(model, params, i, dense_bp, h, p)
-                             for h, p in zip(ht_mb, pos_mb)]
+                with span("walk/teacher", block=i) as sp_t, torch.no_grad():
+                    ht_mb = sp_t.fence([adv(model, params, i, dense_bp, h, p)
+                                        for h, p in zip(ht_mb, pos_mb)])
+                    ledger.dispatch(len(ht_mb))
                 ctx["target_mb"] = ht_mb
+            c_teacher = clock.take()
             bp = model.get_block(out_params, i)
-            new_bp = visit_fn(i, bp, ctx)
+            with span("walk/tune", block=i) as sp_v:
+                new_bp = sp_v.fence(visit_fn(i, bp, ctx))
+            c_tune = clock.take()
             if new_bp is not None:
                 out_params = model.set_block(out_params, i, new_bp)
                 bp = model.get_block(out_params, i)
             mb = model.get_block(masks, i) if masks is not None else None
-            with torch.no_grad():
-                hs_mb = [R.advance_with(model, out_params, i, bp, h, p, mb)
-                         for h, p in zip(hs_mb, pos_mb)]
+            with span("walk/student", block=i) as sp_s, torch.no_grad():
+                hs_mb = sp_s.fence([adv(model, out_params, i, bp, h, p, mb)
+                                    for h, p in zip(hs_mb, pos_mb)])
+                if dual_stream:
+                    ledger.dispatch(len(hs_mb))
+            c_student = clock.take()
+            if dual_stream and OT.enabled():
+                for phase, sp, c in (("teacher", sp_t, c_teacher), ("tune", sp_v, c_tune),
+                                     ("student", sp_s, c_student)):
+                    OM.histogram(f"ebft/walk/{phase}_s").observe(max(sp.duration - c, 0.0))
+                    OM.histogram(f"ebft/walk/{phase}_compile_s").observe(c)
     return out_params

@@ -10,6 +10,13 @@ requires it, :func:`flash_attention` goes through
 log-sum-exp, and its backward is the backward kernel (the plain formula on
 the CPU), so a kernel's output always carries its autograd edge.
 ``launches`` and ``bwd_launches`` count kernel launches.
+
+While an obs run is live, each launch (the plain version's call on the
+CPU) is booked by ``obs.profile.record_kernel`` as
+``kernels/flash_attention`` in the reference's accounting, 4·BH·Sq·Sk·d
+FLOPs (half of it causal) and the bytes of q, k, v and the output, and as
+``kernels/flash_attention_bwd`` with 2.5 × the forward's FLOPs (10·d
+against 4·d per pair) and the bytes of q, k, v, o, do, lse, dq, dk, dv.
 """
 from __future__ import annotations
 
@@ -21,6 +28,8 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention.ref import (
     flash_attention_bwd_plain, flash_attention_plain,
 )
+from repro_torch.obs import trace as OT
+from repro_torch.obs.profile import is_abstract, record_kernel
 
 launches = 0
 bwd_launches = 0
@@ -47,9 +56,7 @@ def flash_attention(q, k, v, *, causal: bool = True, q_offset: int = 0) -> torch
         raise ValueError(f"flash_attention: no kernel for device {q.device}")
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
         return FlashAttentionFn.apply(q, k, v, causal, int(q_offset))
-    if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, causal=causal, q_offset=q_offset)
-    return _launch(q, k, v, causal, int(q_offset))
+    return _forward(q, k, v, causal, int(q_offset))
 
 
 def flash_attention_bwd(q, k, v, o, do, lse, *, causal: bool = True, q_offset: int = 0):
@@ -60,8 +67,41 @@ def flash_attention_bwd(q, k, v, o, do, lse, *, causal: bool = True, q_offset: i
         raise ValueError(f"flash_attention_bwd: inconsistent shapes q={tuple(q.shape)} "
                          f"o={tuple(o.shape)} do={tuple(do.shape)} lse={tuple(lse.shape)}")
     if q.device.type == "cpu":
-        return flash_attention_bwd_plain(q, k, v, o, do, lse, causal=causal, q_offset=q_offset)
-    return _launch_bwd(q, k, v, o, do.contiguous(), lse, causal, int(q_offset))
+        fn = flash_attention_bwd_plain
+    else:
+        fn, do = _launch_bwd, do.contiguous()
+    if not OT.enabled() or not (q.shape[0] and q.shape[1] and k.shape[1]) or \
+            is_abstract(q, k, v, o, do, lse):
+        return fn(q, k, v, o, do, lse, causal=causal, q_offset=int(q_offset))
+    nbytes = 2 * _bytes(q, k, v) + _bytes(o, do, lse)  # dq, dk, dv as q, k, v
+    return record_kernel("kernels/flash_attention_bwd", 2.5 * _fwd_flops(q, k, causal), nbytes,
+                         fn, q, k, v, o, do, lse, causal=causal, q_offset=int(q_offset),
+                         device=q.device)
+
+
+def _bytes(*ts: torch.Tensor) -> int:
+    return sum(t.numel() * t.element_size() for t in ts)
+
+
+def _fwd_flops(q, k, causal: bool) -> float:
+    """The reference's count: 4·d per (query, key) pair, half the pairs causal."""
+    BH, Sq, d = q.shape
+    return 4.0 * BH * Sq * k.shape[1] * d * (0.5 if causal else 1.0)
+
+
+def _forward(q, k, v, causal: bool, q_offset: int, with_lse: bool = False):
+    """The forward kernel (the plain version on the CPU); under a live obs
+    run booked with ``record_kernel``. With ``with_lse`` also returns the
+    f32 row log-sum-exp."""
+    if q.device.type == "cpu":
+        fn = flash_attention_plain
+        kw = dict(causal=causal, q_offset=q_offset, return_lse=with_lse)
+    else:
+        fn, kw = _launch, dict(causal=causal, q_offset=q_offset, with_lse=with_lse)
+    if not OT.enabled() or not (q.shape[0] and q.shape[1]) or is_abstract(q, k, v):
+        return fn(q, k, v, **kw)
+    return record_kernel("kernels/flash_attention", _fwd_flops(q, k, causal),
+                         _bytes(q, k, v) + _bytes(q), fn, q, k, v, device=q.device, **kw)
 
 
 class FlashAttentionFn(torch.autograd.Function):
@@ -70,11 +110,7 @@ class FlashAttentionFn(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, causal, q_offset):
-        if q.device.type == "cpu":
-            o, lse = flash_attention_plain(q, k, v, causal=causal, q_offset=q_offset,
-                                           return_lse=True)
-        else:
-            o, lse = _launch(q, k, v, causal, q_offset, with_lse=True)
+        o, lse = _forward(q, k, v, causal, q_offset, with_lse=True)
         ctx.save_for_backward(q, k, v, o, lse)
         ctx.causal, ctx.q_offset = causal, q_offset
         return o

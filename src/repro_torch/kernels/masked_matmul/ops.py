@@ -11,12 +11,21 @@ enabled and x, w or m requires it, :func:`masked_matmul` goes through
 its autograd edge. ``launches``, ``dx_launches``, ``dw_launches`` and
 ``dm_launches`` count kernel launches, so a run can show that its path
 went through each.
+
+While an obs run is live, each launch (or plain-version call on the CPU)
+goes through ``obs.profile.record_kernel`` as ``kernels/masked_matmul``,
+``kernels/masked_matmul_dx``, ``_dw`` and ``_dm``, in the reference's
+accounting: 2·M·K·N FLOPs (dense-equivalent, whatever the mask keeps) and
+the bytes of the operands and the output. With obs off that costs one
+check.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.obs import trace as OT
+from repro_torch.obs.profile import is_abstract, record_kernel
 from repro_torch.kernels.masked_matmul.ref import (
     masked_matmul_dm_plain, masked_matmul_dw_plain, masked_matmul_dx_plain, masked_matmul_plain,
 )
@@ -51,9 +60,9 @@ def masked_matmul_dx(dy: torch.Tensor, w: torch.Tensor, m: torch.Tensor) -> torc
     if dy.dim() != 2 or w.dim() != 2 or dy.shape[1] != w.shape[1] or m.shape != w.shape:
         raise ValueError(f"masked_matmul_dx: inconsistent operand shapes dy={tuple(dy.shape)} "
                          f"w={tuple(w.shape)} m={tuple(m.shape)}")
-    if _on_cpu("masked_matmul_dx", dy, w, m):
-        return masked_matmul_dx_plain(dy, w, m)
-    return _launch_dx(dy, w, m)
+    fn = masked_matmul_dx_plain if _on_cpu("masked_matmul_dx", dy, w, m) else _launch_dx
+    M, N = dy.shape
+    return _recorded("kernels/masked_matmul_dx", fn, dy, w, m, M, w.shape[0], N, (M, w.shape[0]))
 
 
 def masked_matmul_dw(x: torch.Tensor, dy: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
@@ -63,9 +72,9 @@ def masked_matmul_dw(x: torch.Tensor, dy: torch.Tensor, m: torch.Tensor) -> torc
             m.shape != (x.shape[1], dy.shape[1]):
         raise ValueError(f"masked_matmul_dw: inconsistent operand shapes x={tuple(x.shape)} "
                          f"dy={tuple(dy.shape)} m={tuple(m.shape)}")
-    if _on_cpu("masked_matmul_dw", x, dy, m):
-        return masked_matmul_dw_plain(x, dy, m)
-    return _launch_dw(x, dy, m)
+    fn = masked_matmul_dw_plain if _on_cpu("masked_matmul_dw", x, dy, m) else _launch_dw
+    (M, K), N = x.shape, dy.shape[1]
+    return _recorded("kernels/masked_matmul_dw", fn, x, dy, m, M, K, N, (K, N))
 
 
 def masked_matmul_dm(x: torch.Tensor, dy: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -75,9 +84,9 @@ def masked_matmul_dm(x: torch.Tensor, dy: torch.Tensor, w: torch.Tensor) -> torc
             w.shape != (x.shape[1], dy.shape[1]):
         raise ValueError(f"masked_matmul_dm: inconsistent operand shapes x={tuple(x.shape)} "
                          f"dy={tuple(dy.shape)} w={tuple(w.shape)}")
-    if _on_cpu("masked_matmul_dm", x, dy, w):
-        return masked_matmul_dm_plain(x, dy, w)
-    return _launch_dm(x, dy, w)
+    fn = masked_matmul_dm_plain if _on_cpu("masked_matmul_dm", x, dy, w) else _launch_dm
+    (M, K), N = x.shape, dy.shape[1]
+    return _recorded("kernels/masked_matmul_dm", fn, x, dy, w, M, K, N, (K, N))
 
 
 class MaskedMatmulFn(torch.autograd.Function):
@@ -117,7 +126,21 @@ def _on_cpu(what: str, *ts: torch.Tensor) -> bool:
 
 
 def _forward(x, w, m):
-    return masked_matmul_plain(x, w, m) if x.device.type == "cpu" else _launch(x, w, m)
+    fn = masked_matmul_plain if x.device.type == "cpu" else _launch
+    return _recorded("kernels/masked_matmul", fn, x, w, m, x.shape[0], x.shape[1], w.shape[1],
+                     (x.shape[0], w.shape[1]))
+
+
+def _recorded(name: str, fn, a, b, c, M: int, K: int, N: int, out_shape):
+    """``fn(a, b, c)``; under a live obs run booked with ``record_kernel``
+    (2·M·K·N FLOPs; the three operands read once, the output, in a's
+    dtype, written once). A product with an empty dimension launches
+    nothing and is not booked."""
+    if not OT.enabled() or min(M, K, N) == 0 or is_abstract(a, b, c):
+        return fn(a, b, c)
+    nbytes = sum(t.numel() * t.element_size() for t in (a, b, c)) + \
+        out_shape[0] * out_shape[1] * a.element_size()
+    return record_kernel(name, 2.0 * M * K * N, nbytes, fn, a, b, c, device=a.device)
 
 
 def _launch(x: torch.Tensor, w: torch.Tensor, m: torch.Tensor) -> torch.Tensor:

@@ -5,7 +5,11 @@
 On a CPU tensor it runs the plain PyTorch version. On a CUDA tensor it
 launches ``csrc/nm_spmm.cu`` on the current stream, or raises on an
 operand the kernel does not take; it never falls back. Forward only, as
-the reference. ``launches`` counts kernel launches.
+the reference. ``launches`` counts kernel launches. While an obs run is
+live, each launch (the plain version's call on the CPU) is booked as
+``kernels/nm_spmm`` by ``obs.profile.record_kernel`` in the reference's
+accounting: 2·M·K·N dense-equivalent FLOPs, and the bytes of x, vals,
+idx and the output.
 """
 from __future__ import annotations
 
@@ -13,6 +17,8 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.nm_spmm.ref import nm_spmm_plain
+from repro_torch.obs import trace as OT
+from repro_torch.obs.profile import is_abstract, record_kernel
 
 launches = 0
 
@@ -32,10 +38,17 @@ def nm_spmm(x: torch.Tensor, vals: torch.Tensor, idx: torch.Tensor, *, n: int,
     if not (x.device == vals.device == idx.device):
         raise ValueError(f"nm_spmm: operands on {x.device}, {vals.device}, {idx.device}")
     if x.device.type == "cpu":
-        return nm_spmm_plain(x, vals, idx, n=n, m=m)
-    if x.device.type != "cuda":
+        fn = nm_spmm_plain
+    elif x.device.type == "cuda":
+        fn = _launch
+    else:
         raise ValueError(f"nm_spmm: no kernel for device {x.device}")
-    return _launch(x, vals, idx, n, m)
+    (M, K), N = x.shape, vals.shape[1]
+    if not OT.enabled() or min(M, K, N) == 0 or is_abstract(x, vals, idx):
+        return fn(x, vals, idx, n=n, m=m)
+    nbytes = sum(t.numel() * t.element_size() for t in (x, vals, idx)) + M * N * x.element_size()
+    return record_kernel("kernels/nm_spmm", 2.0 * M * K * N, nbytes, fn, x, vals, idx,
+                         n=n, m=m, device=x.device)
 
 
 def _launch(x, vals, idx, n: int, m: int) -> torch.Tensor:

@@ -1,12 +1,12 @@
-"""Each launcher's command line as one view of its spec dataclass (the
-part of ``repro.launch.api`` the port's launchers use): a flag
-``--field-name`` per field, with the field's type and default, and
-``--device``."""
+"""Each launcher's command line as one view of its spec dataclass, and the
+obs run each launcher opens (the part of ``repro.launch.api`` the port's
+launchers use): a flag ``--field-name`` per field, with the field's type
+and default (a bool field is a switch), and ``--device``."""
 from __future__ import annotations
 
 import argparse
 import dataclasses
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Any, Dict, Optional, Sequence, Tuple
 
 
 def parse(spec_cls, argv: Optional[Sequence[str]], prog: str, description: str,
@@ -15,10 +15,48 @@ def parse(spec_cls, argv: Optional[Sequence[str]], prog: str, description: str,
     ap = argparse.ArgumentParser(prog=prog, description=description)
     choices = choices or {}
     for f in dataclasses.fields(spec_cls):
-        ap.add_argument("--" + f.name.replace("_", "-"), type=type(f.default),
-                        default=f.default, choices=choices.get(f.name))
+        flag = "--" + f.name.replace("_", "-")
+        if isinstance(f.default, bool):
+            ap.add_argument(flag, action="store_true", default=f.default)
+        else:
+            ap.add_argument(flag, type=type(f.default), default=f.default,
+                            choices=choices.get(f.name))
     ap.add_argument("--device", default=None,
                     help="cuda (the default) or cpu; never falls back")
     args = vars(ap.parse_args(argv))
     device = args.pop("device")
     return spec_cls(**args), device
+
+
+def to_manifest(spec, kind: str) -> Dict[str, Any]:
+    """The manifest header of the reference's ``RunSpec.to_manifest``:
+    ``run_spec`` (``kind`` and every field of the spec) and the flat keys
+    the reference's artifacts carry. The port's EBFT is the per-epoch loop
+    on one device: ``fused_epochs`` False, ``prefetch_depth`` 0, a 1 × 1
+    mesh."""
+    out: Dict[str, Any] = {"run_spec": {"kind": kind, **dataclasses.asdict(spec)}}
+    if kind == "ebft":
+        out.update({
+            "ebft_lr": spec.lr, "ebft_epochs": spec.epochs,
+            "calib_samples": spec.calib_samples, "seq": spec.seq, "seed": spec.seed,
+            "fused_epochs": False, "prefetch_depth": 0, "mesh": {"data": 1, "model": 1},
+        })
+    elif kind == "train":
+        out.update({"steps": spec.steps, "batch": spec.batch, "seq": spec.seq})
+    return out
+
+
+def start_obs_run(spec, kind: str, device, name: Optional[str] = None, **kw):
+    """``obs.run.start_run`` with ``spec`` as the manifest source, as the
+    reference's ``RunSpec.start_obs_run``; None when ``spec.no_obs``, so a
+    launcher can write ``run = start_obs_run(...)`` unconditionally."""
+    if spec.no_obs:
+        return None
+    from repro_torch.obs.run import start_run
+
+    base: Dict[str, Any] = {"config": spec.arch, "jsonl_path": spec.obs_jsonl or None}
+    if kind == "ebft":
+        base.update(method=spec.method, sparsity=spec.sparsity, pattern=spec.pattern or None)
+    base["extra_manifest"] = to_manifest(spec, kind)
+    base.update(kw)
+    return start_run(name or ("ebft_run" if kind == "ebft" else kind), device=device, **base)

@@ -15,13 +15,22 @@ attention kernel's.
     python -m repro_torch.launch.ebft_run --arch tiny_dense --pretrain-steps 200 \
         --epochs 8 --method sparsegpt --sparsity 0.7 --baselines dsnot,mask,lora --device cpu
 
-Runs on the card unless ``--device cpu``. The bench JSON holds the
-reference's ``phases``, ``perplexity``, ``blocks`` and ``ebft`` sections.
+Runs on the card unless ``--device cpu``. Instrumented through
+``repro_torch.obs`` as the reference through ``repro.obs``: every phase is
+a span (``phase/pretrain``, ``phase/eval``, ``phase/prune``,
+``phase/ebft``, ``phase/baseline``), the walk, the blocks and every kernel
+launch feed the metrics registry, and the run writes ``--bench-out``
+(``BENCH_ebft.json``) in the reference's schema: manifest, metrics, the
+span tree, and the sections ``phases``, ``blocks``, ``perplexity``,
+``ebft``, ``mesh``, ``dispatch``, ``walk_phases`` and ``kernel_tuning``
+(``python -m repro_torch.obs report`` renders it, and so does the
+reference's CLI). ``--obs-jsonl`` streams the events as they happen.
+``--no-obs`` turns all of it off and writes no artifact; the console
+lines are the same either way.
 """
 from __future__ import annotations
 
 import dataclasses
-import json
 import time
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
@@ -38,8 +47,11 @@ from repro_torch.core.pruning.flap import remaining_param_fraction
 from repro_torch.data.tokens import (
     CorpusConfig, SyntheticCorpus, calibration_set, corpus_iterator, eval_set,
 )
-from repro_torch.launch.api import parse
+from repro_torch.launch.api import parse, start_obs_run
 from repro_torch.models.model import build
+from repro_torch.obs import metrics as OM
+from repro_torch.obs import trace as OT
+from repro_torch.obs.profile import kernel_time
 from repro_torch.optim.optimizers import adamw
 from repro_torch.sparsity.sparse_params import sparsity_of
 from repro_torch.training.train_loop import make_train_step
@@ -69,6 +81,8 @@ class RunSpec:
     epochs: int = 10
     baselines: str = ""  # comma list of BASELINES
     bench_out: str = "BENCH_ebft.json"
+    no_obs: bool = False
+    obs_jsonl: str = ""
 
 
 @dataclasses.dataclass
@@ -98,20 +112,35 @@ def _sync(device: torch.device) -> None:
 
 
 class _phase:
-    """Wall time of a phase, fenced by a device synchronise at both ends."""
+    """A pipeline phase: an obs span when observability is on, and a host
+    wall time either way (the console timings survive ``--no-obs``), fenced
+    by a device synchronise at both ends. Under a live run the span also
+    carries ``kernel_s`` and ``kernel_launches``: the event time and count
+    of the kernel launches the phase made (``obs.profile.kernel_time``,
+    read after the closing synchronise), so the rest of its time is
+    everything else (cuBLAS, elementwise work, the host)."""
 
-    def __init__(self, device: torch.device):
+    def __init__(self, device: torch.device, name: str, **attrs):
         self.device = device
+        self.span = OT.span(name, **attrs)
         self.duration = 0.0
+        self._k0 = None
 
     def __enter__(self) -> "_phase":
         _sync(self.device)
+        if OT.enabled():
+            self._k0 = kernel_time()
         self._t0 = time.perf_counter()
+        self.span.__enter__()
         return self
 
     def __exit__(self, *exc) -> bool:
         _sync(self.device)
         self.duration = time.perf_counter() - self._t0
+        if self._k0 is not None:
+            secs, n = kernel_time()
+            self.span.set(kernel_s=secs - self._k0[0], kernel_launches=n - self._k0[1])
+        self.span.__exit__(*exc)
         return False
 
 
@@ -137,6 +166,7 @@ def pretrain(model, params, corpus, steps: int, batch: int, seq: int, lr: float,
         params, opt_state, metrics, _ = step(params, opt_state, {"tokens": tokens}, None)
         if i % PRETRAIN_LOG_EVERY == 0 or i == steps - 1:
             history.append((i, float(metrics["loss"]), float(metrics["grad_norm"])))
+            OM.series("pretrain/loss").append(history[-1][1], step=i)
     return params, history
 
 
@@ -162,7 +192,7 @@ def run(cfg: ModelConfig, spec: RunSpec, device=None, params: Optional[Any] = No
     ppl: Dict[str, float] = {}
     history: List[Tuple[int, float, float]] = []
     if spec.pretrain_steps > 0:
-        with _phase(device) as sp:
+        with _phase(device, "phase/pretrain", steps=spec.pretrain_steps) as sp:
             params, history = pretrain(model, params, corpus, spec.pretrain_steps, spec.batch,
                                        spec.seq, PRETRAIN_LR, on_stage)
         phases["pretrain"] = sp.duration
@@ -170,10 +200,10 @@ def run(cfg: ModelConfig, spec: RunSpec, device=None, params: Optional[Any] = No
     ev = eval_set(corpus, EVAL_SAMPLES, spec.seq)
     pattern = tuple(int(x) for x in spec.pattern.split(":")) if spec.pattern else None
 
-    with _phase(device) as sp:
+    with _phase(device, "phase/eval", what="dense") as sp:
         ppl["dense"] = perplexity(model, params, ev)
     phases["eval_dense"] = sp.duration
-    with _phase(device) as sp:
+    with _phase(device, "phase/prune", method=spec.method, sparsity=spec.sparsity) as sp:
         masks, pruned = prune(model, params, calib, method=spec.method,
                               sparsity=spec.sparsity, pattern=pattern)
     phases["prune"] = sp.duration
@@ -181,16 +211,16 @@ def run(cfg: ModelConfig, spec: RunSpec, device=None, params: Optional[Any] = No
     res = RunResult(ppl, phases, sparsity_of(masks, params), params, masks, pruned,
                     pretrain_losses=history)
     ecfg = ebft.EBFTConfig(lr=spec.lr, epochs=spec.epochs)
-    with _phase(device) as sp:
+    with _phase(device, "phase/ebft", lr=spec.lr, epochs=spec.epochs) as sp:
         res.tuned, res.reports = ebft.finetune(model, params, pruned, masks, calib, ecfg)
     phases["ebft"] = sp.duration
-    with _phase(device) as sp:
+    with _phase(device, "phase/eval", what="ebft") as sp:
         ppl["EBFT"] = perplexity(model, res.tuned, ev, masks=masks)
     phases["eval_ebft"] = sp.duration
     # each baseline's phase holds its evaluation, as the reference's
     if "dsnot" in wants:
         errors: Dict = {}
-        with _phase(device) as sp:
+        with _phase(device, "phase/baseline", which="dsnot") as sp:
             ds_masks, ds = prune(model, params, calib, method="dsnot", sparsity=spec.sparsity,
                                  pattern=pattern, scores_out=errors,
                                  dsnot_init=spec.method if spec.method != "dsnot" else "wanda")
@@ -199,7 +229,7 @@ def run(cfg: ModelConfig, spec: RunSpec, device=None, params: Optional[Any] = No
         res.baselines["dsnot"] = dict(masks=ds_masks, params=ds, errors=errors)
     if "mask" in wants:
         histories: List[List[float]] = []
-        with _phase(device) as sp:
+        with _phase(device, "phase/baseline", which="mask") as sp:
             mt, mt_masks = mask_tuning.finetune_masks(model, params, masks, spec.sparsity, calib,
                                                       pattern=pattern, histories=histories)
             ppl["mask-tune"] = perplexity(model, mt, ev, masks=mt_masks)
@@ -207,7 +237,7 @@ def run(cfg: ModelConfig, spec: RunSpec, device=None, params: Optional[Any] = No
         res.baselines["mask"] = dict(masks=mt_masks, params=mt, histories=histories)
     if "lora" in wants:
         losses: List[torch.Tensor] = []
-        with _phase(device) as sp:
+        with _phase(device, "phase/baseline", which="lora") as sp:
             it = corpus_iterator(corpus, batch=8, seq_len=spec.seq, seed=9)
             lr_params = lora.finetune_lora(model, pruned, masks, it, LORA, losses=losses)
             ppl["LoRA"] = perplexity(model, lr_params, ev, masks=masks)
@@ -216,23 +246,61 @@ def run(cfg: ModelConfig, spec: RunSpec, device=None, params: Optional[Any] = No
     return res
 
 
-def bench_record(spec: RunSpec, res: RunResult) -> Dict[str, Any]:
-    """The bench JSON: the reference's ``phases``, ``perplexity``,
-    ``blocks`` and ``ebft`` sections (``dispatch``, ``walk_phases``,
-    ``mesh`` and ``kernel_tuning`` wait for ``obs/``, ROADMAP.md A.2)."""
+def bench_record(spec: RunSpec, res: RunResult,
+                 summ: Optional[Dict[str, Any]] = None) -> Dict[str, Any]:
+    """The artifact's sections beside its manifest, metrics and trace, in
+    the reference's schema (``repro.launch.ebft_run.main``): ``phases``,
+    ``blocks``, ``perplexity``, ``ebft``, ``mesh``, ``dispatch``,
+    ``walk_phases`` and ``kernel_tuning``, and the spec as ``run_spec``.
+    ``summ`` is the run's metric summary; without it the sections that
+    read it hold None. The port runs the per-epoch loop on one device: no
+    fused blocks, no prefetch, an inactive 1-device mesh, and no
+    launch-config cache (``kernel_tuning`` mode ``off``, ROADMAP.md A.6)."""
     reports = res.reports
+    summ = summ or {}
+
+    def metric(name: str, key: str):
+        return summ.get(name, {}).get(key)
+
+    peak = max((r.live_bytes for r in reports), default=None)
+    tune_max = max((r.dispatches for r in reports), default=0)
     return {
         "run_spec": dataclasses.asdict(spec), "phases": res.phases,
         "perplexity": res.perplexity, "blocks": [r.asdict() for r in reports],
         "ebft": {
             "num_blocks": len(reports),
             "mean_e_drop": _mean_drop(reports),
-            "peak_live_block_bytes": max((r.live_bytes for r in reports), default=None),
+            "peak_live_block_bytes": peak,
             "fused_epochs": False,   # the per-epoch loop
             "prefetch_depth": 0,     # the teacher runs just before each visit
             "early_stops": {reason: sum(1 for r in reports if r.early_stop == reason)
                             for reason in {r.early_stop for r in reports}},
         },
+        "mesh": {"devices": 1, "axes": {}, "active": False,
+                 "peak_live_block_bytes_per_shard": max(
+                     (r.live_bytes_per_shard for r in reports), default=None),
+                 "collective_bytes_total": sum(r.collective_bytes for r in reports)},
+        # per block: the tune loop's dispatches (the reference's legacy
+        # ledger); the walk's are one per microbatch advance of a stream
+        "dispatch": {
+            "tune_per_block_max": tune_max,
+            "tune_host_syncs_per_block_max": max((r.host_syncs for r in reports), default=0),
+            "per_block_max": tune_max,
+            "fused_all_blocks": False,
+            "walk_total": metric("ebft/walk/dispatches", "value"),
+            "walk_host_syncs": metric("ebft/walk/host_syncs", "value"),
+            "device_dispatches_per_block": {str(r.index): r.device_dispatches for r in reports},
+            "tune_device_total": metric("ebft/tune/device_dispatches", "value"),
+            "walk_device_total": metric("ebft/walk/device_dispatches", "value"),
+        },
+        # each walk phase's seconds, the first calls' host time apart
+        "walk_phases": {
+            **{p: metric(f"ebft/walk/{p}_s", "sum") for p in ("teacher", "tune", "student")},
+            **{f"{p}_compile": metric(f"ebft/walk/{p}_compile_s", "sum")
+               for p in ("teacher", "tune", "student")},
+        },
+        "kernel_tuning": {"mode": "off", "cache_path": None, "hits": 0, "misses": 0,
+                          "searches": 0, "search_s": 0.0},
     }
 
 
@@ -243,28 +311,33 @@ def _mean_drop(reports) -> float:
 def main(argv=None) -> RunResult:
     spec, device = parse(RunSpec, argv, "repro_torch.launch.ebft_run", __doc__,
                          {"method": METHODS})
+    device = resolve_device(device)
+    obs_run = start_obs_run(spec, "ebft", device)
+    say = obs_run.say if obs_run is not None else print
     cfg = get_config(spec.arch)
     res = run(cfg, spec, device)
     if res.pretrain_losses:
-        print(f"pretrained {spec.pretrain_steps} steps, final loss "
-              f"{res.pretrain_losses[-1][1]:.3f}")
-    print(f"dense ppl          {res.perplexity['dense']:8.2f}")
-    print(f"{spec.method} ppl {' ' * (10 - len(spec.method))}"
-          f"{res.perplexity[spec.method]:8.2f}   ({res.phases['prune']:.0f}s, "
-          f"sparsity {res.sparsity:.4f})")
+        say(f"pretrained {spec.pretrain_steps} steps, final loss "
+            f"{res.pretrain_losses[-1][1]:.3f}")
+    say(f"dense ppl          {res.perplexity['dense']:8.2f}")
+    say(f"{spec.method} ppl {' ' * (10 - len(spec.method))}"
+        f"{res.perplexity[spec.method]:8.2f}   ({res.phases['prune']:.0f}s, "
+        f"sparsity {res.sparsity:.4f})")
     if spec.method == "flap":
-        print(f"FLAP remaining params {remaining_param_fraction(res.masks, res.pruned):.4f}")
-    print(f"EBFT ppl           {res.perplexity['EBFT']:8.2f}   "
-          f"({res.phases['ebft']:.0f}s, {len(res.reports)} blocks, "
-          f"mean E drop {_mean_drop(res.reports):.3e})")
+        say(f"FLAP remaining params {remaining_param_fraction(res.masks, res.pruned):.4f}")
+    say(f"EBFT ppl           {res.perplexity['EBFT']:8.2f}   "
+        f"({res.phases['ebft']:.0f}s, {len(res.reports)} blocks, "
+        f"mean E drop {_mean_drop(res.reports):.3e})")
     for name, key in (("DSnoT", "dsnot"), ("mask-tune", "mask"), ("LoRA", "lora")):
         if name in res.perplexity:
-            print(f"{name + ' ppl':<19}{res.perplexity[name]:8.2f}   "
-                  f"({res.phases['baseline_' + key]:.0f}s)")
-    if spec.bench_out:
-        with open(spec.bench_out, "w") as f:
-            json.dump(bench_record(spec, res), f, indent=2)
-        print(f"wrote {spec.bench_out}")
+            say(f"{name + ' ppl':<19}{res.perplexity[name]:8.2f}   "
+                f"({res.phases['baseline_' + key]:.0f}s)")
+    if obs_run is not None:
+        summ = obs_run.payload()["metrics"]
+        obs_run.finish(extra=bench_record(spec, res, summ), summary_path=spec.bench_out or None)
+        if spec.bench_out:
+            print(f"wrote {spec.bench_out}  (render with: python -m repro_torch.obs report "
+                  f"{spec.bench_out})")
     return res
 
 

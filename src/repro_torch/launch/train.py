@@ -8,9 +8,13 @@ a pure function of the step, checkpointed every ``--ckpt-every`` steps.
 If ``--ckpt-dir`` holds a checkpoint, training resumes from it, and the
 run ends with the same weights as one that was never stopped. The
 checkpoint layout is the reference's, so either package resumes the
-other's run. Runs on the card unless ``--device cpu``. The mesh flags and
-the sharded step (``launch/steps.py``) wait for the distributed port
-(ROADMAP.md A.8), the ``trained`` bench section for ``obs/`` (A.2).
+other's run. Runs on the card unless ``--device cpu``. The step is
+``obs.profile.profiled`` as ``train/step`` (first call apart, later calls
+fenced) and the loop books the reference's ``train/*`` spans and metrics;
+with ``--bench-out`` the run writes its artifact with the reference's
+``trained`` section (``--obs-jsonl`` streams the events, ``--no-obs``
+turns it all off). The mesh flags and the sharded step
+(``launch/steps.py``) wait for the distributed port (ROADMAP.md A.8).
 """
 from __future__ import annotations
 
@@ -26,8 +30,9 @@ from repro_torch.checkpoint import ckpt as CK
 from repro_torch.configs import get_config
 from repro_torch.configs.base import ModelConfig
 from repro_torch.data.tokens import CorpusConfig, SyntheticCorpus
-from repro_torch.launch.api import parse
+from repro_torch.launch.api import parse, start_obs_run
 from repro_torch.models.model import build
+from repro_torch.obs.profile import profiled
 from repro_torch.optim import grad_compress as GC
 from repro_torch.optim.optimizers import adamw
 from repro_torch.optim.schedules import warmup_cosine
@@ -52,6 +57,9 @@ class TrainSpec:
     ckpt_dir: str = ""
     ckpt_every: int = 50
     seed: int = 0
+    no_obs: bool = False
+    bench_out: str = ""
+    obs_jsonl: str = ""
 
 
 @dataclasses.dataclass
@@ -75,8 +83,8 @@ def run(cfg: ModelConfig, spec: TrainSpec, device=None, params: Optional[Any] = 
         params = model.init(torch.Generator(device=device).manual_seed(spec.seed))
     opt = adamw(warmup_cosine(spec.lr, warmup=WARMUP, total=max(spec.steps, WARMUP + 1)))
     opt_state = opt.init(params)
-    step_fn = make_train_step(model.loss, opt, microbatches=spec.microbatches,
-                              compress_ratio=spec.compress)
+    step_fn = profiled(make_train_step(model.loss, opt, microbatches=spec.microbatches,
+                                       compress_ratio=spec.compress), "train/step")
     err_state = GC.init_error_state(params) if spec.compress < 1.0 else None
 
     def data_fn(step: int):
@@ -101,13 +109,26 @@ def run(cfg: ModelConfig, spec: TrainSpec, device=None, params: Optional[Any] = 
     return TrainResult(params, opt_state, start, history, time.perf_counter() - t0)
 
 
+def trained_record(spec: TrainSpec, res: TrainResult) -> dict:
+    """The artifact's ``trained`` section, as the reference's launcher writes it."""
+    n = spec.steps - res.start
+    return {"steps": n, "seconds": res.seconds, "steps_per_s": n / max(res.seconds, 1e-9),
+            "history": res.history}
+
+
 def main(argv=None) -> TrainResult:
     spec, device = parse(TrainSpec, argv, "repro_torch.launch.train", __doc__)
-    res = run(get_config(spec.arch), spec, device)
+    device = resolve_device(device)
+    obs_run = start_obs_run(spec, "train", device)
+    say = obs_run.say if obs_run is not None else print
+    res = run(get_config(spec.arch), spec, device, say=say)
     n = spec.steps - res.start
     for s, loss in res.history[-5:]:
-        print(f"step {s:5d} loss {loss:.4f}")
-    print(f"{n} steps in {res.seconds:.1f}s ({n / max(res.seconds, 1e-9):.2f} steps/s)")
+        say(f"step {s:5d} loss {loss:.4f}")
+    say(f"{n} steps in {res.seconds:.1f}s ({n / max(res.seconds, 1e-9):.2f} steps/s)")
+    if obs_run is not None:
+        obs_run.finish(extra={"trained": trained_record(spec, res)},
+                       summary_path=spec.bench_out or None)
     return res
 
 

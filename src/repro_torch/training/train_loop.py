@@ -16,7 +16,10 @@ clones them first.
 ``Trainer`` is the host loop: the batch is a pure function of the step
 (``data_fn``), so a run restarted from a checkpoint sees the same data;
 checkpoints are written every ``ckpt_every`` steps without blocking the
-loop; the loss is read on the host every ``log_every`` steps only.
+loop; the loss is read on the host every ``log_every`` steps only. Under
+a live obs run it opens the reference's ``train/run`` and
+``train/checkpoint`` spans, counts ``train/steps`` and appends the
+``train/loss`` and ``train/grad_norm`` series at those same steps.
 """
 from __future__ import annotations
 
@@ -27,6 +30,8 @@ import torch
 
 from repro_torch import tree as T
 from repro_torch.checkpoint import ckpt as CK
+from repro_torch.obs import metrics as OM
+from repro_torch.obs import trace as OT
 from repro_torch.optim import grad_compress as GC
 from repro_torch.optim.optimizers import Optimizer, apply_updates, clip_by_global_norm
 
@@ -111,15 +116,23 @@ class Trainer:
         save already holds it."""
         history: List[Tuple[int, float]] = []
         end = start_step + num_steps
-        for step in range(start_step, end):
-            batch = self.data_fn(step)
-            params, opt_state, metrics, err_state = self.step_fn(
-                params, opt_state, batch, err_state)
-            if step % self.log_every == 0:
-                history.append((step, float(metrics["loss"])))
-            if self.ckpt_dir and (step + 1) % self.ckpt_every == 0:
-                CK.save(self.ckpt_dir, {"params": params, "opt_state": opt_state},
-                        step=step + 1, async_write=True)
+        with OT.span("train/run", start=start_step, steps=num_steps):
+            for step in range(start_step, end):
+                batch = self.data_fn(step)
+                params, opt_state, metrics, err_state = self.step_fn(
+                    params, opt_state, batch, err_state)
+                OM.counter("train/steps").inc()
+                if step % self.log_every == 0:
+                    loss = float(metrics["loss"])
+                    history.append((step, loss))
+                    if OM.enabled():
+                        OM.series("train/loss").append(loss, step=step)
+                        OM.series("train/grad_norm").append(float(metrics["grad_norm"]),
+                                                            step=step)
+                if self.ckpt_dir and (step + 1) % self.ckpt_every == 0:
+                    with OT.span("train/checkpoint", step=step + 1):
+                        CK.save(self.ckpt_dir, {"params": params, "opt_state": opt_state},
+                                step=step + 1, async_write=True)
         if self.ckpt_dir:
             # a periodic save of this same step may still be writing its .tmp
             CK.wait_all()

@@ -39,3 +39,17 @@ def set_path(tree: dict, names: Path, value: Any) -> None:
     for n in names[:-1]:
         tree = tree.setdefault(n, {})
     tree[names[-1]] = value
+
+
+def tensors(nest: Any) -> Iterator[Any]:
+    """Every ``torch.Tensor`` in a nest of dicts, lists and tuples."""
+    import torch
+
+    if isinstance(nest, torch.Tensor):
+        yield nest
+    elif isinstance(nest, dict):
+        for v in nest.values():
+            yield from tensors(v)
+    elif isinstance(nest, (list, tuple)):
+        for v in nest:
+            yield from tensors(v)
