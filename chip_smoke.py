@@ -12,7 +12,10 @@ width with 4 of its 32 layers in bf16: Wanda 0.7 -> EBFT (the main path);
 2:4, whose tuned weights are re-packed and run through ``nm_spmm``;
 SparseGPT 0.7 -> EBFT with the DSnoT and mask-tuning baselines (path A);
 FLAP at 26% structured sparsity -> EBFT with 200 LoRA steps (path B). It
-cross-checks tiny_dense (the Wanda, SparseGPT, DSnoT and FLAP prunes,
+serves the main path's pretrained and EBFT-tuned weights from a KV cache
+(``serve``: cached decode held to the no-cache forward, continuous
+batching through ``repro_torch.serving``, ``launch/serve`` on the card).
+It cross-checks tiny_dense (the Wanda, SparseGPT, DSnoT and FLAP prunes,
 EBFT, mask tuning, LoRA) on the card against the CPU. Every phase prints one JSON line; any
 failed check raises, so the script exits non-zero. The last three lines
 are the card's name and power limit, the per-kernel summary, and
@@ -66,19 +69,40 @@ def smi() -> str:
     ).stdout.strip().splitlines()[0]
 
 
-def timed_ms(fn, reps: int = 3) -> float:
+def timed_ms(fn, reps: int = 3, hold_ms: float = 20.0) -> float:
+    """The card's mean time for ``fn``'s work, by a CUDA event pair around
+    ``reps`` calls. The stream is first held for about ``hold_ms`` (a spin
+    kernel, at the H100's 1.98 GHz boost clock) so that the host queues
+    every call before the card reaches the first: a short kernel is timed
+    without the host's launch overhead between calls."""
     import torch
 
     fn()
     torch.cuda.synchronize()
     e0 = torch.cuda.Event(enable_timing=True)
     e1 = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(hold_ms * 1.98e6))
     e0.record()
     for _ in range(reps):
         fn()
     e1.record()
     e1.synchronize()
     return e0.elapsed_time(e1) / reps
+
+
+def fenced_ms(fn, reps: int) -> float:
+    """The host's mean time for ``fn`` followed by a device synchronise:
+    the latency of a step that the host waits for, launch overhead
+    included."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+        torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / reps * 1e3
 
 
 def check_close(name, out, ref, dtype: str) -> float:
@@ -238,11 +262,22 @@ def _causal_pairs(sq: int, sk: int, causal: bool, q_offset: int) -> int:
     return sum(min(sk, q_offset + i + 1) for i in range(sq))
 
 
+# the serve phase's attention: a decode step of 8 slots x 32 heads against
+# a 1024-position cache at len 700, and a 512-token prompt prefilled alone
+# into its slot (32 heads, keys the whole cache, len 0)
+SERVE_ATTN = {"decode": (256, 1, 1024, 128, True, 700), "prefill": (32, 512, 1024, 128, True, 0)}
+
+
 def phase_flash_attention(g):
     """Kernel vs plain: (256, 2048, 128) causal, a non-causal case and a
-    q_offset > 0 case with Sq < Sk, in f32 and bf16; plus every compiled
-    head width at a small shape. In every case the row log-sum-exp that the
-    forward writes for the backward is held to the plain one."""
+    q_offset > 0 case with Sq < Sk, the serve phase's decode and prefill
+    shapes (``SERVE_ATTN``), in f32 and bf16; plus every compiled head
+    width at a small shape. In every case the row log-sum-exp that the
+    forward writes for the backward is held to the plain one. Returns the
+    (256, 2048, 128) causal bf16 row and the bf16 serving rows. The bound
+    counts the keys a causal row can see (min(Sk, q_offset + Sq)); the
+    library call is SDPA on the same inputs (at a decode shape over the
+    len + 1 visible keys, non-causal: the same function)."""
     import torch
     import torch.nn.functional as F
 
@@ -253,9 +288,10 @@ def phase_flash_attention(g):
     )
 
     cases = [(256, 2048, 2048, 128, True, 0), (64, 1024, 1024, 128, False, 0),
-             (64, 512, 2048, 128, True, 1536), (8, 200, 333, 64, True, 133),
-             (8, 128, 128, 32, False, 0), (16, 128, 128, 16, True, 0)]
-    summary = None
+             (64, 512, 2048, 128, True, 1536), *SERVE_ATTN.values(),
+             (8, 200, 333, 64, True, 133), (8, 128, 128, 32, False, 0),
+             (16, 128, 128, 16, True, 0)]
+    summary, serve_rows = None, {}
     for dtype in ("float32", "bfloat16"):
         dt = getattr(torch, dtype)
         for BH, Sq, Sk, d, causal, off in cases:
@@ -277,27 +313,36 @@ def phase_flash_attention(g):
                        causal=causal, q_offset=off, max_abs_err=err, max_abs_err_lse=lse_err,
                        tol=TOL[dtype])
             del o_lse, lse
-            if BH >= 64:
+            serving = next((n for n, c in SERVE_ATTN.items()
+                            if c == (BH, Sq, Sk, d, causal, off)), None)
+            if BH >= 64 or serving:
                 row["ms"] = timed_ms(lambda: flash_attention(q, k, v, **kw))
                 row["plain_ms"] = timed_ms(lambda: flash_attention_plain(q, k, v, **kw))
+                keys = min(Sk, off + Sq) if causal else Sk
                 if off == 0:
                     row["library_ms"] = timed_ms(lambda: F.scaled_dot_product_attention(
                         q[None], k[None], v[None], is_causal=causal))
+                elif Sq == 1:
+                    row["library_ms"] = timed_ms(lambda: F.scaled_dot_product_attention(
+                        q[None], k[None, :, :keys], v[None, :, :keys]))
                 pairs = _causal_pairs(Sq, Sk, causal, off)
-                nbytes = 2 * (q.numel() + k.numel()) * q.element_size()
+                nbytes = 2 * (q.numel() + BH * keys * d) * q.element_size()
                 b_ms, b_by = bound_ms(nbytes, 4.0 * BH * d * pairs, dtype)
                 row.update(bound_ms=b_ms, bound_by=b_by)
                 if dtype == "bfloat16" and (BH, Sq, causal) == (256, 2048, True):
                     row["deterministic"] = check_repeat(
                         tag, lambda: flash_attention(q, k, v, **kw), out)
                     summary = row
+                if dtype == "bfloat16" and serving:
+                    row["serving"] = serving
+                    serve_rows[serving] = row
             emit(row)
             del q, k, v, out, ref
     buf = torch.randn(3, 8 * 200 * 64 + 1, device="cuda", generator=g).to(torch.bfloat16)
     q, k, v = (buf[i, 1:].view(8, 200, 64) for i in range(3))
     _refuses("flash_attention unaligned bf16", lambda: flash_attention(q, k, v))
     emit(dict(phase="flash_attention", case="unaligned bf16", refused=True))
-    return summary
+    return summary, serve_rows
 
 
 def phase_masked_matmul_bwd(g):
@@ -838,6 +883,303 @@ def phase_obs(cfg, res, artifact, launches, tokens):
               dispatch=artifact["dispatch"], ebft_reruns=reruns,
               artifact="chiprun_out/BENCH_ebft.json"))
     return stats
+
+
+# the serve phase: Server.serve at Llama-7B width over 8 slots of a
+# 1024-position cache, 32 requests of 512 tokens from the synthetic corpus,
+# 64 new tokens each; the teacher-forced check decodes 32 steps
+SERVE = dict(slots=8, prompt_len=512, max_new=64, max_len=1024, requests=32, forced_steps=32)
+SERVE_NAMES = ["serve/prefill/exec_s", "serve/decode/exec_s", "serve/queue_depth",
+               "serve/batch_occupancy", "serve/tokens", "serve/requests", "serve/tokens_per_s"]
+
+
+def _serve_forced(model, params, prompts, tag):
+    """Prefill ``prompts`` into a cache of SERVE["max_len"] positions, then
+    SERVE["forced_steps"] greedy decode steps. Each step's logits (the
+    prefill's too) must equal the last-position logits of a no-cache
+    ``forward`` over the same tokens within the bf16 tolerance; where the
+    two greedy tokens differ, the no-cache logits' top-2 margin must be
+    below that tolerance at the top logit (atol + rtol x |top|). At the
+    last step both are also held beside the f32 no-cache forward (the same
+    weights cast to f32): the largest ratio of each one's distance from it
+    to that tolerance, to show how far two bf16 paths round apart."""
+    import numpy as np
+    import torch
+
+    from repro_torch import tree as T
+    from repro_torch.models.model import build
+
+    tol = TOL["bfloat16"]
+    seq = torch.as_tensor(np.stack(prompts), device="cuda").long()
+    state = model.init_serve_state(len(prompts), SERVE["max_len"], "cuda")
+    logits, state = model.prefill(params, {"tokens": seq}, state)
+    errs, flips = [], []
+    for step in range(SERVE["forced_steps"] + 1):
+        ref = model.forward(params, {"tokens": seq})[:, -1]
+        got = logits[:, 0]
+        errs.append(check_close(f"serve {tag}: step {step}'s logits against the no-cache "
+                                "forward", got, ref, "bfloat16"))
+        tok = got.argmax(-1)
+        top = ref.topk(2, dim=-1).values
+        margin = top[:, 0] - top[:, 1]
+        differ = tok != ref.argmax(-1)
+        if bool((differ & (margin >= tol + tol * top[:, 0].abs())).any()):
+            raise AssertionError(f"serve {tag}: step {step}'s greedy token differs from the "
+                                 f"no-cache forward's at a top-2 margin {margin.tolist()}")
+        flips += [(step, float(m)) for m in margin[differ].tolist()]
+        if step == SERVE["forced_steps"]:
+            model32 = build(model.cfg.replace(dtype="float32", param_dtype="float32"))
+            ref32 = model32.forward(T.tree_map(lambda t: t.float(), params),
+                                    {"tokens": seq})[:, -1]
+            vs_f32 = {name: float(((x.float() - ref32).abs() / (tol + tol * ref32.abs())).max())
+                      for name, x in (("cached", got), ("no_cache", ref))}
+            break
+        seq = torch.cat([seq, tok[:, None]], dim=1)
+        logits, state = model.decode_step(params, tok[:, None], state)
+    del logits, state, ref, ref32
+    return dict(max_abs_err=max(errs), tol=tol, greedy_flips=flips,
+                last_step_ratio_to_tol_vs_f32=vs_f32)
+
+
+def _profile_step(step) -> dict:
+    """One ``step`` under ``torch.profiler``: the operations it puts on the
+    card (kernels, copies, fills), their summed card time, that time by
+    kind (the attention kernel, GEMMs, the rest) and the costliest
+    names. ``device_ops`` is None where the profiler saw no device event."""
+    import collections
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        step()
+        torch.cuda.synchronize()
+    ops = [(e.name, e.time_range.elapsed_us() / 1e3) for e in prof.events()
+           if e.device_type == DeviceType.CUDA]
+    if not ops:
+        return dict(device_ops=None)
+
+    def kind(name):
+        n = name.lower()
+        if "flash_fwd" in n:
+            return "attention"
+        return "gemm" if any(t in n for t in ("gemm", "gemv", "nvjet", "xmma", "cutlass")) \
+            else "other"
+
+    by_kind, by_name = collections.Counter(), collections.defaultdict(lambda: [0, 0.0])
+    for name, ms in ops:
+        by_kind[kind(name)] += ms
+        by_name[name][0] += 1
+        by_name[name][1] += ms
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:8]
+    return dict(device_ops=len(ops), busy_ms=sum(ms for _, ms in ops),
+                busy_ms_by_kind=dict(by_kind),
+                top=[dict(name=n[:80], count=c, ms=ms) for n, (c, ms) in top])
+
+
+def _serve_split(model, params, prompts):
+    """A decode step (8 slots, len 700 of 1024) and a one-prompt prefill
+    (512 tokens into an empty slot): the step's latency with a synchronise
+    after each (``fenced_ms``, as the serve loop waits for each step), the
+    card's time for it with the host queued ahead (``timed_ms`` of one step
+    a window, the median of 5: a window of several steps would hold more
+    launches than CUDA's queue of pending launches, and the card would
+    then wait on the host), and the card's time for its parts, each timed
+    alone on the same operands: the attention kernel on the cache slabs,
+    the block's plain linears (q, k, v, o and the SwiGLU MLP) and the LM
+    head, x the layers where it runs per layer. ``rest_device_ms``
+    (embedding, norms, RoPE, the cache writes) is the card's time less the
+    parts; ``host_ms`` is the latency less the card's time. ``profile``
+    counts the step's device operations under ``torch.profiler``
+    (``_profile_step``)."""
+    import statistics
+
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.models import layers as LY
+    from repro_torch.models import transformer as TR
+
+    cfg = model.cfg
+    L, H, hd, d = cfg.num_layers, cfg.num_heads, cfg.resolved_head_dim, cfg.d_model
+    ml, dt = SERVE["max_len"], TR.torch_dtype(cfg.dtype)
+    bp = TR.slice_block(params["blocks"], 0)
+    head = params["head"]["w"]
+    g = torch.Generator(device="cuda").manual_seed(1)
+    out = {}
+    for kind, (BH, Sq, Sk, _, _, off) in SERVE_ATTN.items():
+        nb = BH // H
+        toks = torch.as_tensor(np.stack(prompts[:nb])[:, :Sq], device="cuda").long()
+        state = model.init_serve_state(nb, ml, "cuda")
+        if kind == "decode":  # fill the cache to len ``off``: two prefills
+            fill = torch.as_tensor(np.concatenate([np.stack(prompts[:nb]),
+                                                   np.stack(prompts[nb:2 * nb])], axis=1),
+                                   device="cuda").long()
+            for a, b in ((0, SERVE["prompt_len"]), (SERVE["prompt_len"], off)):
+                _, state = model.prefill(params, {"tokens": fill[:, a:b]}, state)
+            step = lambda: model.decode_step(params, toks, state)  # noqa: E731
+        else:
+            step = lambda: model.prefill(params, {"tokens": toks}, state)  # noqa: E731
+        assert state["len"] == off
+        x = torch.randn(nb, Sq, d, device="cuda", generator=g).to(dt)
+        o = torch.randn(nb, Sq, H, hd, device="cuda", generator=g).to(dt)
+        q = torch.randn(BH, Sq, hd, device="cuda", generator=g).to(dt)
+        kc, vc = state["k"][0].view(BH, ml, hd), state["v"][0].view(BH, ml, hd)
+        row = dict(step_ms=fenced_ms(step, reps=10),
+                   step_device_ms=statistics.median(
+                       timed_ms(step, reps=1, hold_ms=50.0) for _ in range(5)),
+                   attention_ms=L * timed_ms(lambda: flash_attention(
+                       q, kc, vc, causal=True, q_offset=off), reps=10),
+                   linears_ms=L * timed_ms(lambda: (
+                       LY.qkv_proj(bp["attn"], x), LY.out_proj(bp["attn"], o),
+                       LY.mlp_block(bp["mlp"], x, cfg.mlp_act)), reps=10),
+                   head_ms=timed_ms(lambda: LY.lm_logits(head, x[:, -1:]), reps=10))
+        row["rest_device_ms"] = (row["step_device_ms"] - row["attention_ms"]
+                                 - row["linears_ms"] - row["head_ms"])
+        row["host_ms"] = row["step_ms"] - row["step_device_ms"]
+        row["profile"] = _profile_step(step)
+        out[kind] = row
+        del state, kc, vc
+    return out
+
+
+def _serve_run(model, params, prompts, tag):
+    """``Server.serve`` of SERVE["requests"] requests over SERVE["slots"]
+    slots in an obs run opened as ``launch/serve`` opens it; every kernel
+    count is set to 0 just before it and read just after. Raises unless
+    every request gets SERVE["max_new"] tokens, the highest ``len`` stays
+    within the cache, the flash attention forward ran L x (prefills +
+    decode steps) times and no other kernel ran, obs booked every launch,
+    and the artifact (``chiprun_out/BENCH_serve_<tag>.json``) passes
+    ``validate_payload`` with the ``served`` section and the ``serve/*``
+    names."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.launch.api import start_obs_run
+    from repro_torch.launch.serve import ServeSpec
+    from repro_torch.serving.decode import Request, Server
+
+    lens = []
+
+    def decode_step(p, tok, state):
+        logits, state = model.decode_step(p, tok, state)
+        lens.append(state["len"])
+        return logits, state
+
+    server = Server(dataclasses.replace(model, decode_step=decode_step), params,
+                    batch_size=SERVE["slots"], max_len=SERVE["max_len"])
+    reqs = [Request(uid=i, prompt=p, max_new=SERVE["max_new"]) for i, p in enumerate(prompts)]
+    spec = ServeSpec(arch="llama_7b", requests=len(reqs), slots=SERVE["slots"],
+                     prompt_len=SERVE["prompt_len"], max_new=SERVE["max_new"],
+                     max_len=SERVE["max_len"])
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    start_mem = torch.cuda.memory_allocated()
+    reset_counts()
+    obs_run = start_obs_run(spec, "serve", "cuda", name=f"chip_smoke/serve_{tag}", console=False)
+    t0 = time.perf_counter()
+    res = server.serve(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    toks = sum(len(v) for v in res.values())
+    art = finish_obs(obs_run, {"served": {"requests": len(res), "tokens": toks,
+                                          "tokens_per_s": toks / wall}},
+                     f"BENCH_serve_{tag}.json")
+    m = art["metrics"]
+    L = model.cfg.num_layers
+    expected = {k: 0 for k in launches}
+    expected["flash_attention"] = L * (len(reqs) + len(lens))
+    booked = kernel_stats(m).get("flash_attention", {}).get("calls", 0)
+    row = dict(requests=len(res), tokens=toks, wall_s=wall,
+               tokens_per_s=m["serve/tokens_per_s"]["last"],
+               prefill_ms=m["serve/prefill/exec_s"]["mean"] * 1e3,
+               prefill_first_ms=m["serve/prefill/compile_s"]["last"] * 1e3,
+               decode_ms=m["serve/decode/exec_s"]["mean"] * 1e3,
+               decode_p50_ms=m["serve/decode/exec_s"]["p50"] * 1e3,
+               decode_steps=len(lens), top_len=max(lens), max_len=SERVE["max_len"],
+               occupancy=m["serve/batch_occupancy"]["mean"], peak_mem_gib=peak / 2**30,
+               peak_over_start_gib=(peak - start_mem) / 2**30,
+               launches=launches, flash_booked=booked,
+               flash_in_run_ms=kernel_stats(m)["flash_attention"]["mean_ms"],
+               artifact=f"chiprun_out/BENCH_serve_{tag}.json")
+    if sorted(res) != list(range(len(reqs))) or \
+            any(len(v) != SERVE["max_new"] for v in res.values()):
+        raise AssertionError(f"serve {tag}: {len(res)} requests served, token counts "
+                             f"{sorted({len(v) for v in res.values()})}")
+    if max(lens) > SERVE["max_len"]:
+        raise AssertionError(f"serve {tag}: len reached {max(lens)} past the cache's "
+                             f"{SERVE['max_len']}")
+    if launches != expected or booked != launches["flash_attention"]:
+        raise AssertionError(f"serve {tag}: launches {launches} (obs booked {booked} "
+                             f"attention launches), expected {expected}")
+    missing = [n for n in SERVE_NAMES if n not in m]
+    if missing or [n["name"] for n in art["trace"]] != ["serve/batch"]:
+        raise AssertionError(f"serve {tag}: the artifact lacks {missing} or its serve/batch span")
+    return row
+
+
+def phase_serve(cfg, weights):
+    """Serving at Llama-7B width (4 layers, bf16, the flash attention
+    kernel at prefill and decode shapes) with each of ``weights`` (tag ->
+    params): the teacher-forced check (``_serve_forced``, on the first
+    SERVE["slots"] prompts), then continuous batching (``_serve_run``);
+    with the first weights also the split of a decode step and a prefill
+    (``_serve_split``). Then ``launch/serve.main`` in process on the card
+    at tiny_dense with Wanda 0.5 (its artifact must pass
+    ``validate_payload``). Returns the flash attention launches of the
+    first weights' ``Server.serve`` run, by kernel."""
+    import numpy as np
+    import torch
+
+    from repro_torch.data.tokens import CorpusConfig, SyntheticCorpus
+    from repro_torch.launch import serve
+    from repro_torch.models.model import build
+    from repro_torch.obs.run import validate_payload
+
+    corpus = SyntheticCorpus(CorpusConfig(vocab_size=cfg.vocab_size, seed=0))
+    rng = np.random.default_rng(0)
+    prompts = [corpus.sample(rng, SERVE["prompt_len"]) for _ in range(SERVE["requests"])]
+    model = build(cfg)
+    launches = None
+    for i, (tag, params) in enumerate(weights.items()):
+        t0 = time.perf_counter()
+        row = dict(phase="serve", weights=tag, arch="llama_7b", num_layers=cfg.num_layers,
+                   reduced="num_layers 32->4", dtype=cfg.dtype, attn_impl=cfg.attn_impl,
+                   **SERVE)
+        row["forced"] = _serve_forced(model, params, prompts[:SERVE["slots"]], tag)
+        if i == 0:
+            row["split"] = _serve_split(model, params, prompts)
+        row["serve"] = _serve_run(model, params, prompts, tag)
+        row["phase_s"] = time.perf_counter() - t0
+        emit(row)
+        if launches is None:
+            launches = row["serve"]["launches"]
+        torch.cuda.empty_cache()
+    os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
+    bench = os.path.join(ROOT, "chiprun_out", "BENCH_serve_tiny.json")
+    t0 = time.perf_counter()
+    res = serve.main(["--arch", "tiny_dense", "--requests", "5", "--slots", "2",
+                      "--sparse", "0.5", "--bench-out", bench])
+    with open(bench) as f:
+        art = json.load(f)
+    problems = validate_payload(art, require=["served"])
+    if problems or sorted(res) != list(range(5)) or any(len(v) != 16 for v in res.values()) \
+            or art["manifest"]["jax_backend"] != "cuda":
+        raise AssertionError(f"serve main: {problems}, {res}")
+    emit(dict(phase="serve_main", argv="--arch tiny_dense --requests 5 --slots 2 --sparse 0.5",
+              seconds=time.perf_counter() - t0, served=art["served"],
+              device=art["manifest"]["device_name"],
+              artifact="chiprun_out/BENCH_serve_tiny.json"))
+    return launches
 
 
 def phase_nm_pack(res, cfg, tokens, launches, microbatch=8):
@@ -2007,7 +2349,7 @@ def main() -> int:
     rows = {"masked_matmul": phase_masked_matmul(g)}
     rows.update({f"masked_matmul_{op}": r for op, r in phase_masked_matmul_bwd(g).items()})
     rows["masked_matmul_dm"] = phase_masked_matmul_dm(g)
-    rows["flash_attention"] = phase_flash_attention(g)
+    rows["flash_attention"], serve_rows = phase_flash_attention(g)
     rows["flash_attention_bwd"] = phase_flash_attention_bwd(g)
     torch.cuda.empty_cache()
     from repro_torch.data.tokens import CorpusConfig, SyntheticCorpus, calibration_set, eval_set
@@ -2028,6 +2370,10 @@ def main() -> int:
     t0 = time.perf_counter()
     in_run = phase_obs(cfg, res, art_main, launches, tokens)
     walls["obs"] = time.perf_counter() - t0
+    # serving: the pretrained weights, then the main path's Wanda-0.7 EBFT ones
+    t0 = time.perf_counter()
+    serve_launches = phase_serve(cfg, {"pretrained": res.dense, "ebft": res.tuned})
+    walls["serve"] = time.perf_counter() - t0
     dense = res.dense  # every later path starts from the pretrained weights
     del res
     torch.cuda.empty_cache()
@@ -2097,11 +2443,18 @@ def main() -> int:
                             replaces=pallas[base], launches=launches[name],
                             launches_pretrain=pre_launches[name],
                             launches_path_a=by_path["A"][name], launches_path_b=by_path["B"][name],
+                            launches_serve=serve_launches[name],
                             max_abs_err=row["max_abs_err"], ms=row["ms"],
                             plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
                             bound_by=row["bound_by"], library_ms=row.get("library_ms"),
                             vs_library=(row["ms"] / row["library_ms"]
                                         if row.get("library_ms") else None)))
+    # the attention forward at the serve phase's two shapes
+    kernels[[k["name"] for k in kernels].index("flash_attention")].update({
+        f"serve_{kind}": {key: r[key] for key in ("BH", "Sq", "Sk", "q_offset", "max_abs_err",
+                                                  "ms", "plain_ms", "bound_ms", "bound_by",
+                                                  "library_ms")}
+        for kind, r in serve_rows.items()})
     print(smi(), flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -43,6 +43,8 @@ def to_manifest(spec, kind: str) -> Dict[str, Any]:
         })
     elif kind == "train":
         out.update({"steps": spec.steps, "batch": spec.batch, "seq": spec.seq})
+    elif kind == "serve":
+        out.update({"batch_slots": spec.slots, "requests": spec.requests})
     return out
 
 
@@ -57,6 +59,8 @@ def start_obs_run(spec, kind: str, device, name: Optional[str] = None, **kw):
     base: Dict[str, Any] = {"config": spec.arch, "jsonl_path": spec.obs_jsonl or None}
     if kind == "ebft":
         base.update(method=spec.method, sparsity=spec.sparsity, pattern=spec.pattern or None)
+    elif kind == "serve":
+        base.update(sparsity=spec.sparse or None)
     base["extra_manifest"] = to_manifest(spec, kind)
     base.update(kw)
     return start_run(name or ("ebft_run" if kind == "ebft" else kind), device=device, **base)

@@ -8,7 +8,9 @@ the ``masked_matmul`` kernel, an unmasked one is a plain ``torch.matmul``
 masked linears and the card's flash attention are ``torch.autograd``
 Functions whose backward is a kernel too (``MaskedMatmulFn``,
 ``FlashAttentionFn``), the gradient the reference takes of
-``apply_masks`` + einsum and of its attention.
+``apply_masks`` + einsum and of its attention. ``attention_block`` with a
+``cache`` is the reference's serving branch (prefill and decode against a
+KV cache).
 """
 from __future__ import annotations
 
@@ -199,15 +201,50 @@ def out_proj(p: Params, o: torch.Tensor, masks: Optional[Params] = None) -> torc
 def attention_block(p: Params, x: torch.Tensor, *, positions: torch.Tensor,
                     rope_theta: float, causal: bool = True, impl: str = "dot",
                     chunk: int = 1024, q_chunk: int = 0,
-                    masks: Optional[Params] = None) -> torch.Tensor:
-    """Full attention sub-block (no norm/residual, no KV cache)."""
+                    masks: Optional[Params] = None,
+                    cache: Optional[Params] = None) -> torch.Tensor:
+    """Full attention sub-block (no norm/residual). With ``cache`` (one
+    layer's ``{"k", "v": (B, Hkv, max_len, hd), "len": int}``) the new keys
+    and values are written into it in place and the queries attend over the
+    whole cache (``attend_cached``)."""
     hd = p["wq"].shape[-1]
     q, k, v = qkv_proj(p, x, masks)
     cos, sin = rope_table(positions, hd, rope_theta)
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
-    o = attend(q, k, v, causal=causal, impl=impl, chunk=chunk, q_chunk=q_chunk)
+    if cache is None:
+        o = attend(q, k, v, causal=causal, impl=impl, chunk=chunk, q_chunk=q_chunk)
+    else:
+        o = attend_cached(q, k, v, cache, impl=impl, chunk=chunk, q_chunk=q_chunk)
     return out_proj(p, o, masks)
+
+
+def attend_cached(q, k, v, cache: Params, *, impl: str, chunk: int = 1024,
+                  q_chunk: int = 0) -> torch.Tensor:
+    """The reference's cache branch (``repro.models.layers.attention_block``
+    with a cache): k, v (B, S, Hkv, hd) are written at ``start =
+    cache["len"]``, cast to the cache's dtype, and q (B, S, H, hd) attends
+    over all ``max_len`` keys of the cache, causal from ``q_offset =
+    start``. Like ``lax.dynamic_update_slice`` the write is clamped into
+    range (at most ``max_len - S``) while ``q_offset`` stays ``start``.
+
+    ``"dot"`` materialises the scores; ``"chunked"``, and ``"flash"`` on a
+    CPU tensor, take the chunked online softmax, as the reference does
+    off the TPU. ``"flash"`` on a CUDA tensor launches the flash attention
+    kernel with the host int ``q_offset`` (the reference maps every
+    non-``"dot"`` impl to its chunked path here: the same function). The
+    cache's (B, Hkv, max_len, hd) layout makes a layer's slab the kernel's
+    (B·H, max_len, hd) operand as a view when Hkv == H and the cache is in
+    q's dtype: no copy of the cache."""
+    kc, vc, start = cache["k"], cache["v"], cache["len"]
+    S, max_len = q.shape[1], kc.shape[2]
+    w = min(max(start, 0), max_len - S)
+    kc[:, :, w:w + S] = k.transpose(1, 2)
+    vc[:, :, w:w + S] = v.transpose(1, 2)
+    kf = kc.transpose(1, 2).to(q.dtype)
+    vf = vc.transpose(1, 2).to(q.dtype)
+    return attend(q, kf, vf, causal=True, impl=impl, chunk=chunk, q_chunk=q_chunk,
+                  q_offset=start)
 
 
 def activation(up: torch.Tensor, gate: Optional[torch.Tensor], act: str) -> torch.Tensor:

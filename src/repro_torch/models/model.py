@@ -5,6 +5,9 @@
     m.init(generator)                         -> params on generator.device
     m.loss(params, batch, masks=None)         -> (scalar loss, metrics dict)
     m.forward(params, batch, masks=None)      -> logits
+    m.init_serve_state(batch, max_len, device=None) -> KV cache (None: the card)
+    m.prefill(params, batch, state)           -> (last logits, state)
+    m.decode_step(params, token, state)       -> (logits, state)
 
 plus the block-level API the calibration walk uses:
 
@@ -25,6 +28,7 @@ from typing import Any, Callable, Dict, Optional
 
 import torch
 
+from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers, transformer
 
@@ -55,6 +59,9 @@ class Model:
     init: Callable
     forward: Callable
     loss: Callable
+    init_serve_state: Callable
+    prefill: Callable
+    decode_step: Callable
     num_blocks: int
     get_block: Callable
     set_block: Callable
@@ -110,6 +117,10 @@ def _build_dense(cfg: ModelConfig) -> Model:
         init=lambda g: M.init(g, cfg),
         forward=forward,
         loss=loss,
+        init_serve_state=lambda b, ml, device=None: M.init_cache(cfg, b, ml,
+                                                                 resolve_device(device)),
+        prefill=lambda params, batch, state: M.prefill(params, cfg, batch["tokens"], state),
+        decode_step=lambda params, token, state: M.decode_step(params, cfg, token, state),
         num_blocks=cfg.num_layers,
         get_block=lambda params, i: M.slice_block(params["blocks"], i),
         set_block=set_block,

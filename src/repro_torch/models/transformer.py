@@ -1,5 +1,6 @@
-"""Decoder-only dense transformer (port of ``repro.models.transformer``,
-forward path without a KV cache).
+"""Decoder-only dense transformer (port of ``repro.models.transformer``):
+the forward, and serving against a KV cache (``init_cache``, ``prefill``,
+``decode_step``).
 
 Params layout (leading L axis on every "blocks" leaf), as the reference:
     embed/tok            (V, d)
@@ -85,14 +86,15 @@ def init(g: torch.Generator, cfg: ModelConfig) -> Params:
 
 
 def block_apply(bp: Params, cfg: ModelConfig, h: torch.Tensor, positions: torch.Tensor,
-                masks: Optional[Params] = None) -> torch.Tensor:
-    """One transformer block; ``masks`` is the block's mask dict or None."""
+                masks: Optional[Params] = None, cache: Optional[Params] = None) -> torch.Tensor:
+    """One transformer block; ``masks`` is the block's mask dict or None,
+    ``cache`` the block's KV cache (written in place) or None."""
     mk = masks or {}
     attn_in = L.apply_norm(bp["ln1"], h, cfg.norm)
     h = h + L.attention_block(
         bp["attn"], attn_in, positions=positions, rope_theta=cfg.rope_theta,
         causal=True, impl=cfg.attn_impl, chunk=cfg.attn_chunk,
-        q_chunk=cfg.attn_q_chunk, masks=mk.get("attn"),
+        q_chunk=cfg.attn_q_chunk, masks=mk.get("attn"), cache=cache,
     )
     mlp_in = L.apply_norm(bp["ln2"], h, cfg.norm)
     return h + L.mlp_block(bp["mlp"], mlp_in, cfg.mlp_act, mk.get("mlp"))
@@ -124,3 +126,39 @@ def logits_from_hidden(params: Params, cfg: ModelConfig, h: torch.Tensor) -> tor
 def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
             masks: Optional[Params] = None) -> torch.Tensor:
     return logits_from_hidden(params, cfg, forward_hidden(params, cfg, tokens, masks=masks))
+
+
+# ---------------------------------------------------------------------------
+# KV-cache serving
+# ---------------------------------------------------------------------------
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, device, dtype=None) -> Params:
+    """The reference's cache in the layout (L, B, Hkv, max_len, hd), so that
+    a layer's slab is the (B·Hkv, max_len, hd) operand of the attention
+    kernel (the reference's is (L, B, max_len, Hkv, hd)). ``len``, the
+    number of positions written, is a host int shared by every sequence."""
+    dtype = dtype or torch_dtype(cfg.dtype)
+    shape = (cfg.num_layers, batch, cfg.num_kv_heads, max_len, cfg.resolved_head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device), "len": 0}
+
+
+def prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor, cache: Params):
+    """Run tokens (B, S) through the model at positions ``len .. len+S-1``,
+    writing their keys and values into the cache. Returns (the last
+    position's f32 logits (B, 1, V), the cache with ``len`` advanced by S).
+    The cache's tensors are written in place: the state passed in is
+    consumed."""
+    start, S = cache["len"], tokens.shape[1]
+    h = L.embed(params["embed"]["tok"], tokens, torch_dtype(cfg.dtype))
+    positions = torch.arange(start, start + S, device=tokens.device)[None, :]
+    for i in range(cfg.num_layers):
+        layer = {"k": cache["k"][i], "v": cache["v"][i], "len": start}
+        h = block_apply(slice_block(params["blocks"], i), cfg, h, positions, cache=layer)
+    h = L.apply_norm(params["final_norm"], h[:, -1:], cfg.norm)
+    return logits_from_hidden(params, cfg, h), {"k": cache["k"], "v": cache["v"],
+                                                "len": start + S}
+
+
+def decode_step(params: Params, cfg: ModelConfig, token: torch.Tensor, cache: Params):
+    """token (B, 1) -> (logits (B, 1, V), the cache one position on)."""
+    return prefill(params, cfg, token, cache)

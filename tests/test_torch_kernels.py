@@ -104,14 +104,23 @@ def test_flash_attention_plain_matches_pallas_and_ref(bh, s, hd, causal, dtype):
     _close(out, flash_attention_ref(qj, kj, vj, causal=causal), dtype, f32=1e-4, bf16=3e-2)
 
 
-@pytest.mark.parametrize("sq,q_offset", [(1, 127), (64, 64), (32, 10)])
-def test_flash_attention_plain_q_offset(sq, q_offset):
+@pytest.mark.parametrize("sq,q_offset,sk", [
+    pytest.param(1, 127, 128, id="1-127"), pytest.param(64, 64, 128, id="64-64"),
+    pytest.param(32, 10, 128, id="32-10"),
+    # decode past the keys (a cache that overflowed: every key visible)
+    pytest.param(1, 300, 128, id="1-300-past-the-keys"),
+    pytest.param(4, 128, 128, id="4-128-past-the-keys"),
+    # a decode step against a 1024-position cache
+    pytest.param(1, 700, 1024, id="1-700-sk1024"),
+])
+def test_flash_attention_plain_q_offset(sq, q_offset, sk):
     """Shifted causal diagonal with Sq < Sk (a chunk of queries late in the
-    key timeline), against the Pallas kernel in interpret mode."""
+    key timeline, or one decode query), against the Pallas kernel in
+    interpret mode."""
     rng = np.random.default_rng(sq)
     qj, qt = _pair(rng, (2, sq, 64), "float32")
-    kj, kt = _pair(rng, (2, 128, 64), "float32")
-    vj, vt = _pair(rng, (2, 128, 64), "float32")
+    kj, kt = _pair(rng, (2, sk, 64), "float32")
+    vj, vt = _pair(rng, (2, sk, 64), "float32")
     out = FA.flash_attention(qt, kt, vt, causal=True, q_offset=q_offset)
     ref = RFA.flash_attention(qj, kj, vj, causal=True, q_offset=q_offset, interpret=True)
     _close(out, ref, "float32", f32=1e-4)
