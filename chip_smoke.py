@@ -16,7 +16,13 @@ serves the main path's pretrained and EBFT-tuned weights from a KV cache
 (``serve``: cached decode held to the no-cache forward, continuous
 batching through ``repro_torch.serving``, ``launch/serve`` on the card).
 It cross-checks tiny_dense (the Wanda, SparseGPT, DSnoT and FLAP prunes,
-EBFT, mask tuning, LoRA) on the card against the CPU. Every phase prints one JSON line; any
+EBFT, mask tuning, LoRA) on the card against the CPU. The ``moe`` phase
+runs the MoE family at DeepSeek-MoE-16B's widths (5 of its 28 layers):
+pretraining, Wanda 0.7, EBFT and serving, with the routed experts'
+products through the expert-batched masked GEMM, which the
+``masked_matmul_batched`` phase holds against its plain version and
+against the 2-D kernel on each expert's slab; and tiny_moe on the card
+against the CPU. Every phase prints one JSON line; any
 failed check raises, so the script exits non-zero. The last three lines
 are the card's name and power limit, the per-kernel summary, and
 ``{"ok": true, "device": ...}``. Without a card it exits non-zero and
@@ -54,6 +60,8 @@ M_ROWS = 8 * 2048  # B * S of the slice's microbatch
 PRETRAIN_STEPS = 200
 PRETRAIN_BATCH = 8
 # the sections of the pipeline's artifact (BENCH_ebft.json), all required
+# the expert-batched entries of the masked matmul kernel (the MoE path's)
+BATCHED = ("masked_matmul_batched", "masked_matmul_batched_dx", "masked_matmul_batched_dw")
 OBS_REQUIRE = ["blocks", "phases", "perplexity", "ebft", "dispatch", "walk_phases", "mesh",
                "kernel_tuning"]
 
@@ -178,46 +186,59 @@ def bound_ms(nbytes: float, flops: float, dtype: str):
 # (name, leaf shape, reduction axes): the leaf is viewed as (R, O)
 LEAVES = [("wq", (4096, 32, 128), 1), ("wo", (32, 128, 4096), 2),
           ("w_up", (4096, 11008), 1), ("w_down", (11008, 4096), 1)]
+# the moe path's 2-D masked leaves at DeepSeek-MoE-16B's widths, bf16, at
+# the same M: the attention projections, the dense layer's MLP (N 10944 =
+# 85.5 tiles of 128) and the two shared experts side by side (2 x 1408)
+MOE_LEAVES = [("attn", (2048, 2048), 1), ("dense_w_up", (2048, 10944), 1),
+              ("dense_w_down", (10944, 2048), 1), ("shared_w_up", (2048, 2816), 1),
+              ("shared_w_down", (2816, 2048), 1)]
+MMM_CASES = [(dt, "llama_7b", *leaf) for dt in ("float32", "bfloat16") for leaf in LEAVES] + \
+    [("bfloat16", "deepseek_moe_16b", *leaf) for leaf in MOE_LEAVES]
+MMM_KEYS = ("K", "N", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
 
 
 def phase_masked_matmul(g):
     """Kernel vs plain at the four Llama-7B linear shapes, f32 and bf16,
-    plus an all-zero mask, a ragged shape and a strided x."""
+    and the moe path's five 2-D shapes in bf16 (``MOE_LEAVES``), plus an
+    all-zero mask, a ragged shape and a strided x. Returns the Llama w_up
+    bf16 row and the moe rows."""
     import torch
 
     from repro_torch.kernels.masked_matmul.ops import masked_matmul
     from repro_torch.kernels.masked_matmul.ref import masked_matmul_plain
 
-    summary = None
-    for dtype in ("float32", "bfloat16"):
+    summary, moe = None, {}
+    for dtype, model, name, shape, n_red in MMM_CASES:
         dt = getattr(torch, dtype)
-        for name, shape, n_red in LEAVES:
-            R = math.prod(shape[:n_red])
-            w = (torch.randn(shape, device="cuda", generator=g) / math.sqrt(R)).to(dt)
-            m = torch.rand(shape, device="cuda", generator=g) < 0.3  # Wanda at 0.7 keeps 30%
-            x = torch.randn(M_ROWS, R, device="cuda", generator=g).to(dt)
-            w2, m2 = w.reshape(R, -1), m.reshape(R, -1)
-            out = masked_matmul(x, w2, m2)
-            ref = masked_matmul_plain(x, w2, m2)
-            torch.cuda.synchronize()
-            err = check_close(f"masked_matmul {name} {dtype}", out, ref, dtype)
-            ms = timed_ms(lambda: masked_matmul(x, w2, m2))
-            plain_ms = timed_ms(lambda: masked_matmul_plain(x, w2, m2))
-            wm = w2 * m2.to(dt)
-            library_ms = timed_ms(lambda: torch.matmul(x, wm))
-            K, N = w2.shape
-            nbytes = (x.numel() + w2.numel() + M_ROWS * N) * x.element_size() + m2.numel()
-            flops = 2.0 * M_ROWS * float(m2.sum())  # the products the mask keeps
-            b_ms, b_by = bound_ms(nbytes, flops, dtype)
-            row = dict(phase="masked_matmul", leaf=name, dtype=dtype, M=M_ROWS, K=K, N=N,
-                       max_abs_err=err, tol=TOL[dtype], ms=ms, plain_ms=plain_ms,
-                       library_ms=library_ms, bound_ms=b_ms, bound_by=b_by)
-            if dtype == "bfloat16" and name == "w_up":
-                row["deterministic"] = check_repeat(
-                    f"masked_matmul {name} {dtype}", lambda: masked_matmul(x, w2, m2), out)
-                summary = row  # the slice's heaviest launch
-            emit(row)
-            del w, m, x, out, ref, wm
+        R = math.prod(shape[:n_red])
+        w = (torch.randn(shape, device="cuda", generator=g) / math.sqrt(R)).to(dt)
+        m = torch.rand(shape, device="cuda", generator=g) < 0.3  # Wanda at 0.7 keeps 30%
+        x = torch.randn(M_ROWS, R, device="cuda", generator=g).to(dt)
+        w2, m2 = w.reshape(R, -1), m.reshape(R, -1)
+        out = masked_matmul(x, w2, m2)
+        ref = masked_matmul_plain(x, w2, m2)
+        torch.cuda.synchronize()
+        err = check_close(f"masked_matmul {model} {name} {dtype}", out, ref, dtype)
+        ms = timed_ms(lambda: masked_matmul(x, w2, m2))
+        plain_ms = timed_ms(lambda: masked_matmul_plain(x, w2, m2))
+        wm = w2 * m2.to(dt)
+        library_ms = timed_ms(lambda: torch.matmul(x, wm))
+        K, N = w2.shape
+        nbytes = (x.numel() + w2.numel() + M_ROWS * N) * x.element_size() + m2.numel()
+        flops = 2.0 * M_ROWS * float(m2.sum())  # the products the mask keeps
+        b_ms, b_by = bound_ms(nbytes, flops, dtype)
+        row = dict(phase="masked_matmul", model=model, leaf=name, dtype=dtype, M=M_ROWS, K=K,
+                   N=N, max_abs_err=err, tol=TOL[dtype], ms=ms, plain_ms=plain_ms,
+                   library_ms=library_ms, bound_ms=b_ms, bound_by=b_by)
+        if dtype == "bfloat16" and name in ("w_up", "dense_w_up"):
+            row["deterministic"] = check_repeat(
+                f"masked_matmul {model} {name} {dtype}", lambda: masked_matmul(x, w2, m2), out)
+        if dtype == "bfloat16" and name == "w_up":
+            summary = row  # the slice's heaviest launch
+        if model == "deepseek_moe_16b":
+            moe[name] = row
+        emit(row)
+        del w, m, x, out, ref, wm
     # an all-zero mask gives exactly zero
     x = torch.randn(256, 4096, device="cuda", generator=g)
     w = torch.randn(4096, 11008, device="cuda", generator=g)
@@ -253,7 +274,7 @@ def phase_masked_matmul(g):
     emit(dict(phase="masked_matmul", case="all-zero mask", exact_zero=True))
     emit(dict(phase="masked_matmul", case="unaligned bf16", refused=True))
     emit(dict(phase="masked_matmul", case="bf16 mask row stride 344", refused=True))
-    return summary
+    return summary, moe
 
 
 def _causal_pairs(sq: int, sk: int, causal: bool, q_offset: int) -> int:
@@ -266,15 +287,24 @@ def _causal_pairs(sq: int, sk: int, causal: bool, q_offset: int) -> int:
 # a 1024-position cache at len 700, and a 512-token prompt prefilled alone
 # into its slot (32 heads, keys the whole cache, len 0)
 SERVE_ATTN = {"decode": (256, 1, 1024, 128, True, 700), "prefill": (32, 512, 1024, 128, True, 0)}
+# the moe path's attention (16 heads x 128): EBFT's microbatch of 8 x 2048,
+# and its serve phase's decode step (8 slots against a 1024-position cache,
+# at len 527) and 512-token prefill
+MOE_ATTN = {"ebft": (128, 2048, 2048, 128, True, 0),
+            "serve_decode": (128, 1, 1024, 128, True, 527),
+            "serve_prefill": (16, 512, 1024, 128, True, 0)}
+ATTN_KEYS = ("BH", "Sq", "Sk", "q_offset", "max_abs_err", "ms", "plain_ms", "bound_ms",
+             "bound_by", "library_ms")
 
 
 def phase_flash_attention(g):
     """Kernel vs plain: (256, 2048, 128) causal, a non-causal case and a
     q_offset > 0 case with Sq < Sk, the serve phase's decode and prefill
-    shapes (``SERVE_ATTN``), in f32 and bf16; plus every compiled head
-    width at a small shape. In every case the row log-sum-exp that the
-    forward writes for the backward is held to the plain one. Returns the
-    (256, 2048, 128) causal bf16 row and the bf16 serving rows. The bound
+    shapes (``SERVE_ATTN``), the moe path's three (``MOE_ATTN``), in f32
+    and bf16; plus every compiled head width at a small shape. In every
+    case the row log-sum-exp that the forward writes for the backward is
+    held to the plain one. Returns the (256, 2048, 128) causal bf16 row,
+    the bf16 serving rows and the bf16 moe rows. The bound
     counts the keys a causal row can see (min(Sk, q_offset + Sq)); the
     library call is SDPA on the same inputs (at a decode shape over the
     len + 1 visible keys, non-causal: the same function)."""
@@ -288,10 +318,10 @@ def phase_flash_attention(g):
     )
 
     cases = [(256, 2048, 2048, 128, True, 0), (64, 1024, 1024, 128, False, 0),
-             (64, 512, 2048, 128, True, 1536), *SERVE_ATTN.values(),
+             (64, 512, 2048, 128, True, 1536), *SERVE_ATTN.values(), *MOE_ATTN.values(),
              (8, 200, 333, 64, True, 133), (8, 128, 128, 32, False, 0),
              (16, 128, 128, 16, True, 0)]
-    summary, serve_rows = None, {}
+    summary, serve_rows, moe_rows = None, {}, {}
     for dtype in ("float32", "bfloat16"):
         dt = getattr(torch, dtype)
         for BH, Sq, Sk, d, causal, off in cases:
@@ -315,7 +345,9 @@ def phase_flash_attention(g):
             del o_lse, lse
             serving = next((n for n, c in SERVE_ATTN.items()
                             if c == (BH, Sq, Sk, d, causal, off)), None)
-            if BH >= 64 or serving:
+            moe = next((n for n, c in MOE_ATTN.items() if c == (BH, Sq, Sk, d, causal, off)),
+                       None)
+            if BH >= 64 or serving or moe:
                 row["ms"] = timed_ms(lambda: flash_attention(q, k, v, **kw))
                 row["plain_ms"] = timed_ms(lambda: flash_attention_plain(q, k, v, **kw))
                 keys = min(Sk, off + Sq) if causal else Sk
@@ -336,20 +368,25 @@ def phase_flash_attention(g):
                 if dtype == "bfloat16" and serving:
                     row["serving"] = serving
                     serve_rows[serving] = row
+                if dtype == "bfloat16" and moe:
+                    row["moe"] = moe
+                    moe_rows[moe] = row
             emit(row)
             del q, k, v, out, ref
     buf = torch.randn(3, 8 * 200 * 64 + 1, device="cuda", generator=g).to(torch.bfloat16)
     q, k, v = (buf[i, 1:].view(8, 200, 64) for i in range(3))
     _refuses("flash_attention unaligned bf16", lambda: flash_attention(q, k, v))
     emit(dict(phase="flash_attention", case="unaligned bf16", refused=True))
-    return summary, serve_rows
+    return summary, serve_rows, moe_rows
 
 
 def phase_masked_matmul_bwd(g):
     """dX = dY (W*M)^T and dW = (X^T dY)*M, kernel vs plain formula at the
-    four Llama-7B leaf shapes with M = 16384 rows, f32 and bf16, plus a
-    ragged and a strided case; dW must be exactly 0 in every pruned slot.
-    Both sum thousands of products: checked within tol x max |plain|."""
+    four Llama-7B leaf shapes with M = 16384 rows, f32 and bf16, and the
+    moe path's five 2-D shapes in bf16, plus a ragged and a strided case;
+    dW must be exactly 0 in every pruned slot. Both sum thousands of
+    products: checked within tol x max |plain|. Returns the Llama w_up
+    bf16 rows and the moe rows, by op."""
     import torch
 
     from repro_torch.kernels.masked_matmul import ops as MM
@@ -357,46 +394,48 @@ def phase_masked_matmul_bwd(g):
         masked_matmul_dw_plain, masked_matmul_dx_plain,
     )
 
-    summary = {}
-    for dtype in ("float32", "bfloat16"):
+    summary, moe = {}, {"dx": {}, "dw": {}}
+    for dtype, model, name, shape, n_red in MMM_CASES:
         dt = getattr(torch, dtype)
-        for name, shape, n_red in LEAVES:
-            R = math.prod(shape[:n_red])
-            w = (torch.randn(shape, device="cuda", generator=g) / math.sqrt(R)).to(dt)
-            m = torch.rand(shape, device="cuda", generator=g) < 0.3
-            x = torch.randn(M_ROWS, R, device="cuda", generator=g).to(dt)
-            w2, m2 = w.reshape(R, -1), m.reshape(R, -1)
-            K, N = w2.shape
-            dy = torch.randn(M_ROWS, N, device="cuda", generator=g).to(dt)
-            dx = MM.masked_matmul_dx(dy, w2, m2)
-            dw = MM.masked_matmul_dw(x, dy, m2)
-            torch.cuda.synchronize()
-            if bool((dw[~m2] != 0).any()):
-                raise AssertionError(f"masked_matmul_dw {name} {dtype}: a pruned slot is not 0")
-            wm = w2 * m2.to(dt)
-            nnz = float(m2.sum())
-            for op, out, plain, lib, nbytes in (
-                ("dx", dx, lambda: masked_matmul_dx_plain(dy, w2, m2),
-                 lambda: torch.matmul(dy, wm.T),
-                 (dy.numel() + w2.numel() + dx.numel()) * dy.element_size() + m2.numel()),
-                ("dw", dw, lambda: masked_matmul_dw_plain(x, dy, m2),
-                 lambda: torch.matmul(x.T, dy) * m2,
-                 (x.numel() + dy.numel() + dw.numel()) * x.element_size() + m2.numel()),
-            ):
-                err = check_scaled(f"masked_matmul_{op} {name} {dtype}", out, plain(), dtype)
-                kern = (lambda: MM.masked_matmul_dx(dy, w2, m2)) if op == "dx" else \
-                    (lambda: MM.masked_matmul_dw(x, dy, m2))
-                b_ms, b_by = bound_ms(nbytes, 2.0 * M_ROWS * nnz, dtype)
-                row = dict(phase="masked_matmul_bwd", op=op, leaf=name, dtype=dtype, M=M_ROWS,
-                           K=K, N=N, max_abs_err=err, tol=TOL[dtype], ms=timed_ms(kern),
-                           plain_ms=timed_ms(plain), library_ms=timed_ms(lib), bound_ms=b_ms,
-                           bound_by=b_by)
-                if dtype == "bfloat16" and name == "w_up":
-                    row["deterministic"] = check_repeat(f"masked_matmul_{op} {name} {dtype}",
-                                                        kern, out)
-                    summary[op] = row
-                emit(row)
-            del w, m, x, dy, dx, dw, wm
+        R = math.prod(shape[:n_red])
+        w = (torch.randn(shape, device="cuda", generator=g) / math.sqrt(R)).to(dt)
+        m = torch.rand(shape, device="cuda", generator=g) < 0.3
+        x = torch.randn(M_ROWS, R, device="cuda", generator=g).to(dt)
+        w2, m2 = w.reshape(R, -1), m.reshape(R, -1)
+        K, N = w2.shape
+        dy = torch.randn(M_ROWS, N, device="cuda", generator=g).to(dt)
+        dx = MM.masked_matmul_dx(dy, w2, m2)
+        dw = MM.masked_matmul_dw(x, dy, m2)
+        torch.cuda.synchronize()
+        tag = f"{model} {name} {dtype}"
+        if bool((dw[~m2] != 0).any()):
+            raise AssertionError(f"masked_matmul_dw {tag}: a pruned slot is not 0")
+        wm = w2 * m2.to(dt)
+        nnz = float(m2.sum())
+        for op, out, plain, lib, nbytes in (
+            ("dx", dx, lambda: masked_matmul_dx_plain(dy, w2, m2),
+             lambda: torch.matmul(dy, wm.T),
+             (dy.numel() + w2.numel() + dx.numel()) * dy.element_size() + m2.numel()),
+            ("dw", dw, lambda: masked_matmul_dw_plain(x, dy, m2),
+             lambda: torch.matmul(x.T, dy) * m2,
+             (x.numel() + dy.numel() + dw.numel()) * x.element_size() + m2.numel()),
+        ):
+            err = check_scaled(f"masked_matmul_{op} {tag}", out, plain(), dtype)
+            kern = (lambda: MM.masked_matmul_dx(dy, w2, m2)) if op == "dx" else \
+                (lambda: MM.masked_matmul_dw(x, dy, m2))
+            b_ms, b_by = bound_ms(nbytes, 2.0 * M_ROWS * nnz, dtype)
+            row = dict(phase="masked_matmul_bwd", op=op, model=model, leaf=name, dtype=dtype,
+                       M=M_ROWS, K=K, N=N, max_abs_err=err, tol=TOL[dtype], ms=timed_ms(kern),
+                       plain_ms=timed_ms(plain), library_ms=timed_ms(lib), bound_ms=b_ms,
+                       bound_by=b_by)
+            if dtype == "bfloat16" and name in ("w_up", "dense_w_up"):
+                row["deterministic"] = check_repeat(f"masked_matmul_{op} {tag}", kern, out)
+            if dtype == "bfloat16" and name == "w_up":
+                summary[op] = row
+            if model == "deepseek_moe_16b":
+                moe[op][name] = row
+            emit(row)
+        del w, m, x, dy, dx, dw, wm
     # ragged edges (K and N not multiples of the tile), x and dy strided
     # column slices; bf16 with dims and offsets that keep 16-byte alignment
     for dtype, case, K, N, off in (("float32", "ragged+strided", 1001, 333, 101),
@@ -415,7 +454,7 @@ def phase_masked_matmul_bwd(g):
             raise AssertionError(f"masked_matmul_dw {case} {dtype}: a pruned slot is not 0")
         emit(dict(phase="masked_matmul_bwd", case=case, dtype=dtype, M=777, K=K, N=N,
                   max_abs_err_dx=err_dx, max_abs_err_dw=err_dw, tol=TOL[dtype]))
-    return summary
+    return summary, moe
 
 
 def phase_masked_matmul_dm(g):
@@ -481,8 +520,10 @@ def phase_masked_matmul_dm(g):
 def phase_flash_attention_bwd(g):
     """The backward kernel (through ``FlashAttentionFn``) against the plain
     formula and against autograd of the plain attention in f32: (256, 2048, 128)
-    causal, non-causal, q_offset with Sq < Sk, and every head width, in f32
-    and bf16. Gradients checked within tol x max |plain|."""
+    causal, non-causal, q_offset with Sq < Sk, the moe path's EBFT shape
+    (128, 2048, 128) causal, and every head width, in f32 and bf16.
+    Gradients checked within tol x max |plain|. Returns the (256, 2048,
+    128) bf16 row and the moe one."""
     import torch
     import torch.nn.functional as F
 
@@ -492,9 +533,9 @@ def phase_flash_attention_bwd(g):
     )
 
     cases = [(256, 2048, 2048, 128, True, 0), (64, 1024, 1024, 128, False, 0),
-             (64, 512, 2048, 128, True, 1536), (8, 200, 333, 64, True, 133),
+             (64, 512, 2048, 128, True, 1536), MOE_ATTN["ebft"], (8, 200, 333, 64, True, 133),
              (8, 128, 128, 32, False, 0), (16, 128, 128, 16, True, 0)]
-    summary = None
+    summary, moe_rows = None, {}
     for dtype in ("float32", "bfloat16"):
         dt = getattr(torch, dtype)
         for BH, Sq, Sk, d, causal, off in cases:
@@ -544,6 +585,9 @@ def phase_flash_attention_bwd(g):
                         lambda: FA.flash_attention_bwd(q, k, v, o, do, lse, **kw),
                         FA.flash_attention_bwd(q, k, v, o, do, lse, **kw))
                     summary = row
+                if dtype == "bfloat16" and (BH, Sq, Sk, d, causal, off) == MOE_ATTN["ebft"]:
+                    row["moe"] = "ebft"
+                    moe_rows["ebft"] = row
             emit(row)
             del q, k, v, do, o, lse
             torch.cuda.empty_cache()
@@ -554,7 +598,7 @@ def phase_flash_attention_bwd(g):
     _refuses("flash_attention_bwd unaligned bf16",
              lambda: FA.flash_attention_bwd(ok, ok, ok, ok, bad, lse))
     emit(dict(phase="flash_attention_bwd", case="unaligned bf16", refused=True))
-    return summary
+    return summary, moe_rows
 
 
 # ---------------------------------------------------------------------------
@@ -594,7 +638,10 @@ def _counters():
     return {"masked_matmul": (MM, "launches"), "masked_matmul_dx": (MM, "dx_launches"),
             "masked_matmul_dw": (MM, "dw_launches"), "masked_matmul_dm": (MM, "dm_launches"),
             "flash_attention": (FA, "launches"),
-            "flash_attention_bwd": (FA, "bwd_launches"), "nm_spmm": (NM, "launches")}
+            "flash_attention_bwd": (FA, "bwd_launches"), "nm_spmm": (NM, "launches"),
+            "masked_matmul_batched": (MM, "batched_launches"),
+            "masked_matmul_batched_dx": (MM, "batched_dx_launches"),
+            "masked_matmul_batched_dw": (MM, "batched_dw_launches")}
 
 
 def reset_counts() -> None:
@@ -735,7 +782,8 @@ def phase_slice(method_cfg, tokens, params=None, microbatch=8, every_block_drops
     expected = {"masked_matmul": 7 * masked_fwd, "masked_matmul_dx": 7 * steps,
                 "masked_matmul_dw": 7 * steps, "masked_matmul_dm": 0,
                 "flash_attention": masked_fwd + L * (n_ev + 2 * n_cal + spec.pretrain_steps),
-                "flash_attention_bwd": steps + L * spec.pretrain_steps, "nm_spmm": 0}
+                "flash_attention_bwd": steps + L * spec.pretrain_steps, "nm_spmm": 0,
+                **{k: 0 for k in BATCHED}}
     pat = tuple(int(x) for x in pattern.split(":")) if pattern else None
     blocks = [dict(block=r.index, loss_before=r.loss_before, loss_after=r.loss_after,
                    dropped=r.loss_after < r.loss_before, epochs_run=r.epochs_run,
@@ -893,9 +941,9 @@ SERVE_NAMES = ["serve/prefill/exec_s", "serve/decode/exec_s", "serve/queue_depth
                "serve/batch_occupancy", "serve/tokens", "serve/requests", "serve/tokens_per_s"]
 
 
-def _serve_forced(model, params, prompts, tag):
-    """Prefill ``prompts`` into a cache of SERVE["max_len"] positions, then
-    SERVE["forced_steps"] greedy decode steps. Each step's logits (the
+def _serve_forced(model, params, prompts, tag, conf=SERVE):
+    """Prefill ``prompts`` into a cache of conf["max_len"] positions, then
+    conf["forced_steps"] greedy decode steps. Each step's logits (the
     prefill's too) must equal the last-position logits of a no-cache
     ``forward`` over the same tokens within the bf16 tolerance; where the
     two greedy tokens differ, the no-cache logits' top-2 margin must be
@@ -911,10 +959,10 @@ def _serve_forced(model, params, prompts, tag):
 
     tol = TOL["bfloat16"]
     seq = torch.as_tensor(np.stack(prompts), device="cuda").long()
-    state = model.init_serve_state(len(prompts), SERVE["max_len"], "cuda")
+    state = model.init_serve_state(len(prompts), conf["max_len"], "cuda")
     logits, state = model.prefill(params, {"tokens": seq}, state)
     errs, flips = [], []
-    for step in range(SERVE["forced_steps"] + 1):
+    for step in range(conf["forced_steps"] + 1):
         ref = model.forward(params, {"tokens": seq})[:, -1]
         got = logits[:, 0]
         errs.append(check_close(f"serve {tag}: step {step}'s logits against the no-cache "
@@ -927,7 +975,7 @@ def _serve_forced(model, params, prompts, tag):
             raise AssertionError(f"serve {tag}: step {step}'s greedy token differs from the "
                                  f"no-cache forward's at a top-2 margin {margin.tolist()}")
         flips += [(step, float(m)) for m in margin[differ].tolist()]
-        if step == SERVE["forced_steps"]:
+        if step == conf["forced_steps"]:
             model32 = build(model.cfg.replace(dtype="float32", param_dtype="float32"))
             ref32 = model32.forward(T.tree_map(lambda t: t.float(), params),
                                     {"tokens": seq})[:, -1]
@@ -1047,11 +1095,11 @@ def _serve_split(model, params, prompts):
     return out
 
 
-def _serve_run(model, params, prompts, tag):
-    """``Server.serve`` of SERVE["requests"] requests over SERVE["slots"]
+def _serve_run(model, params, prompts, tag, conf=SERVE, arch="llama_7b"):
+    """``Server.serve`` of conf["requests"] requests over conf["slots"]
     slots in an obs run opened as ``launch/serve`` opens it; every kernel
     count is set to 0 just before it and read just after. Raises unless
-    every request gets SERVE["max_new"] tokens, the highest ``len`` stays
+    every request gets conf["max_new"] tokens, the highest ``len`` stays
     within the cache, the flash attention forward ran L x (prefills +
     decode steps) times and no other kernel ran, obs booked every launch,
     and the artifact (``chiprun_out/BENCH_serve_<tag>.json``) passes
@@ -1073,11 +1121,11 @@ def _serve_run(model, params, prompts, tag):
         return logits, state
 
     server = Server(dataclasses.replace(model, decode_step=decode_step), params,
-                    batch_size=SERVE["slots"], max_len=SERVE["max_len"])
-    reqs = [Request(uid=i, prompt=p, max_new=SERVE["max_new"]) for i, p in enumerate(prompts)]
-    spec = ServeSpec(arch="llama_7b", requests=len(reqs), slots=SERVE["slots"],
-                     prompt_len=SERVE["prompt_len"], max_new=SERVE["max_new"],
-                     max_len=SERVE["max_len"])
+                    batch_size=conf["slots"], max_len=conf["max_len"])
+    reqs = [Request(uid=i, prompt=p, max_new=conf["max_new"]) for i, p in enumerate(prompts)]
+    spec = ServeSpec(arch=arch, requests=len(reqs), slots=conf["slots"],
+                     prompt_len=conf["prompt_len"], max_new=conf["max_new"],
+                     max_len=conf["max_len"])
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -1105,19 +1153,19 @@ def _serve_run(model, params, prompts, tag):
                prefill_first_ms=m["serve/prefill/compile_s"]["last"] * 1e3,
                decode_ms=m["serve/decode/exec_s"]["mean"] * 1e3,
                decode_p50_ms=m["serve/decode/exec_s"]["p50"] * 1e3,
-               decode_steps=len(lens), top_len=max(lens), max_len=SERVE["max_len"],
+               decode_steps=len(lens), top_len=max(lens), max_len=conf["max_len"],
                occupancy=m["serve/batch_occupancy"]["mean"], peak_mem_gib=peak / 2**30,
                peak_over_start_gib=(peak - start_mem) / 2**30,
                launches=launches, flash_booked=booked,
                flash_in_run_ms=kernel_stats(m)["flash_attention"]["mean_ms"],
                artifact=f"chiprun_out/BENCH_serve_{tag}.json")
     if sorted(res) != list(range(len(reqs))) or \
-            any(len(v) != SERVE["max_new"] for v in res.values()):
+            any(len(v) != conf["max_new"] for v in res.values()):
         raise AssertionError(f"serve {tag}: {len(res)} requests served, token counts "
                              f"{sorted({len(v) for v in res.values()})}")
-    if max(lens) > SERVE["max_len"]:
+    if max(lens) > conf["max_len"]:
         raise AssertionError(f"serve {tag}: len reached {max(lens)} past the cache's "
-                             f"{SERVE['max_len']}")
+                             f"{conf['max_len']}")
     if launches != expected or booked != launches["flash_attention"]:
         raise AssertionError(f"serve {tag}: launches {launches} (obs booked {booked} "
                              f"attention launches), expected {expected}")
@@ -1467,7 +1515,8 @@ def phase_path_a(tokens, dense, microbatch=8):
     expected = {"masked_matmul": 7 * fwd, "masked_matmul_dx": 7 * steps + 4 * mt_steps,
                 "masked_matmul_dw": 7 * steps, "masked_matmul_dm": 7 * mt_steps,
                 "flash_attention": fwd + L * (n_ev + 5 * n_cal),
-                "flash_attention_bwd": steps + mt_steps, "nm_spmm": 0}
+                "flash_attention_bwd": steps + mt_steps, "nm_spmm": 0,
+                **{k: 0 for k in BATCHED}}
     mean_before, mean_after = _check_finite_and_drop("path A", res)
     for path, m in T.leaves_with_path(res.masks):
         if not SP.is_prunable(path, m):
@@ -1567,7 +1616,8 @@ def phase_path_b(tokens, dense, microbatch=8):
     expected = {"masked_matmul": 7 * fwd, "masked_matmul_dx": 7 * steps + (7 * L - 3) * n_lora,
                 "masked_matmul_dw": 7 * steps + 7 * L * n_lora, "masked_matmul_dm": 0,
                 "flash_attention": fwd + L * (n_ev + 3 * n_cal),
-                "flash_attention_bwd": steps + L * n_lora, "nm_spmm": 0}
+                "flash_attention_bwd": steps + L * n_lora, "nm_spmm": 0,
+                **{k: 0 for k in BATCHED}}
     mean_before, mean_after = _check_finite_and_drop("path B", res)
     model = build(cfg)
     kept_units, units = 0, L * (H + cfg.d_ff)
@@ -2102,19 +2152,21 @@ def phase_tiny_crosscheck():
     phase_tiny_baselines(model, weights, calib, ev, corpus)
 
 
-def phase_tiny_ebft(model, weights, masks_cpu, calib, ev, rel=1e-4):
+def phase_tiny_ebft(model, weights, masks_cpu, calib, ev, rel=1e-4, arch="tiny_dense",
+                    ecfg=None):
     """EBFT on tiny_dense in f32 from the same weights and the same (CPU)
     masks on the card (kernels, their backward) and on the CPU (plain
     versions): equal epochs_run and early stops per block, loss histories
     and the EBFT perplexity within rel 1e-4 (f32, sums taken in another
-    order)."""
+    order). ``ecfg`` defaults to the tests' EBFT settings (lr 1e-2, 8
+    epochs, patience 3)."""
     from repro_torch import interop
     from repro_torch import tree as T
     from repro_torch.core import ebft
     from repro_torch.core.evaluate import perplexity
     from repro_torch.sparsity import sparse_params as SP
 
-    ecfg = ebft.EBFTConfig(lr=1e-2, epochs=8, microbatch=8, patience=3)
+    ecfg = ecfg or ebft.EBFTConfig(lr=1e-2, epochs=8, microbatch=8, patience=3)
     out = {}
     for dev in ("cuda", "cpu"):
         params = interop.params_to_torch(weights, dev)
@@ -2131,7 +2183,7 @@ def phase_tiny_ebft(model, weights, masks_cpu, calib, ev, rel=1e-4):
         for x, y in zip(a.history + [a.loss_after], b.history + [b.loss_after]):
             worst = max(worst, abs(x - y) / abs(y))
     ppl_rel = abs(out["cuda"]["ppl"] / out["cpu"]["ppl"] - 1.0)
-    emit(dict(phase="tiny_ebft", arch="tiny_dense", dtype="float32", lr=ecfg.lr,
+    emit(dict(phase="tiny_ebft", arch=arch, dtype="float32", lr=ecfg.lr,
               epochs=ecfg.epochs, patience=ecfg.patience,
               epochs_run=[r.epochs_run for r in out["cuda"]["reports"]],
               early_stop=[r.early_stop for r in out["cuda"]["reports"]],
@@ -2140,6 +2192,32 @@ def phase_tiny_ebft(model, weights, masks_cpu, calib, ev, rel=1e-4):
     if worst > rel or ppl_rel > rel:
         raise AssertionError(f"tiny EBFT: card vs CPU loss rel {worst:.2e}, ppl rel "
                              f"{ppl_rel:.2e} (limit {rel:.0e})")
+    return out["cpu"]
+
+
+def _ebft_spread(model, weights, masks_cpu, calib, ev, ecfg, base, eps=1e-6):
+    """EBFT on the CPU from ``weights`` moved by ``eps`` (relative, seeded
+    normal noise on every leaf) against ``base`` (the unmoved CPU run):
+    the largest relative move of a block loss and of the perplexity, the
+    spread that rounding alone can cause."""
+    import numpy as np
+
+    from repro_torch import interop
+    from repro_torch import tree as T
+    from repro_torch.core import ebft
+    from repro_torch.core.evaluate import perplexity
+    from repro_torch.sparsity import sparse_params as SP
+
+    rng = np.random.default_rng(1)
+    moved = T.tree_map(lambda a: a * (1 + eps * rng.standard_normal(a.shape)).astype(a.dtype),
+                       weights)
+    params = interop.params_to_torch(moved, "cpu")
+    tuned, reports = ebft.finetune(model, params, SP.apply_masks(params, masks_cpu), masks_cpu,
+                                   calib, ecfg)
+    worst = max(abs(x - y) / abs(y) for a, b in zip(reports, base["reports"])
+                for x, y in zip(a.history + [a.loss_after], b.history + [b.loss_after]))
+    ppl = perplexity(model, tuned, ev, masks=masks_cpu)
+    return dict(eps=eps, loss_rel=worst, ppl_rel=abs(ppl / base["ppl"] - 1.0))
 
 
 def _rel_norm(a, b) -> float:
@@ -2319,6 +2397,408 @@ def phase_tiny_baselines(model, weights, calib, ev, corpus, rel=1e-4):
 
 
 # ---------------------------------------------------------------------------
+# the MoE family: DeepSeek-MoE-16B at its published widths, 5 of its 28 layers
+# ---------------------------------------------------------------------------
+# the EBFT microbatch's expert slabs: E 64, C = int(1.25 x 16384 x 6 / 64) = 1920,
+# d_model 2048 against the experts' width 1408 (w_up, w_gate; w_down transposed)
+MOE_SLABS = [("w_up", 64, 1920, 2048, 1408), ("w_down", 64, 1920, 1408, 2048)]
+# the f32 batched route at a shape no tile divides (C 300, K 256 against
+# 96 columns), every operand a view into padded slabs
+BATCHED_RAGGED = ("ragged+strided", "float32", 8, 300, 256, 96)
+MOE = dict(layers=5, pretrain_steps=50, batch=8, microbatches=4, calib=16, eval=16, seq=2048)
+MOE_SERVE = dict(slots=8, prompt_len=512, max_new=32, max_len=1024, requests=16, forced_steps=32)
+
+
+def moe_cfg(dtype: str = "bfloat16"):
+    """DeepSeek-MoE-16B at its published widths, cut to MOE["layers"] of its
+    28 layers (the dense layer and 4 MoE layers), with the flash attention
+    kernel."""
+    from repro_torch.configs import get_config
+
+    return get_config("deepseek_moe_16b").replace(num_layers=MOE["layers"], dtype=dtype,
+                                                  param_dtype=dtype, attn_impl="flash")
+
+
+def phase_masked_matmul_batched(g):
+    """The expert-batched masked GEMM (forward, dX, dW) in bf16 at the EBFT
+    microbatch's expert slabs, and in f32 at a ragged shape whose every
+    operand is a strided view (``BATCHED_RAGGED``), each held (a) against
+    its plain version within the 2-D rows' tolerances, (b) against the 2-D
+    kernel launched on each expert's slab alone, bit for bit, and (c)
+    against a repeat of itself. The bf16 ones are timed (``timed_ms``)
+    beside their plain version, ``torch.bmm`` on the masked weights and
+    their bound (the bytes of the operands; the operations 2 x C x the
+    mask's nonzeros). Returns the w_up rows."""
+    import torch
+
+    from repro_torch.kernels.masked_matmul import ops as MM
+    from repro_torch.kernels.masked_matmul.ref import (
+        masked_matmul_batched_dw_plain, masked_matmul_batched_dx_plain,
+        masked_matmul_batched_plain,
+    )
+
+    summary = {}
+    for leaf, dtype, E, C, K, N in [(leaf, "bfloat16", *dims) for leaf, *dims in MOE_SLABS] + \
+            [BATCHED_RAGGED]:
+        dt = getattr(torch, dtype)
+        timed = dtype == "bfloat16"
+        pad = 0 if timed else 3  # the ragged case's operands are views into padded slabs
+
+        def view(rows, cols, make):
+            return make(E, rows + 2 * pad, cols + 2 * pad)[:, pad:pad + rows, pad:pad + cols]
+
+        x = view(C, K, lambda *s: torch.randn(*s, device="cuda", generator=g).to(dt))
+        w = view(K, N, lambda *s: (torch.randn(*s, device="cuda", generator=g)
+                                   / math.sqrt(K)).to(dt))
+        m = view(K, N, lambda *s: torch.rand(*s, device="cuda", generator=g) < 0.3)
+        dy = view(C, N, lambda *s: torch.randn(*s, device="cuda", generator=g).to(dt))
+        es = x.element_size()
+        cases = (
+            ("masked_matmul_batched", lambda: MM.masked_matmul_batched(x, w, m),
+             lambda: masked_matmul_batched_plain(x, w, m), "torch.bmm(x, w * m)",
+             lambda: torch.bmm(x, wm),
+             lambda e: MM._launch(x[e], w[e], m[e]), check_close,
+             (x.numel() + w.numel() + E * C * N) * es + m.numel()),
+            ("masked_matmul_batched_dx", lambda: MM.masked_matmul_batched_dx(dy, w, m),
+             lambda: masked_matmul_batched_dx_plain(dy, w, m), "torch.bmm(dy, (w * m)^T)",
+             lambda: torch.bmm(dy, wm.transpose(1, 2)),
+             lambda e: MM._launch_dx(dy[e], w[e], m[e]), check_scaled,
+             (dy.numel() + w.numel() + E * C * K) * es + m.numel()),
+            ("masked_matmul_batched_dw", lambda: MM.masked_matmul_batched_dw(x, dy, m),
+             lambda: masked_matmul_batched_dw_plain(x, dy, m), "torch.bmm(x^T, dy) * m",
+             lambda: torch.bmm(x.transpose(1, 2), dy) * m,
+             lambda e: MM._launch_dw(x[e], dy[e], m[e]), check_scaled,
+             (x.numel() + dy.numel() + E * K * N) * es + m.numel()),
+        )
+        for name, kern, plain, lib_name, lib, per_expert, check, nbytes in cases:
+            out = kern()
+            torch.cuda.synchronize()
+            err = check(f"{name} {leaf}", out, plain(), dtype)
+            if not torch.equal(out, torch.stack([per_expert(e) for e in range(E)])):
+                raise AssertionError(f"{name} {leaf}: an expert's slab differs from the 2-D "
+                                     "kernel's launch on that slab")
+            if name.endswith("_dw") and bool((out[~m] != 0).any()):
+                raise AssertionError(f"{name} {leaf}: a pruned slot is not 0")
+            row = dict(phase="masked_matmul_batched", kernel=name, leaf=leaf, dtype=dtype,
+                       E=E, C=C, K=K, N=N, max_abs_err=err, tol=TOL[dtype],
+                       equals_2d_per_expert=True,
+                       deterministic=check_repeat(f"{name} {leaf}", kern, out))
+            if timed:
+                wm = w * m.to(dt)
+                b_ms, b_by = bound_ms(nbytes, 2.0 * C * float(m.sum()), dtype)
+                row.update(ms=timed_ms(kern), plain_ms=timed_ms(plain), library_ms=timed_ms(lib),
+                           library=lib_name, bound_ms=b_ms, bound_by=b_by,
+                           bound_ms_dense_ops=2.0 * E * C * K * N / PEAK_FLOPS[dtype] * 1e3,
+                           bytes=nbytes)
+                del wm
+            else:
+                row["strides"] = {k: list(t.stride()) for k, t in (("x", x), ("w", w), ("m", m))}
+            emit(row)
+            if leaf == "w_up":
+                summary[name] = row
+            del out
+        del x, w, m, dy
+        torch.cuda.empty_cache()
+    # the wrapper refuses what the kernel does not take: a mask whose rows
+    # (the TMA's box rows) are 40 bytes apart, not a multiple of 16
+    x = torch.randn(2, 8, 64, device="cuda", generator=g).to(torch.bfloat16)
+    w = torch.randn(2, 64, 40, device="cuda", generator=g).to(torch.bfloat16)
+    m = torch.ones(2, 64, 40, device="cuda", dtype=torch.bool)
+    _refuses("masked_matmul_batched bf16 mask row stride 40",
+             lambda: MM.masked_matmul_batched(x, w, m))
+    emit(dict(phase="masked_matmul_batched", case="bf16 mask row stride 40", refused=True))
+    return summary
+
+
+def _moe_expected(cfg, res, microbatch=8):
+    """The MoE path's launches, by the same count as the Llama path's
+    (``phase_slice``): every masked forward of a block runs its 7 2-D
+    masked linears (attention, and the dense MLP or the shared experts)
+    and, in an MoE block, 3 batched ones (the routed experts); each EBFT
+    step's backward runs dX and dW of each."""
+    L, n_dense = cfg.num_layers, cfg.moe_first_dense
+    n_cal = math.ceil(MOE["calib"] / microbatch)
+    n_ev = math.ceil(MOE["eval"] / microbatch)
+    steps = sum(r.epochs_run for r in res.reports) * n_cal
+    steps_moe = sum(r.epochs_run for r in res.reports if r.index >= n_dense) * n_cal
+    per_block = n_cal + 2 * n_ev + 3 * n_cal  # prune walk, two evals, EBFT's evals + advance
+    masked_fwd = L * per_block + steps
+    pre = MOE["pretrain_steps"] * MOE["microbatches"]
+    return {"masked_matmul": 7 * masked_fwd, "masked_matmul_dx": 7 * steps,
+            "masked_matmul_dw": 7 * steps, "masked_matmul_dm": 0,
+            "flash_attention": masked_fwd + L * (n_ev + 2 * n_cal + pre),
+            "flash_attention_bwd": steps + L * pre, "nm_spmm": 0,
+            "masked_matmul_batched": 3 * ((L - n_dense) * per_block + steps_moe),
+            "masked_matmul_batched_dx": 3 * steps_moe, "masked_matmul_batched_dw": 3 * steps_moe}
+
+
+def _moe_repeat_block(model, dense, res, calib, block):
+    """EBFT of one MoE block run twice on the same stream (the pruned
+    student's inputs, the dense teacher's targets): the tuned weights and
+    the reports must be equal bit for bit (the dispatch's scatter and
+    gather accumulate into repeated slots in their backward)."""
+    import torch
+
+    from repro_torch import tree as T
+    from repro_torch.core import ebft
+    from repro_torch.core.pruning import common as C
+    from repro_torch.sparsity import sparse_params as SP
+
+    seen = {}
+
+    def visit(i, bp, ctx):
+        if i != block:
+            return None
+        data = list(zip(ctx["h_mb"], ctx["target_mb"], ctx["pos_mb"]))
+        cfg = ebft.EBFTConfig(lr=2e-4, epochs=3, patience=2)
+        runs = [ebft.tune_block(model, i, bp, model.get_block(res.masks, i), data, cfg, {})
+                for _ in range(2)]
+        torch.cuda.synchronize()
+        same = all(torch.equal(a, T.get_path(runs[1][0], p))
+                   for p, a in T.leaves_with_path(runs[0][0]))
+        seen.update(same=same and runs[0][1].history == runs[1][1].history,
+                    history=runs[0][1].history)
+        return None
+
+    student = SP.apply_masks(res.pruned, res.masks)
+    C.walk_blocks(model, dense, calib, visit, microbatch=8, params_student=student,
+                  masks=res.masks, dual_stream=True)
+    if not seen.get("same"):
+        raise AssertionError(f"moe: EBFT of block {block} run twice gave other bits")
+    return seen
+
+
+def phase_moe(walls):
+    """The MoE family's path on DeepSeek-MoE-16B at its published widths
+    (d_model 2048, 16 heads x 128, dense d_ff 10944, vocab 102400, 64
+    routed experts of width 1408, top-6, 2 shared), 5 of its 28 layers, bf16,
+    the flash attention: the seeded init pretrained MOE["pretrain_steps"]
+    steps (AdamW lr 3e-3, batch 8 x 2048 in 4 microbatches of 2), Wanda 0.7,
+    EBFT (lr 2e-4, 10 epochs, patience 2), the evaluations, through
+    ``ebft_run.run`` in an obs run (``chiprun_out/BENCH_ebft_moe.json``);
+    every kernel count is set to 0 just before it and read just after, and
+    must equal ``_moe_expected``. Then one MoE block's EBFT twice, the
+    teacher-forced check of the pretrained weights at cf = E/k + 1 (no
+    drops), ``Server.serve`` of the tuned weights (16 requests of 512
+    tokens, 32 greedy tokens each, 8 slots, max_len 1024) and the tiny_moe
+    cross-check of the card against the CPU. Returns the path's launches."""
+    import numpy as np
+    import torch
+
+    from repro_torch import tree as T
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data.tokens import CorpusConfig, SyntheticCorpus, calibration_set
+    from repro_torch.launch import ebft_run
+    from repro_torch.launch.api import start_obs_run
+    from repro_torch.launch.rooflines import model_flops_per_chip
+    from repro_torch.models.model import build
+    from repro_torch.sparsity import sparse_params as SP
+
+    t0 = time.perf_counter()
+    cfg = moe_cfg()
+    corpus = SyntheticCorpus(CorpusConfig(vocab_size=cfg.vocab_size, seed=0))
+    calib = calibration_set(corpus, MOE["calib"], MOE["seq"])
+    data_s = time.perf_counter() - t0
+    spec = ebft_run.RunSpec(arch="deepseek_moe_16b", seed=0, seq=MOE["seq"],
+                            calib_samples=MOE["calib"], pretrain_steps=MOE["pretrain_steps"],
+                            batch=MOE["batch"], microbatches=MOE["microbatches"], lr=2e-4,
+                            epochs=10, bench_out="")
+    pre = {}
+    ends = [0]
+
+    def on_stage(stage):
+        if stage != "update":
+            return
+        ends[0] += 1
+        if ends[0] == spec.pretrain_steps:
+            torch.cuda.synchronize()
+            pre.update(launches=read_counts(),
+                       peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30)
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    obs_run = start_obs_run(spec, "ebft", "cuda", name="chip_smoke/moe", console=False)
+    t1 = time.perf_counter()
+    res = ebft_run.run(cfg, spec, "cuda", on_stage=on_stage)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t1
+    launches = read_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    summ = obs_run.payload()["metrics"]
+    art = finish_obs(obs_run, ebft_run.bench_record(spec, res, summ), "BENCH_ebft_moe.json")
+    expected = _moe_expected(cfg, res)
+    stats = kernel_stats(art["metrics"])
+    phases = {}
+    for n in art["trace"]:
+        if n["name"].startswith("phase/"):
+            key = n["name"][len("phase/"):] + "".join(
+                f"_{n['attrs'][a]}" for a in ("what",) if a in n.get("attrs", {}))
+            phases[key] = dict(s=n["duration_s"], kernel_s=n["attrs"].get("kernel_s"),
+                               kernel_launches=n["attrs"].get("kernel_launches"))
+    hist = res.pretrain_losses
+    per_step = res.phases["pretrain"] / spec.pretrain_steps
+    flops = model_flops_per_chip(cfg, ShapeConfig("pretrain", MOE["seq"], MOE["batch"],
+                                                  "train"), 1)
+    blocks = [dict(block=r.index, kind=r.kind, loss_before=r.loss_before,
+                   loss_after=r.loss_after, epochs_run=r.epochs_run, early_stop=r.early_stop)
+              for r in res.reports]
+    row = dict(phase="moe", arch="deepseek_moe_16b", num_layers=cfg.num_layers,
+               reduced="num_layers 28->5", dtype=cfg.dtype, attn_impl=cfg.attn_impl,
+               seq=spec.seq, params=sum(t.numel() for _, t in T.leaves_with_path(res.dense)),
+               pretrain=dict(steps=spec.pretrain_steps, batch=spec.batch,
+                             microbatches=spec.microbatches, lr=3e-3,
+                             loss=[dict(step=i, loss=l, grad_norm=gn) for i, l, gn in hist],
+                             s_per_step=per_step, model_flops_per_step=flops,
+                             tflops_6nd_active=flops / per_step / 1e12,
+                             peak_mem_gib=pre.get("peak_mem_gib"),
+                             launches=pre.get("launches")),
+               method="wanda", sparsity=0.7, achieved_sparsity=res.sparsity,
+               perplexity=res.perplexity,
+               ebft_below_pruned=res.perplexity["EBFT"] < res.perplexity["wanda"],
+               blocks=blocks, phases_s=res.phases, phase_spans=phases, wall_s=wall,
+               data_s=data_s, peak_mem_gib=peak,
+               live_block_bytes=max(r.live_bytes for r in res.reports),
+               launches=launches, expected_launches=expected,
+               obs_booked={k: stats.get(k, {}).get("calls", 0) for k in launches},
+               in_run_ms={k: stats[k]["mean_ms"] for k in BATCHED if k in stats},
+               artifact="chiprun_out/BENCH_ebft_moe.json")
+    emit(row)
+    for k, v in res.perplexity.items():
+        if not math.isfinite(v):
+            raise AssertionError(f"moe: {k} perplexity is {v}")
+    if not all(math.isfinite(x) for _, l, gn in hist for x in (l, gn)):
+        raise AssertionError(f"moe: a pretraining loss or grad norm is not finite: {hist}")
+    if not hist[-1][1] < hist[0][1]:
+        raise AssertionError(f"moe: pretraining loss {hist[0][1]} -> {hist[-1][1]} did not drop")
+    if launches != expected:
+        raise AssertionError(f"moe: launches {launches} != expected {expected}")
+    idle = [k for k, v in launches.items() if v == 0 and k not in (
+        "masked_matmul_dm", "nm_spmm")]
+    if idle:
+        raise AssertionError(f"moe: kernels of the path launched no time: {idle}")
+    if any(row["obs_booked"][k] != launches[k] for k in launches):
+        raise AssertionError(f"moe: obs booked {row['obs_booked']}, the wrappers {launches}")
+    if not res.perplexity["EBFT"] < res.perplexity["wanda"]:
+        raise AssertionError(f"moe: EBFT perplexity {res.perplexity['EBFT']} is not below "
+                             f"the pruned model's {res.perplexity['wanda']}")
+    _check_pruned(res, cfg, 1.0 - 0.7, None)
+    router = res.masks["moe_blocks"]["moe"]["router"]["w"]
+    if not bool(router.all()):
+        raise AssertionError("moe: the router is masked")
+    for path, m in T.leaves_with_path(res.masks):
+        if SP.is_prunable(path, m) and bool((T.get_path(res.tuned, path)[~m] != 0).any()):
+            raise AssertionError(f"moe: {path} tuned weights are not 0 in pruned slots")
+    walls["moe_path"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    model = build(cfg)
+    rep = _moe_repeat_block(model, res.dense, res, calib, cfg.moe_first_dense)
+    emit(dict(phase="moe_repeat", block=cfg.moe_first_dense, epochs=3, bit_equal=True,
+              history=rep["history"], seconds=time.perf_counter() - t0))
+    walls["moe_repeat"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(0)
+    prompts = [corpus.sample(rng, MOE_SERVE["prompt_len"]) for _ in range(MOE_SERVE["requests"])]
+    cf = cfg.moe_num_experts / cfg.moe_top_k + 1.0
+    forced = _serve_forced(build(cfg.replace(moe_capacity_factor=cf)), res.dense,
+                           prompts[:MOE_SERVE["slots"]], "moe pretrained", MOE_SERVE)
+    dense = res.dense
+    tuned = res.tuned
+    del res
+    torch.cuda.empty_cache()
+    served = _serve_run(model, tuned, prompts, "moe_ebft", MOE_SERVE, "deepseek_moe_16b")
+    emit(dict(phase="moe_serve", weights={"forced": "pretrained", "serve": "ebft"},
+              forced_capacity_factor=cf, forced=forced, serve=served, **MOE_SERVE,
+              phase_s=time.perf_counter() - t0))
+    walls["moe_serve"] = time.perf_counter() - t0
+    del dense, tuned
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    phase_tiny_moe()
+    walls["moe_tiny"] = time.perf_counter() - t0
+    return launches
+
+
+def phase_tiny_moe(rel=1e-4):
+    """tiny_moe in f32 with the same weights on the card (the kernels, the
+    batched one on the expert leaves) and on the CPU (plain versions): the
+    loss, nll and aux, and the dense and Wanda perplexities within rel
+    1e-4; masks that differ only in slots within 1e-6 (relative) of their
+    threshold; then EBFT from the CPU's masks on both (``phase_tiny_ebft``'s
+    check: epochs and stops equal, losses and perplexity within rel 1e-4),
+    at the paper's EBFT settings (lr 2e-4, 10 epochs, patience 2). The
+    limit must stand at least 5 times above the CPU's own spread under a
+    1e-6 move of the weights at those settings (``_ebft_spread``): a
+    router top-k on a near-tie can flip with the order of a sum, and at
+    a larger lr Adam carries such a flip far."""
+    import numpy as np
+    import torch
+
+    from repro_torch import interop
+    from repro_torch import tree as T
+    from repro_torch.configs import get_config
+    from repro_torch.core.evaluate import perplexity
+    from repro_torch.core.masks import prune
+    from repro_torch.data.tokens import CorpusConfig, SyntheticCorpus, calibration_set, eval_set
+    from repro_torch.models.model import build
+    from repro_torch.sparsity import sparse_params as SP
+
+    cfg = get_config("tiny_moe").replace(attn_impl="flash")
+    model = build(cfg)
+    weights = interop.params_to_numpy(model.init(torch.Generator().manual_seed(0)))
+    corpus = SyntheticCorpus(CorpusConfig(vocab_size=cfg.vocab_size, seed=0))
+    calib, ev = calibration_set(corpus, 16, 128), eval_set(corpus, 16, 128)
+    toks = np.random.default_rng(0).integers(0, cfg.vocab_size, (4, 128))
+    out = {}
+    for dev in ("cuda", "cpu"):
+        params = interop.params_to_torch(weights, dev)
+        loss, m = model.loss(params, {"tokens": torch.as_tensor(toks, device=dev)})
+        scores = {}
+        masks, pruned = prune(model, params, calib, method="wanda", sparsity=0.5,
+                              scores_out=scores)
+        out[dev] = dict(loss=float(loss), nll=float(m["nll"]), aux=float(m["aux"]),
+                        dense=perplexity(model, params, ev),
+                        wanda=perplexity(model, pruned, ev, masks=masks),
+                        masks=masks, scores=scores)
+    flips, worst = 0, 0.0
+    for path, m in T.leaves_with_path(out["cpu"]["masks"]):
+        if not SP.is_prunable(path, m):
+            continue
+        diff = m != T.get_path(out["cuda"]["masks"], path).cpu()
+        for j in range(m.shape[0]):
+            if diff[j].any():
+                i = j + (cfg.moe_first_dense if path[0] == "moe_blocks" else 0)
+                s = out["cpu"]["scores"][(i, *path[1:])]
+                gap = float(SP.threshold_gaps(s, 0.5)[diff[j].reshape(s.shape)].max())
+                worst = max(worst, gap)
+                flips += int(diff[j].sum())
+    keys = ("loss", "nll", "aux", "dense", "wanda")
+    row = dict(phase="tiny_moe", arch="tiny_moe", dtype="float32", attn_impl="flash",
+               cuda={k: out["cuda"][k] for k in keys}, cpu={k: out["cpu"][k] for k in keys},
+               rtol=rel, mask_flips=flips, worst_flip_gap=worst, gap_rtol=1e-6)
+    emit(row)
+    for k in keys:
+        a, b = out["cuda"][k], out["cpu"][k]
+        if not abs(a - b) <= rel * abs(b):
+            raise AssertionError(f"tiny_moe: {k} cuda {a} vs cpu {b}")
+    if worst > 1e-6:
+        raise AssertionError(f"tiny_moe: a mask flipped {worst:.2e} from its threshold")
+    from repro_torch.core import ebft
+
+    masks = out["cpu"]["masks"]
+    paper = ebft.EBFTConfig(lr=2e-4, epochs=10, microbatch=8, patience=2)
+    base = phase_tiny_ebft(model, weights, masks, calib, ev, rel, arch="tiny_moe", ecfg=paper)
+    spread = _ebft_spread(model, weights, masks, calib, ev, paper, base)
+    emit(dict(phase="tiny_moe_spread", arch="tiny_moe", device="cpu", lr=paper.lr, rtol=rel,
+              **spread))
+    if max(spread["loss_rel"], spread["ppl_rel"]) > rel / 5:
+        raise AssertionError(f"tiny_moe: the CPU's own EBFT spread {spread} is not 5 times "
+                             f"below the card-vs-CPU limit {rel:.0e}")
+
+# ---------------------------------------------------------------------------
 def main() -> int:
     # cuBLAS picks its workspace per stream; a fixed configuration makes a
     # product repeat bit for bit, which the resumed training run relies on.
@@ -2346,11 +2826,17 @@ def main() -> int:
                      for n, log in _build.build_log.items()}))
 
     g = torch.Generator(device="cuda").manual_seed(0)
-    rows = {"masked_matmul": phase_masked_matmul(g)}
-    rows.update({f"masked_matmul_{op}": r for op, r in phase_masked_matmul_bwd(g).items()})
+    # the moe path's 2-D shapes, by kernel: {label: row}
+    rows, moe_shapes = {}, {}
+    rows["masked_matmul"], moe_shapes["masked_matmul"] = phase_masked_matmul(g)
+    bwd, moe_bwd = phase_masked_matmul_bwd(g)
+    for op in ("dx", "dw"):
+        rows[f"masked_matmul_{op}"], moe_shapes[f"masked_matmul_{op}"] = bwd[op], moe_bwd[op]
     rows["masked_matmul_dm"] = phase_masked_matmul_dm(g)
-    rows["flash_attention"], serve_rows = phase_flash_attention(g)
-    rows["flash_attention_bwd"] = phase_flash_attention_bwd(g)
+    rows["flash_attention"], serve_rows, moe_shapes["flash_attention"] = phase_flash_attention(g)
+    rows["flash_attention_bwd"], moe_shapes["flash_attention_bwd"] = phase_flash_attention_bwd(g)
+    torch.cuda.empty_cache()
+    rows.update(phase_masked_matmul_batched(g))
     torch.cuda.empty_cache()
     from repro_torch.data.tokens import CorpusConfig, SyntheticCorpus, calibration_set, eval_set
     from repro_torch.configs import get_config
@@ -2430,6 +2916,10 @@ def main() -> int:
     phase_tiny_crosscheck()
     phase_tiny_pretrain()
     walls["tiny"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    # the MoE family's path: its launches are the batched kernels' count
+    moe_launches = phase_moe(walls)
+    launches.update({k: moe_launches[k] for k in BATCHED})
     emit(dict(phase="walls", seconds=walls, total_s=time.perf_counter() - t_start))
 
     root = "src/repro_torch/kernels/csrc/"
@@ -2439,8 +2929,10 @@ def main() -> int:
     kernels = []
     for name, row in rows.items():
         base = name.replace("_dx", "").replace("_dw", "").replace("_dm", "").replace("_bwd", "")
+        base = base.replace("_batched", "")  # the batched entry of masked_matmul.cu
         kernels.append(dict(name=name, route="cuda", source=root + base + ".cu",
                             replaces=pallas[base], launches=launches[name],
+                            launches_moe=moe_launches[name],
                             launches_pretrain=pre_launches[name],
                             launches_path_a=by_path["A"][name], launches_path_b=by_path["B"][name],
                             launches_serve=serve_launches[name],
@@ -2455,6 +2947,12 @@ def main() -> int:
                                                   "ms", "plain_ms", "bound_ms", "bound_by",
                                                   "library_ms")}
         for kind, r in serve_rows.items()})
+    # the moe path's shapes of the 2-D kernels
+    for k in kernels:
+        if k["name"] in moe_shapes:
+            keys = ATTN_KEYS if k["name"].startswith("flash") else MMM_KEYS
+            k["moe"] = {label: {key: r.get(key) for key in keys}
+                        for label, r in moe_shapes[k["name"]].items()}
     print(smi(), flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,5 +1,5 @@
 """EBFT: block-wise fine-tuning of sparse LLMs (port of
-``repro.core.ebft``, dense family), Algorithm 1:
+``repro.core.ebft``, the dense and MoE families), Algorithm 1:
 
     for block l = 1..L:
         E ← block-wise reconstruction error (Eq. 4) over D_c

@@ -106,6 +106,8 @@ def finetune_lora(model, pruned_params: Params, masks: Params, data_iter: Iterat
     params' device. ``data_iter`` yields (B, S) token arrays. ``losses``,
     when a list, gets each step's LM loss as a 0-d device tensor (no
     sync)."""
+    if model.cfg.family == "moe":
+        raise NotImplementedError("LoRA on expert leaves is not ported yet (ROADMAP.md A.5)")
     lcfg = lcfg or LoRAConfig()
     device = pruned_params["embed"]["tok"].device
     if lora is None:

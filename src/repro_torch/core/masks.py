@@ -9,6 +9,12 @@ Wanda/SparseGPT convention (inputs propagate through the blocks already
 pruned, each student advance through the masked matmul kernel); magnitude
 needs no data; DSnoT reselects the masks of another method; FLAP walks
 twice (its unit scores are ranked globally, then expanded into masks).
+
+On the MoE family, magnitude and Wanda prune every routed expert's leaves
+as matrices of their own (per expert, per output column) and never the
+router. FLAP refuses it, as the reference does (it targets attention + MLP
+stacks); SparseGPT and DSnoT on expert leaves (the reference ``vmap``s
+them over E) are not ported yet and raise.
 """
 from __future__ import annotations
 
@@ -60,6 +66,9 @@ def prune(model, params: Params, calib: Optional[np.ndarray], method: str = "wan
     if method == "magnitude":
         masks = expand_masks(params, MAG.make_masks(params, sparsity, pattern))
         return masks, SP.apply_masks(params, masks)
+    if model.cfg.family == "moe" and method in ("sparsegpt", "dsnot"):
+        raise NotImplementedError(f"{method} on expert leaves is not ported yet "
+                                  "(ROADMAP.md A.5)")
     if method == "flap":
         return _prune_flap(model, params, calib, sparsity, microbatch, scores_out)
     if method == "dsnot":
@@ -138,6 +147,8 @@ def _prune_flap(model, params, calib, sparsity, microbatch, scores_out):
     """Pass 1 walks the dense stream and scores every block's units; the
     global threshold picks the units; pass 2 expands them into masks."""
     cfg = model.cfg
+    if cfg.family not in ("dense", "vlm"):
+        raise ValueError(f"FLAP targets attention + MLP stacks, not family {cfg.family!r}")
     scores = []
 
     def score_visit(i, bp, ctx):

@@ -11,6 +11,10 @@ in microbatches; the per-linear input activations are tapped
     sumsq    sum_t X[t]^2       (R,)   -- Wanda's ||X_j||_2^2, FLAP's fluctuation
     hessian  sum_t X[t] X[t]^T  (R, R) -- SparseGPT's Gram (opt-in), in f64
 
+Expert-batched leaves (the (E, C, R) taps of an MoE block's routed
+experts) get a leading E axis on every stat, and ``n`` counts the C slots
+of each expert's slab, filled or not, as the reference's.
+
 The sums are taken in another order than XLA's, so a score that sits on
 its comparison group's threshold can land on the other side of it. The
 Gram is summed in f64 and rounded to f32 where SparseGPT takes it; the
@@ -34,7 +38,7 @@ from repro_torch.obs import metrics as OM
 from repro_torch.obs import trace as OT
 from repro_torch.obs.profile import DispatchLedger, FirstCallTimer, compile_clock
 from repro_torch.sparsity import sparse_params as SP
-from repro_torch.sparsity.taps import dense_taps
+from repro_torch.sparsity.taps import taps_for_block
 
 
 def tap_key(path_names: Tuple[str, ...]) -> str:
@@ -58,9 +62,9 @@ def iter_prunable(block_params) -> List[Tuple[Tuple[str, ...], torch.Tensor]]:
 @dataclasses.dataclass
 class LeafStats:
     n: float
-    sum: torch.Tensor    # (R,)
-    sumsq: torch.Tensor  # (R,)
-    hessian: Optional[torch.Tensor] = None  # (R, R)
+    sum: torch.Tensor    # (R,) or (E, R)
+    sumsq: torch.Tensor  # (R,) or (E, R)
+    hessian: Optional[torch.Tensor] = None  # (R, R) or (E, R, R)
 
     @property
     def mean(self):
@@ -86,13 +90,14 @@ def full_f32_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def _acc_stats(x: torch.Tensor, want_hessian: bool = False) -> LeafStats:
-    """x: (T, R) activation matrix for one microbatch."""
+    """x: (T, R) activation matrix, or (E, C, R) expert-batched, for one
+    microbatch."""
     x32 = x.float()
     h = None
     if want_hessian:
         x64 = x.double()
-        h = x64.T @ x64
-    return LeafStats(float(x.shape[0]), x32.sum(dim=0), x32.square().sum(dim=0), h)
+        h = x64.transpose(-2, -1) @ x64
+    return LeafStats(float(x.shape[-2]), x32.sum(dim=-2), x32.square().sum(dim=-2), h)
 
 
 def _merge(a: Optional[LeafStats], b: LeafStats) -> LeafStats:
@@ -107,11 +112,12 @@ def _merge(a: Optional[LeafStats], b: LeafStats) -> LeafStats:
 def collect_block_stats(model, bp, block_index: int, h_mb: List[torch.Tensor],
                         pos_mb: List[torch.Tensor],
                         want_hessian: bool = False) -> Dict[str, LeafStats]:
-    """Run the taps over each microbatch of the stream; accumulate stats
-    (with ``want_hessian``, each leaf's f64 Gram too)."""
+    """Run block ``block_index``'s taps over each microbatch of the stream;
+    accumulate stats (with ``want_hessian``, each leaf's f64 Gram too)."""
+    tapfn = taps_for_block(model.cfg, block_index, model.num_blocks)
     stats: Dict[str, LeafStats] = {}
     for h, pos in zip(h_mb, pos_mb):
-        for key, x in dense_taps(bp, model.cfg, h, pos).items():
+        for key, x in tapfn(bp, model.cfg, h, pos).items():
             stats[key] = _merge(stats.get(key), _acc_stats(x, want_hessian))
     return stats
 

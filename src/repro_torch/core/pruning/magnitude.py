@@ -10,7 +10,8 @@ from repro_torch.sparsity import sparse_params as SP
 
 def leaf_mask(name: str, leaf, sparsity: float, pattern=None):
     """pattern: None for unstructured, (n, m) for N:M. Stack-aware: the
-    comparison group and the N:M groups stay per layer."""
+    comparison group and the N:M groups stay per layer, and per (layer,
+    expert) for an expert leaf."""
     mat, tag = SP.to_matrix_stacked(name, leaf)
     scores = mat.abs()
     if pattern is not None:

@@ -12,11 +12,12 @@ from repro_torch.sparsity import sparse_params as SP
 
 
 def leaf_scores(name: str, mat: torch.Tensor, stats) -> torch.Tensor:
-    """mat: canonical (R, O). stats: LeafStats for this leaf, or None (no
+    """mat: canonical (R, O), or (E, R, O) for an expert leaf with its
+    per-expert (E, R) stats. stats: LeafStats for this leaf, or None (no
     tap for this leaf: magnitude scores)."""
     if stats is None:
         return mat.abs()
-    return mat.abs() * stats.col_norm[:, None]
+    return mat.abs() * stats.col_norm[..., None]
 
 
 def mask_from_scores(scores: torch.Tensor, sparsity: float, pattern=None) -> torch.Tensor:

@@ -1,5 +1,5 @@
 """Block-wise reconstruction machinery (port of
-``repro.core.reconstruction``, dense family): the execution plan, the
+``repro.core.reconstruction``, the dense and MoE families): the execution plan, the
 stream advances, and the EBFT objective for block l (paper Eq. 4)
 
     min_{W̄_l}  || z^l  −  z̄^l ||₂²
@@ -25,8 +25,9 @@ class Segment:
 
 
 def execution_plan(model) -> List[Segment]:
-    """The dense family's plan: one segment visiting every block once."""
-    if model.cfg.family != "dense":
+    """The dense and MoE families' plan: one segment visiting every block
+    once (an MoE stack's leading dense blocks first)."""
+    if model.cfg.family not in ("dense", "moe"):
         raise NotImplementedError(
             f"execution plan for family {model.cfg.family!r} (ROADMAP.md queue A.5)")
     return [Segment([(i, 0) for i in range(model.num_blocks)], model.embed_tokens)]
@@ -44,10 +45,14 @@ def advance_with(model, params, i: int, bp, h, positions, masks: Optional[Params
 
 
 def block_kind(model, i: int) -> str:
-    """Blocks of one kind behave alike; the dense family has one kind."""
-    if model.cfg.family != "dense":
+    """Blocks of one kind behave alike: the dense family has one kind, the
+    MoE family ``"dense"`` (its leading dense blocks) and ``"moe"``."""
+    cfg = model.cfg
+    if cfg.family == "moe":
+        return "dense" if i < cfg.moe_first_dense else "moe"
+    if cfg.family != "dense":
         raise NotImplementedError(
-            f"block kinds of family {model.cfg.family!r} (ROADMAP.md queue A.5)")
+            f"block kinds of family {cfg.family!r} (ROADMAP.md queue A.5)")
     return "block"
 
 

@@ -30,8 +30,11 @@ P, I, LL, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 # bare Python int would be cut to 32 bits)
 SIGNATURES: Dict[str, Dict[str, list]] = {
     "masked_matmul": {
-        f"masked_matmul{op}_{dt}": [P, P, P, P, I, I, I, LL, LL, LL, LL, P]
-        for op in ("", "_dx", "_dw", "_dm") for dt in ("f32", "bf16")
+        **{f"masked_matmul{op}_{dt}": [P, P, P, P, I, I, I, LL, LL, LL, LL, P]
+           for op in ("", "_dx", "_dw", "_dm") for dt in ("f32", "bf16")},
+        # E slabs: the row strides, then the slab strides
+        **{f"masked_matmul_batched{op}_{dt}": [P, P, P, P, I, I, I, I, *[LL] * 8, P]
+           for op in ("", "_dx", "_dw") for dt in ("f32", "bf16")},
     },
     "flash_attention": {
         **{fn: [P, P, P, P, P, I, I, I, I, I, I, F, P]

@@ -1,8 +1,10 @@
 // The bf16 GEMM main loop shared by masked_matmul.cu and nm_spmm.cu, for
 // Hopper (sm_90a): C (Mc x Nc) = A @ B with f32 accumulators, bf16 out.
 //
-// One block owns a 256 x 128 output tile and walks the reduction in 64-deep
-// steps through a ring of STAGES shared-memory stages tracked by mbarriers
+// One block owns a 256 x 128 output tile of one slab z = blockIdx.y (a
+// batched product, such as the experts of an MoE layer, launches one grid
+// whose y runs over the slabs; a 2-D product is the one slab z = 0) and
+// walks the reduction in 64-deep steps through a ring of STAGES shared-memory stages tracked by mbarriers
 // (`loaded`: the stage's TMA bytes have landed; `empty`: every consumer warp
 // is done with it). Warp specialisation: a lone warp issues the TMA loads as
 // soon as a stage is free (A's 256 x 64 tile in the 128-byte swizzle that
@@ -17,7 +19,10 @@
 // `ce` is 0 (EPI_MASK), or times the bf16 matrix `ce`, read as a pair beside
 // the output pair and multiplied in f32 before the one rounding (EPI_SCALE).
 // Each output is a sum in a fixed order: a repeated launch gives the same
-// bits.
+// bits. The A operand and the masked and plain B policies read through
+// rank-3 tensor maps (columns, rows, slabs): a block's boxes stay inside its
+// slab, and the TMA fills rows past the slab's end with zeros, so a slab's
+// product is the 2-D launch on that slab alone, bit for bit.
 //
 // A B-tile policy BT supplies:
 //   Maps                   its tensor maps, passed by value to the kernel;
@@ -28,8 +33,8 @@
 //                          (a multiple of 1024) and the TMA bytes it loads;
 //   EXTRA                  bytes it keeps outside the ring (multiple of 1024);
 //   STAGES                 the ring's depth (stages_for: what fits);
-//   load(sb, maps, bar, k0, col0)   the producer's TMA loads for step k0
-//                          into the stage's B part `sb`;
+//   load(sb, maps, bar, k0, col0, z)   the producer's TMA loads for step
+//                          k0 of slab z into the stage's B part `sb`;
 //   FORMS, form(sb, extra, kt, tid) whether the consumers (thread tid of
 //                          CTHREADS) rewrite what landed before wgmma reads
 //                          it, and the B tile they made; the kernel then
@@ -85,14 +90,14 @@ struct MaskedB {
   static constexpr int STAGES = stages_for(STAGE, EXTRA);
 
   static __device__ __forceinline__ void load(uint8_t* sb, const Maps& maps, uint64_t* bar,
-                                              int k0, int col0) {
+                                              int k0, int col0, int z) {
     if (MN) {  // two 64-wide atoms of [k][col]
-      hp::tma_load_2d(sb, &maps.w, bar, col0, k0);
-      hp::tma_load_2d(sb + ATOM, &maps.w, bar, col0 + 64, k0);
+      hp::tma_load_3d(sb, &maps.w, bar, col0, k0, z);
+      hp::tma_load_3d(sb + ATOM, &maps.w, bar, col0 + 64, k0, z);
     } else {  // 128 rows (output columns) of 64 k
-      hp::tma_load_2d(sb, &maps.w, bar, k0, col0);
+      hp::tma_load_3d(sb, &maps.w, bar, k0, col0, z);
     }
-    hp::tma_load_2d(sb + B_BYTES, &maps.m, bar, MN ? col0 : k0, MN ? k0 : col0);
+    hp::tma_load_3d(sb + B_BYTES, &maps.m, bar, MN ? col0 : k0, MN ? k0 : col0, z);
   }
 
   // w * m in place. The B tile: MN-major 64 rows k of 128 columns in two
@@ -130,9 +135,9 @@ struct PlainB {
   static constexpr int STAGES = stages_for(STAGE, EXTRA);
 
   static __device__ __forceinline__ void load(uint8_t* sb, const Maps& maps, uint64_t* bar,
-                                              int k0, int col0) {
-    hp::tma_load_2d(sb, &maps.b, bar, col0, k0);
-    hp::tma_load_2d(sb + ATOM, &maps.b, bar, col0 + 64, k0);
+                                              int k0, int col0, int z) {
+    hp::tma_load_3d(sb, &maps.b, bar, col0, k0, z);
+    hp::tma_load_3d(sb + ATOM, &maps.b, bar, col0 + 64, k0, z);
   }
 };
 
@@ -140,7 +145,7 @@ template <bool A_MN, class BT, int EPI>
 __global__ void __launch_bounds__(THREADS, 1)
 gemm(const __grid_constant__ CUtensorMap map_a, const __grid_constant__ typename BT::Maps maps_b,
      const void* __restrict__ ce, __nv_bfloat16* __restrict__ C, int Mc, int Kc, int Nc,
-     long long ldce, long long ldc) {
+     long long ldce, long long ldc, long long ldce_z, long long ldc_z) {
   static_assert(BT::STAGES >= 2, "the ring needs two stages");
   constexpr int STAGES = BT::STAGES, STAGE = A_BYTES + BT::STAGE;
   extern __shared__ uint8_t gm_smem_raw[];
@@ -148,7 +153,7 @@ gemm(const __grid_constant__ CUtensorMap map_a, const __grid_constant__ typename
   uint8_t* extra = smem + STAGES * STAGE;
   uint64_t* loaded = reinterpret_cast<uint64_t*>(extra + BT::EXTRA);
   uint64_t* empty = loaded + STAGES;
-  const int tid = threadIdx.x;
+  const int tid = threadIdx.x, z = blockIdx.y;
 
   // output tile: groups of GROUP tile rows, walked column by column
   const int nM = (Mc + BM - 1) / BM, nN = (Nc + BN - 1) / BN;
@@ -176,11 +181,11 @@ gemm(const __grid_constant__ CUtensorMap map_a, const __grid_constant__ typename
         hp::mbar_expect_tx(&loaded[s], A_BYTES + BT::TX);
         if (A_MN) {  // 64-wide atoms of [k][row]
           for (int a = 0; a < CONSUMERS; ++a)
-            hp::tma_load_2d(sa + a * ATOM, &map_a, &loaded[s], row0 + 64 * a, k0);
+            hp::tma_load_3d(sa + a * ATOM, &map_a, &loaded[s], row0 + 64 * a, k0, z);
         } else {  // BM rows of 64 k
-          hp::tma_load_2d(sa, &map_a, &loaded[s], k0, row0);
+          hp::tma_load_3d(sa, &map_a, &loaded[s], k0, row0, z);
         }
-        BT::load(sa + A_BYTES, maps_b, &loaded[s], k0, col0);
+        BT::load(sa + A_BYTES, maps_b, &loaded[s], k0, col0, z);
       }
   } else {  // ------------------------------------------------------ consumers ---
     const int wg = tid / 128, lane = tid % 32, warp = (tid % 128) / 32;
@@ -217,6 +222,7 @@ gemm(const __grid_constant__ CUtensorMap map_a, const __grid_constant__ typename
     hp::fence_regs(acc);
     // acc[4j + 2h + e]: row 16 warp + g + 8h, column 8j + 2q + e
     const int g = lane / 4, q = lane % 4;
+    C += z * ldc_z;
 #pragma unroll
     for (int j = 0; j < BN / 8; ++j) {
       const int gc = col0 + 8 * j + 2 * q;
@@ -227,12 +233,12 @@ gemm(const __grid_constant__ CUtensorMap map_a, const __grid_constant__ typename
         if (gr >= Mc) continue;
         float v0 = acc[4 * j + 2 * h], v1 = acc[4 * j + 2 * h + 1];
         if constexpr (EPI == EPI_MASK) {
-          const uint8_t* mp = static_cast<const uint8_t*>(ce) + gr * ldce + gc;
+          const uint8_t* mp = static_cast<const uint8_t*>(ce) + z * ldce_z + gr * ldce + gc;
           if (mp[0] == 0) v0 = 0.f;
           if (mp[1] == 0) v1 = 0.f;
         } else if constexpr (EPI == EPI_SCALE) {
           const float2 sc = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(
-              static_cast<const __nv_bfloat16*>(ce) + gr * ldce + gc));
+              static_cast<const __nv_bfloat16*>(ce) + z * ldce_z + gr * ldce + gc));
           v0 *= sc.x;
           v1 *= sc.y;
         }
@@ -252,15 +258,31 @@ inline bool map2(CUtensorMap* map, const void* base, int rows, int cols, long lo
   return hp::make_map(map, base, 2, dims, stride, box, bytes);
 }
 
+// `batch` slabs of a (rows x cols) matrix, row stride ld and slab stride
+// ldz (values), as a rank-3 TMA map read in boxes of box_cols x box_rows of
+// one slab; uint8 with `bytes`. One slab's stride is its own size.
+inline bool map3(CUtensorMap* map, const void* base, int batch, int rows, int cols,
+                 long long ld, long long ldz, uint32_t box_cols, uint32_t box_rows,
+                 bool bytes = false) {
+  const uint64_t es = bytes ? 1 : 2;
+  const uint64_t dims[3] = {uint64_t(cols), uint64_t(rows), uint64_t(batch)};
+  const uint64_t stride[2] = {uint64_t(ld) * es, uint64_t(batch > 1 ? ldz : rows * ld) * es};
+  const uint32_t box[3] = {box_cols, box_rows, 1};
+  return hp::make_map(map, base, 3, dims, stride, box, bytes);
+}
+
 // The A operand: MN-major, (Kc rows, Mc cols) read in 64 x 64 boxes, or
-// K-major, (Mc rows, Kc cols) read in BM-row boxes.
-inline bool map_a(CUtensorMap* map, const void* A, int Mc, int Kc, long long lda, bool mn) {
-  return mn ? map2(map, A, Kc, Mc, lda, 64, 64) : map2(map, A, Mc, Kc, lda, 64, BM);
+// K-major, (Mc rows, Kc cols) read in BM-row boxes; `batch` slabs ldz apart.
+inline bool map_a(CUtensorMap* map, const void* A, int Mc, int Kc, long long lda, bool mn,
+                  int batch = 1, long long ldz = 0) {
+  return mn ? map3(map, A, batch, Kc, Mc, lda, ldz, 64, 64)
+            : map3(map, A, batch, Mc, Kc, lda, ldz, 64, BM);
 }
 
 template <bool A_MN, class BT, int EPI>
 int launch(const CUtensorMap& map_a, const typename BT::Maps& maps_b, const void* ce, void* C,
-           int Mc, int Kc, int Nc, long long ldce, long long ldc, void* stream) {
+           int Mc, int Kc, int Nc, long long ldce, long long ldc, void* stream, int batch = 1,
+           long long ldce_z = 0, long long ldc_z = 0) {
   auto kernel = gemm<A_MN, BT, EPI>;
   constexpr size_t smem = smem_bytes<BT>();
   static_assert(smem <= SMEM_MAX, "the ring does not fit in shared memory");
@@ -268,8 +290,10 @@ int launch(const CUtensorMap& map_a, const typename BT::Maps& maps_b, const void
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const long long tiles = (long long)((Mc + BM - 1) / BM) * ((Nc + BN - 1) / BN);
-  kernel<<<(unsigned)tiles, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
-      map_a, maps_b, ce, static_cast<__nv_bfloat16*>(C), Mc, Kc, Nc, ldce, ldc);
+  kernel<<<dim3((unsigned)tiles, (unsigned)batch), THREADS, smem,
+           static_cast<cudaStream_t>(stream)>>>(map_a, maps_b, ce,
+                                                 static_cast<__nv_bfloat16*>(C), Mc, Kc, Nc,
+                                                 ldce, ldc, ldce_z, ldc_z);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -58,6 +58,21 @@
 //     8, as in every linear of the model; it refuses others with
 //     cudaErrorInvalidValue. Each output is a sum in a fixed order: a
 //     repeated launch gives the same bits.
+//
+// The batched entry points (masked_matmul_batched{,_dx,_dw}) take E slabs
+// of each operand, as the routed experts of an MoE layer hold them: x
+// (E, C, K), w and m (E, K, N), out (E, C, N), each slab at its own slab
+// stride. They replace no Pallas kernel: the JAX package computes its
+// experts with einsums on masked weights (src/repro/models/moe.py,
+// _dispatch_group), and the port sends every masked leaf through its
+// masked kernel. One launch covers all E slabs, the grid's y (f32: z)
+// running over them; the bf16 path reads every slab through rank-3 tensor
+// maps, so a block never reads past its own expert's C rows (the TMA fills
+// them with zeros) and each slab's output equals the 2-D launch on that
+// slab bit for bit. At EBFT's microbatch (C = 1920 = 7.5 tiles of 256)
+// flattening E x C into M would instead put two experts in one tile. The
+// bound at that shape is the operand bytes (x, w, m and out, 1.4 GB for a
+// 64-expert w_up), not the operations.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -68,26 +83,37 @@
 namespace {
 
 // ---------------------------------------------------------------- f32 ---
-// C (Mc x Nc) = sum_r A(i, r) B(r, j), r < Kc.
+// C (Mc x Nc) = sum_r A(i, r) B(r, j), r < Kc, in slab z = blockIdx.z.
 //   A(i, r) = A[i*lda + r], or A[r*lda + i] with A_T;
 //   B(r, j) = B[r*ldb + j], or B[j*ldb + r] with B_T;
 //   B_MASK multiplies bm (B's layout, row stride ldbm) into B;
 //   EPI (gemm.cuh's epilogues) writes C as it is, zeroes it wherever the
 //   uint8 ce[i*ldce + j] is 0 (EPI_MASK), or multiplies it by the f32
 //   ce[i*ldce + j] (EPI_SCALE).
+// Every operand of slab z starts z times its slab stride (`St`) further on.
 constexpr int F_BM = 128, F_BN = 128, F_BK = 8, F_T = 8, F_THREADS = 256;
+
+struct SlabStrides {
+  long long a, b, bm, ce, c;
+};
 
 template <bool A_T, bool B_T, bool B_MASK, int EPI>
 __global__ void __launch_bounds__(F_THREADS)
 gemm_f32(const float* __restrict__ A, const float* __restrict__ B,
          const uint8_t* __restrict__ bm, const void* __restrict__ ce,
          float* __restrict__ C, int Mc, int Kc, int Nc, long long lda, long long ldb,
-         long long ldbm, long long ldce, long long ldc) {
+         long long ldbm, long long ldce, long long ldc, SlabStrides st) {
   __shared__ float As[F_BK][F_BM + 4];  // As[k][row]
   __shared__ float Bs[F_BK][F_BN + 4];  // Bs[k][col]
   const int tid = threadIdx.x;
   const int tx = tid % 16, ty = tid / 16;
   const int row0 = blockIdx.y * F_BM, col0 = blockIdx.x * F_BN;
+  const long long z = blockIdx.z;
+  A += z * st.a;
+  B += z * st.b;
+  if (B_MASK) bm += z * st.bm;
+  C += z * st.c;
+  const long long ce0 = z * st.ce;
 
   float acc[F_T][F_T];
 #pragma unroll
@@ -140,8 +166,9 @@ gemm_f32(const float* __restrict__ A, const float* __restrict__ B,
       const int gc = col0 + tx + 16 * j;
       if (gc >= Nc) continue;
       float val = acc[i][j];
-      if (EPI == gm::EPI_MASK && static_cast<const uint8_t*>(ce)[gr * ldce + gc] == 0) val = 0.f;
-      if (EPI == gm::EPI_SCALE) val *= static_cast<const float*>(ce)[gr * ldce + gc];
+      if (EPI == gm::EPI_MASK && static_cast<const uint8_t*>(ce)[ce0 + gr * ldce + gc] == 0)
+        val = 0.f;
+      if (EPI == gm::EPI_SCALE) val *= static_cast<const float*>(ce)[ce0 + gr * ldce + gc];
       C[gr * ldc + gc] = val;
     }
   }
@@ -149,113 +176,164 @@ gemm_f32(const float* __restrict__ A, const float* __restrict__ B,
 
 // what the TMA takes: 16-byte-aligned operands and masks, every row stride
 // a multiple of 16 bytes (8 bf16 values, 16 mask bytes); and contiguous
-// widths that are multiples of 8, so an output pair is wholly in or out
+// widths that are multiples of 8, so an output pair is wholly in or out.
+// Slab strides obey the row strides' rule (the rank-3 maps' outer stride).
 bool bf16_ok(int Kc, int Nc, long long lda, long long ldb, long long ldbm, const void* A,
-             const void* B, const void* bm) {
+             const void* B, const void* bm, const SlabStrides& st) {
   return Kc % 8 == 0 && Nc % 8 == 0 && lda % 8 == 0 && ldb % 8 == 0 && ldbm % 16 == 0 &&
-         hp::aligned(A, 16) && hp::aligned(B, 16) && hp::aligned(bm, 16);
+         st.a % 8 == 0 && st.b % 8 == 0 && st.bm % 16 == 0 && hp::aligned(A, 16) &&
+         hp::aligned(B, 16) && hp::aligned(bm, 16);
 }
 
 template <bool A_T, bool B_T, bool B_MASK, int EPI>
-int launch_f32(const void* A, const void* B, const void* bm, const void* ce, void* C, int Mc,
-               int Kc, int Nc, long long lda, long long ldb, long long ldbm, long long ldce,
-               long long ldc, void* stream) {
-  dim3 grid((Nc + F_BN - 1) / F_BN, (Mc + F_BM - 1) / F_BM);
+int launch_f32(const void* A, const void* B, const void* bm, const void* ce, void* C, int E,
+               int Mc, int Kc, int Nc, long long lda, long long ldb, long long ldbm,
+               long long ldce, long long ldc, const SlabStrides& st, void* stream) {
+  dim3 grid((Nc + F_BN - 1) / F_BN, (Mc + F_BM - 1) / F_BM, E);
   gemm_f32<A_T, B_T, B_MASK, EPI><<<grid, F_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(A), static_cast<const float*>(B),
       static_cast<const uint8_t*>(bm), ce, static_cast<float*>(C), Mc, Kc, Nc, lda, ldb, ldbm,
-      ldce, ldc);
+      ldce, ldc, st);
   return static_cast<int>(cudaGetLastError());
 }
 
 // A_T / B_T as in gemm_f32: A_T reads A MN-major, B_T reads B K-major.
-// Every operand by TMA (gemm.cuh): B = w, MN-major (64 x 64 boxes) or
-// K-major (128-row boxes), with the mask in w's layout, one box a stage
-// (64 x 128 or 128 x 64 bytes); or, for dW and dM, B = dy MN-major as it is.
+// Every operand by TMA (gemm.cuh), E slabs through rank-3 maps: B = w,
+// MN-major (64 x 64 boxes) or K-major (128-row boxes), with the mask in w's
+// layout, one box a stage (64 x 128 or 128 x 64 bytes); or, for dW and dM,
+// B = dy MN-major as it is.
 template <bool A_T, bool B_T, bool B_MASK, int EPI>
-int launch_bf16(const void* A, const void* B, const void* bm, const void* ce, void* C, int Mc,
-                int Kc, int Nc, long long lda, long long ldb, long long ldbm, long long ldce,
-                long long ldc, void* stream) {
+int launch_bf16(const void* A, const void* B, const void* bm, const void* ce, void* C, int E,
+                int Mc, int Kc, int Nc, long long lda, long long ldb, long long ldbm,
+                long long ldce, long long ldc, const SlabStrides& st, void* stream) {
   CUtensorMap map_a{};
-  if (!gm::map_a(&map_a, A, Mc, Kc, lda, A_T)) return static_cast<int>(cudaErrorInvalidValue);
+  if (!gm::map_a(&map_a, A, Mc, Kc, lda, A_T, E, st.a))
+    return static_cast<int>(cudaErrorInvalidValue);
   if constexpr (B_MASK) {
     typename gm::MaskedB<!B_T>::Maps maps{};
-    const bool ok = B_T ? gm::map2(&maps.w, B, Nc, Kc, ldb, 64, 128) &&
-                              gm::map2(&maps.m, bm, Nc, Kc, ldbm, 64, 128, true)
-                        : gm::map2(&maps.w, B, Kc, Nc, ldb, 64, 64) &&
-                              gm::map2(&maps.m, bm, Kc, Nc, ldbm, 128, 64, true);
+    const bool ok = B_T ? gm::map3(&maps.w, B, E, Nc, Kc, ldb, st.b, 64, 128) &&
+                              gm::map3(&maps.m, bm, E, Nc, Kc, ldbm, st.bm, 64, 128, true)
+                        : gm::map3(&maps.w, B, E, Kc, Nc, ldb, st.b, 64, 64) &&
+                              gm::map3(&maps.m, bm, E, Kc, Nc, ldbm, st.bm, 128, 64, true);
     if (!ok) return static_cast<int>(cudaErrorInvalidValue);
     return gm::launch<A_T, gm::MaskedB<!B_T>, EPI>(map_a, maps, ce, C, Mc, Kc, Nc, ldce, ldc,
-                                                    stream);
+                                                    stream, E, st.ce, st.c);
   } else {
     static_assert(!B_T, "an unmasked B is read MN-major");
     gm::PlainB::Maps maps{};
-    if (!gm::map2(&maps.b, B, Kc, Nc, ldb, 64, 64)) return static_cast<int>(cudaErrorInvalidValue);
-    return gm::launch<A_T, gm::PlainB, EPI>(map_a, maps, ce, C, Mc, Kc, Nc, ldce, ldc, stream);
+    if (!gm::map3(&maps.b, B, E, Kc, Nc, ldb, st.b, 64, 64))
+      return static_cast<int>(cudaErrorInvalidValue);
+    return gm::launch<A_T, gm::PlainB, EPI>(map_a, maps, ce, C, Mc, Kc, Nc, ldce, ldc, stream,
+                                            E, st.ce, st.c);
   }
 }
 
-}  // namespace
-
-// Each entry point takes the matrices of its own product by their row
-// strides; the mask m has w's shape (K, N).
+// The products, on E slabs (E = 1 and any slab strides: the 2-D entry
+// points). Each takes the matrices of its own product by their row and
+// slab strides; the mask m has w's shape (K, N).
 //   forward: x (M, K), w (K, N)  -> out (M, N)
 //   dX:      dy (M, N), w (K, N) -> dx (M, K)
 //   dW:      x (M, K), dy (M, N) -> dw (K, N)     (m in the epilogue)
 //   dM:      x (M, K), dy (M, N) -> dm (K, N)     (w in the epilogue)
+int fwd_f32(const void* x, const void* w, const void* m, void* out, int E, int M, int K, int N,
+            long long ldx, long long ldw, long long ldm, long long ldo, long long sx,
+            long long sw, long long sm, long long so, void* stream) {
+  return launch_f32<false, false, true, gm::EPI_NONE>(x, w, m, nullptr, out, E, M, K, N, ldx,
+                                                      ldw, ldm, 0, ldo, {sx, sw, sm, 0, so},
+                                                      stream);
+}
+
+int fwd_bf16(const void* x, const void* w, const void* m, void* out, int E, int M, int K, int N,
+             long long ldx, long long ldw, long long ldm, long long ldo, long long sx,
+             long long sw, long long sm, long long so, void* stream) {
+  const SlabStrides st{sx, sw, sm, 0, so};
+  if (!bf16_ok(K, N, ldx, ldw, ldm, x, w, m, st)) return static_cast<int>(cudaErrorInvalidValue);
+  return launch_bf16<false, false, true, gm::EPI_NONE>(x, w, m, nullptr, out, E, M, K, N, ldx,
+                                                       ldw, ldm, 0, ldo, st, stream);
+}
+
+int dx_f32(const void* dy, const void* w, const void* m, void* dx, int E, int M, int K, int N,
+           long long lddy, long long ldw, long long ldm, long long lddx, long long sdy,
+           long long sw, long long sm, long long sdx, void* stream) {
+  return launch_f32<false, true, true, gm::EPI_NONE>(dy, w, m, nullptr, dx, E, M, N, K, lddy,
+                                                     ldw, ldm, 0, lddx, {sdy, sw, sm, 0, sdx},
+                                                     stream);
+}
+
+int dx_bf16(const void* dy, const void* w, const void* m, void* dx, int E, int M, int K, int N,
+            long long lddy, long long ldw, long long ldm, long long lddx, long long sdy,
+            long long sw, long long sm, long long sdx, void* stream) {
+  const SlabStrides st{sdy, sw, sm, 0, sdx};
+  if (!bf16_ok(N, K, lddy, ldw, ldm, dy, w, m, st)) return static_cast<int>(cudaErrorInvalidValue);
+  return launch_bf16<false, true, true, gm::EPI_NONE>(dy, w, m, nullptr, dx, E, M, N, K, lddy,
+                                                      ldw, ldm, 0, lddx, st, stream);
+}
+
+int dw_f32(const void* x, const void* dy, const void* m, void* dw, int E, int M, int K, int N,
+           long long ldx, long long lddy, long long ldm, long long lddw, long long sx,
+           long long sdy, long long sm, long long sdw, void* stream) {
+  return launch_f32<true, false, false, gm::EPI_MASK>(x, dy, nullptr, m, dw, E, K, M, N, ldx,
+                                                      lddy, 0, ldm, lddw, {sx, sdy, 0, sm, sdw},
+                                                      stream);
+}
+
+int dw_bf16(const void* x, const void* dy, const void* m, void* dw, int E, int M, int K, int N,
+            long long ldx, long long lddy, long long ldm, long long lddw, long long sx,
+            long long sdy, long long sm, long long sdw, void* stream) {
+  // x is read along its rows (K wide) into the transposed A tile
+  if (!(K % 8 == 0 && N % 8 == 0 && ldx % 8 == 0 && lddy % 8 == 0 && sx % 8 == 0 &&
+        sdy % 8 == 0 && hp::aligned(x, 16) && hp::aligned(dy, 16)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return launch_bf16<true, false, false, gm::EPI_MASK>(x, dy, nullptr, m, dw, E, K, M, N, ldx,
+                                                       lddy, 0, ldm, lddw,
+                                                       {sx, sdy, 0, sm, sdw}, stream);
+}
+
+}  // namespace
+
+// 2-D entry points: one slab.
 extern "C" int masked_matmul_f32(const void* x, const void* w, const void* m, void* out,
                                  int M, int K, int N, long long ldx, long long ldw,
                                  long long ldm, long long ldo, void* stream) {
-  return launch_f32<false, false, true, gm::EPI_NONE>(x, w, m, nullptr, out, M, K, N, ldx, ldw, ldm,
-                                                      0, ldo, stream);
+  return fwd_f32(x, w, m, out, 1, M, K, N, ldx, ldw, ldm, ldo, 0, 0, 0, 0, stream);
 }
 
 extern "C" int masked_matmul_bf16(const void* x, const void* w, const void* m, void* out,
                                   int M, int K, int N, long long ldx, long long ldw,
                                   long long ldm, long long ldo, void* stream) {
-  if (!bf16_ok(K, N, ldx, ldw, ldm, x, w, m)) return static_cast<int>(cudaErrorInvalidValue);
-  return launch_bf16<false, false, true, gm::EPI_NONE>(x, w, m, nullptr, out, M, K, N, ldx, ldw,
-                                                       ldm, 0, ldo, stream);
+  return fwd_bf16(x, w, m, out, 1, M, K, N, ldx, ldw, ldm, ldo, 0, 0, 0, 0, stream);
 }
 
 extern "C" int masked_matmul_dx_f32(const void* dy, const void* w, const void* m, void* dx,
                                     int M, int K, int N, long long lddy, long long ldw,
                                     long long ldm, long long lddx, void* stream) {
-  return launch_f32<false, true, true, gm::EPI_NONE>(dy, w, m, nullptr, dx, M, N, K, lddy, ldw, ldm,
-                                                     0, lddx, stream);
+  return dx_f32(dy, w, m, dx, 1, M, K, N, lddy, ldw, ldm, lddx, 0, 0, 0, 0, stream);
 }
 
 extern "C" int masked_matmul_dx_bf16(const void* dy, const void* w, const void* m, void* dx,
                                      int M, int K, int N, long long lddy, long long ldw,
                                      long long ldm, long long lddx, void* stream) {
-  if (!bf16_ok(N, K, lddy, ldw, ldm, dy, w, m)) return static_cast<int>(cudaErrorInvalidValue);
-  return launch_bf16<false, true, true, gm::EPI_NONE>(dy, w, m, nullptr, dx, M, N, K, lddy, ldw,
-                                                      ldm, 0, lddx, stream);
+  return dx_bf16(dy, w, m, dx, 1, M, K, N, lddy, ldw, ldm, lddx, 0, 0, 0, 0, stream);
 }
 
 extern "C" int masked_matmul_dw_f32(const void* x, const void* dy, const void* m, void* dw,
                                     int M, int K, int N, long long ldx, long long lddy,
                                     long long ldm, long long lddw, void* stream) {
-  return launch_f32<true, false, false, gm::EPI_MASK>(x, dy, nullptr, m, dw, K, M, N, ldx, lddy, 0,
-                                                      ldm, lddw, stream);
+  return dw_f32(x, dy, m, dw, 1, M, K, N, ldx, lddy, ldm, lddw, 0, 0, 0, 0, stream);
 }
 
 extern "C" int masked_matmul_dw_bf16(const void* x, const void* dy, const void* m, void* dw,
                                      int M, int K, int N, long long ldx, long long lddy,
                                      long long ldm, long long lddw, void* stream) {
-  // x is read along its rows (K wide) into the transposed A tile
-  if (!(K % 8 == 0 && N % 8 == 0 && ldx % 8 == 0 && lddy % 8 == 0 && hp::aligned(x, 16) &&
-        hp::aligned(dy, 16)))
-    return static_cast<int>(cudaErrorInvalidValue);
-  return launch_bf16<true, false, false, gm::EPI_MASK>(x, dy, nullptr, m, dw, K, M, N, ldx, lddy, 0,
-                                                       ldm, lddw, stream);
+  return dw_bf16(x, dy, m, dw, 1, M, K, N, ldx, lddy, ldm, lddw, 0, 0, 0, 0, stream);
 }
 
 extern "C" int masked_matmul_dm_f32(const void* x, const void* dy, const void* w, void* dm,
                                     int M, int K, int N, long long ldx, long long lddy,
                                     long long ldw, long long lddm, void* stream) {
-  return launch_f32<true, false, false, gm::EPI_SCALE>(x, dy, nullptr, w, dm, K, M, N, ldx, lddy, 0,
-                                                       ldw, lddm, stream);
+  return launch_f32<true, false, false, gm::EPI_SCALE>(x, dy, nullptr, w, dm, 1, K, M, N, ldx,
+                                                       lddy, 0, ldw, lddm, {0, 0, 0, 0, 0},
+                                                       stream);
 }
 
 extern "C" int masked_matmul_dm_bf16(const void* x, const void* dy, const void* w, void* dm,
@@ -265,6 +343,60 @@ extern "C" int masked_matmul_dm_bf16(const void* x, const void* dy, const void* 
   if (!(K % 8 == 0 && N % 8 == 0 && ldx % 8 == 0 && lddy % 8 == 0 && ldw % 8 == 0 &&
         hp::aligned(x, 16) && hp::aligned(dy, 16) && hp::aligned(w, 16)))
     return static_cast<int>(cudaErrorInvalidValue);
-  return launch_bf16<true, false, false, gm::EPI_SCALE>(x, dy, nullptr, w, dm, K, M, N, ldx, lddy,
-                                                        0, ldw, lddm, stream);
+  return launch_bf16<true, false, false, gm::EPI_SCALE>(x, dy, nullptr, w, dm, 1, K, M, N, ldx,
+                                                        lddy, 0, ldw, lddm, {0, 0, 0, 0, 0},
+                                                        stream);
+}
+
+// Batched entry points: E slabs, each operand with its row stride (ld*) and
+// its slab stride (s*), in values (the mask's in bytes).
+//   forward: x (E, M, K), w (E, K, N)  -> out (E, M, N)
+//   dX:      dy (E, M, N), w (E, K, N) -> dx (E, M, K)
+//   dW:      x (E, M, K), dy (E, M, N) -> dw (E, K, N)     (m in the epilogue)
+extern "C" int masked_matmul_batched_f32(const void* x, const void* w, const void* m, void* out,
+                                         int E, int M, int K, int N, long long ldx, long long ldw,
+                                         long long ldm, long long ldout, long long sx,
+                                         long long sw, long long sm, long long sout,
+                                         void* stream) {
+  return fwd_f32(x, w, m, out, E, M, K, N, ldx, ldw, ldm, ldout, sx, sw, sm, sout, stream);
+}
+
+extern "C" int masked_matmul_batched_bf16(const void* x, const void* w, const void* m, void* out,
+                                          int E, int M, int K, int N, long long ldx, long long ldw,
+                                          long long ldm, long long ldout, long long sx,
+                                          long long sw, long long sm, long long sout,
+                                          void* stream) {
+  return fwd_bf16(x, w, m, out, E, M, K, N, ldx, ldw, ldm, ldout, sx, sw, sm, sout, stream);
+}
+
+extern "C" int masked_matmul_batched_dx_f32(const void* dy, const void* w, const void* m, void* dx,
+                                            int E, int M, int K, int N, long long lddy,
+                                            long long ldw, long long ldm, long long lddx,
+                                            long long sdy, long long sw, long long sm,
+                                            long long sdx, void* stream) {
+  return dx_f32(dy, w, m, dx, E, M, K, N, lddy, ldw, ldm, lddx, sdy, sw, sm, sdx, stream);
+}
+
+extern "C" int masked_matmul_batched_dx_bf16(const void* dy, const void* w, const void* m,
+                                             void* dx, int E, int M, int K, int N, long long lddy,
+                                             long long ldw, long long ldm, long long lddx,
+                                             long long sdy, long long sw, long long sm,
+                                             long long sdx, void* stream) {
+  return dx_bf16(dy, w, m, dx, E, M, K, N, lddy, ldw, ldm, lddx, sdy, sw, sm, sdx, stream);
+}
+
+extern "C" int masked_matmul_batched_dw_f32(const void* x, const void* dy, const void* m, void* dw,
+                                            int E, int M, int K, int N, long long ldx,
+                                            long long lddy, long long ldm, long long lddw,
+                                            long long sx, long long sdy, long long sm,
+                                            long long sdw, void* stream) {
+  return dw_f32(x, dy, m, dw, E, M, K, N, ldx, lddy, ldm, lddw, sx, sdy, sm, sdw, stream);
+}
+
+extern "C" int masked_matmul_batched_dw_bf16(const void* x, const void* dy, const void* m,
+                                             void* dw, int E, int M, int K, int N, long long ldx,
+                                             long long lddy, long long ldm, long long lddw,
+                                             long long sx, long long sdy, long long sm,
+                                             long long sdw, void* stream) {
+  return dw_bf16(x, dy, m, dw, E, M, K, N, ldx, lddy, ldm, lddw, sx, sdy, sm, sdw, stream);
 }

@@ -174,7 +174,7 @@ struct NmB {
   static_assert(gm::BK * (gm::BN / 8) == 2 * gm::CTHREADS, "two dense chunks a thread");
 
   static __device__ __forceinline__ void load(uint8_t* sb, const Maps& maps, uint64_t* bar,
-                                              int k0, int col0) {
+                                              int k0, int col0, int /*z: one slab*/) {
     hp::tma_load_2d(sb, &maps.vals, bar, col0, k0 / MM * NN);
     hp::tma_load_2d(sb + V_BYTES, &maps.idx, bar, col0, k0 / MM * NN);
   }

@@ -35,3 +35,25 @@ def masked_matmul_dm_plain(x: torch.Tensor, dy: torch.Tensor, w: torch.Tensor) -
     x's dtype; pruned slots are not zeroed."""
     g = torch.matmul(_acc(x).T, _acc(dy))
     return (g * _acc(w)).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Expert-batched: E slabs, each the 2-D plain version on its own slab
+# ---------------------------------------------------------------------------
+def masked_matmul_batched_plain(x: torch.Tensor, w: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
+    """x (E, C, K), w and m (E, K, N) -> (E, C, N): ``masked_matmul_plain``
+    on each expert's slab."""
+    return torch.stack([masked_matmul_plain(x[e], w[e], m[e]) for e in range(x.shape[0])])
+
+
+def masked_matmul_batched_dx_plain(dy: torch.Tensor, w: torch.Tensor,
+                                   m: torch.Tensor) -> torch.Tensor:
+    """dy (E, C, N), w and m (E, K, N) -> dx (E, C, K), slab by slab."""
+    return torch.stack([masked_matmul_dx_plain(dy[e], w[e], m[e]) for e in range(dy.shape[0])])
+
+
+def masked_matmul_batched_dw_plain(x: torch.Tensor, dy: torch.Tensor,
+                                   m: torch.Tensor) -> torch.Tensor:
+    """x (E, C, K), dy (E, C, N), m (E, K, N) -> dw (E, K, N), slab by slab;
+    exactly 0 wherever the mask is 0."""
+    return torch.stack([masked_matmul_dw_plain(x[e], dy[e], m[e]) for e in range(x.shape[0])])

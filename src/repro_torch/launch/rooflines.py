@@ -15,7 +15,8 @@ HLO statistics, which have no torch counterpart; it waits with
 ``model_flops_per_chip`` is the classic parameter-math lower bound:
 6·N·D for training (forward + backward), 2·N·D for inference, and for an
 ``ebft`` shape one block's forward + backward over the calibration batch.
-Only the dense family is ported.
+The MoE family counts its active parameters (top-k routed experts, the
+shared ones, the router), as the reference.
 """
 from __future__ import annotations
 
@@ -26,13 +27,13 @@ HBM_BW = 3.35e12      # bytes/s
 
 
 def model_flops_per_chip(cfg: ModelConfig, shape: ShapeConfig, chips: int) -> float:
-    """The reference's count for the dense family (embedding lookups are
-    table reads, not FLOPs; the LM head is a matmul and is in
+    """The reference's count for the dense and MoE families (embedding
+    lookups are table reads, not FLOPs; the LM head is a matmul and is in
     ``param_count``)."""
-    if cfg.family != "dense":
+    if cfg.family not in ("dense", "moe"):
         raise NotImplementedError(f"model FLOPs of family {cfg.family!r} "
                                   "(ROADMAP.md queue A.5)")
-    n = cfg.param_count()
+    n = cfg.param_count(active_only=cfg.family == "moe")
     tokens = shape.global_batch * shape.seq_len
     if shape.kind == "train":
         return 6.0 * n * tokens / chips

@@ -1,4 +1,4 @@
-"""Model facade (port of ``repro.models.model``, dense family only).
+"""Model facade (port of ``repro.models.model``: the dense and MoE families).
 
 ``build(cfg)`` returns a ``Model`` with the reference's interface:
 
@@ -19,7 +19,10 @@ plus the block-level API the calibration walk uses:
 
 ``get_block`` returns views into the stacked leaves; ``set_block`` copies
 the block into them in place (the reference returns a new tree; the port
-saves a copy of the whole model per block and returns the same tree).
+saves a copy of the whole model per block and returns the same tree). In
+the MoE family blocks ``0 .. moe_first_dense - 1`` are the dense blocks and
+the rest the MoE blocks; its loss is ``nll + 0.01·aux`` (the load-balance
+term) with the metrics ``{"nll", "aux"}``.
 """
 from __future__ import annotations
 
@@ -30,7 +33,7 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import layers, transformer
+from repro_torch.models import layers, moe, transformer
 
 Params = Dict[str, Any]
 
@@ -79,10 +82,29 @@ def _set_tree(tree: Params, i: int, sub: Params) -> None:
 
 
 def build(cfg: ModelConfig) -> Model:
-    if cfg.family != "dense":
-        raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet (ROADMAP.md queue A.5)")
-    return _build_dense(cfg)
+    if cfg.family == "dense":
+        return _build_dense(cfg)
+    if cfg.family == "moe":
+        return _build_moe(cfg)
+    raise NotImplementedError(f"family {cfg.family!r} is not ported yet (ROADMAP.md queue A.5)")
+
+
+def _embed_tokens(cfg: ModelConfig):
+    def embed_tokens(params, batch):
+        tokens = batch["tokens"]
+        h = layers.embed(params["embed"]["tok"], tokens, transformer.torch_dtype(cfg.dtype))
+        pos = torch.arange(tokens.shape[1], device=tokens.device)[None, :]
+        return h, pos
+
+    return embed_tokens
+
+
+def _finalize(cfg: ModelConfig):
+    def finalize(params, h):
+        h = layers.apply_norm(params["final_norm"], h, cfg.norm)
+        return transformer.logits_from_hidden(params, cfg, h)
+
+    return finalize
 
 
 def _build_dense(cfg: ModelConfig) -> Model:
@@ -95,18 +117,8 @@ def _build_dense(cfg: ModelConfig) -> Model:
         l = _shift_loss(forward(params, batch, masks), batch["tokens"])
         return l, {"nll": l}
 
-    def embed_tokens(params, batch):
-        tokens = batch["tokens"]
-        h = layers.embed(params["embed"]["tok"], tokens, M.torch_dtype(cfg.dtype))
-        pos = torch.arange(tokens.shape[1], device=tokens.device)[None, :]
-        return h, pos
-
     def apply_block(params, i, bp, h, positions, masks=None):
         return M.block_apply(bp, cfg, h, positions, masks)
-
-    def finalize(params, h):
-        h = layers.apply_norm(params["final_norm"], h, cfg.norm)
-        return M.logits_from_hidden(params, cfg, h)
 
     def set_block(params, i, bp):
         _set_tree(params["blocks"], i, bp)
@@ -125,6 +137,52 @@ def _build_dense(cfg: ModelConfig) -> Model:
         get_block=lambda params, i: M.slice_block(params["blocks"], i),
         set_block=set_block,
         apply_block=apply_block,
-        embed_tokens=embed_tokens,
-        finalize=finalize,
+        embed_tokens=_embed_tokens(cfg),
+        finalize=_finalize(cfg),
+    )
+
+
+def _build_moe(cfg: ModelConfig) -> Model:
+    n_dense = cfg.moe_first_dense
+
+    def forward(params, batch, masks=None):
+        return moe.forward(params, cfg, batch["tokens"], masks)
+
+    def loss(params, batch, masks=None):
+        h, aux = moe.forward_hidden(params, cfg, batch["tokens"], masks)
+        nll = _shift_loss(transformer.logits_from_hidden(params, cfg, h), batch["tokens"])
+        return nll + 0.01 * aux, {"nll": nll, "aux": aux}
+
+    def group(i):
+        return ("dense_blocks", i) if i < n_dense else ("moe_blocks", i - n_dense)
+
+    def get_block(params, i):
+        name, j = group(i)
+        return transformer.slice_block(params[name], j)
+
+    def set_block(params, i, bp):
+        name, j = group(i)
+        _set_tree(params[name], j, bp)
+        return params
+
+    def apply_block(params, i, bp, h, positions, masks=None):
+        if i < n_dense:
+            return transformer.block_apply(bp, cfg, h, positions, masks)
+        return moe.moe_block_apply(bp, cfg, h, positions, masks)[0]
+
+    return Model(
+        cfg=cfg,
+        init=lambda g: moe.init(g, cfg),
+        forward=forward,
+        loss=loss,
+        init_serve_state=lambda b, ml, device=None: moe.init_cache(cfg, b, ml,
+                                                                   resolve_device(device)),
+        prefill=lambda params, batch, state: moe.prefill(params, cfg, batch["tokens"], state),
+        decode_step=lambda params, token, state: moe.decode_step(params, cfg, token, state),
+        num_blocks=cfg.num_layers,
+        get_block=get_block,
+        set_block=set_block,
+        apply_block=apply_block,
+        embed_tokens=_embed_tokens(cfg),
+        finalize=_finalize(cfg),
     )

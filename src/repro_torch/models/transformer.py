@@ -38,8 +38,9 @@ def _normal(g: torch.Generator, shape, scale: float, dtype) -> torch.Tensor:
     return (x * scale).to(dtype)
 
 
-def init_block(g: torch.Generator, cfg: ModelConfig, dtype, lead=()) -> Params:
-    """One block's params; ``lead`` prepends stack axes (the L axis)."""
+def init_block(g: torch.Generator, cfg: ModelConfig, dtype, lead=(), mlp: bool = True) -> Params:
+    """One block's params; ``lead`` prepends stack axes (the L axis).
+    ``mlp=False`` leaves out the MLP (an MoE block brings its own)."""
     d, hd = cfg.d_model, cfg.resolved_head_dim
     h, hkv, ff = cfg.num_heads, cfg.num_kv_heads, cfg.d_ff
     dev = g.device
@@ -60,13 +61,15 @@ def init_block(g: torch.Generator, cfg: ModelConfig, dtype, lead=()) -> Params:
     if cfg.qkv_bias:
         for name, heads in (("bq", h), ("bk", hkv), ("bv", hkv)):
             attn[name] = torch.zeros((*lead, heads, hd), dtype=dtype, device=dev)
-    mlp = {
-        "w_up": _normal(g, (*lead, d, ff), s, dtype),
-        "w_down": _normal(g, (*lead, ff, d), 1.0 / math.sqrt(ff), dtype),
-    }
-    if cfg.mlp_act == "swiglu":
-        mlp["w_gate"] = _normal(g, (*lead, d, ff), s, dtype)
-    return {"ln1": norm(), "ln2": norm(), "attn": attn, "mlp": mlp}
+    block = {"ln1": norm(), "ln2": norm(), "attn": attn}
+    if mlp:
+        block["mlp"] = {
+            "w_up": _normal(g, (*lead, d, ff), s, dtype),
+            "w_down": _normal(g, (*lead, ff, d), 1.0 / math.sqrt(ff), dtype),
+        }
+        if cfg.mlp_act == "swiglu":
+            block["mlp"]["w_gate"] = _normal(g, (*lead, d, ff), s, dtype)
+    return block
 
 
 def init(g: torch.Generator, cfg: ModelConfig) -> Params:

@@ -87,12 +87,17 @@ def adam(lr: Schedule, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
 
     @torch.no_grad()
     def update(grads, state, params=None):
+        """The moments are updated in place (the reference returns new
+        ones): the same f32 operations in the same order, so the same bits,
+        without a second copy of both moments beside the first. The state
+        passed in is consumed."""
         step = state["step"] + 1
         lr_t = _lr_at(lr, step)
         c1 = 1.0 - b1 ** step.to(torch.float32)
         c2 = 1.0 - b2 ** step.to(torch.float32)
-        m = T.tree_map(lambda m_, g: b1 * m_ + (1 - b1) * g.to(torch.float32), state["m"], grads)
-        v = T.tree_map(lambda v_, g: b2 * v_ + (1 - b2) * torch.square(g.to(torch.float32)),
+        m = T.tree_map(lambda m_, g: m_.mul_(b1).add_((1 - b1) * g.to(torch.float32)),
+                       state["m"], grads)
+        v = T.tree_map(lambda v_, g: v_.mul_(b2).add_((1 - b2) * torch.square(g.to(torch.float32))),
                        state["v"], grads)
 
         def u(m_, v_, p=None):

@@ -169,7 +169,10 @@ def _slot_update(full, one, slot: int):
     full one, in place. The batch dim is the first dim where the shapes
     differ (full B, one 1); the host int ``len`` merges by max (the shared
     counter); equal shapes (B == 1) are shared state, which ``one``
-    replaces."""
+    replaces. A dict (the MoE family's ``dense`` and ``moe`` cache groups)
+    is updated leaf by leaf."""
+    if isinstance(full, dict):
+        return {k: _slot_update(full[k], one[k], slot) for k in full}
     if not isinstance(full, torch.Tensor):
         return max(full, one)
     for axis in range(full.dim()):

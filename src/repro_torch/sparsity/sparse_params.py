@@ -1,5 +1,6 @@
 """Masked parameter trees + sparsity pattern utilities (port of
-``repro.sparsity.sparse_params``, dense-family leaves).
+``repro.sparsity.sparse_params``: the dense family's leaves and the MoE
+family's, whose routed-expert leaves carry a leading E axis).
 
 * A **mask tree** mirrors the param tree. The port's masks are ``bool``:
   prunable leaves carry a mask of the leaf's shape; in ``ones_masks``
@@ -9,7 +10,9 @@
 * **Prunable leaves** are the >=2-D linear weights of each block;
   norms, embeddings and the LM head are never pruned.
 * Every prunable leaf has a canonical (reduction, out) 2-D view via
-  ``to_matrix``; pruning scores and N:M groups run in that view.
+  ``to_matrix`` (an expert leaf: (E, R, O), each expert its own matrix);
+  pruning scores and N:M groups run in that view. A router is never
+  pruned (``PROTECTED_PARENTS``).
 """
 from __future__ import annotations
 
@@ -75,8 +78,15 @@ _REDUCTION_LEAD = {"wq": 1, "wk": 1, "wv": 1, "wo": 2, "w_up": 1, "w_gate": 1, "
 _LOGICAL_NDIM = {"wq": 3, "wk": 3, "wv": 3, "wo": 3, "w_up": 2, "w_gate": 2, "w_down": 2}
 
 
+def is_expert_batched(name: str, leaf) -> bool:
+    """Expert leaves carry a leading E axis: (E, d, ff) / (E, ff, d)."""
+    return name in ("w_up", "w_gate", "w_down") and leaf.dim() == 3
+
+
 def to_matrix(name: str, leaf: torch.Tensor):
-    """Leaf -> (R, O) matrix + shape tag."""
+    """Leaf -> (R, O) matrix (an expert leaf: (E, R, O), whole) + shape tag."""
+    if is_expert_batched(name, leaf):
+        return leaf, ("expert", tuple(leaf.shape))
     lead = _REDUCTION_LEAD[name]
     r = 1
     for s in leaf.shape[:lead]:
@@ -89,7 +99,9 @@ def from_matrix(mat: torch.Tensor, tag) -> torch.Tensor:
 
 
 def to_matrix_stacked(name: str, leaf: torch.Tensor):
-    """Like ``to_matrix`` but keeps leading stack axes: (S..., R, O)."""
+    """Like ``to_matrix`` but keeps leading stack axes: (S..., R, O), e.g.
+    (L, R, O) for a stacked dense leaf, (L, E, R, O) for a stacked expert
+    leaf."""
     n_log = _LOGICAL_NDIM[name]
     lead = _REDUCTION_LEAD[name]
     stack = leaf.shape[: leaf.dim() - n_log]

@@ -1,18 +1,24 @@
-"""Per-linear activation taps (port of ``repro.sparsity.taps``, dense
-family).
+"""Per-linear activation taps (port of ``repro.sparsity.taps``: the dense
+and MoE families).
 
-``dense_taps(bp, cfg, h, positions)`` replays one block with the model's
-own layer code and returns, for every prunable leaf name, the (T, R)
-activation matrix whose reduction-axis statistics Wanda consumes.
+``taps_for_block(cfg, i, num_blocks)`` picks the tap function of block
+``i``; each ``taps(bp, cfg, h, positions)`` replays one block with the
+model's own layer code and returns, for every prunable leaf name, the
+activation whose reduction-axis statistics the pruning methods consume:
+(T, R) for a dense linear, and for the routed experts the dispatched
+per-expert activations (E, C, R), so expert-wise statistics are exact.
+The shared experts' leaves take the ``shared/…`` keys.
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Callable, Dict
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
+from repro_torch.models import moe as MOE
 
 
 def _flat(x: torch.Tensor) -> torch.Tensor:
@@ -20,8 +26,9 @@ def _flat(x: torch.Tensor) -> torch.Tensor:
     return x.reshape(-1, x.shape[-1])
 
 
-def dense_taps(bp, cfg: ModelConfig, h: torch.Tensor, positions) -> Dict[str, torch.Tensor]:
-    out: Dict[str, torch.Tensor] = {}
+def _attn_taps(bp, cfg: ModelConfig, h: torch.Tensor, positions,
+               out: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """Taps of one attention sub-block; returns the post-attention stream."""
     attn_in = L.apply_norm(bp["ln1"], h, cfg.norm)
     out["wq"] = out["wk"] = out["wv"] = _flat(attn_in)
     q, k, v = L.qkv_proj(bp["attn"], attn_in)
@@ -31,8 +38,12 @@ def dense_taps(bp, cfg: ModelConfig, h: torch.Tensor, positions) -> Dict[str, to
     k = L.apply_rope(k, cos, sin)
     o = L.attend(q, k, v, causal=True, impl=cfg.attn_impl, chunk=cfg.attn_chunk)
     out["wo"] = o.reshape(-1, o.shape[-2] * o.shape[-1])  # (T, H*hd)
-    h = h + L.out_proj(bp["attn"], o)
+    return h + L.out_proj(bp["attn"], o)
 
+
+def dense_taps(bp, cfg: ModelConfig, h: torch.Tensor, positions) -> Dict[str, torch.Tensor]:
+    out: Dict[str, torch.Tensor] = {}
+    h = _attn_taps(bp, cfg, h, positions, out)
     x = L.apply_norm(bp["ln2"], h, cfg.norm)
     p = bp["mlp"]
     out["w_up"] = _flat(x)
@@ -42,3 +53,34 @@ def dense_taps(bp, cfg: ModelConfig, h: torch.Tensor, positions) -> Dict[str, to
     gate = x @ p["w_gate"] if cfg.mlp_act == "swiglu" else None
     out["w_down"] = _flat(L.activation(up, gate, cfg.mlp_act))
     return out
+
+
+def moe_taps(bp, cfg: ModelConfig, h: torch.Tensor, positions) -> Dict[str, torch.Tensor]:
+    """An MoE block's taps; a leading dense block of the stack gets
+    ``dense_taps``. The routing is replayed over all B·S tokens of the
+    microbatch as one group (the reference's taps ignore
+    ``moe_dispatch_groups``)."""
+    if "moe" not in bp:
+        return dense_taps(bp, cfg, h, positions)
+    out: Dict[str, torch.Tensor] = {}
+    h = _attn_taps(bp, cfg, h, positions, out)
+    xf = _flat(L.apply_norm(bp["ln2"], h, cfg.norm))
+    p = bp["moe"]
+    disp = MOE.dispatch(p["router"]["w"], xf, cfg)[0]
+    out["w_up"] = out["w_gate"] = disp  # (E, C, d) expert-batched
+    ew = p["experts"]
+    out["w_down"] = F.silu(torch.bmm(disp, ew["w_gate"])) * torch.bmm(disp, ew["w_up"])
+    if "shared" in p:
+        out["shared/w_up"] = out["shared/w_gate"] = xf
+        sh = p["shared"]
+        out["shared/w_down"] = F.silu(xf @ sh["w_gate"]) * (xf @ sh["w_up"])
+    return out
+
+
+def taps_for_block(cfg: ModelConfig, block_index: int, num_blocks: int) -> Callable:
+    """Which tap function applies to block ``block_index``."""
+    if cfg.family == "dense":
+        return dense_taps
+    if cfg.family == "moe":
+        return moe_taps
+    raise NotImplementedError(f"taps of family {cfg.family!r} (ROADMAP.md queue A.5)")
