@@ -22,7 +22,15 @@ pretraining, Wanda 0.7, EBFT and serving, with the routed experts'
 products through the expert-batched masked GEMM, which the
 ``masked_matmul_batched`` phase holds against its plain version and
 against the 2-D kernel on each expert's slab; and tiny_moe on the card
-against the CPU. Every phase prints one JSON line; any
+against the CPU. The ``ssm`` and ``hybrid`` phases run the SSM family on
+Mamba2-130M (all 24 layers) and the hybrid on Zamba2-1.2B (13 of its 38
+layers) at their published widths: pretraining, Wanda 0.7, EBFT,
+perplexity and serving, every Mamba projection through the masked GEMM
+(Mamba2-130M's in_dt mask, (768, 24), a view into a row-padded buffer)
+and Zamba2's shared block through the attention kernel at head width 64,
+which the masked and attention phases hold at those shapes; then
+tiny_ssm and tiny_hybrid on the card against the CPU. Every phase prints
+one JSON line; any
 failed check raises, so the script exits non-zero. The last three lines
 are the card's name and power limit, the per-kernel summary, and
 ``{"ok": true, "device": ...}``. Without a card it exits non-zero and
@@ -293,6 +301,12 @@ SERVE_ATTN = {"decode": (256, 1, 1024, 128, True, 700), "prefill": (32, 512, 102
 MOE_ATTN = {"ebft": (128, 2048, 2048, 128, True, 0),
             "serve_decode": (128, 1, 1024, 128, True, 527),
             "serve_prefill": (16, 512, 1024, 128, True, 0)}
+# the hybrid path's shared block (Zamba2-1.2B: 32 heads x 64): EBFT's and
+# pretraining's microbatch of 8 x 2048, its serve phase's decode step (8
+# slots against a 1024-position cache at len 527) and 512-token prefill
+HYB_ATTN = {"ebft": (256, 2048, 2048, 64, True, 0),
+            "serve_decode": (256, 1, 1024, 64, True, 527),
+            "serve_prefill": (32, 512, 1024, 64, True, 0)}
 ATTN_KEYS = ("BH", "Sq", "Sk", "q_offset", "max_abs_err", "ms", "plain_ms", "bound_ms",
              "bound_by", "library_ms")
 
@@ -300,11 +314,12 @@ ATTN_KEYS = ("BH", "Sq", "Sk", "q_offset", "max_abs_err", "ms", "plain_ms", "bou
 def phase_flash_attention(g):
     """Kernel vs plain: (256, 2048, 128) causal, a non-causal case and a
     q_offset > 0 case with Sq < Sk, the serve phase's decode and prefill
-    shapes (``SERVE_ATTN``), the moe path's three (``MOE_ATTN``), in f32
-    and bf16; plus every compiled head width at a small shape. In every
-    case the row log-sum-exp that the forward writes for the backward is
-    held to the plain one. Returns the (256, 2048, 128) causal bf16 row,
-    the bf16 serving rows and the bf16 moe rows. The bound
+    shapes (``SERVE_ATTN``), the moe path's three (``MOE_ATTN``), the
+    hybrid path's three at head width 64 (``HYB_ATTN``), in f32 and bf16;
+    plus every compiled head width at a small shape. In every case the row
+    log-sum-exp that the forward writes for the backward is held to the
+    plain one. Returns the (256, 2048, 128) causal bf16 row, the bf16
+    serving rows and the bf16 moe and hybrid rows. The bound
     counts the keys a causal row can see (min(Sk, q_offset + Sq)); the
     library call is SDPA on the same inputs (at a decode shape over the
     len + 1 visible keys, non-causal: the same function)."""
@@ -319,9 +334,9 @@ def phase_flash_attention(g):
 
     cases = [(256, 2048, 2048, 128, True, 0), (64, 1024, 1024, 128, False, 0),
              (64, 512, 2048, 128, True, 1536), *SERVE_ATTN.values(), *MOE_ATTN.values(),
-             (8, 200, 333, 64, True, 133), (8, 128, 128, 32, False, 0),
+             *HYB_ATTN.values(), (8, 200, 333, 64, True, 133), (8, 128, 128, 32, False, 0),
              (16, 128, 128, 16, True, 0)]
-    summary, serve_rows, moe_rows = None, {}, {}
+    summary, serve_rows, moe_rows, hyb_rows = None, {}, {}, {}
     for dtype in ("float32", "bfloat16"):
         dt = getattr(torch, dtype)
         for BH, Sq, Sk, d, causal, off in cases:
@@ -347,7 +362,9 @@ def phase_flash_attention(g):
                             if c == (BH, Sq, Sk, d, causal, off)), None)
             moe = next((n for n, c in MOE_ATTN.items() if c == (BH, Sq, Sk, d, causal, off)),
                        None)
-            if BH >= 64 or serving or moe:
+            hyb = next((n for n, c in HYB_ATTN.items() if c == (BH, Sq, Sk, d, causal, off)),
+                       None)
+            if BH >= 64 or serving or moe or hyb:
                 row["ms"] = timed_ms(lambda: flash_attention(q, k, v, **kw))
                 row["plain_ms"] = timed_ms(lambda: flash_attention_plain(q, k, v, **kw))
                 keys = min(Sk, off + Sq) if causal else Sk
@@ -361,7 +378,7 @@ def phase_flash_attention(g):
                 nbytes = 2 * (q.numel() + BH * keys * d) * q.element_size()
                 b_ms, b_by = bound_ms(nbytes, 4.0 * BH * d * pairs, dtype)
                 row.update(bound_ms=b_ms, bound_by=b_by)
-                if dtype == "bfloat16" and (BH, Sq, causal) == (256, 2048, True):
+                if dtype == "bfloat16" and (BH, Sq, d, causal) == (256, 2048, 128, True):
                     row["deterministic"] = check_repeat(
                         tag, lambda: flash_attention(q, k, v, **kw), out)
                     summary = row
@@ -371,13 +388,16 @@ def phase_flash_attention(g):
                 if dtype == "bfloat16" and moe:
                     row["moe"] = moe
                     moe_rows[moe] = row
+                if dtype == "bfloat16" and hyb:
+                    row["hybrid"] = hyb
+                    hyb_rows[hyb] = row
             emit(row)
             del q, k, v, out, ref
     buf = torch.randn(3, 8 * 200 * 64 + 1, device="cuda", generator=g).to(torch.bfloat16)
     q, k, v = (buf[i, 1:].view(8, 200, 64) for i in range(3))
     _refuses("flash_attention unaligned bf16", lambda: flash_attention(q, k, v))
     emit(dict(phase="flash_attention", case="unaligned bf16", refused=True))
-    return summary, serve_rows, moe_rows
+    return summary, serve_rows, moe_rows, hyb_rows
 
 
 def phase_masked_matmul_bwd(g):
@@ -521,9 +541,10 @@ def phase_flash_attention_bwd(g):
     """The backward kernel (through ``FlashAttentionFn``) against the plain
     formula and against autograd of the plain attention in f32: (256, 2048, 128)
     causal, non-causal, q_offset with Sq < Sk, the moe path's EBFT shape
-    (128, 2048, 128) causal, and every head width, in f32 and bf16.
-    Gradients checked within tol x max |plain|. Returns the (256, 2048,
-    128) bf16 row and the moe one."""
+    (128, 2048, 128) causal, the hybrid path's (256, 2048, 64) causal, and
+    every head width, in f32 and bf16. Gradients checked within tol x max
+    |plain|. Returns the (256, 2048, 128) bf16 row and the moe and hybrid
+    ones."""
     import torch
     import torch.nn.functional as F
 
@@ -533,9 +554,10 @@ def phase_flash_attention_bwd(g):
     )
 
     cases = [(256, 2048, 2048, 128, True, 0), (64, 1024, 1024, 128, False, 0),
-             (64, 512, 2048, 128, True, 1536), MOE_ATTN["ebft"], (8, 200, 333, 64, True, 133),
-             (8, 128, 128, 32, False, 0), (16, 128, 128, 16, True, 0)]
-    summary, moe_rows = None, {}
+             (64, 512, 2048, 128, True, 1536), MOE_ATTN["ebft"], HYB_ATTN["ebft"],
+             (8, 200, 333, 64, True, 133), (8, 128, 128, 32, False, 0),
+             (16, 128, 128, 16, True, 0)]
+    summary, moe_rows, hyb_rows = None, {}, {}
     for dtype in ("float32", "bfloat16"):
         dt = getattr(torch, dtype)
         for BH, Sq, Sk, d, causal, off in cases:
@@ -579,7 +601,7 @@ def phase_flash_attention_bwd(g):
                 nbytes = (5 * q.numel() + 3 * k.numel()) * q.element_size() + 4 * lse.numel()
                 b_ms, b_by = bound_ms(nbytes, 10.0 * BH * d * pairs, dtype)
                 row.update(bound_ms=b_ms, bound_by=b_by)
-                if dtype == "bfloat16" and (BH, Sq, causal) == (256, 2048, True):
+                if dtype == "bfloat16" and (BH, Sq, d, causal) == (256, 2048, 128, True):
                     row["deterministic"] = check_repeat(
                         f"flash_attention_bwd {(BH, Sq, Sk, d)} {dtype}",
                         lambda: FA.flash_attention_bwd(q, k, v, o, do, lse, **kw),
@@ -588,6 +610,9 @@ def phase_flash_attention_bwd(g):
                 if dtype == "bfloat16" and (BH, Sq, Sk, d, causal, off) == MOE_ATTN["ebft"]:
                     row["moe"] = "ebft"
                     moe_rows["ebft"] = row
+                if dtype == "bfloat16" and (BH, Sq, Sk, d, causal, off) == HYB_ATTN["ebft"]:
+                    row["hybrid"] = "ebft"
+                    hyb_rows["ebft"] = row
             emit(row)
             del q, k, v, do, o, lse
             torch.cuda.empty_cache()
@@ -598,7 +623,7 @@ def phase_flash_attention_bwd(g):
     _refuses("flash_attention_bwd unaligned bf16",
              lambda: FA.flash_attention_bwd(ok, ok, ok, ok, bad, lse))
     emit(dict(phase="flash_attention_bwd", case="unaligned bf16", refused=True))
-    return summary, moe_rows
+    return summary, moe_rows, hyb_rows
 
 
 # ---------------------------------------------------------------------------
@@ -989,6 +1014,47 @@ def _serve_forced(model, params, prompts, tag, conf=SERVE):
                 last_step_ratio_to_tol_vs_f32=vs_f32)
 
 
+def _serve_forced_f32(model, params, prompts, tag, conf, rel=1e-4):
+    """``_serve_forced`` in f32 (``model`` and ``params`` cast to f32): after
+    the prefill and each of conf["forced_steps"] greedy decode steps the
+    cached logits must equal the last-position logits of a no-cache
+    ``forward`` within ``rel`` x max(1, max |logit|), and where the two
+    greedy tokens differ the no-cache top-2 margin must be below that. A
+    Mamba block decodes by the one-step recurrence and runs a prompt by the
+    chunked scan, so in bf16 the two round apart over the layers; in f32
+    they differ only in the order of their sums."""
+    import numpy as np
+    import torch
+
+    seq = torch.as_tensor(np.stack(prompts), device="cuda").long()
+    state = model.init_serve_state(len(prompts), conf["max_len"], "cuda")
+    logits, state = model.prefill(params, {"tokens": seq}, state)
+    errs, flips = [], []
+    for step in range(conf["forced_steps"] + 1):
+        ref = model.forward(params, {"tokens": seq})[:, -1]
+        got = logits[:, 0]
+        scale = max(1.0, float(ref.abs().max()))
+        err = float((got - ref).abs().max()) / scale
+        if not err <= rel:
+            raise AssertionError(f"serve {tag}: step {step}'s cached logits differ from the "
+                                 f"no-cache forward by {err:.2e} x max |logit| (limit {rel})")
+        errs.append(err)
+        tok = got.argmax(-1)
+        top = ref.topk(2, dim=-1).values
+        margin = top[:, 0] - top[:, 1]
+        differ = tok != ref.argmax(-1)
+        if bool((differ & (margin >= rel * scale)).any()):
+            raise AssertionError(f"serve {tag}: step {step}'s greedy token differs from the "
+                                 f"no-cache forward's at a top-2 margin {margin.tolist()}")
+        flips += [(step, float(m)) for m in margin[differ].tolist()]
+        if step == conf["forced_steps"]:
+            break
+        seq = torch.cat([seq, tok[:, None]], dim=1)
+        logits, state = model.decode_step(params, tok[:, None], state)
+    del logits, state, ref
+    return dict(dtype="float32", max_rel_err=max(errs), rel=rel, greedy_flips=flips)
+
+
 def _profile_step(step) -> dict:
     """One ``step`` under ``torch.profiler``: the operations it puts on the
     card (kernels, copies, fills), their summed card time, that time by
@@ -1095,13 +1161,15 @@ def _serve_split(model, params, prompts):
     return out
 
 
-def _serve_run(model, params, prompts, tag, conf=SERVE, arch="llama_7b"):
+def _serve_run(model, params, prompts, tag, conf=SERVE, arch="llama_7b", attn_layers=None):
     """``Server.serve`` of conf["requests"] requests over conf["slots"]
     slots in an obs run opened as ``launch/serve`` opens it; every kernel
     count is set to 0 just before it and read just after. Raises unless
     every request gets conf["max_new"] tokens, the highest ``len`` stays
-    within the cache, the flash attention forward ran L x (prefills +
-    decode steps) times and no other kernel ran, obs booked every launch,
+    within the cache, the flash attention forward ran A x (prefills +
+    decode steps) times (A = ``attn_layers``, by default every layer; the
+    hybrid's shared-block sites, none in the SSM family) and no other
+    kernel ran, obs booked every launch,
     and the artifact (``chiprun_out/BENCH_serve_<tag>.json``) passes
     ``validate_payload`` with the ``served`` section and the ``serve/*``
     names."""
@@ -1143,7 +1211,7 @@ def _serve_run(model, params, prompts, tag, conf=SERVE, arch="llama_7b"):
                                           "tokens_per_s": toks / wall}},
                      f"BENCH_serve_{tag}.json")
     m = art["metrics"]
-    L = model.cfg.num_layers
+    L = model.cfg.num_layers if attn_layers is None else attn_layers
     expected = {k: 0 for k in launches}
     expected["flash_attention"] = L * (len(reqs) + len(lens))
     booked = kernel_stats(m).get("flash_attention", {}).get("calls", 0)
@@ -1157,7 +1225,7 @@ def _serve_run(model, params, prompts, tag, conf=SERVE, arch="llama_7b"):
                occupancy=m["serve/batch_occupancy"]["mean"], peak_mem_gib=peak / 2**30,
                peak_over_start_gib=(peak - start_mem) / 2**30,
                launches=launches, flash_booked=booked,
-               flash_in_run_ms=kernel_stats(m)["flash_attention"]["mean_ms"],
+               flash_in_run_ms=kernel_stats(m).get("flash_attention", {}).get("mean_ms"),
                artifact=f"chiprun_out/BENCH_serve_{tag}.json")
     if sorted(res) != list(range(len(reqs))) or \
             any(len(v) != conf["max_new"] for v in res.values()):
@@ -2717,36 +2785,335 @@ def phase_moe(walls):
     del dense, tuned
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    phase_tiny_moe()
+    phase_tiny_family("tiny_moe")
     walls["moe_tiny"] = time.perf_counter() - t0
     return launches
 
 
-def phase_tiny_moe(rel=1e-4):
-    """tiny_moe in f32 with the same weights on the card (the kernels, the
-    batched one on the expert leaves) and on the CPU (plain versions): the
-    loss, nll and aux, and the dense and Wanda perplexities within rel
-    1e-4; masks that differ only in slots within 1e-6 (relative) of their
-    threshold; then EBFT from the CPU's masks on both (``phase_tiny_ebft``'s
-    check: epochs and stops equal, losses and perplexity within rel 1e-4),
-    at the paper's EBFT settings (lr 2e-4, 10 epochs, patience 2). The
-    limit must stand at least 5 times above the CPU's own spread under a
-    1e-6 move of the weights at those settings (``_ebft_spread``): a
-    router top-k on a near-tie can flip with the order of a sum, and at
-    a larger lr Adam carries such a flip far."""
+# ---------------------------------------------------------------------------
+# the SSM family (Mamba2-130M, all 24 layers) and the hybrid (Zamba2-1.2B, 13
+# of its 38 layers) at their published widths
+# ---------------------------------------------------------------------------
+# every Mamba leaf's (R, O) matrix at both models' widths, bf16, at the EBFT
+# microbatch's M rows: in_z and in_x (d | H·P), in_B and in_C (d | N), in_dt
+# (d | H: Mamba2-130M's 24 columns, a mask row of 24 bytes), out (H·P | d)
+MAMBA_LEAVES = {"ssm": [("in_zx", 768, 1536), ("in_BC", 768, 128), ("in_dt", 768, 24),
+                        ("out", 1536, 768)],
+                "hybrid": [("in_zx", 2048, 4096), ("in_BC_dt", 2048, 64), ("out", 4096, 2048)]}
+# pretraining's AdamW lr: ebft_run's PRETRAIN_LR, 3e-3, for Mamba2-130M; 3e-4 for Zamba2,
+# whose shared block (d_ff 8192) grows under 50 steps at 3e-3 until its output
+# swamps the Mamba stream: the untuned sparse shared block's error at its
+# first site then held every later block's EBFT loss near 1.2e8, and EBFT's
+# perplexity above Wanda's (PERF.md §6). Microbatches: the most each
+# pretraining step fits (Mamba2-130M's peak 67 GiB in one)
+FAMILY = {"ssm": dict(arch="mamba2_130m", layers=None, reduced=None, microbatches=1,
+                      pretrain_lr=3e-3),
+          "hybrid": dict(arch="zamba2_1_2b", layers=13, reduced="num_layers 38->13",
+                         microbatches=2, pretrain_lr=3e-4)}
+FAM = dict(pretrain_steps=50, batch=8, calib=16, eval=16, seq=2048)
+FAM_SERVE = dict(slots=8, prompt_len=512, max_new=32, max_len=1024, requests=16, forced_steps=32)
+MASKED = ("masked_matmul", "masked_matmul_dx", "masked_matmul_dw")
+
+
+def family_cfg(family: str, dtype: str = "bfloat16"):
+    """The family's published config in ``dtype`` with the flash attention
+    kernel, cut to FAMILY[family]["layers"] where that is set."""
+    from repro_torch.configs import get_config
+
+    f = FAMILY[family]
+    cfg = get_config(f["arch"]).replace(dtype=dtype, param_dtype=dtype, attn_impl="flash")
+    return cfg.replace(num_layers=f["layers"]) if f["layers"] else cfg
+
+
+def phase_masked_matmul_mamba(g):
+    """The masked matmul forward, dX and dW at every Mamba leaf shape of
+    both families (``MAMBA_LEAVES``), bf16, M = 16384, each held against
+    its plain version (the forward within tol, dX and dW within tol x max
+    |plain|; dW exactly 0 in every pruned slot), timed beside it, the
+    PyTorch product on the masked weights and the bound. The mask is laid
+    out as ``prune`` keeps it (``aligned_mask``): Mamba2-130M's in_dt mask,
+    (768, 24), is a view into a (768, 32) buffer, and the wrapper refuses
+    the contiguous one. Returns {family: {kernel: {leaf: row}}}."""
+    import torch
+
+    from repro_torch.kernels.masked_matmul import ops as MM
+    from repro_torch.kernels.masked_matmul.ref import (
+        masked_matmul_dw_plain, masked_matmul_dx_plain, masked_matmul_plain,
+    )
+
+    dt = torch.bfloat16
+    out = {fam: {k: {} for k in MASKED} for fam in MAMBA_LEAVES}
+    for fam, leaves in MAMBA_LEAVES.items():
+        for leaf, K, N in leaves:
+            w = (torch.randn(K, N, device="cuda", generator=g) / math.sqrt(K)).to(dt)
+            m = MM.aligned_mask(torch.rand(K, N, device="cuda", generator=g) < 0.3)
+            x = torch.randn(M_ROWS, K, device="cuda", generator=g).to(dt)
+            dy = torch.randn(M_ROWS, N, device="cuda", generator=g).to(dt)
+            wm = w * m.to(dt)
+            nnz = float(m.sum())
+            es = x.element_size()
+            cases = (
+                ("masked_matmul", lambda: MM.masked_matmul(x, w, m),
+                 lambda: masked_matmul_plain(x, w, m), lambda: torch.matmul(x, wm), check_close,
+                 (x.numel() + w.numel() + M_ROWS * N) * es + K * N),
+                ("masked_matmul_dx", lambda: MM.masked_matmul_dx(dy, w, m),
+                 lambda: masked_matmul_dx_plain(dy, w, m), lambda: torch.matmul(dy, wm.T),
+                 check_scaled, (dy.numel() + w.numel() + M_ROWS * K) * es + K * N),
+                ("masked_matmul_dw", lambda: MM.masked_matmul_dw(x, dy, m),
+                 lambda: masked_matmul_dw_plain(x, dy, m), lambda: torch.matmul(x.T, dy) * m,
+                 check_scaled, (x.numel() + dy.numel() + K * N) * es + K * N),
+            )
+            for name, kern, plain, lib, check, nbytes in cases:
+                got = kern()
+                torch.cuda.synchronize()
+                err = check(f"{name} {fam} {leaf}", got, plain(), "bfloat16")
+                if name == "masked_matmul_dw" and bool((got[~m] != 0).any()):
+                    raise AssertionError(f"{name} {fam} {leaf}: a pruned slot is not 0")
+                b_ms, b_by = bound_ms(nbytes, 2.0 * M_ROWS * nnz, "bfloat16")
+                row = dict(phase="masked_matmul_mamba", family=fam, kernel=name, leaf=leaf,
+                           dtype="bfloat16", M=M_ROWS, K=K, N=N, mask_strides=list(m.stride()),
+                           max_abs_err=err, tol=TOL["bfloat16"], ms=timed_ms(kern),
+                           plain_ms=timed_ms(plain), library_ms=timed_ms(lib), bound_ms=b_ms,
+                           bound_by=b_by,
+                           deterministic=check_repeat(f"{name} {fam} {leaf}", kern, got))
+                out[fam][name][leaf] = row
+                emit(row)
+                del got
+            if N % 16:
+                dense_m = m.contiguous()
+                for name, fn in (("masked_matmul", lambda: MM.masked_matmul(x, w, dense_m)),
+                                 ("masked_matmul_dx",
+                                  lambda: MM.masked_matmul_dx(dy, w, dense_m)),
+                                 ("masked_matmul_dw",
+                                  lambda: MM.masked_matmul_dw(x, dy, dense_m))):
+                    _refuses(f"{name} {fam} {leaf} contiguous mask", fn)
+                emit(dict(phase="masked_matmul_mamba", family=fam, leaf=leaf,
+                          case=f"contiguous ({K}, {N}) bf16 mask", refused=True))
+            del w, m, x, dy, wm
+    return out
+
+
+def _family_expected(cfg, res, microbatches):
+    """The path's launches, counted as the Llama and moe paths' are: a
+    masked forward of a Mamba block runs its 6 masked projections (in_z,
+    in_x, in_B, in_C, in_dt, out), one of the hybrid's shared block its 7
+    masked linears and the attention; per block (per site of the shared
+    block) the prune walk's student advance, the two evaluations with
+    masks and EBFT's loss before and after and student advance, plus one
+    per EBFT step, whose backward runs dX and dW of each and the
+    attention's backward. The attention also runs unmasked at each site:
+    in the dense evaluation, the prune walk's taps, EBFT's teacher and
+    every pretraining microbatch (forward and backward)."""
+    n_cal = math.ceil(FAM["calib"] / 8)
+    n_ev = math.ceil(FAM["eval"] / 8)
+    per_block = n_cal + 2 * n_ev + 3 * n_cal
+    shared = cfg.num_layers if cfg.family == "hybrid" else None
+    sites = cfg.num_layers // cfg.hybrid_attn_every if shared is not None else 0
+    steps_m = sum(r.epochs_run for r in res.reports if r.index != shared) * n_cal
+    steps_s = sum(r.epochs_run for r in res.reports if r.index == shared) * n_cal * sites
+    fwd_m = cfg.num_layers * per_block + steps_m
+    fwd_s = sites * per_block + steps_s
+    pre = FAM["pretrain_steps"] * microbatches
+    out = {k: 0 for k in _counters()}
+    out.update(masked_matmul=6 * fwd_m + 7 * fwd_s, masked_matmul_dx=6 * steps_m + 7 * steps_s,
+               masked_matmul_dw=6 * steps_m + 7 * steps_s,
+               flash_attention=fwd_s + sites * (n_ev + 2 * n_cal + pre),
+               flash_attention_bwd=steps_s + sites * pre)
+    return out
+
+
+def phase_family(family: str, walls):
+    """One family's path at its published widths, bf16, the flash attention
+    kernel: the seeded init pretrained FAM["pretrain_steps"] steps by the
+    ``ebft_run.pretrain`` (AdamW at FAMILY[family]["pretrain_lr"], batch 8 x
+    2048 in FAMILY[family]["microbatches"] microbatches), then from those
+    weights Wanda 0.7, EBFT (lr 2e-4, 10 epochs, patience 2) and the
+    evaluations through ``ebft_run.run``, all in one obs run
+    (``chiprun_out/BENCH_ebft_<family>.json``);
+    every kernel count is set to 0 just before it and read just after, and
+    must equal ``_family_expected``. Every EBFT block loss must drop, EBFT's
+    perplexity must be below Wanda's and nothing may be NaN. Then the
+    teacher-forced check of the pretrained weights in f32
+    (``_serve_forced_f32``), ``Server.serve`` of the
+    tuned weights (16 requests of 512 tokens, 32 greedy tokens each, 8
+    slots, max_len 1024) and the tiny variant's cross-check of the card
+    against the CPU. Returns the path's launches."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch import tree as T
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data.tokens import CorpusConfig, SyntheticCorpus
+    from repro_torch.launch import ebft_run
+    from repro_torch.launch.api import start_obs_run
+    from repro_torch.launch.rooflines import model_flops_per_chip
+    from repro_torch.models.model import build
+    from repro_torch.sparsity import sparse_params as SP
+
+    t0 = time.perf_counter()
+    f = FAMILY[family]
+    cfg = family_cfg(family)
+    spec = ebft_run.RunSpec(arch=f["arch"], seed=0, seq=FAM["seq"], calib_samples=FAM["calib"],
+                            pretrain_steps=FAM["pretrain_steps"], batch=FAM["batch"],
+                            microbatches=f["microbatches"], lr=2e-4, epochs=10, bench_out="")
+    pre = {}
+    ends = [0]
+
+    def on_stage(stage):
+        if stage != "update":
+            return
+        ends[0] += 1
+        if ends[0] == spec.pretrain_steps:
+            torch.cuda.synchronize()
+            pre.update(launches=read_counts(),
+                       peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30)
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    obs_run = start_obs_run(spec, "ebft", "cuda", name=f"chip_smoke/{family}", console=False)
+    t1 = time.perf_counter()
+    model = build(cfg)
+    corpus = SyntheticCorpus(CorpusConfig(vocab_size=cfg.vocab_size, seed=spec.seed))
+    params = model.init(torch.Generator(device="cuda").manual_seed(spec.seed))
+    with ebft_run._phase(torch.device("cuda"), "phase/pretrain", steps=spec.pretrain_steps) as sp:
+        dense, hist = ebft_run.pretrain(model, params, corpus, spec.pretrain_steps, spec.batch,
+                                        spec.seq, f["pretrain_lr"], on_stage, spec.microbatches)
+    del params
+    res = ebft_run.run(cfg, dataclasses.replace(spec, pretrain_steps=0), "cuda", params=dense)
+    res.phases = {"pretrain": sp.duration, **res.phases}
+    res.pretrain_losses = hist
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t1
+    launches = read_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    summ = obs_run.payload()["metrics"]
+    art = finish_obs(obs_run, ebft_run.bench_record(spec, res, summ),
+                     f"BENCH_ebft_{family}.json")
+    expected = _family_expected(cfg, res, f["microbatches"])
+    stats = kernel_stats(art["metrics"])
+    phases = {}
+    for n in art["trace"]:
+        if n["name"].startswith("phase/"):
+            key = n["name"][len("phase/"):] + "".join(
+                f"_{n['attrs'][a]}" for a in ("what",) if a in n.get("attrs", {}))
+            phases[key] = dict(s=n["duration_s"], kernel_s=n["attrs"].get("kernel_s"),
+                               kernel_launches=n["attrs"].get("kernel_launches"))
+    hist = res.pretrain_losses
+    per_step = res.phases["pretrain"] / spec.pretrain_steps
+    flops = model_flops_per_chip(cfg, ShapeConfig("pretrain", FAM["seq"], FAM["batch"],
+                                                  "train"), 1)
+    blocks = [dict(block=r.index, kind=r.kind, loss_before=r.loss_before,
+                   loss_after=r.loss_after, epochs_run=r.epochs_run, early_stop=r.early_stop)
+              for r in res.reports]
+    row = dict(phase=family, arch=f["arch"], num_layers=cfg.num_layers, reduced=f["reduced"],
+               dtype=cfg.dtype, attn_impl=cfg.attn_impl, seq=spec.seq,
+               params=sum(t.numel() for _, t in T.leaves_with_path(res.dense)),
+               pretrain=dict(steps=spec.pretrain_steps, batch=spec.batch,
+                             microbatches=spec.microbatches, lr=f["pretrain_lr"],
+                             loss=[dict(step=i, loss=l, grad_norm=gn) for i, l, gn in hist],
+                             s_per_step=per_step, model_flops_per_step=flops,
+                             tflops_6nd=flops / per_step / 1e12,
+                             peak_mem_gib=pre.get("peak_mem_gib"),
+                             launches=pre.get("launches")),
+               method="wanda", sparsity=0.7, achieved_sparsity=res.sparsity,
+               perplexity=res.perplexity,
+               ebft_below_pruned=res.perplexity["EBFT"] < res.perplexity["wanda"],
+               blocks=blocks, phases_s=res.phases, phase_spans=phases, wall_s=wall,
+               peak_mem_gib=peak, live_block_bytes=max(r.live_bytes for r in res.reports),
+               launches=launches, expected_launches=expected,
+               obs_booked={k: stats.get(k, {}).get("calls", 0) for k in launches},
+               in_run_ms={k: v["mean_ms"] for k, v in stats.items()},
+               kernel_s={k: v["total_s"] for k, v in stats.items()},
+               artifact=f"chiprun_out/BENCH_ebft_{family}.json")
+    emit(row)
+    for k, v in res.perplexity.items():
+        if not math.isfinite(v):
+            raise AssertionError(f"{family}: {k} perplexity is {v}")
+    if not all(math.isfinite(x) for _, l, gn in hist for x in (l, gn)):
+        raise AssertionError(f"{family}: a pretraining loss or grad norm is not finite: {hist}")
+    if not hist[-1][1] < hist[0][1]:
+        raise AssertionError(f"{family}: pretraining loss {hist[0][1]} -> {hist[-1][1]} "
+                             "did not drop")
+    bad = [b for b in blocks if not (math.isfinite(b["loss_after"])
+                                     and b["loss_after"] < b["loss_before"])]
+    if bad:
+        raise AssertionError(f"{family}: EBFT block losses that did not drop: {bad}")
+    if launches != expected:
+        raise AssertionError(f"{family}: launches {launches} != expected {expected}")
+    path_kernels = MASKED + (("flash_attention", "flash_attention_bwd")
+                             if family == "hybrid" else ())
+    idle = [k for k in path_kernels if launches[k] == 0]
+    if idle:
+        raise AssertionError(f"{family}: kernels of the path launched no time: {idle}")
+    if any(row["obs_booked"][k] != launches[k] for k in launches):
+        raise AssertionError(f"{family}: obs booked {row['obs_booked']}, the wrappers "
+                             f"{launches}")
+    if not res.perplexity["EBFT"] < res.perplexity["wanda"]:
+        raise AssertionError(f"{family}: EBFT perplexity {res.perplexity['EBFT']} is not below "
+                             f"the pruned model's {res.perplexity['wanda']}")
+    _check_pruned(res, cfg, 1.0 - 0.7, None)
+    for path, m in T.leaves_with_path(res.masks):
+        if SP.is_prunable(path, m):
+            t = T.get_path(res.tuned, path)
+            if bool((t[~m] != 0).any()) or not bool(torch.isfinite(t).all()):
+                raise AssertionError(f"{family}: {path} tuned weights are not 0 in pruned "
+                                     "slots or not finite")
+    walls[f"{family}_path"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(0)
+    prompts = [corpus.sample(rng, FAM_SERVE["prompt_len"]) for _ in range(FAM_SERVE["requests"])]
+    forced = _serve_forced_f32(build(cfg.replace(dtype="float32", param_dtype="float32")),
+                               T.tree_map(lambda t: t.float(), res.dense),
+                               prompts[:FAM_SERVE["slots"]], f"{family} pretrained", FAM_SERVE)
+    tuned = res.tuned
+    del res, dense
+    torch.cuda.empty_cache()
+    sites = cfg.num_layers // cfg.hybrid_attn_every if family == "hybrid" else 0
+    served = _serve_run(model, tuned, prompts, f"{family}_ebft", FAM_SERVE, f["arch"],
+                        attn_layers=sites)
+    emit(dict(phase=f"{family}_serve", weights={"forced": "pretrained", "serve": "ebft"},
+              forced=forced, serve=served, **FAM_SERVE, phase_s=time.perf_counter() - t0))
+    walls[f"{family}_serve"] = time.perf_counter() - t0
+    del tuned
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    phase_tiny_family(f"tiny_{family}")
+    walls[f"{family}_tiny"] = time.perf_counter() - t0
+    return launches
+
+
+def phase_tiny_family(arch: str, rel=1e-4):
+    """tiny_moe, tiny_ssm or tiny_hybrid in f32 with the same weights on the
+    card (the kernels: the batched one on the expert leaves, the attention
+    in the hybrid's shared block) and on the CPU (plain versions): the loss
+    and its metrics (MoE: nll and aux), the dense and Wanda perplexities
+    within rel 1e-4; masks that differ only in slots within 1e-6 (relative)
+    of their threshold; then EBFT from the CPU's masks on both at the
+    paper's settings (lr 2e-4, 10 epochs, patience 2; ``phase_tiny_ebft``'s
+    check: epochs and stops equal, losses and perplexity within rel 1e-4).
+    The limit must stand at least 5 times above the CPU's own spread under
+    a 1e-6 move of the weights at those settings (``_ebft_spread``): a
+    router top-k on a near-tie can flip with the order of a sum, and at a
+    larger lr Adam carries such a flip far."""
     import numpy as np
     import torch
 
     from repro_torch import interop
     from repro_torch import tree as T
     from repro_torch.configs import get_config
+    from repro_torch.core import ebft
     from repro_torch.core.evaluate import perplexity
     from repro_torch.core.masks import prune
     from repro_torch.data.tokens import CorpusConfig, SyntheticCorpus, calibration_set, eval_set
     from repro_torch.models.model import build
     from repro_torch.sparsity import sparse_params as SP
 
-    cfg = get_config("tiny_moe").replace(attn_impl="flash")
+    cfg = get_config(arch).replace(attn_impl="flash")
     model = build(cfg)
     weights = interop.params_to_numpy(model.init(torch.Generator().manual_seed(0)))
     corpus = SyntheticCorpus(CorpusConfig(vocab_size=cfg.vocab_size, seed=0))
@@ -2759,43 +3126,48 @@ def phase_tiny_moe(rel=1e-4):
         scores = {}
         masks, pruned = prune(model, params, calib, method="wanda", sparsity=0.5,
                               scores_out=scores)
-        out[dev] = dict(loss=float(loss), nll=float(m["nll"]), aux=float(m["aux"]),
+        out[dev] = dict(loss=float(loss), **{k: float(v) for k, v in m.items()},
                         dense=perplexity(model, params, ev),
-                        wanda=perplexity(model, pruned, ev, masks=masks),
-                        masks=masks, scores=scores)
+                        wanda=perplexity(model, pruned, ev, masks=masks), masks=masks,
+                        scores=scores)
+    K = cfg.hybrid_attn_every
+    # a stacked leaf's slice j -> the model's block index
+    first = {"moe_blocks": cfg.moe_first_dense, "trailing": K and cfg.num_layers // K * K}
+
+    def block_of(path, j):
+        return cfg.num_layers if path[0] == "shared" else j + first.get(path[0], 0)
+
     flips, worst = 0, 0.0
     for path, m in T.leaves_with_path(out["cpu"]["masks"]):
         if not SP.is_prunable(path, m):
             continue
         diff = m != T.get_path(out["cuda"]["masks"], path).cpu()
-        for j in range(m.shape[0]):
+        stack = m.dim() - SP._LOGICAL_NDIM[path[-1]] - SP.is_expert_batched(path[-1], m[0])
+        diff = diff.reshape(-1, *m.shape[stack:]) if stack else diff[None]
+        for j in range(diff.shape[0]):
             if diff[j].any():
-                i = j + (cfg.moe_first_dense if path[0] == "moe_blocks" else 0)
-                s = out["cpu"]["scores"][(i, *path[1:])]
+                s = out["cpu"]["scores"][(block_of(path, j), *path[1:])]
                 gap = float(SP.threshold_gaps(s, 0.5)[diff[j].reshape(s.shape)].max())
                 worst = max(worst, gap)
                 flips += int(diff[j].sum())
-    keys = ("loss", "nll", "aux", "dense", "wanda")
-    row = dict(phase="tiny_moe", arch="tiny_moe", dtype="float32", attn_impl="flash",
-               cuda={k: out["cuda"][k] for k in keys}, cpu={k: out["cpu"][k] for k in keys},
-               rtol=rel, mask_flips=flips, worst_flip_gap=worst, gap_rtol=1e-6)
-    emit(row)
+    keys = [k for k in out["cpu"] if k not in ("masks", "scores")]
+    emit(dict(phase=arch, arch=arch, dtype="float32", attn_impl="flash",
+              cuda={k: out["cuda"][k] for k in keys}, cpu={k: out["cpu"][k] for k in keys},
+              rtol=rel, mask_flips=flips, worst_flip_gap=worst, gap_rtol=1e-6))
     for k in keys:
         a, b = out["cuda"][k], out["cpu"][k]
         if not abs(a - b) <= rel * abs(b):
-            raise AssertionError(f"tiny_moe: {k} cuda {a} vs cpu {b}")
+            raise AssertionError(f"{arch}: {k} cuda {a} vs cpu {b}")
     if worst > 1e-6:
-        raise AssertionError(f"tiny_moe: a mask flipped {worst:.2e} from its threshold")
-    from repro_torch.core import ebft
-
+        raise AssertionError(f"{arch}: a mask flipped {worst:.2e} from its threshold")
     masks = out["cpu"]["masks"]
     paper = ebft.EBFTConfig(lr=2e-4, epochs=10, microbatch=8, patience=2)
-    base = phase_tiny_ebft(model, weights, masks, calib, ev, rel, arch="tiny_moe", ecfg=paper)
+    base = phase_tiny_ebft(model, weights, masks, calib, ev, rel, arch=arch, ecfg=paper)
     spread = _ebft_spread(model, weights, masks, calib, ev, paper, base)
-    emit(dict(phase="tiny_moe_spread", arch="tiny_moe", device="cpu", lr=paper.lr, rtol=rel,
+    emit(dict(phase=f"{arch}_spread", arch=arch, device="cpu", lr=paper.lr, rtol=rel,
               **spread))
     if max(spread["loss_rel"], spread["ppl_rel"]) > rel / 5:
-        raise AssertionError(f"tiny_moe: the CPU's own EBFT spread {spread} is not 5 times "
+        raise AssertionError(f"{arch}: the CPU's own EBFT spread {spread} is not 5 times "
                              f"below the card-vs-CPU limit {rel:.0e}")
 
 # ---------------------------------------------------------------------------
@@ -2833,10 +3205,16 @@ def main() -> int:
     for op in ("dx", "dw"):
         rows[f"masked_matmul_{op}"], moe_shapes[f"masked_matmul_{op}"] = bwd[op], moe_bwd[op]
     rows["masked_matmul_dm"] = phase_masked_matmul_dm(g)
-    rows["flash_attention"], serve_rows, moe_shapes["flash_attention"] = phase_flash_attention(g)
-    rows["flash_attention_bwd"], moe_shapes["flash_attention_bwd"] = phase_flash_attention_bwd(g)
+    hyb_shapes = {}
+    rows["flash_attention"], serve_rows, moe_shapes["flash_attention"], \
+        hyb_shapes["flash_attention"] = phase_flash_attention(g)
+    rows["flash_attention_bwd"], moe_shapes["flash_attention_bwd"], \
+        hyb_shapes["flash_attention_bwd"] = phase_flash_attention_bwd(g)
     torch.cuda.empty_cache()
     rows.update(phase_masked_matmul_batched(g))
+    torch.cuda.empty_cache()
+    # the Mamba leaves of both families: {family: {kernel: {leaf: row}}}
+    mamba_shapes = phase_masked_matmul_mamba(g)
     torch.cuda.empty_cache()
     from repro_torch.data.tokens import CorpusConfig, SyntheticCorpus, calibration_set, eval_set
     from repro_torch.configs import get_config
@@ -2920,6 +3298,9 @@ def main() -> int:
     # the MoE family's path: its launches are the batched kernels' count
     moe_launches = phase_moe(walls)
     launches.update({k: moe_launches[k] for k in BATCHED})
+    torch.cuda.empty_cache()
+    # the SSM and hybrid families' paths
+    fam_launches = {fam: phase_family(fam, walls) for fam in ("ssm", "hybrid")}
     emit(dict(phase="walls", seconds=walls, total_s=time.perf_counter() - t_start))
 
     root = "src/repro_torch/kernels/csrc/"
@@ -2933,6 +3314,8 @@ def main() -> int:
         kernels.append(dict(name=name, route="cuda", source=root + base + ".cu",
                             replaces=pallas[base], launches=launches[name],
                             launches_moe=moe_launches[name],
+                            launches_ssm=fam_launches["ssm"][name],
+                            launches_hybrid=fam_launches["hybrid"][name],
                             launches_pretrain=pre_launches[name],
                             launches_path_a=by_path["A"][name], launches_path_b=by_path["B"][name],
                             launches_serve=serve_launches[name],
@@ -2953,6 +3336,16 @@ def main() -> int:
             keys = ATTN_KEYS if k["name"].startswith("flash") else MMM_KEYS
             k["moe"] = {label: {key: r.get(key) for key in keys}
                         for label, r in moe_shapes[k["name"]].items()}
+    # the ssm and hybrid paths' shapes: the Mamba leaves, the shared block's attention
+    for k in kernels:
+        for fam in ("ssm", "hybrid"):
+            shapes = dict(mamba_shapes[fam].get(k["name"], {}))
+            if fam == "hybrid":
+                shapes.update(hyb_shapes.get(k["name"], {}))
+            if shapes:
+                keys = ATTN_KEYS if k["name"].startswith("flash") else MMM_KEYS
+                k[fam] = {label: {key: r.get(key) for key in keys}
+                          for label, r in shapes.items()}
     print(smi(), flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

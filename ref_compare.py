@@ -2,6 +2,7 @@
 """The port's driver against the JAX reference's functions, on the CPU.
 
     PYTHONPATH=src python ref_compare.py --method flap [--pretrain-steps 200] [--spread]
+    PYTHONPATH=src python ref_compare.py --arch tiny_hybrid [--pretrain-steps 25]
 
 Runs ``repro_torch.launch.ebft_run.run`` with ``--baselines dsnot,mask,lora``
 at the driver's defaults (tiny_dense, seq 128, 64 calibration segments,
@@ -16,7 +17,10 @@ from starts moved by a relative 1e-6 (mask tuning's bonus, LoRA's A), and
 with pretraining its whole run from pretraining weights moved so, several
 times, and prints how far the reference's own perplexities move, and
 whether each difference is within twice that: the part of a difference
-that the algorithms' sensitivity explains.
+that the algorithms' sensitivity explains. ``--arch tiny_ssm`` and
+``--arch tiny_hybrid`` run magnitude or Wanda and EBFT without the
+baselines (the port does not run them on those families yet); there
+``--spread`` needs ``--pretrain-steps``.
 """
 from __future__ import annotations
 
@@ -46,12 +50,18 @@ def _lora_port(ref_lora):
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--arch", default="tiny_dense",
+                    choices=("tiny_dense", "tiny_ssm", "tiny_hybrid"))
     ap.add_argument("--method", default="wanda",
                     choices=("magnitude", "wanda", "sparsegpt", "dsnot", "flap"))
     ap.add_argument("--epochs", type=int, default=4)
+    ap.add_argument("--lr", type=float, default=1e-2, help="EBFT's lr (ebft_run's default)")
     ap.add_argument("--pretrain-steps", type=int, default=0)
     ap.add_argument("--spread", action="store_true")
     args = ap.parse_args(argv)
+    baselines = args.arch == "tiny_dense"
+    if not baselines and args.method not in ("magnitude", "wanda"):
+        ap.error(f"--arch {args.arch} takes --method magnitude or wanda")
 
     import jax
     import numpy as np
@@ -71,8 +81,9 @@ def main(argv=None) -> int:
     from repro_torch.core import lora as LORA
     from repro_torch.launch import ebft_run
 
-    spec = ebft_run.RunSpec(pretrain_steps=args.pretrain_steps, epochs=args.epochs,
-                            method=args.method, baselines="dsnot,mask,lora", bench_out="")
+    spec = ebft_run.RunSpec(arch=args.arch, pretrain_steps=args.pretrain_steps,
+                            epochs=args.epochs, lr=args.lr, method=args.method,
+                            baselines="dsnot,mask,lora" if baselines else "", bench_out="")
     model = ref_build(ref_config(spec.arch))
     params0 = model.init(jax.random.PRNGKey(spec.seed))
     corpus = RTOK.SyntheticCorpus(RTOK.CorpusConfig(vocab_size=model.cfg.vocab_size,
@@ -118,6 +129,8 @@ def main(argv=None) -> int:
         tuned, _ = REBFT.finetune(model, p, pruned, masks, calib,
                                   REBFT.EBFTConfig(lr=spec.lr, epochs=spec.epochs))
         out["EBFT"] = ref_ppl(model, tuned, ev)
+        if not baselines:
+            return out, masks, pruned
         _, ds = ref_prune(model, p, calib, method="dsnot", sparsity=spec.sparsity,
                           dsnot_init=spec.method if spec.method != "dsnot" else "wanda")
         out["DSnoT"] = ref_ppl(model, ds, ev)
@@ -128,12 +141,13 @@ def main(argv=None) -> int:
     ref, masks, pruned = chain(params)
     t_ref = time.perf_counter() - t0
 
-    ref_a = _lora_port(RLORA.init_lora(pruned, lcfg))
-    LORA.init_lora = lambda *a, **k: ref_a
+    if baselines:
+        ref_a = _lora_port(RLORA.init_lora(pruned, lcfg))
+        LORA.init_lora = lambda *a, **k: ref_a
     t0 = time.perf_counter()
     res = ebft_run.run(get_config(spec.arch), spec, "cpu",
                        params=interop.params_to_torch(jax.tree.map(np.asarray, params0), "cpu"))
-    out = dict(method=spec.method, seq=spec.seq, calib_samples=spec.calib_samples,
+    out = dict(arch=spec.arch, method=spec.method, lr=spec.lr, seq=spec.seq, calib_samples=spec.calib_samples,
                sparsity=spec.sparsity, epochs=spec.epochs, pretrain_steps=spec.pretrain_steps,
                batch=spec.batch, ref_s=t_ref, port_s=time.perf_counter() - t0, ref=ref,
                port=res.perplexity, rel={k: res.perplexity[k] / v - 1 for k, v in ref.items()})
@@ -144,10 +158,12 @@ def main(argv=None) -> int:
                                     rel=[a / b - 1 for a, b in zip(port_losses, ref_losses)])
     if args.spread:
         out["moves"] = MOVES
-        out["ref_spread"] = {
-            "mask-tune": [mask_ppl(params, masks, m) / ref["mask-tune"] - 1 for m in MOVES],
-            "LoRA": [lora_ppl(masks, pruned, m) / ref["LoRA"] - 1 for m in MOVES]}
-        spreads = [out["ref_spread"]]
+        spreads = []
+        if baselines:
+            out["ref_spread"] = {
+                "mask-tune": [mask_ppl(params, masks, m) / ref["mask-tune"] - 1 for m in MOVES],
+                "LoRA": [lora_ppl(masks, pruned, m) / ref["LoRA"] - 1 for m in MOVES]}
+            spreads.append(out["ref_spread"])
         if spec.pretrain_steps:  # every perplexity, from moved pretraining starts
             moved = [chain(pretrained(jax.tree.map(lambda a: a * m, params0))[0])[0]
                      for m in MOVES]

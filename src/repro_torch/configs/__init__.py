@@ -3,7 +3,9 @@
 A copy of the JAX package's registry, cut to the configurations the port
 runs so far: the paper's own Llama-7B and its tiny test variant, and the
 MoE family (DeepSeek-MoE-16B, its tiny variant, and Kimi-K2, whose full
-width waits for the distributed port, ROADMAP.md A.8). Each module exposes ``CONFIG`` (published numbers) and ``SMOKE`` (same family,
+width waits for the distributed port, ROADMAP.md A.8), the SSM family
+(Mamba2-130M, tiny_ssm) and the hybrid (Zamba2-1.2B, tiny_hybrid). Each
+module exposes ``CONFIG`` (published numbers) and ``SMOKE`` (same family,
 reduced) ModelConfigs.
 """
 from __future__ import annotations
@@ -12,7 +14,8 @@ import importlib
 
 from repro_torch.configs.base import ModelConfig
 
-CONFIG_IDS = ["llama_7b", "tiny_dense", "deepseek_moe_16b", "tiny_moe", "kimi_k2_1t_a32b"]
+CONFIG_IDS = ["llama_7b", "tiny_dense", "deepseek_moe_16b", "tiny_moe", "kimi_k2_1t_a32b",
+              "mamba2_130m", "tiny_ssm", "zamba2_1_2b", "tiny_hybrid"]
 
 _ALIAS = {i.replace("_", "-"): i for i in CONFIG_IDS}
 

@@ -1,5 +1,5 @@
 """EBFT: block-wise fine-tuning of sparse LLMs (port of
-``repro.core.ebft``, the dense and MoE families), Algorithm 1:
+``repro.core.ebft``, the dense, MoE, SSM and hybrid families), Algorithm 1:
 
     for block l = 1..L:
         E ← block-wise reconstruction error (Eq. 4) over D_c
@@ -19,8 +19,12 @@ the same history, ``epochs_run`` and ``early_stop`` as the reference's
 fused path; capturing the epoch loop in a CUDA graph is later work. Only
 one block's weights, masks and Adam moments are live at a time; the
 teacher and student streams advance microbatch-wise
-(``core/pruning/common.py``). The hybrid family's shared block waits for
-that family (ROADMAP.md queue A.5).
+(``core/pruning/common.py``). The hybrid family's shared block is tuned
+once, on the union of its sites (the reference's rule): at each site the
+visit keeps that site's (h, target, positions) microbatches and returns
+None, so the student stream at later sites runs the untuned sparse shared
+block; after the walk ``tune_block`` runs on every site's microbatches
+together, its report comes last and its weights are set back.
 
 Observability, at the reference's call sites and names: ``finetune``
 opens ``ebft/walk`` (``fused=False``, ``prefetch_depth=0``) and
@@ -189,9 +193,14 @@ def finetune(model, dense_params: Params, pruned_params: Params, masks: Params,
         student = apply_masks(pruned_params, masks)
         reports: List[BlockReport] = []
         step_cache: Dict = {}
+        shared_idx = model.num_blocks - 1 if model.cfg.family == "hybrid" else None
+        shared_sites: List[Tuple] = []
 
         def visit(i, bp, ctx):
             data = list(zip(ctx["h_mb"], ctx["target_mb"], ctx["pos_mb"]))
+            if i == shared_idx:
+                shared_sites.extend(data)  # tuned once on the union of the sites
+                return None
             tuned, rep = tune_block(model, i, bp, model.get_block(masks, i), data, ecfg,
                                     step_cache)
             reports.append(rep)
@@ -202,4 +211,14 @@ def finetune(model, dense_params: Params, pruned_params: Params, masks: Params,
 
         result = C.walk_blocks(model, dense_params, calib, visit, microbatch=ecfg.microbatch,
                                params_student=student, masks=masks, dual_stream=True)
+        if shared_sites:
+            # tune_block trains clones of the live leaves get_block returns
+            tuned, rep = tune_block(model, shared_idx, model.get_block(result, shared_idx),
+                                    model.get_block(masks, shared_idx), shared_sites, ecfg,
+                                    step_cache)
+            reports.append(rep)
+            if log:
+                log(f"shared block [{rep.kind}] ({len(shared_sites)} site-batches) "
+                    f"E: {rep.loss_before:.3e} -> {rep.loss_after:.3e}")
+            result = model.set_block(result, shared_idx, tuned)
     return result, reports

@@ -106,8 +106,9 @@ def finetune_lora(model, pruned_params: Params, masks: Params, data_iter: Iterat
     params' device. ``data_iter`` yields (B, S) token arrays. ``losses``,
     when a list, gets each step's LM loss as a 0-d device tensor (no
     sync)."""
-    if model.cfg.family == "moe":
-        raise NotImplementedError("LoRA on expert leaves is not ported yet (ROADMAP.md A.5)")
+    if model.cfg.family != "dense":
+        raise NotImplementedError(f"LoRA on the {model.cfg.family} family is not ported yet "
+                                  "(ROADMAP.md A.5)")
     lcfg = lcfg or LoRAConfig()
     device = pruned_params["embed"]["tok"].device
     if lora is None:

@@ -34,7 +34,7 @@ Params = Any
 def _hard_mask(name: str, scores_mat: torch.Tensor, sparsity: float, pattern) -> torch.Tensor:
     """The bool mask the (R, O) scores select."""
     if pattern is not None:
-        return SP.nm_mask(scores_mat, *pattern)
+        return SP.leaf_nm_mask(name, scores_mat, *pattern)
     return SP.topk_mask_rows(scores_mat, sparsity)
 
 
@@ -99,9 +99,9 @@ def finetune_masks(model, dense_params: Params, init_masks: Params, sparsity: fl
     ``histories``, when a list, gets each block's epoch mean losses;
     ``scores_out``, when a dict, each prunable leaf's final (R, O) scores,
     keyed by ``(block, *path)``."""
-    if model.cfg.family == "moe":
-        raise NotImplementedError("mask tuning on expert leaves (a batched dM) is not ported "
-                                  "yet (ROADMAP.md A.5)")
+    if model.cfg.family != "dense":
+        raise NotImplementedError(f"mask tuning on the {model.cfg.family} family (on MoE a "
+                                  "batched dM) is not ported yet (ROADMAP.md A.5)")
     ecfg = ecfg or EBFTConfig(lr=2e-2)  # scores need a larger step than weights
     masks = T.tree_map(torch.clone, init_masks)
     student = SP.apply_masks(dense_params, masks)

@@ -14,7 +14,16 @@ On the MoE family, magnitude and Wanda prune every routed expert's leaves
 as matrices of their own (per expert, per output column) and never the
 router. FLAP refuses it, as the reference does (it targets attention + MLP
 stacks); SparseGPT and DSnoT on expert leaves (the reference ``vmap``s
-them over E) are not ported yet and raise.
+them over E) are not ported yet and raise. On the SSM and hybrid families
+magnitude and Wanda prune the Mamba projections and ``conv_w`` (kept
+dense under N:M), and the hybrid's shared block at each of its sites, as
+the reference's walk visits it; FLAP refuses them, SparseGPT and DSnoT
+are not ported for them yet and raise.
+
+A mask the bf16 kernel could not read by TMA (a single output axis whose
+rows are not 16 bytes apart: Mamba2-130M's ``in_dt``, (768, 24)) is kept
+as a view into a row-padded buffer (``masked_matmul.ops.aligned_mask``);
+every mask tree ``prune`` returns is laid out so.
 """
 from __future__ import annotations
 
@@ -30,6 +39,7 @@ from repro_torch.core.pruning import flap as FLAP
 from repro_torch.core.pruning import magnitude as MAG
 from repro_torch.core.pruning import sparsegpt as SGPT
 from repro_torch.core.pruning import wanda as WANDA
+from repro_torch.kernels.masked_matmul.ops import aligned_mask
 from repro_torch.sparsity import sparse_params as SP
 
 Params = Any
@@ -39,6 +49,17 @@ METHODS = ("magnitude", "wanda", "sparsegpt", "dsnot", "flap")
 
 def full_ones_masks(params: Params) -> Params:
     return T.tree_map(lambda p: torch.ones(p.shape, dtype=torch.bool, device=p.device), params)
+
+
+def align_masks(masks: Params) -> Params:
+    """``masks`` with each prunable leaf of one output axis (the last)
+    made ``aligned_mask``: the layout the bf16 kernel reads."""
+    def g(path, m):
+        if SP.is_prunable(path, m) and SP.out_axes(path[-1]) == 1:
+            return aligned_mask(m)
+        return m
+
+    return T.map_with_path(g, masks)
 
 
 def expand_masks(params: Params, masks: Params) -> Params:
@@ -64,11 +85,11 @@ def prune(model, params: Params, calib: Optional[np.ndarray], method: str = "wan
     ``(block, "heads" | "channels")`` -> the unit scores before
     standardising."""
     if method == "magnitude":
-        masks = expand_masks(params, MAG.make_masks(params, sparsity, pattern))
+        masks = align_masks(expand_masks(params, MAG.make_masks(params, sparsity, pattern)))
         return masks, SP.apply_masks(params, masks)
-    if model.cfg.family == "moe" and method in ("sparsegpt", "dsnot"):
-        raise NotImplementedError(f"{method} on expert leaves is not ported yet "
-                                  "(ROADMAP.md A.5)")
+    if model.cfg.family != "dense" and method in ("sparsegpt", "dsnot"):
+        raise NotImplementedError(f"{method} on the {model.cfg.family} family is not ported "
+                                  "yet (ROADMAP.md A.5)")
     if method == "flap":
         return _prune_flap(model, params, calib, sparsity, microbatch, scores_out)
     if method == "dsnot":
@@ -78,7 +99,7 @@ def prune(model, params: Params, calib: Optional[np.ndarray], method: str = "wan
     if method not in ("wanda", "sparsegpt"):
         raise ValueError(f"unknown pruning method {method!r}; one of {METHODS}")
 
-    masks = full_ones_masks(params)
+    masks = align_masks(full_ones_masks(params))
     want_h = method == "sparsegpt"
 
     def visit(i, bp, ctx):
@@ -91,7 +112,8 @@ def prune(model, params: Params, calib: Optional[np.ndarray], method: str = "wan
             mat, tag = SP.to_matrix(names[-1], leaf)
             if method == "wanda":
                 scores = WANDA.leaf_scores(names[-1], mat, st)
-                mk = SP.from_matrix(WANDA.mask_from_scores(scores, sparsity, pattern), tag)
+                mk = SP.from_matrix(WANDA.mask_from_scores(names[-1], scores, sparsity, pattern),
+                                    tag)
                 nw = leaf * mk.to(leaf.dtype)
             else:
                 scores = None if st is None or st.hessian is None else \

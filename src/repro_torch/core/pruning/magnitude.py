@@ -15,7 +15,7 @@ def leaf_mask(name: str, leaf, sparsity: float, pattern=None):
     mat, tag = SP.to_matrix_stacked(name, leaf)
     scores = mat.abs()
     if pattern is not None:
-        mask = SP.nm_mask(scores, *pattern)
+        mask = SP.leaf_nm_mask(name, scores, *pattern)
     else:
         mask = SP.global_topk_mask(scores, sparsity)
     return SP.from_matrix(mask, tag)

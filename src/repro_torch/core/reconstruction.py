@@ -1,5 +1,6 @@
 """Block-wise reconstruction machinery (port of
-``repro.core.reconstruction``, the dense and MoE families): the execution plan, the
+``repro.core.reconstruction``, the dense, MoE, SSM and hybrid families):
+the execution plan, the
 stream advances, and the EBFT objective for block l (paper Eq. 4)
 
     min_{W̄_l}  || z^l  −  z̄^l ||₂²
@@ -25,11 +26,24 @@ class Segment:
 
 
 def execution_plan(model) -> List[Segment]:
-    """The dense and MoE families' plan: one segment visiting every block
-    once (an MoE stack's leading dense blocks first)."""
-    if model.cfg.family not in ("dense", "moe"):
+    """One segment. The dense, MoE and SSM families visit every block once
+    (an MoE stack's leading dense blocks first); the hybrid visits, for
+    each group g, its K Mamba blocks and then the shared block (index
+    ``num_blocks - 1``) as site g, then the trailing Mamba blocks."""
+    cfg = model.cfg
+    if cfg.family == "hybrid":
+        K = cfg.hybrid_attn_every
+        G = cfg.num_layers // K
+        shared = model.num_blocks - 1
+        visits: List[Tuple[int, int]] = []
+        for g in range(G):
+            visits += [(g * K + j, 0) for j in range(K)]
+            visits.append((shared, g))
+        visits += [(i, 0) for i in range(G * K, cfg.num_layers)]
+        return [Segment(visits, model.embed_tokens)]
+    if cfg.family not in ("dense", "moe", "ssm"):
         raise NotImplementedError(
-            f"execution plan for family {model.cfg.family!r} (ROADMAP.md queue A.5)")
+            f"execution plan for family {cfg.family!r} (ROADMAP.md queue A.5)")
     return [Segment([(i, 0) for i in range(model.num_blocks)], model.embed_tokens)]
 
 
@@ -45,12 +59,15 @@ def advance_with(model, params, i: int, bp, h, positions, masks: Optional[Params
 
 
 def block_kind(model, i: int) -> str:
-    """Blocks of one kind behave alike: the dense family has one kind, the
-    MoE family ``"dense"`` (its leading dense blocks) and ``"moe"``."""
+    """Blocks of one kind behave alike: the dense and SSM families have one
+    kind each, the MoE family ``"dense"`` (its leading dense blocks) and
+    ``"moe"``, the hybrid ``"mamba"`` and ``"shared"``."""
     cfg = model.cfg
     if cfg.family == "moe":
         return "dense" if i < cfg.moe_first_dense else "moe"
-    if cfg.family != "dense":
+    if cfg.family == "hybrid":
+        return "shared" if i == model.num_blocks - 1 else "mamba"
+    if cfg.family not in ("dense", "ssm"):
         raise NotImplementedError(
             f"block kinds of family {cfg.family!r} (ROADMAP.md queue A.5)")
     return "block"

@@ -243,13 +243,25 @@ def _launch_dm(x: torch.Tensor, dy: torch.Tensor, w: torch.Tensor) -> torch.Tens
     return _kernel("masked_matmul_dm", x, dy, w)
 
 
-def _kernel(fn: str, a: torch.Tensor, b: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
-    """Launch ``<fn>_<dtype>`` (``fn``'s batched entry on E slabs, each
-    passed with its row and slab strides) on ``a``, ``b`` of one dtype and
-    a (K, N) mask (for dM the weight w, in their dtype) after the checks
-    every entry point of the library needs, and count the launch. A product
-    with an empty dimension launches nothing: zeros (an empty reduction) or
-    an empty tensor."""
+def aligned_mask(m: torch.Tensor) -> torch.Tensor:
+    """``m`` (..., K, N), one byte a slot, with rows a multiple of 16 bytes
+    apart, as the bf16 kernel reads a mask (by TMA): ``m`` itself when N is
+    a multiple of 16, else a view of the first N columns of a copy padded
+    to the next multiple of 16 (Mamba2-130M's ``in_dt`` mask, (768, 24),
+    is kept in a (768, 32) buffer: 8 bytes a row more)."""
+    N = m.shape[-1]
+    if m.element_size() != 1 or N % 16 == 0:
+        return m
+    buf = torch.zeros((*m.shape[:-1], -(-N // 16) * 16), dtype=m.dtype, device=m.device)
+    buf[..., :N] = m
+    return buf[..., :N]
+
+
+def check_operands(fn: str, a: torch.Tensor, b: torch.Tensor, m: torch.Tensor):
+    """The checks every entry point of the library needs, on operands of
+    any device: raises TypeError or ValueError on operands the kernel does
+    not take. Returns the third operand as the kernel reads it (a mask as
+    uint8)."""
     name = _entry(fn, a)
     if a.dtype not in _SUFFIX or b.dtype != a.dtype:
         raise TypeError(f"{name}: kernel takes f32 or bf16 operands of one dtype, got "
@@ -286,6 +298,21 @@ def _kernel(fn: str, a: torch.Tensor, b: torch.Tensor, m: torch.Tensor) -> torch
                          f"16-byte-aligned matrices and {third}")
     if max(E, M, K, N) > _INT_MAX:
         raise ValueError(f"{name}: dims {(E, M, K, N)} exceed int32")
+    return m
+
+
+def _kernel(fn: str, a: torch.Tensor, b: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
+    """Launch ``<fn>_<dtype>`` (``fn``'s batched entry on E slabs, each
+    passed with its row and slab strides) on ``a``, ``b`` of one dtype and
+    a (K, N) mask (for dM the weight w, in their dtype) after
+    ``check_operands``, and count the launch. A product with an empty
+    dimension launches nothing: zeros (an empty reduction) or an empty
+    tensor."""
+    m = check_operands(fn, a, b, m)
+    name = _entry(fn, a)
+    batched = a.dim() == 3
+    E = a.shape[0] if batched else 1
+    M, K, N = _mkn(fn, a, b)
     out_shape = _shape(_OPERANDS[fn][3], a.shape[:-2], M, K, N)
     if min(E, M, K, N) == 0:
         return torch.zeros(out_shape, dtype=a.dtype, device=a.device)

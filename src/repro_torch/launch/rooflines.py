@@ -16,7 +16,9 @@ HLO statistics, which have no torch counterpart; it waits with
 6·N·D for training (forward + backward), 2·N·D for inference, and for an
 ``ebft`` shape one block's forward + backward over the calibration batch.
 The MoE family counts its active parameters (top-k routed experts, the
-shared ones, the router), as the reference.
+shared ones, the router), as the reference; the SSM and hybrid families
+count ``param_count`` as the dense one (the head in, for an ``ebft``
+shape the embedding out; the hybrid's shared block once).
 """
 from __future__ import annotations
 
@@ -27,10 +29,10 @@ HBM_BW = 3.35e12      # bytes/s
 
 
 def model_flops_per_chip(cfg: ModelConfig, shape: ShapeConfig, chips: int) -> float:
-    """The reference's count for the dense and MoE families (embedding
-    lookups are table reads, not FLOPs; the LM head is a matmul and is in
-    ``param_count``)."""
-    if cfg.family not in ("dense", "moe"):
+    """The reference's count for the dense, MoE, SSM and hybrid families
+    (embedding lookups are table reads, not FLOPs; the LM head is a matmul
+    and is in ``param_count``)."""
+    if cfg.family not in ("dense", "moe", "ssm", "hybrid"):
         raise NotImplementedError(f"model FLOPs of family {cfg.family!r} "
                                   "(ROADMAP.md queue A.5)")
     n = cfg.param_count(active_only=cfg.family == "moe")

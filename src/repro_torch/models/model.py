@@ -1,4 +1,5 @@
-"""Model facade (port of ``repro.models.model``: the dense and MoE families).
+"""Model facade (port of ``repro.models.model``: the dense, MoE, SSM and
+hybrid families).
 
 ``build(cfg)`` returns a ``Model`` with the reference's interface:
 
@@ -22,7 +23,10 @@ the block into them in place (the reference returns a new tree; the port
 saves a copy of the whole model per block and returns the same tree). In
 the MoE family blocks ``0 .. moe_first_dense - 1`` are the dense blocks and
 the rest the MoE blocks; its loss is ``nll + 0.01·aux`` (the load-balance
-term) with the metrics ``{"nll", "aux"}``.
+term) with the metrics ``{"nll", "aux"}``. In the hybrid family blocks
+``0 .. num_layers - 1`` are the Mamba blocks in execution order and block
+``num_layers`` the shared attention block, whose ``get_block`` is the
+live ``params["shared"]`` tree (counted once in ``num_blocks``).
 """
 from __future__ import annotations
 
@@ -33,7 +37,7 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import layers, moe, transformer
+from repro_torch.models import hybrid, layers, moe, ssm, transformer
 
 Params = Dict[str, Any]
 
@@ -73,7 +77,9 @@ class Model:
     finalize: Callable
 
 
-def _set_tree(tree: Params, i: int, sub: Params) -> None:
+def _set_tree(tree: Params, i, sub: Params) -> None:
+    """Copy ``sub`` into ``tree[.][i]`` in place (``i`` an index, a tuple of
+    indices, or ``...`` for an unstacked tree)."""
     for k, v in tree.items():
         if isinstance(v, dict):
             _set_tree(v, i, sub[k])
@@ -86,6 +92,10 @@ def build(cfg: ModelConfig) -> Model:
         return _build_dense(cfg)
     if cfg.family == "moe":
         return _build_moe(cfg)
+    if cfg.family == "ssm":
+        return _build_ssm(cfg)
+    if cfg.family == "hybrid":
+        return _build_hybrid(cfg)
     raise NotImplementedError(f"family {cfg.family!r} is not ported yet (ROADMAP.md queue A.5)")
 
 
@@ -107,15 +117,33 @@ def _finalize(cfg: ModelConfig):
     return finalize
 
 
+def _nll_loss(forward):
+    """The loss of the dense, SSM and hybrid families: the next-token NLL of
+    ``forward``'s logits, also its one metric ``{"nll"}``."""
+    def loss(params, batch, masks=None):
+        l = _shift_loss(forward(params, batch, masks), batch["tokens"])
+        return l, {"nll": l}
+
+    return loss
+
+
+def _serving(M, cfg: ModelConfig) -> Dict[str, Callable]:
+    """A model module's cache entries (``init_cache``, ``prefill``,
+    ``decode_step``) as the ``Model`` fields; the cache on the card unless
+    ``device`` says otherwise."""
+    return dict(
+        init_serve_state=lambda b, ml, device=None: M.init_cache(cfg, b, ml,
+                                                                 resolve_device(device)),
+        prefill=lambda params, batch, state: M.prefill(params, cfg, batch["tokens"], state),
+        decode_step=lambda params, token, state: M.decode_step(params, cfg, token, state),
+    )
+
+
 def _build_dense(cfg: ModelConfig) -> Model:
     M = transformer
 
     def forward(params, batch, masks=None):
         return M.forward(params, cfg, batch["tokens"], masks=masks)
-
-    def loss(params, batch, masks=None):
-        l = _shift_loss(forward(params, batch, masks), batch["tokens"])
-        return l, {"nll": l}
 
     def apply_block(params, i, bp, h, positions, masks=None):
         return M.block_apply(bp, cfg, h, positions, masks)
@@ -128,11 +156,8 @@ def _build_dense(cfg: ModelConfig) -> Model:
         cfg=cfg,
         init=lambda g: M.init(g, cfg),
         forward=forward,
-        loss=loss,
-        init_serve_state=lambda b, ml, device=None: M.init_cache(cfg, b, ml,
-                                                                 resolve_device(device)),
-        prefill=lambda params, batch, state: M.prefill(params, cfg, batch["tokens"], state),
-        decode_step=lambda params, token, state: M.decode_step(params, cfg, token, state),
+        loss=_nll_loss(forward),
+        **_serving(M, cfg),
         num_blocks=cfg.num_layers,
         get_block=lambda params, i: M.slice_block(params["blocks"], i),
         set_block=set_block,
@@ -175,11 +200,71 @@ def _build_moe(cfg: ModelConfig) -> Model:
         init=lambda g: moe.init(g, cfg),
         forward=forward,
         loss=loss,
-        init_serve_state=lambda b, ml, device=None: moe.init_cache(cfg, b, ml,
-                                                                   resolve_device(device)),
-        prefill=lambda params, batch, state: moe.prefill(params, cfg, batch["tokens"], state),
-        decode_step=lambda params, token, state: moe.decode_step(params, cfg, token, state),
+        **_serving(moe, cfg),
         num_blocks=cfg.num_layers,
+        get_block=get_block,
+        set_block=set_block,
+        apply_block=apply_block,
+        embed_tokens=_embed_tokens(cfg),
+        finalize=_finalize(cfg),
+    )
+
+
+def _build_ssm(cfg: ModelConfig) -> Model:
+    def forward(params, batch, masks=None):
+        return ssm.forward(params, cfg, batch["tokens"], masks)
+
+    def set_block(params, i, bp):
+        _set_tree(params["blocks"], i, bp)
+        return params
+
+    return Model(
+        cfg=cfg,
+        init=lambda g: ssm.init(g, cfg),
+        forward=forward,
+        loss=_nll_loss(forward),
+        **_serving(ssm, cfg),
+        num_blocks=cfg.num_layers,
+        get_block=lambda params, i: transformer.slice_block(params["blocks"], i),
+        set_block=set_block,
+        apply_block=lambda params, i, bp, h, positions, masks=None: ssm.mamba_block_apply(
+            bp, cfg, h, masks=masks)[0],
+        embed_tokens=_embed_tokens(cfg),
+        finalize=_finalize(cfg),
+    )
+
+
+def _build_hybrid(cfg: ModelConfig) -> Model:
+    G, K, _ = hybrid.schedule(cfg)
+    n_mamba = cfg.num_layers  # block n_mamba is the shared block
+
+    def forward(params, batch, masks=None):
+        return hybrid.forward(params, cfg, batch["tokens"], masks)
+
+    def get_block(params, i):
+        return params["shared"] if i == n_mamba else hybrid.mamba_block(params, i, cfg)
+
+    def set_block(params, i, bp):
+        if i == n_mamba:
+            _set_tree(params["shared"], ..., bp)
+        elif i < G * K:
+            _set_tree(params["groups"], (i // K, i % K), bp)
+        else:
+            _set_tree(params["trailing"], i - G * K, bp)
+        return params
+
+    def apply_block(params, i, bp, h, positions, masks=None):
+        if i == n_mamba:
+            return transformer.block_apply(bp, cfg, h, positions, masks)
+        return ssm.mamba_block_apply(bp, cfg, h, masks=masks)[0]
+
+    return Model(
+        cfg=cfg,
+        init=lambda g: hybrid.init(g, cfg),
+        forward=forward,
+        loss=_nll_loss(forward),
+        **_serving(hybrid, cfg),
+        num_blocks=n_mamba + 1,
         get_block=get_block,
         set_block=set_block,
         apply_block=apply_block,

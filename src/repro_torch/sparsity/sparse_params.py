@@ -1,14 +1,16 @@
 """Masked parameter trees + sparsity pattern utilities (port of
-``repro.sparsity.sparse_params``: the dense family's leaves and the MoE
-family's, whose routed-expert leaves carry a leading E axis).
+``repro.sparsity.sparse_params``: the dense family's leaves, the MoE
+family's, whose routed-expert leaves carry a leading E axis, and the
+Mamba blocks' in- and out-projections and depthwise conv).
 
 * A **mask tree** mirrors the param tree. The port's masks are ``bool``:
   prunable leaves carry a mask of the leaf's shape; in ``ones_masks``
   non-prunable leaves carry a 0-d True (``core.masks.expand_masks`` makes
   them full so block slicing works). ``repro_torch.interop`` converts to
   and from the reference's f32 masks.
-* **Prunable leaves** are the >=2-D linear weights of each block;
-  norms, embeddings and the LM head are never pruned.
+* **Prunable leaves** are the >=2-D linear weights of each block and a
+  Mamba block's conv taps; norms, embeddings, the LM head and the SSD
+  dynamics (A_log, D, dt_bias) are never pruned.
 * Every prunable leaf has a canonical (reduction, out) 2-D view via
   ``to_matrix`` (an expert leaf: (E, R, O), each expert its own matrix);
   pruning scores and N:M groups run in that view. A router is never
@@ -24,7 +26,8 @@ from repro_torch import tree as T
 
 Params = Any
 
-PRUNABLE_NAMES = frozenset({"wq", "wk", "wv", "wo", "w_up", "w_gate", "w_down"})
+PRUNABLE_NAMES = frozenset({"wq", "wk", "wv", "wo", "w_up", "w_gate", "w_down",
+                            "in_z", "in_x", "in_B", "in_C", "in_dt", "out", "conv_w"})
 PROTECTED_PARENTS = frozenset({"router", "embed", "head", "gnorm"})
 
 
@@ -72,10 +75,21 @@ def sparsity_of(masks: Params, params: Params) -> float:
 # ---------------------------------------------------------------------------
 # canonical (reduction, out) 2-D views
 # ---------------------------------------------------------------------------
-# name -> number of leading (logical) axes that are reduction axes
-_REDUCTION_LEAD = {"wq": 1, "wk": 1, "wv": 1, "wo": 2, "w_up": 1, "w_gate": 1, "w_down": 1}
-# logical (unstacked) rank per prunable leaf; extra leading dims are stack axes
-_LOGICAL_NDIM = {"wq": 3, "wk": 3, "wv": 3, "wo": 3, "w_up": 2, "w_gate": 2, "w_down": 2}
+# name -> number of leading (logical) axes that are reduction axes: in_z and
+# in_x (d | H, P), in_B, in_C, in_dt (d | ...), out (H, P | d), conv_w (K | ch)
+_REDUCTION_LEAD = {"wq": 1, "wk": 1, "wv": 1, "wo": 2, "w_up": 1, "w_gate": 1, "w_down": 1,
+                   "in_z": 1, "in_x": 1, "in_B": 1, "in_C": 1, "in_dt": 1, "out": 2,
+                   "conv_w": 1}
+# logical (unstacked) rank per prunable leaf; extra leading dims are stack
+# axes (L layers, the hybrid's (G, K) groups, E experts)
+_LOGICAL_NDIM = {"wq": 3, "wk": 3, "wv": 3, "wo": 3, "w_up": 2, "w_gate": 2, "w_down": 2,
+                 "in_z": 3, "in_x": 3, "in_B": 2, "in_C": 2, "in_dt": 2, "out": 3,
+                 "conv_w": 2}
+
+
+def out_axes(name: str) -> int:
+    """The number of (logical) output axes of a prunable leaf."""
+    return _LOGICAL_NDIM[name] - _REDUCTION_LEAD[name]
 
 
 def is_expert_batched(name: str, leaf) -> bool:
@@ -101,7 +115,7 @@ def from_matrix(mat: torch.Tensor, tag) -> torch.Tensor:
 def to_matrix_stacked(name: str, leaf: torch.Tensor):
     """Like ``to_matrix`` but keeps leading stack axes: (S..., R, O), e.g.
     (L, R, O) for a stacked dense leaf, (L, E, R, O) for a stacked expert
-    leaf."""
+    leaf, (G, K, R, O) for a hybrid's grouped Mamba leaf."""
     n_log = _LOGICAL_NDIM[name]
     lead = _REDUCTION_LEAD[name]
     stack = leaf.shape[: leaf.dim() - n_log]
@@ -158,6 +172,15 @@ def nm_mask(scores: torch.Tensor, n: int, m: int) -> torch.Tensor:
     earlier = torch.ones(m, m, dtype=torch.bool, device=g.device).tril(-1)[:, :, None]
     rank = ((s_j > s_i) | ((s_j == s_i) & earlier)).sum(dim=-2)
     return (rank < n).reshape(*lead, R, O)
+
+
+def leaf_nm_mask(name: str, scores: torch.Tensor, n: int, m: int) -> torch.Tensor:
+    """``nm_mask`` of a leaf's scores; a Mamba block's ``conv_w`` (K | ch, a
+    4-tap depthwise conv: no N:M groups worth the name) stays dense, as
+    the reference's magnitude, Wanda and mask tuning keep it."""
+    if name == "conv_w":
+        return torch.ones(scores.shape, dtype=torch.bool, device=scores.device)
+    return nm_mask(scores, n, m)
 
 
 def thresholds(scores: torch.Tensor, sparsity: float,

@@ -1,5 +1,5 @@
-"""Per-linear activation taps (port of ``repro.sparsity.taps``: the dense
-and MoE families).
+"""Per-linear activation taps (port of ``repro.sparsity.taps``: the dense,
+MoE, SSM and hybrid families).
 
 ``taps_for_block(cfg, i, num_blocks)`` picks the tap function of block
 ``i``; each ``taps(bp, cfg, h, positions)`` replays one block with the
@@ -7,7 +7,9 @@ model's own layer code and returns, for every prunable leaf name, the
 activation whose reduction-axis statistics the pruning methods consume:
 (T, R) for a dense linear, and for the routed experts the dispatched
 per-expert activations (E, C, R), so expert-wise statistics are exact.
-The shared experts' leaves take the ``shared/…`` keys.
+The shared experts' leaves take the ``shared/…`` keys. A Mamba block's
+``conv_w`` gets the conv's (T, ch) input: its statistics are per channel,
+the leaf's output axis.
 """
 from __future__ import annotations
 
@@ -19,6 +21,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.models import moe as MOE
+from repro_torch.models import ssm as SSM
 
 
 def _flat(x: torch.Tensor) -> torch.Tensor:
@@ -77,10 +80,26 @@ def moe_taps(bp, cfg: ModelConfig, h: torch.Tensor, positions) -> Dict[str, torc
     return out
 
 
+def ssm_taps(bp, cfg: ModelConfig, h: torch.Tensor, positions=None) -> Dict[str, torch.Tensor]:
+    """A Mamba block's taps: the normed input for the five in-projections,
+    the conv's input for ``conv_w``, the gated norm's output for ``out``."""
+    u, z, xbc, dt_raw = SSM.in_proj(bp, cfg, h)
+    flat_u = _flat(u)
+    out = {k: flat_u for k in ("in_z", "in_x", "in_B", "in_C", "in_dt")}
+    out["conv_w"] = _flat(xbc)
+    out["out"] = _flat(SSM.mixer(bp, cfg, z, xbc, dt_raw)[0])
+    return out
+
+
 def taps_for_block(cfg: ModelConfig, block_index: int, num_blocks: int) -> Callable:
-    """Which tap function applies to block ``block_index``."""
+    """Which tap function applies to block ``block_index``; in the hybrid
+    family the last index is the shared attention block."""
     if cfg.family == "dense":
         return dense_taps
     if cfg.family == "moe":
         return moe_taps
+    if cfg.family == "ssm":
+        return ssm_taps
+    if cfg.family == "hybrid":
+        return dense_taps if block_index == num_blocks - 1 else ssm_taps
     raise NotImplementedError(f"taps of family {cfg.family!r} (ROADMAP.md queue A.5)")
