@@ -29,8 +29,17 @@ perplexity and serving, every Mamba projection through the masked GEMM
 (Mamba2-130M's in_dt mask, (768, 24), a view into a row-padded buffer)
 and Zamba2's shared block through the attention kernel at head width 64,
 which the masked and attention phases hold at those shapes; then
-tiny_ssm and tiny_hybrid on the card against the CPU. Every phase prints
-one JSON line; any
+tiny_ssm and tiny_hybrid on the card against the CPU. The ``vlm`` phase
+runs the VLM family on LLaVA-NeXT-Mistral-7B at its published widths (4
+of its 32 layers; 32 query heads over 8 KV heads; seq 2048 = 1024 seeded
+patch positions + 1024 tokens): pretraining through ``launch/train``,
+Wanda 0.7, EBFT and perplexity with the patches passed as ``extra_batch``,
+then greedy serving through the cache's GQA branch and the
+teacher-forced check of the multimodal prefill and decode; then tiny_vlm
+(with the baselines) and the SMOKE sizes of Qwen1.5-4B, Nemotron-4-15B,
+Qwen2.5-32B and Qwen1.5-110B on the card against the CPU, whose leaf
+shapes, with LLaVA's, the ``masked_matmul_vlm`` phase holds. Every phase
+prints one JSON line; any
 failed check raises, so the script exits non-zero. The last three lines
 are the card's name and power limit, the per-kernel summary, and
 ``{"ok": true, "device": ...}``. Without a card it exits non-zero and
@@ -307,6 +316,14 @@ MOE_ATTN = {"ebft": (128, 2048, 2048, 128, True, 0),
 HYB_ATTN = {"ebft": (256, 2048, 2048, 64, True, 0),
             "serve_decode": (256, 1, 1024, 64, True, 527),
             "serve_prefill": (32, 512, 1024, 64, True, 0)}
+# the vlm path's attention after the GQA repeat (8 x 32 heads x 128; Mistral's
+# 8 KV heads each serve 4): EBFT's and pretraining's microbatch of 8 x 2048
+# [1024 patches ; 1024 tokens] (the main path's shape), its greedy run's
+# prefill of 8 x [1024 patches ; 512 tokens] into a 2048-position cache, and
+# a decode step there at len 1550
+VLM_ATTN = {"ebft": (256, 2048, 2048, 128, True, 0),
+            "serve_prefill": (256, 1536, 2048, 128, True, 0),
+            "serve_decode": (256, 1, 2048, 128, True, 1550)}
 ATTN_KEYS = ("BH", "Sq", "Sk", "q_offset", "max_abs_err", "ms", "plain_ms", "bound_ms",
              "bound_by", "library_ms")
 
@@ -315,11 +332,12 @@ def phase_flash_attention(g):
     """Kernel vs plain: (256, 2048, 128) causal, a non-causal case and a
     q_offset > 0 case with Sq < Sk, the serve phase's decode and prefill
     shapes (``SERVE_ATTN``), the moe path's three (``MOE_ATTN``), the
-    hybrid path's three at head width 64 (``HYB_ATTN``), in f32 and bf16;
+    hybrid path's three at head width 64 (``HYB_ATTN``), the vlm path's
+    prefill and decode (``VLM_ATTN``), in f32 and bf16;
     plus every compiled head width at a small shape. In every case the row
     log-sum-exp that the forward writes for the backward is held to the
     plain one. Returns the (256, 2048, 128) causal bf16 row, the bf16
-    serving rows and the bf16 moe and hybrid rows. The bound
+    serving rows and the bf16 moe, hybrid and vlm rows. The bound
     counts the keys a causal row can see (min(Sk, q_offset + Sq)); the
     library call is SDPA on the same inputs (at a decode shape over the
     len + 1 visible keys, non-causal: the same function)."""
@@ -332,11 +350,12 @@ def phase_flash_attention(g):
         flash_attention_lse_plain, flash_attention_plain,
     )
 
-    cases = [(256, 2048, 2048, 128, True, 0), (64, 1024, 1024, 128, False, 0),
-             (64, 512, 2048, 128, True, 1536), *SERVE_ATTN.values(), *MOE_ATTN.values(),
-             *HYB_ATTN.values(), (8, 200, 333, 64, True, 133), (8, 128, 128, 32, False, 0),
-             (16, 128, 128, 16, True, 0)]
-    summary, serve_rows, moe_rows, hyb_rows = None, {}, {}, {}
+    cases = list(dict.fromkeys([
+        (256, 2048, 2048, 128, True, 0), (64, 1024, 1024, 128, False, 0),
+        (64, 512, 2048, 128, True, 1536), *SERVE_ATTN.values(), *MOE_ATTN.values(),
+        *HYB_ATTN.values(), *VLM_ATTN.values(), (8, 200, 333, 64, True, 133),
+        (8, 128, 128, 32, False, 0), (16, 128, 128, 16, True, 0)]))
+    summary, serve_rows, moe_rows, hyb_rows, vlm_rows = None, {}, {}, {}, {}
     for dtype in ("float32", "bfloat16"):
         dt = getattr(torch, dtype)
         for BH, Sq, Sk, d, causal, off in cases:
@@ -364,7 +383,9 @@ def phase_flash_attention(g):
                        None)
             hyb = next((n for n, c in HYB_ATTN.items() if c == (BH, Sq, Sk, d, causal, off)),
                        None)
-            if BH >= 64 or serving or moe or hyb:
+            vlm = next((n for n, c in VLM_ATTN.items() if c == (BH, Sq, Sk, d, causal, off)),
+                       None)
+            if BH >= 64 or serving or moe or hyb or vlm:
                 row["ms"] = timed_ms(lambda: flash_attention(q, k, v, **kw))
                 row["plain_ms"] = timed_ms(lambda: flash_attention_plain(q, k, v, **kw))
                 keys = min(Sk, off + Sq) if causal else Sk
@@ -391,13 +412,16 @@ def phase_flash_attention(g):
                 if dtype == "bfloat16" and hyb:
                     row["hybrid"] = hyb
                     hyb_rows[hyb] = row
+                if dtype == "bfloat16" and vlm:
+                    row["vlm"] = vlm
+                    vlm_rows[vlm] = row
             emit(row)
             del q, k, v, out, ref
     buf = torch.randn(3, 8 * 200 * 64 + 1, device="cuda", generator=g).to(torch.bfloat16)
     q, k, v = (buf[i, 1:].view(8, 200, 64) for i in range(3))
     _refuses("flash_attention unaligned bf16", lambda: flash_attention(q, k, v))
     emit(dict(phase="flash_attention", case="unaligned bf16", refused=True))
-    return summary, serve_rows, moe_rows, hyb_rows
+    return summary, serve_rows, moe_rows, hyb_rows, vlm_rows
 
 
 def phase_masked_matmul_bwd(g):
@@ -966,8 +990,10 @@ SERVE_NAMES = ["serve/prefill/exec_s", "serve/decode/exec_s", "serve/queue_depth
                "serve/batch_occupancy", "serve/tokens", "serve/requests", "serve/tokens_per_s"]
 
 
-def _serve_forced(model, params, prompts, tag, conf=SERVE):
-    """Prefill ``prompts`` into a cache of conf["max_len"] positions, then
+def _serve_forced(model, params, prompts, tag, conf=SERVE, extra=None):
+    """Prefill ``prompts`` (with ``extra``, the batch's other arrays: a
+    VLM's patches, in front of the prompt) into a cache of conf["max_len"]
+    positions, then
     conf["forced_steps"] greedy decode steps. Each step's logits (the
     prefill's too) must equal the last-position logits of a no-cache
     ``forward`` over the same tokens within the bf16 tolerance; where the
@@ -983,12 +1009,13 @@ def _serve_forced(model, params, prompts, tag, conf=SERVE):
     from repro_torch.models.model import build
 
     tol = TOL["bfloat16"]
+    extra = extra or {}
     seq = torch.as_tensor(np.stack(prompts), device="cuda").long()
     state = model.init_serve_state(len(prompts), conf["max_len"], "cuda")
-    logits, state = model.prefill(params, {"tokens": seq}, state)
+    logits, state = model.prefill(params, {"tokens": seq, **extra}, state)
     errs, flips = [], []
     for step in range(conf["forced_steps"] + 1):
-        ref = model.forward(params, {"tokens": seq})[:, -1]
+        ref = model.forward(params, {"tokens": seq, **extra})[:, -1]
         got = logits[:, 0]
         errs.append(check_close(f"serve {tag}: step {step}'s logits against the no-cache "
                                 "forward", got, ref, "bfloat16"))
@@ -1003,7 +1030,7 @@ def _serve_forced(model, params, prompts, tag, conf=SERVE):
         if step == conf["forced_steps"]:
             model32 = build(model.cfg.replace(dtype="float32", param_dtype="float32"))
             ref32 = model32.forward(T.tree_map(lambda t: t.float(), params),
-                                    {"tokens": seq})[:, -1]
+                                    {"tokens": seq, **extra})[:, -1]
             vs_f32 = {name: float(((x.float() - ref32).abs() / (tol + tol * ref32.abs())).max())
                       for name, x in (("cached", got), ("no_cache", ref))}
             break
@@ -2221,13 +2248,14 @@ def phase_tiny_crosscheck():
 
 
 def phase_tiny_ebft(model, weights, masks_cpu, calib, ev, rel=1e-4, arch="tiny_dense",
-                    ecfg=None):
+                    ecfg=None, calib_x=None, ev_x=None):
     """EBFT on tiny_dense in f32 from the same weights and the same (CPU)
     masks on the card (kernels, their backward) and on the CPU (plain
     versions): equal epochs_run and early stops per block, loss histories
     and the EBFT perplexity within rel 1e-4 (f32, sums taken in another
     order). ``ecfg`` defaults to the tests' EBFT settings (lr 1e-2, 8
-    epochs, patience 3)."""
+    epochs, patience 3); ``calib_x`` and ``ev_x`` are the segments' other
+    batch arrays (a VLM's patches)."""
     from repro_torch import interop
     from repro_torch import tree as T
     from repro_torch.core import ebft
@@ -2240,8 +2268,9 @@ def phase_tiny_ebft(model, weights, masks_cpu, calib, ev, rel=1e-4, arch="tiny_d
         params = interop.params_to_torch(weights, dev)
         masks = T.tree_map(lambda m: m.to(dev), masks_cpu)
         tuned, reports = ebft.finetune(model, params, SP.apply_masks(params, masks), masks,
-                                       calib, ecfg)
-        out[dev] = dict(reports=reports, ppl=perplexity(model, tuned, ev, masks=masks))
+                                       calib, ecfg, extra_batch=calib_x)
+        out[dev] = dict(reports=reports, ppl=perplexity(model, tuned, ev, extra_batch=ev_x,
+                                                        masks=masks))
     worst = 0.0
     for a, b in zip(out["cuda"]["reports"], out["cpu"]["reports"]):
         if (a.epochs_run, a.early_stop) != (b.epochs_run, b.early_stop):
@@ -2263,7 +2292,8 @@ def phase_tiny_ebft(model, weights, masks_cpu, calib, ev, rel=1e-4, arch="tiny_d
     return out["cpu"]
 
 
-def _ebft_spread(model, weights, masks_cpu, calib, ev, ecfg, base, eps=1e-6):
+def _ebft_spread(model, weights, masks_cpu, calib, ev, ecfg, base, eps=1e-6, calib_x=None,
+                 ev_x=None):
     """EBFT on the CPU from ``weights`` moved by ``eps`` (relative, seeded
     normal noise on every leaf) against ``base`` (the unmoved CPU run):
     the largest relative move of a block loss and of the perplexity, the
@@ -2281,10 +2311,10 @@ def _ebft_spread(model, weights, masks_cpu, calib, ev, ecfg, base, eps=1e-6):
                        weights)
     params = interop.params_to_torch(moved, "cpu")
     tuned, reports = ebft.finetune(model, params, SP.apply_masks(params, masks_cpu), masks_cpu,
-                                   calib, ecfg)
+                                   calib, ecfg, extra_batch=calib_x)
     worst = max(abs(x - y) / abs(y) for a, b in zip(reports, base["reports"])
                 for x, y in zip(a.history + [a.loss_after], b.history + [b.loss_after]))
-    ppl = perplexity(model, tuned, ev, masks=masks_cpu)
+    ppl = perplexity(model, tuned, ev, extra_batch=ev_x, masks=masks_cpu)
     return dict(eps=eps, loss_rel=worst, ppl_rel=abs(ppl / base["ppl"] - 1.0))
 
 
@@ -2316,9 +2346,12 @@ def _mask_flips(masks_a, masks_b, gap_fn, tie):
     return out
 
 
-def phase_tiny_baselines(model, weights, calib, ev, corpus, rel=1e-4):
+def phase_tiny_baselines(model, weights, calib, ev, corpus, rel=1e-4, arch="tiny_dense",
+                         calib_x=None, ev_x=None, lora_x=None):
     """SparseGPT, DSnoT and FLAP prunes, mask tuning and 20 LoRA steps on
-    tiny_dense in f32, from the same weights on the card (kernels) and on
+    tiny_dense (or ``arch``: tiny_vlm, with its patches ``calib_x``, ``ev_x``
+    and each LoRA step's ``lora_x(step)``) in f32, from the same weights on
+    the card (kernels) and on
     the CPU (plain versions); mask tuning and LoRA start from the CPU's
     SparseGPT masks and LoRA from one CPU-drawn adapter init. The prunes'
     masks agree but for slots near their threshold: SparseGPT's within 1e-4
@@ -2353,10 +2386,11 @@ def phase_tiny_baselines(model, weights, calib, ev, corpus, rel=1e-4):
         for method, sp in runs.items():
             scores = {}
             masks, pruned = prune(model, params, calib, method=method, sparsity=sp,
-                                  scores_out=scores)
+                                  extra_batch=calib_x, scores_out=scores)
             out[dev][method] = dict(masks=masks, pruned=pruned, scores=scores,
-                                    ppl=perplexity(model, pruned, ev, masks=masks))
-    row = dict(phase="tiny_baselines", arch="tiny_dense", dtype="float32", rtol=rel)
+                                    ppl=perplexity(model, pruned, ev, extra_batch=ev_x,
+                                                   masks=masks))
+    row = dict(phase="tiny_baselines", arch=arch, dtype="float32", rtol=rel)
     cpu, card = out["cpu"], out["cuda"]
     # SparseGPT: every tiny leaf has R <= 128, one block per column
     row["sparsegpt_flips"] = _mask_flips(card["sparsegpt"]["masks"], cpu["sparsegpt"]["masks"],
@@ -2407,16 +2441,17 @@ def phase_tiny_baselines(model, weights, calib, ev, corpus, rel=1e-4):
         params = interop.params_to_torch(weights, dev)
         masks = T.tree_map(lambda m: m.to(dev), masks0)
         hist, scores, losses = [], {}, []
-        mt, mt_masks = MT.finetune_masks(model, params, masks, 0.5, calib, histories=hist,
-                                         scores_out=scores)
+        mt, mt_masks = MT.finetune_masks(model, params, masks, 0.5, calib, extra_batch=calib_x,
+                                         histories=hist, scores_out=scores)
         lp = LORA.finetune_lora(model, T.tree_map(lambda t: t.to(dev), pruned0), masks,
                                 corpus_iterator(corpus, batch=8, seq_len=calib.shape[1],
                                                 seed=9),
-                                lcfg, lora=T.tree_map(lambda t: t.to(dev), init), losses=losses)
+                                lcfg, extra_batch_fn=lora_x,
+                                lora=T.tree_map(lambda t: t.to(dev), init), losses=losses)
         res[dev] = dict(hist=hist, scores=scores, masks=mt_masks,
-                        mt_ppl=perplexity(model, mt, ev, masks=mt_masks), lora=lp,
-                        losses=[float(v) for v in losses],
-                        lora_ppl=perplexity(model, lp, ev, masks=masks))
+                        mt_ppl=perplexity(model, mt, ev, extra_batch=ev_x, masks=mt_masks),
+                        lora=lp, losses=[float(v) for v in losses],
+                        lora_ppl=perplexity(model, lp, ev, extra_batch=ev_x, masks=masks))
     # mask tuning: each slot whose tuned mask differs must be explained by
     # how far the two runs' final scores and thresholds moved, |sA - tA| <=
     # |sA - sB| + |tA - tB| (the hard threshold is the same rule on each
@@ -2827,13 +2862,21 @@ def family_cfg(family: str, dtype: str = "bfloat16"):
 
 def phase_masked_matmul_mamba(g):
     """The masked matmul forward, dX and dW at every Mamba leaf shape of
-    both families (``MAMBA_LEAVES``), bf16, M = 16384, each held against
-    its plain version (the forward within tol, dX and dW within tol x max
-    |plain|; dW exactly 0 in every pruned slot), timed beside it, the
-    PyTorch product on the masked weights and the bound. The mask is laid
+    both families (``MAMBA_LEAVES``, ``_masked_leaves``). The mask is laid
     out as ``prune`` keeps it (``aligned_mask``): Mamba2-130M's in_dt mask,
     (768, 24), is a view into a (768, 32) buffer, and the wrapper refuses
     the contiguous one. Returns {family: {kernel: {leaf: row}}}."""
+    return _masked_leaves(g, MAMBA_LEAVES, "masked_matmul_mamba")
+
+
+def _masked_leaves(g, groups, phase):
+    """The masked matmul forward, dX and dW at each (leaf, K, N) of
+    ``groups`` ({group: [...]}), bf16, M = 16384, each held against its
+    plain version (the forward within tol, dX and dW within tol x max
+    |plain|; dW exactly 0 in every pruned slot), timed beside it, the
+    PyTorch product on the masked weights and the bound. A mask whose rows
+    are not 16 bytes apart is an ``aligned_mask`` view, and the wrapper
+    must refuse the contiguous one. Returns {group: {kernel: {leaf: row}}}."""
     import torch
 
     from repro_torch.kernels.masked_matmul import ops as MM
@@ -2842,8 +2885,8 @@ def phase_masked_matmul_mamba(g):
     )
 
     dt = torch.bfloat16
-    out = {fam: {k: {} for k in MASKED} for fam in MAMBA_LEAVES}
-    for fam, leaves in MAMBA_LEAVES.items():
+    out = {fam: {k: {} for k in MASKED} for fam in groups}
+    for fam, leaves in groups.items():
         for leaf, K, N in leaves:
             w = (torch.randn(K, N, device="cuda", generator=g) / math.sqrt(K)).to(dt)
             m = MM.aligned_mask(torch.rand(K, N, device="cuda", generator=g) < 0.3)
@@ -2870,7 +2913,7 @@ def phase_masked_matmul_mamba(g):
                 if name == "masked_matmul_dw" and bool((got[~m] != 0).any()):
                     raise AssertionError(f"{name} {fam} {leaf}: a pruned slot is not 0")
                 b_ms, b_by = bound_ms(nbytes, 2.0 * M_ROWS * nnz, "bfloat16")
-                row = dict(phase="masked_matmul_mamba", family=fam, kernel=name, leaf=leaf,
+                row = dict(phase=phase, family=fam, kernel=name, leaf=leaf,
                            dtype="bfloat16", M=M_ROWS, K=K, N=N, mask_strides=list(m.stride()),
                            max_abs_err=err, tol=TOL["bfloat16"], ms=timed_ms(kern),
                            plain_ms=timed_ms(plain), library_ms=timed_ms(lib), bound_ms=b_ms,
@@ -2887,7 +2930,7 @@ def phase_masked_matmul_mamba(g):
                                  ("masked_matmul_dw",
                                   lambda: MM.masked_matmul_dw(x, dy, dense_m))):
                     _refuses(f"{name} {fam} {leaf} contiguous mask", fn)
-                emit(dict(phase="masked_matmul_mamba", family=fam, leaf=leaf,
+                emit(dict(phase=phase, family=fam, leaf=leaf,
                           case=f"contiguous ({K}, {N}) bf16 mask", refused=True))
             del w, m, x, dy, wm
     return out
@@ -3087,8 +3130,9 @@ def phase_family(family: str, walls):
     return launches
 
 
-def phase_tiny_family(arch: str, rel=1e-4):
-    """tiny_moe, tiny_ssm or tiny_hybrid in f32 with the same weights on the
+def phase_tiny_family(arch: str, rel=1e-4, smoke=False):
+    """tiny_moe, tiny_ssm, tiny_hybrid, tiny_vlm or (``smoke``) a dense
+    config's SMOKE in f32 with the same weights on the
     card (the kernels: the batched one on the expert leaves, the attention
     in the hybrid's shared block) and on the CPU (plain versions): the loss
     and its metrics (MoE: nll and aux), the dense and Wanda perplexities
@@ -3099,7 +3143,9 @@ def phase_tiny_family(arch: str, rel=1e-4):
     The limit must stand at least 5 times above the CPU's own spread under
     a 1e-6 move of the weights at those settings (``_ebft_spread``): a
     router top-k on a near-tie can flip with the order of a sum, and at a
-    larger lr Adam carries such a flip far."""
+    larger lr Adam carries such a flip far. tiny_vlm takes seeded patches
+    in front of every batch (``extra_batch``) and then goes on through
+    ``phase_tiny_baselines`` (SparseGPT, DSnoT, FLAP, mask tuning, LoRA)."""
     import numpy as np
     import torch
 
@@ -3113,23 +3159,31 @@ def phase_tiny_family(arch: str, rel=1e-4):
     from repro_torch.models.model import build
     from repro_torch.sparsity import sparse_params as SP
 
-    cfg = get_config(arch).replace(attn_impl="flash")
+    cfg = get_config(arch, smoke).replace(attn_impl="flash")
+    tag = f"{arch}_smoke" if smoke else arch
     model = build(cfg)
     weights = interop.params_to_numpy(model.init(torch.Generator().manual_seed(0)))
     corpus = SyntheticCorpus(CorpusConfig(vocab_size=cfg.vocab_size, seed=0))
     calib, ev = calibration_set(corpus, 16, 128), eval_set(corpus, 16, 128)
     toks = np.random.default_rng(0).integers(0, cfg.vocab_size, (4, 128))
+
+    def extra(n, seed):
+        return _patches(cfg, n, cfg.frontend_len, seed) if cfg.family == "vlm" else None
+
+    calib_x, ev_x = extra(16, 1), extra(16, 2)
     out = {}
     for dev in ("cuda", "cpu"):
         params = interop.params_to_torch(weights, dev)
-        loss, m = model.loss(params, {"tokens": torch.as_tensor(toks, device=dev)})
+        batch = {k: torch.as_tensor(v, device=dev)
+                 for k, v in {"tokens": toks, **(extra(4, 3) or {})}.items()}
+        loss, m = model.loss(params, batch)
         scores = {}
         masks, pruned = prune(model, params, calib, method="wanda", sparsity=0.5,
-                              scores_out=scores)
+                              extra_batch=calib_x, scores_out=scores)
         out[dev] = dict(loss=float(loss), **{k: float(v) for k, v in m.items()},
-                        dense=perplexity(model, params, ev),
-                        wanda=perplexity(model, pruned, ev, masks=masks), masks=masks,
-                        scores=scores)
+                        dense=perplexity(model, params, ev, extra_batch=ev_x),
+                        wanda=perplexity(model, pruned, ev, extra_batch=ev_x, masks=masks),
+                        masks=masks, scores=scores)
     K = cfg.hybrid_attn_every
     # a stacked leaf's slice j -> the model's block index
     first = {"moe_blocks": cfg.moe_first_dense, "trailing": K and cfg.num_layers // K * K}
@@ -3151,24 +3205,342 @@ def phase_tiny_family(arch: str, rel=1e-4):
                 worst = max(worst, gap)
                 flips += int(diff[j].sum())
     keys = [k for k in out["cpu"] if k not in ("masks", "scores")]
-    emit(dict(phase=arch, arch=arch, dtype="float32", attn_impl="flash",
+    emit(dict(phase=tag, arch=arch, dtype="float32", attn_impl="flash",
               cuda={k: out["cuda"][k] for k in keys}, cpu={k: out["cpu"][k] for k in keys},
               rtol=rel, mask_flips=flips, worst_flip_gap=worst, gap_rtol=1e-6))
     for k in keys:
         a, b = out["cuda"][k], out["cpu"][k]
         if not abs(a - b) <= rel * abs(b):
-            raise AssertionError(f"{arch}: {k} cuda {a} vs cpu {b}")
+            raise AssertionError(f"{tag}: {k} cuda {a} vs cpu {b}")
     if worst > 1e-6:
-        raise AssertionError(f"{arch}: a mask flipped {worst:.2e} from its threshold")
+        raise AssertionError(f"{tag}: a mask flipped {worst:.2e} from its threshold")
     masks = out["cpu"]["masks"]
     paper = ebft.EBFTConfig(lr=2e-4, epochs=10, microbatch=8, patience=2)
-    base = phase_tiny_ebft(model, weights, masks, calib, ev, rel, arch=arch, ecfg=paper)
-    spread = _ebft_spread(model, weights, masks, calib, ev, paper, base)
-    emit(dict(phase=f"{arch}_spread", arch=arch, device="cpu", lr=paper.lr, rtol=rel,
+    base = phase_tiny_ebft(model, weights, masks, calib, ev, rel, arch=tag, ecfg=paper,
+                           calib_x=calib_x, ev_x=ev_x)
+    spread = _ebft_spread(model, weights, masks, calib, ev, paper, base, calib_x=calib_x,
+                          ev_x=ev_x)
+    emit(dict(phase=f"{tag}_spread", arch=arch, device="cpu", lr=paper.lr, rtol=rel,
               **spread))
     if max(spread["loss_rel"], spread["ppl_rel"]) > rel / 5:
-        raise AssertionError(f"{arch}: the CPU's own EBFT spread {spread} is not 5 times "
+        raise AssertionError(f"{tag}: the CPU's own EBFT spread {spread} is not 5 times "
                              f"below the card-vs-CPU limit {rel:.0e}")
+    if cfg.family == "vlm":
+        phase_tiny_baselines(model, weights, calib, ev, corpus, rel, arch=tag, calib_x=calib_x,
+                             ev_x=ev_x, lora_x=lambda step: extra(8, 100 + step))
+
+# ---------------------------------------------------------------------------
+# the VLM family: LLaVA-NeXT-Mistral-7B at its published widths, 4 of its 32
+# layers; and the dense family's other four configs
+# ---------------------------------------------------------------------------
+# the masked GEMM's leaves that no other phase holds, bf16, at the EBFT
+# microbatch's M rows: LLaVA's (Mistral-7B's) wk and wv (d | 8 KV heads x
+# 128), w_gate and w_up (d | 14336) and w_down (its wq and wo are Llama's
+# 4096 x 4096); and the MLP's up projection of each of the dense family's
+# other configs (d | d_ff)
+VLM_LEAVES = {"vlm": [("wk_wv", 4096, 1024), ("w_gate_up", 4096, 14336),
+                      ("w_down", 14336, 4096)],
+              "dense_configs": [("qwen1_5_4b_w_up", 2560, 6912),
+                                ("nemotron_4_15b_w_up", 6144, 24576),
+                                ("qwen2_5_32b_w_up", 5120, 27648),
+                                ("qwen1_5_110b_w_up", 8192, 49152)]}
+# seq 2048 = P 1024 patch positions (min(frontend_len 2880, seq // 2)) + 1024
+# text tokens; pretraining through launch/train.run (AdamW on its warmup-cosine
+# schedule, one piece), EBFT at the paper's settings
+VLM = dict(layers=4, pretrain_steps=50, batch=8, seq=2048, pretrain_lr=3e-3, calib=16, eval=16)
+# 8 prompts of [1024 patches ; 512 tokens], 32 greedy tokens each, a
+# 2048-position cache; the teacher-forced check over 32 steps
+VLM_SERVE = dict(slots=8, prompt_len=512, max_new=32, max_len=2048, forced_steps=32)
+DENSE_SMOKES = ("qwen1_5_4b", "nemotron_4_15b", "qwen2_5_32b", "qwen1_5_110b")
+
+
+def _patches(cfg, n, P, seed):
+    """Seeded stand-ins for the stub vision tower's patch embeddings, as
+    the reference's ``launch/train`` draws them: {"patches": (n, P, d) f32}."""
+    import numpy as np
+
+    return {"patches": np.random.default_rng(seed).normal(
+        size=(n, P, cfg.d_model)).astype(np.float32)}
+
+
+def vlm_cfg(dtype: str = "bfloat16"):
+    """LLaVA-NeXT-Mistral-7B at its published widths, cut to VLM["layers"]
+    of its 32 layers, with the flash attention kernel."""
+    from repro_torch.configs import get_config
+
+    return get_config("llava_next_mistral_7b").replace(num_layers=VLM["layers"], dtype=dtype,
+                                                       param_dtype=dtype, attn_impl="flash")
+
+
+def phase_masked_matmul_vlm(g):
+    """The masked matmul forward, dX and dW at ``VLM_LEAVES`` (``_masked_leaves``).
+    Returns {"vlm" | "dense_configs": {kernel: {leaf: row}}}."""
+    return _masked_leaves(g, VLM_LEAVES, "masked_matmul_vlm")
+
+
+def _vlm_expected(cfg, res):
+    """The tuning run's launches, counted as ``_family_expected`` counts a
+    dense block's: 7 masked linears and the attention per block forward;
+    per block the prune walk's student advance, the two evaluations with
+    masks and EBFT's loss before and after and student advance, plus one
+    per EBFT step, whose backward runs dX and dW of each and the
+    attention's backward; the attention also runs unmasked in the dense
+    evaluation, the prune walk's taps and EBFT's teacher."""
+    n_cal = math.ceil(VLM["calib"] / 8)
+    n_ev = math.ceil(VLM["eval"] / 8)
+    L = cfg.num_layers
+    steps = sum(r.epochs_run for r in res.reports) * n_cal
+    fwd = L * (n_cal + 2 * n_ev + 3 * n_cal) + steps
+    out = {k: 0 for k in _counters()}
+    out.update(masked_matmul=7 * fwd, masked_matmul_dx=7 * steps, masked_matmul_dw=7 * steps,
+               flash_attention=fwd + L * (n_ev + 2 * n_cal), flash_attention_bwd=steps)
+    return out
+
+
+def _vlm_greedy(model, params, prompts, extra, conf):
+    """Greedy serving of [patches ; prompt] from one cache: the multimodal
+    prefill (its first token), then conf["max_new"] - 1 decode steps, each
+    fenced; every kernel count is set to 0 just before and read just after,
+    and only the attention may run, once a layer per call."""
+    import numpy as np
+    import torch
+
+    seq = torch.as_tensor(np.stack(prompts), device="cuda").long()
+    state = model.init_serve_state(len(prompts), conf["max_len"], "cuda")
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    logits, state = model.prefill(params, {"tokens": seq, **extra}, state)
+    tok = logits[:, -1].argmax(-1)
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    toks, step_ms, lens = [tok], [], [state["len"]]
+    for _ in range(conf["max_new"] - 1):
+        t1 = time.perf_counter()
+        logits, state = model.decode_step(params, tok[:, None], state)
+        tok = logits[:, -1].argmax(-1)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t1) * 1e3)
+        toks.append(tok)
+        lens.append(state["len"])
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    expected = {k: 0 for k in launches}
+    expected["flash_attention"] = model.cfg.num_layers * conf["max_new"]
+    if launches != expected:
+        raise AssertionError(f"vlm greedy: launches {launches}, expected {expected}")
+    out = torch.stack(toks, dim=1)
+    if out.shape != (len(prompts), conf["max_new"]) or max(lens) > conf["max_len"]:
+        raise AssertionError(f"vlm greedy: tokens {tuple(out.shape)}, len {max(lens)}")
+    step_ms.sort()
+    return dict(prompts=len(prompts), new_tokens=conf["max_new"], prefill_ms=prefill_ms,
+                decode_ms=sum(step_ms) / len(step_ms), decode_p50_ms=step_ms[len(step_ms) // 2],
+                tokens_per_s=out.numel() / wall, first_len=lens[0], top_len=max(lens),
+                launches=launches)
+
+
+def _kv_repeat_ms(cfg, conf, g):
+    """What the GQA repeat costs one decode step: the card's time to repeat
+    one layer's cached keys (8 KV heads -> 32 heads) and fold them into the
+    kernel's (B·H, max_len, hd) operand, as ``attend_cached`` and
+    ``flash_attention_bshd`` do, times two (keys, values) times the layers."""
+    import torch
+
+    from repro_torch.models import layers as LY
+
+    B, H, Hkv = conf["slots"], cfg.num_heads, cfg.num_kv_heads
+    ml, hd = conf["max_len"], cfg.resolved_head_dim
+    kc = torch.randn(B, Hkv, ml, hd, device="cuda", generator=g).to(torch.bfloat16)
+
+    def repeat_fold():
+        k = LY._repeat_kv(kc.transpose(1, 2), H // Hkv)
+        return k.transpose(1, 2).reshape(B * H, ml, hd).contiguous()
+
+    one = timed_ms(repeat_fold)
+    return dict(per_layer_k_ms=one, per_step_ms=2 * cfg.num_layers * one)
+
+
+def phase_vlm(walls):
+    """The VLM family's path on LLaVA-NeXT-Mistral-7B at its published widths
+    (d_model 4096, 32 heads x 128 over 8 KV heads, d_ff 14336, vocab 32000,
+    rope_theta 1e6), 4 of its 32 layers, bf16, the flash attention kernel,
+    seq 2048 = 1024 patch positions + 1024 text tokens: the seeded init
+    pretrained VLM["pretrain_steps"] steps through ``launch/train.run``
+    (batch 8, its seeded patches, AdamW lr 3e-3), then from those weights,
+    each walk and evaluation with the same seeded patches (``extra_batch``):
+    the dense perplexity, Wanda 0.7, its perplexity, EBFT (lr 2e-4, 10
+    epochs, patience 2) and its perplexity, all in one obs run
+    (``chiprun_out/BENCH_ebft_vlm.json``). Every kernel count is set to 0
+    just before pretraining and before the tuning run, read just after
+    each, and must equal what the blocks give (``_vlm_expected``). Every
+    EBFT block loss must drop, EBFT's perplexity must be below Wanda's and
+    nothing may be NaN. Then, on the EBFT weights, greedy serving of 8
+    multimodal prompts (``_vlm_greedy``; the cache's GQA branch, whose
+    repeat ``_kv_repeat_ms`` times) and the teacher-forced check of the
+    cached decode against the no-cache forward (``_serve_forced``); then
+    tiny_vlm and the four dense SMOKE configs on the card against the CPU
+    (``phase_tiny_family``). Returns the tuning run's launches and the
+    pretraining's."""
+    import numpy as np
+    import torch
+
+    from repro_torch import tree as T
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.core import ebft
+    from repro_torch.core.evaluate import perplexity
+    from repro_torch.core.masks import prune
+    from repro_torch.data.tokens import CorpusConfig, SyntheticCorpus, calibration_set, eval_set
+    from repro_torch.launch import ebft_run, train
+    from repro_torch.launch.api import start_obs_run
+    from repro_torch.launch.rooflines import model_flops_per_chip
+    from repro_torch.models.model import build
+    from repro_torch.sparsity import sparse_params as SP
+
+    t0 = time.perf_counter()
+    cfg = vlm_cfg()
+    model = build(cfg)
+    shape = ShapeConfig("vlm", VLM["seq"], VLM["batch"], "train")
+    P = model.input_specs(shape)["patches"].shape[1]
+    S = VLM["seq"] - P
+    corpus = SyntheticCorpus(CorpusConfig(vocab_size=cfg.vocab_size, seed=0))
+    calib, ev = calibration_set(corpus, VLM["calib"], S), eval_set(corpus, VLM["eval"], S)
+    calib_x, ev_x = _patches(cfg, VLM["calib"], P, 1), _patches(cfg, VLM["eval"], P, 2)
+    spec = ebft_run.RunSpec(arch="llava_next_mistral_7b", seed=0, seq=VLM["seq"],
+                            calib_samples=VLM["calib"], pretrain_steps=VLM["pretrain_steps"],
+                            batch=VLM["batch"], lr=2e-4, epochs=10, bench_out="")
+    tspec = train.TrainSpec(arch="llava_next_mistral_7b", steps=VLM["pretrain_steps"],
+                            batch=VLM["batch"], seq=VLM["seq"], lr=VLM["pretrain_lr"], seed=0)
+    dev = torch.device("cuda")
+    # the host's share of a pretraining step: the reference's data_fn draws
+    # the step's patches as f64 normals on the host
+    t1 = time.perf_counter()
+    np.random.default_rng(0).normal(size=(VLM["batch"], P, cfg.d_model)).astype(np.float32)
+    draw_s = time.perf_counter() - t1
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    obs_run = start_obs_run(spec, "ebft", "cuda", name="chip_smoke/vlm", console=False)
+    reset_counts()
+    with ebft_run._phase(dev, "phase/pretrain", steps=tspec.steps) as sp:
+        tr = train.run(cfg, tspec, "cuda", say=lambda *a: None)
+    pre = dict(launches=read_counts(), peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30)
+    dense, hist = tr.params, tr.history
+    del tr
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t1 = time.perf_counter()
+    phases, ppl = {"pretrain": sp.duration}, {}
+    with ebft_run._phase(dev, "phase/eval", what="dense") as sp:
+        ppl["dense"] = perplexity(model, dense, ev, extra_batch=ev_x)
+    phases["eval_dense"] = sp.duration
+    with ebft_run._phase(dev, "phase/prune", method="wanda", sparsity=0.7) as sp:
+        masks, pruned = prune(model, dense, calib, method="wanda", sparsity=0.7,
+                              extra_batch=calib_x)
+    phases["prune"] = sp.duration
+    ppl["wanda"] = perplexity(model, pruned, ev, extra_batch=ev_x, masks=masks)
+    ecfg = ebft.EBFTConfig(lr=spec.lr, epochs=spec.epochs, patience=2)
+    with ebft_run._phase(dev, "phase/ebft", lr=spec.lr, epochs=spec.epochs) as sp:
+        tuned, reports = ebft.finetune(model, dense, pruned, masks, calib, ecfg,
+                                       extra_batch=calib_x)
+    phases["ebft"] = sp.duration
+    with ebft_run._phase(dev, "phase/eval", what="ebft") as sp:
+        ppl["EBFT"] = perplexity(model, tuned, ev, extra_batch=ev_x, masks=masks)
+    phases["eval_ebft"] = sp.duration
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t1
+    launches = read_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    res = ebft_run.RunResult(ppl, phases, SP.sparsity_of(masks, dense), dense, masks, pruned,
+                             tuned=tuned, reports=reports)
+    summ = obs_run.payload()["metrics"]
+    art = finish_obs(obs_run, ebft_run.bench_record(spec, res, summ), "BENCH_ebft_vlm.json")
+    expected = _vlm_expected(cfg, res)
+    pre_expected = {k: 0 for k in launches}
+    pre_expected.update(flash_attention=cfg.num_layers * tspec.steps,
+                        flash_attention_bwd=cfg.num_layers * tspec.steps)
+    stats = kernel_stats(art["metrics"])
+    per_step = phases["pretrain"] / tspec.steps
+    flops = model_flops_per_chip(cfg, shape, 1)
+    blocks = [dict(block=r.index, kind=r.kind, loss_before=r.loss_before,
+                   loss_after=r.loss_after, epochs_run=r.epochs_run, early_stop=r.early_stop)
+              for r in reports]
+    row = dict(phase="vlm", arch="llava_next_mistral_7b", num_layers=cfg.num_layers,
+               reduced="num_layers 32->4", dtype=cfg.dtype, attn_impl=cfg.attn_impl,
+               seq=VLM["seq"], patches=P, text=S, num_heads=cfg.num_heads,
+               num_kv_heads=cfg.num_kv_heads,
+               params=sum(t.numel() for _, t in T.leaves_with_path(dense)),
+               pretrain=dict(steps=tspec.steps, batch=tspec.batch, lr=tspec.lr,
+                             loss=[dict(step=i, loss=l) for i, l in hist],
+                             s_per_step=per_step, host_patch_draw_s=draw_s,
+                             model_flops_per_step=flops,
+                             tflops_6nd=flops / per_step / 1e12,
+                             peak_mem_gib=pre["peak_mem_gib"], launches=pre["launches"],
+                             expected_launches=pre_expected),
+               method="wanda", sparsity=0.7, achieved_sparsity=res.sparsity, perplexity=ppl,
+               ebft_below_pruned=ppl["EBFT"] < ppl["wanda"], blocks=blocks, phases_s=phases,
+               wall_s=wall, peak_mem_gib=peak,
+               live_block_bytes=max(r.live_bytes for r in reports), launches=launches,
+               expected_launches=expected,
+               obs_booked={k: stats.get(k, {}).get("calls", 0) for k in launches},
+               in_run_ms={k: v["mean_ms"] for k, v in stats.items()},
+               kernel_s={k: v["total_s"] for k, v in stats.items()},
+               artifact="chiprun_out/BENCH_ebft_vlm.json")
+    emit(row)
+    for k, v in ppl.items():
+        if not math.isfinite(v):
+            raise AssertionError(f"vlm: {k} perplexity is {v}")
+    if not all(math.isfinite(l) for _, l in hist) or not hist[-1][1] < hist[0][1]:
+        raise AssertionError(f"vlm: pretraining losses {hist} are not finite or did not drop")
+    bad = [b for b in blocks if not (math.isfinite(b["loss_after"])
+                                     and b["loss_after"] < b["loss_before"])]
+    if bad:
+        raise AssertionError(f"vlm: EBFT block losses that did not drop: {bad}")
+    if pre["launches"] != pre_expected:
+        raise AssertionError(f"vlm: pretraining launches {pre['launches']} != {pre_expected}")
+    if launches != expected:
+        raise AssertionError(f"vlm: launches {launches} != expected {expected}")
+    if any(row["obs_booked"][k] != launches[k] + pre["launches"][k] for k in launches):
+        raise AssertionError(f"vlm: obs booked {row['obs_booked']}, the wrappers {launches} "
+                             f"after pretraining's {pre['launches']}")
+    if not ppl["EBFT"] < ppl["wanda"]:
+        raise AssertionError(f"vlm: EBFT perplexity {ppl['EBFT']} is not below the pruned "
+                             f"model's {ppl['wanda']}")
+    _check_pruned(res, cfg, 1.0 - 0.7, None)
+    for path, m in T.leaves_with_path(masks):
+        if SP.is_prunable(path, m):
+            t = T.get_path(tuned, path)
+            if bool((t[~m] != 0).any()) or not bool(torch.isfinite(t).all()):
+                raise AssertionError(f"vlm: {path} tuned weights are not 0 in pruned slots or "
+                                     "not finite")
+    walls["vlm_path"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    del res, dense, pruned
+    torch.cuda.empty_cache()
+    rng = np.random.default_rng(0)
+    prompts = [corpus.sample(rng, VLM_SERVE["prompt_len"]) for _ in range(VLM_SERVE["slots"])]
+    x = {k: torch.as_tensor(v, device="cuda")
+         for k, v in _patches(cfg, VLM_SERVE["slots"], P, 3).items()}
+    greedy = _vlm_greedy(model, tuned, prompts, x, VLM_SERVE)
+    forced = _serve_forced(model, tuned, prompts, "vlm ebft", VLM_SERVE, extra=x)
+    kv = _kv_repeat_ms(cfg, VLM_SERVE, torch.Generator(device="cuda").manual_seed(0))
+    emit(dict(phase="vlm_serve", weights="ebft", patches=P, **VLM_SERVE, greedy=greedy,
+              forced=forced, gqa_kv_repeat=dict(kv, share_of_decode_step=kv["per_step_ms"]
+                                                / greedy["decode_ms"]),
+              phase_s=time.perf_counter() - t0))
+    walls["vlm_serve"] = time.perf_counter() - t0
+    del tuned, masks, x
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    phase_tiny_family("tiny_vlm")
+    walls["vlm_tiny"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for arch in DENSE_SMOKES:
+        phase_tiny_family(arch, smoke=True)
+    walls["dense_smokes"] = time.perf_counter() - t0
+    return launches, pre["launches"]
+
 
 # ---------------------------------------------------------------------------
 def main() -> int:
@@ -3206,8 +3578,10 @@ def main() -> int:
         rows[f"masked_matmul_{op}"], moe_shapes[f"masked_matmul_{op}"] = bwd[op], moe_bwd[op]
     rows["masked_matmul_dm"] = phase_masked_matmul_dm(g)
     hyb_shapes = {}
+    vlm_shapes = {"vlm": {}, "dense_configs": {}}
     rows["flash_attention"], serve_rows, moe_shapes["flash_attention"], \
-        hyb_shapes["flash_attention"] = phase_flash_attention(g)
+        hyb_shapes["flash_attention"], vlm_shapes["vlm"]["flash_attention"] = \
+        phase_flash_attention(g)
     rows["flash_attention_bwd"], moe_shapes["flash_attention_bwd"], \
         hyb_shapes["flash_attention_bwd"] = phase_flash_attention_bwd(g)
     torch.cuda.empty_cache()
@@ -3215,6 +3589,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     # the Mamba leaves of both families: {family: {kernel: {leaf: row}}}
     mamba_shapes = phase_masked_matmul_mamba(g)
+    torch.cuda.empty_cache()
+    # LLaVA's leaves and the dense configs' (flash_attention's vlm rows above)
+    for group, by_kernel in phase_masked_matmul_vlm(g).items():
+        vlm_shapes[group].update(by_kernel)
+    vlm_shapes["vlm"]["flash_attention_bwd"] = {"ebft": rows["flash_attention_bwd"]}
     torch.cuda.empty_cache()
     from repro_torch.data.tokens import CorpusConfig, SyntheticCorpus, calibration_set, eval_set
     from repro_torch.configs import get_config
@@ -3301,6 +3680,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     # the SSM and hybrid families' paths
     fam_launches = {fam: phase_family(fam, walls) for fam in ("ssm", "hybrid")}
+    torch.cuda.empty_cache()
+    # the VLM family's path, tiny_vlm and the dense configs' SMOKEs
+    vlm_launches, vlm_pre_launches = phase_vlm(walls)
     emit(dict(phase="walls", seconds=walls, total_s=time.perf_counter() - t_start))
 
     root = "src/repro_torch/kernels/csrc/"
@@ -3316,6 +3698,8 @@ def main() -> int:
                             launches_moe=moe_launches[name],
                             launches_ssm=fam_launches["ssm"][name],
                             launches_hybrid=fam_launches["hybrid"][name],
+                            launches_vlm=vlm_launches[name],
+                            launches_vlm_pretrain=vlm_pre_launches[name],
                             launches_pretrain=pre_launches[name],
                             launches_path_a=by_path["A"][name], launches_path_b=by_path["B"][name],
                             launches_serve=serve_launches[name],
@@ -3346,6 +3730,14 @@ def main() -> int:
                 keys = ATTN_KEYS if k["name"].startswith("flash") else MMM_KEYS
                 k[fam] = {label: {key: r.get(key) for key in keys}
                           for label, r in shapes.items()}
+    # the vlm path's shapes (LLaVA's leaves, its attention) and the dense configs' leaves
+    for k in kernels:
+        for group in ("vlm", "dense_configs"):
+            shapes = vlm_shapes[group].get(k["name"], {})
+            if shapes:
+                keys = ATTN_KEYS if k["name"].startswith("flash") else MMM_KEYS
+                k[group] = {label: {key: r.get(key) for key in keys}
+                            for label, r in shapes.items()}
     print(smi(), flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,5 +1,6 @@
 """EBFT: block-wise fine-tuning of sparse LLMs (port of
-``repro.core.ebft``, the dense, MoE, SSM and hybrid families), Algorithm 1:
+``repro.core.ebft``, the dense, VLM, MoE, SSM and hybrid families),
+Algorithm 1:
 
     for block l = 1..L:
         E ← block-wise reconstruction error (Eq. 4) over D_c
@@ -179,8 +180,10 @@ def tune_block(model, i: int, bp: Params, mask_bp: Params, data: List[Tuple],
 
 def finetune(model, dense_params: Params, pruned_params: Params, masks: Params,
              calib: np.ndarray, ecfg: Optional[EBFTConfig] = None,
+             extra_batch: Optional[Dict[str, Any]] = None,
              log: Optional[Callable[[str], None]] = None) -> Tuple[Params, List[BlockReport]]:
-    """Algorithm 1 over the whole model. ``masks`` is a full mask tree (``core.masks``).
+    """Algorithm 1 over the whole model. ``masks`` is a full mask tree (``core.masks``);
+    ``extra_batch`` the calibration batch's other arrays (a VLM's ``patches``).
     Returns (fine-tuned sparse params, per-block reports); the student is a
     fresh tree, ``apply_masks(pruned_params, masks)``, so neither input
     tree is written."""
@@ -210,7 +213,8 @@ def finetune(model, dense_params: Params, pruned_params: Params, masks: Params,
             return tuned
 
         result = C.walk_blocks(model, dense_params, calib, visit, microbatch=ecfg.microbatch,
-                               params_student=student, masks=masks, dual_stream=True)
+                               extra_batch=extra_batch, params_student=student, masks=masks,
+                               dual_stream=True)
         if shared_sites:
             # tune_block trains clones of the live leaves get_block returns
             tuned, rep = tune_block(model, shared_idx, model.get_block(result, shared_idx),

@@ -21,7 +21,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Callable, Iterator, List, Optional
+from typing import Any, Callable, Dict, Iterator, List, Optional
 
 import torch
 
@@ -96,17 +96,21 @@ def merge(params: Params, masks: Params, lora: Params, lcfg: LoRAConfig) -> Para
 
 
 def finetune_lora(model, pruned_params: Params, masks: Params, data_iter: Iterator,
-                  lcfg: Optional[LoRAConfig] = None, lora: Optional[Params] = None,
+                  lcfg: Optional[LoRAConfig] = None,
+                  extra_batch_fn: Optional[Callable[[int], Dict[str, Any]]] = None,
+                  lora: Optional[Params] = None,
                   losses: Optional[List[torch.Tensor]] = None,
                   log: Optional[Callable[[str], None]] = None) -> Params:
     """Train adapters on the LM loss; returns the merged sparse params.
 
     The adapters start at ``lora`` (a tree as :func:`init_lora` makes, not
     written), by default :func:`init_lora` seeded with ``lcfg.seed`` on the
-    params' device. ``data_iter`` yields (B, S) token arrays. ``losses``,
+    params' device. ``data_iter`` yields (B, S) token arrays;
+    ``extra_batch_fn(step)``, when given, the step's other batch arrays (a
+    VLM's ``patches``). ``losses``,
     when a list, gets each step's LM loss as a 0-d device tensor (no
     sync)."""
-    if model.cfg.family != "dense":
+    if model.cfg.family not in ("dense", "vlm"):
         raise NotImplementedError(f"LoRA on the {model.cfg.family} family is not ported yet "
                                   "(ROADMAP.md A.5)")
     lcfg = lcfg or LoRAConfig()
@@ -120,6 +124,9 @@ def finetune_lora(model, pruned_params: Params, masks: Params, data_iter: Iterat
     state = opt.init(lora)
     for s in range(lcfg.steps):
         batch = {"tokens": torch.as_tensor(next(data_iter), device=device)}
+        if extra_batch_fn:
+            batch.update({k: torch.as_tensor(v, device=device)
+                          for k, v in extra_batch_fn(s).items()})
         with torch.enable_grad():
             eff = merge(pruned_params, masks, lora, lcfg)
             loss, _ = model.loss(eff, batch, masks)

@@ -83,7 +83,8 @@ def _final_masks(bp: Params, scores: Params, sparsity: float, pattern) -> Params
 
 def finetune_masks(model, dense_params: Params, init_masks: Params, sparsity: float,
                    calib: np.ndarray, ecfg: Optional[EBFTConfig] = None,
-                   pattern: Optional[Tuple[int, int]] = None, log=None, bonus: float = 0.1,
+                   pattern: Optional[Tuple[int, int]] = None, extra_batch=None, log=None,
+                   bonus: float = 0.1,
                    histories: Optional[List[List[float]]] = None,
                    scores_out: Optional[Dict[Tuple, torch.Tensor]] = None
                    ) -> Tuple[Params, Params]:
@@ -99,7 +100,7 @@ def finetune_masks(model, dense_params: Params, init_masks: Params, sparsity: fl
     ``histories``, when a list, gets each block's epoch mean losses;
     ``scores_out``, when a dict, each prunable leaf's final (R, O) scores,
     keyed by ``(block, *path)``."""
-    if model.cfg.family != "dense":
+    if model.cfg.family not in ("dense", "vlm"):
         raise NotImplementedError(f"mask tuning on the {model.cfg.family} family (on MoE a "
                                   "batched dM) is not ported yet (ROADMAP.md A.5)")
     ecfg = ecfg or EBFTConfig(lr=2e-2)  # scores need a larger step than weights
@@ -149,5 +150,6 @@ def finetune_masks(model, dense_params: Params, init_masks: Params, sparsity: fl
         return SP.apply_masks(dense_bp, mask_bp)
 
     result = C.walk_blocks(model, dense_params, calib, visit, microbatch=ecfg.microbatch,
-                           params_student=student, masks=masks, dual_stream=True)
+                           extra_batch=extra_batch, params_student=student, masks=masks,
+                           dual_stream=True)
     return result, masks

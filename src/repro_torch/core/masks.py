@@ -18,7 +18,9 @@ them over E) are not ported yet and raise. On the SSM and hybrid families
 magnitude and Wanda prune the Mamba projections and ``conv_w`` (kept
 dense under N:M), and the hybrid's shared block at each of its sites, as
 the reference's walk visits it; FLAP refuses them, SparseGPT and DSnoT
-are not ported for them yet and raise.
+are not ported for them yet and raise. The VLM family is pruned as the
+dense one, by every method, on the stream over [patches ; text]
+(``extra_batch``).
 
 A mask the bf16 kernel could not read by TMA (a single output axis whose
 rows are not 16 bytes apart: Mamba2-130M's ``in_dt``, (768, 24)) is kept
@@ -71,11 +73,14 @@ def expand_masks(params: Params, masks: Params) -> Params:
 @torch.no_grad()
 def prune(model, params: Params, calib: Optional[np.ndarray], method: str = "wanda",
           sparsity: float = 0.5, pattern: Optional[Tuple[int, int]] = None,
-          microbatch: int = 8, dsnot_init: str = "wanda", dsnot_cycles: int = 30,
+          microbatch: int = 8, extra_batch: Optional[Dict[str, Any]] = None,
+          dsnot_init: str = "wanda", dsnot_cycles: int = 30,
           scores_out: Optional[Dict[Tuple, Any]] = None) -> Tuple[Params, Params]:
     """Returns (masks, pruned_params); ``params`` is left as it was.
     ``method`` is one of ``METHODS``; ``pattern``=(n, m) for N:M sparsity.
-    DSnoT starts from the masks of ``dsnot_init``.
+    DSnoT starts from the masks of ``dsnot_init``. ``extra_batch`` holds the
+    calibration batch's other arrays (a VLM's ``patches``), row for row with
+    ``calib``; every walk slices it per microbatch.
 
     ``scores_out``, when a dict, gets what each method ranked, keyed by
     ``(block, *path)`` of each pruned leaf: Wanda's (R, O) scores, SparseGPT's
@@ -87,15 +92,16 @@ def prune(model, params: Params, calib: Optional[np.ndarray], method: str = "wan
     if method == "magnitude":
         masks = align_masks(expand_masks(params, MAG.make_masks(params, sparsity, pattern)))
         return masks, SP.apply_masks(params, masks)
-    if model.cfg.family != "dense" and method in ("sparsegpt", "dsnot"):
+    if model.cfg.family not in ("dense", "vlm") and method in ("sparsegpt", "dsnot"):
         raise NotImplementedError(f"{method} on the {model.cfg.family} family is not ported "
                                   "yet (ROADMAP.md A.5)")
     if method == "flap":
-        return _prune_flap(model, params, calib, sparsity, microbatch, scores_out)
+        return _prune_flap(model, params, calib, sparsity, microbatch, extra_batch, scores_out)
     if method == "dsnot":
-        init_masks, _ = prune(model, params, calib, dsnot_init, sparsity, pattern, microbatch)
-        return _dsnot_walk(model, params, init_masks, calib, microbatch, dsnot_cycles, pattern,
-                           scores_out)
+        init_masks, _ = prune(model, params, calib, dsnot_init, sparsity, pattern, microbatch,
+                              extra_batch)
+        return _dsnot_walk(model, params, init_masks, calib, microbatch, extra_batch,
+                           dsnot_cycles, pattern, scores_out)
     if method not in ("wanda", "sparsegpt"):
         raise ValueError(f"unknown pruning method {method!r}; one of {METHODS}")
 
@@ -127,12 +133,13 @@ def prune(model, params: Params, calib: Optional[np.ndarray], method: str = "wan
         return new_bp
 
     student = T.tree_map(torch.clone, params)
-    pruned = C.walk_blocks(model, params, calib, visit, microbatch,
+    pruned = C.walk_blocks(model, params, calib, visit, microbatch, extra_batch,
                            params_student=student, masks=masks)
     return masks, pruned
 
 
-def _dsnot_walk(model, params, init_masks, calib, microbatch, cycles, pattern, scores_out):
+def _dsnot_walk(model, params, init_masks, calib, microbatch, extra_batch, cycles, pattern,
+                scores_out):
     """Reselect ``init_masks`` block by block on the stream of the blocks
     already reselected; each block's statistics come from its init-masked
     weights, its new weights are the dense ones under the new masks."""
@@ -160,12 +167,12 @@ def _dsnot_walk(model, params, init_masks, calib, microbatch, cycles, pattern, s
         return new_bp
 
     student = SP.apply_masks(params, init_masks)
-    pruned = C.walk_blocks(model, params, calib, visit, microbatch,
+    pruned = C.walk_blocks(model, params, calib, visit, microbatch, extra_batch,
                            params_student=student, masks=masks)
     return masks, pruned
 
 
-def _prune_flap(model, params, calib, sparsity, microbatch, scores_out):
+def _prune_flap(model, params, calib, sparsity, microbatch, extra_batch, scores_out):
     """Pass 1 walks the dense stream and scores every block's units; the
     global threshold picks the units; pass 2 expands them into masks."""
     cfg = model.cfg
@@ -180,7 +187,7 @@ def _prune_flap(model, params, calib, sparsity, microbatch, scores_out):
             scores_out.update({(i, kind): s for kind, s in scores[-1].items()})
         return None  # the dense stream goes on unchanged
 
-    C.walk_blocks(model, params, calib, score_visit, microbatch)
+    C.walk_blocks(model, params, calib, score_visit, microbatch, extra_batch)
     unit_masks = FLAP.global_structured_masks(scores, sparsity)
     masks = full_ones_masks(params)
     for i, unit in enumerate(unit_masks):

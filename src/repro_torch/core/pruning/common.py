@@ -126,13 +126,25 @@ def stats_for_leaf(stats: Dict[str, LeafStats], names: Tuple[str, ...]) -> Optio
     return lookup_tap(stats, names)
 
 
-def _make_batches(calib: np.ndarray, microbatch: int, device) -> List[Dict[str, torch.Tensor]]:
-    return [{"tokens": torch.as_tensor(calib[s:s + microbatch], device=device)}
+def batch_slice(tokens, extra_batch: Optional[Dict], s: int, e: int,
+                device) -> Dict[str, torch.Tensor]:
+    """Rows ``s:e`` of ``tokens`` and of every ``extra_batch`` array (a VLM's
+    ``patches``), as one batch on ``device``."""
+    b = {"tokens": torch.as_tensor(tokens[s:e], device=device)}
+    for k, v in (extra_batch or {}).items():
+        b[k] = torch.as_tensor(v[s:e], device=device)
+    return b
+
+
+def _make_batches(calib: np.ndarray, microbatch: int, device,
+                  extra_batch: Optional[Dict] = None) -> List[Dict[str, torch.Tensor]]:
+    return [batch_slice(calib, extra_batch, s, s + microbatch, device)
             for s in range(0, calib.shape[0], microbatch)]
 
 
 def walk_blocks(model, params, calib: np.ndarray, visit_fn: Callable, microbatch: int = 8,
-                params_student=None, masks=None, dual_stream: bool = False):
+                extra_batch: Optional[Dict] = None, params_student=None, masks=None,
+                dual_stream: bool = False):
     """Block-by-block calibration walk over per-microbatch lists.
 
     Single-stream mode (the pruning methods, Wanda/SparseGPT convention):
@@ -148,6 +160,10 @@ def walk_blocks(model, params, calib: np.ndarray, visit_fn: Callable, microbatch
     (the reference's prefetch depth 0). Enqueuing the teacher ahead on the
     same stream overlaps nothing on the card; a side-stream teacher is
     later work (ROADMAP.md).
+
+    ``extra_batch`` holds the batch's other arrays beside the tokens (the
+    VLM's ``patches`` (N, P, d)), sliced per microbatch as the tokens are
+    and moved to the walk's device.
 
     ``visit_fn(i, bp, ctx)`` returns the block's new params or None; ctx
     holds ``h_mb``, ``pos_mb``, ``site`` (and ``target_mb`` in dual-stream
@@ -177,7 +193,7 @@ def walk_blocks(model, params, calib: np.ndarray, visit_fn: Callable, microbatch
         raise ValueError("walk_blocks: the dual-stream walk needs a student tree of its own "
                          "(set_block writes in place; the teacher must stay dense)")
     device = params["embed"]["tok"].device
-    batch_all = _make_batches(calib, microbatch, device)
+    batch_all = _make_batches(calib, microbatch, device, extra_batch)
     span = OT.span if dual_stream else (lambda name, **attrs: OT.NULL_SPAN)
     ledger = DispatchLedger("ebft/walk")
     clock = compile_clock()

@@ -1,5 +1,6 @@
 """Block-wise reconstruction machinery (port of
-``repro.core.reconstruction``, the dense, MoE, SSM and hybrid families):
+``repro.core.reconstruction``, the dense, MoE, SSM, hybrid and VLM
+families):
 the execution plan, the
 stream advances, and the EBFT objective for block l (paper Eq. 4)
 
@@ -26,8 +27,8 @@ class Segment:
 
 
 def execution_plan(model) -> List[Segment]:
-    """One segment. The dense, MoE and SSM families visit every block once
-    (an MoE stack's leading dense blocks first); the hybrid visits, for
+    """One segment. The dense, VLM, MoE and SSM families visit every block
+    once (an MoE stack's leading dense blocks first); the hybrid visits, for
     each group g, its K Mamba blocks and then the shared block (index
     ``num_blocks - 1``) as site g, then the trailing Mamba blocks."""
     cfg = model.cfg
@@ -41,7 +42,7 @@ def execution_plan(model) -> List[Segment]:
             visits.append((shared, g))
         visits += [(i, 0) for i in range(G * K, cfg.num_layers)]
         return [Segment(visits, model.embed_tokens)]
-    if cfg.family not in ("dense", "moe", "ssm"):
+    if cfg.family not in ("dense", "vlm", "moe", "ssm"):
         raise NotImplementedError(
             f"execution plan for family {cfg.family!r} (ROADMAP.md queue A.5)")
     return [Segment([(i, 0) for i in range(model.num_blocks)], model.embed_tokens)]
@@ -59,15 +60,15 @@ def advance_with(model, params, i: int, bp, h, positions, masks: Optional[Params
 
 
 def block_kind(model, i: int) -> str:
-    """Blocks of one kind behave alike: the dense and SSM families have one
-    kind each, the MoE family ``"dense"`` (its leading dense blocks) and
+    """Blocks of one kind behave alike: the dense (and VLM) and SSM
+    families have one kind each, the MoE family ``"dense"`` (its leading dense blocks) and
     ``"moe"``, the hybrid ``"mamba"`` and ``"shared"``."""
     cfg = model.cfg
     if cfg.family == "moe":
         return "dense" if i < cfg.moe_first_dense else "moe"
     if cfg.family == "hybrid":
         return "shared" if i == model.num_blocks - 1 else "mamba"
-    if cfg.family not in ("dense", "ssm"):
+    if cfg.family not in ("dense", "vlm", "ssm"):
         raise NotImplementedError(
             f"block kinds of family {cfg.family!r} (ROADMAP.md queue A.5)")
     return "block"

@@ -1,12 +1,28 @@
 """Each launcher's command line as one view of its spec dataclass, and the
 obs run each launcher opens (the part of ``repro.launch.api`` the port's
 launchers use): a flag ``--field-name`` per field, with the field's type
-and default (a bool field is a switch), and ``--device``."""
+and default (a bool field is a switch), and ``--device``; and the pipeline
+and serving drivers' refusal of the VLM family (``refuse_vlm``)."""
 from __future__ import annotations
 
 import argparse
 import dataclasses
 from typing import Any, Dict, Optional, Sequence, Tuple
+
+
+def refuse_vlm(cfg, driver: str) -> None:
+    """The reference's ``ebft_run`` and ``Server`` pass the tokens alone, so
+    its ``--arch tiny_vlm`` stops at the missing ``patches``; the port's
+    drivers refuse the family before any work (ROADMAP.md C.4)."""
+    if cfg.family == "vlm":
+        raise NotImplementedError(
+            f"{driver} does not run the vlm family ({cfg.name}): its batch needs patches, "
+            "which the reference's driver never passes (ROADMAP.md C.4). The library calls "
+            "run it with extra_batch={'patches': ...}: core.masks.prune, "
+            "core.ebft.finetune, core.evaluate.perplexity and cloze_accuracy, "
+            "core.mask_tuning.finetune_masks, core.lora.finetune_lora (extra_batch_fn), "
+            "models.vlm.prefill_multimodal with the model's decode_step, and "
+            "launch.train, which draws the patches as the reference's does")
 
 
 def parse(spec_cls, argv: Optional[Sequence[str]], prog: str, description: str,

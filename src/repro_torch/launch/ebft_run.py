@@ -26,7 +26,8 @@ span tree, and the sections ``phases``, ``blocks``, ``perplexity``,
 (``python -m repro_torch.obs report`` renders it, and so does the
 reference's CLI). ``--obs-jsonl`` streams the events as they happen.
 ``--no-obs`` turns all of it off and writes no artifact; the console
-lines are the same either way.
+lines are the same either way. The VLM family is refused
+(``launch.api.refuse_vlm``): the reference's driver passes no patches.
 """
 from __future__ import annotations
 
@@ -47,7 +48,7 @@ from repro_torch.core.pruning.flap import remaining_param_fraction
 from repro_torch.data.tokens import (
     CorpusConfig, SyntheticCorpus, calibration_set, corpus_iterator, eval_set,
 )
-from repro_torch.launch.api import parse, start_obs_run
+from repro_torch.launch.api import parse, refuse_vlm, start_obs_run
 from repro_torch.models.model import build
 from repro_torch.obs import metrics as OM
 from repro_torch.obs import trace as OT
@@ -184,6 +185,7 @@ def run(cfg: ModelConfig, spec: RunSpec, device=None, params: Optional[Any] = No
     its eval, as the reference's ``ebft_run.py``. ``params`` defaults to
     the port's init seeded with ``spec.seed``; they are not changed.
     ``on_stage`` is handed to each pretraining step (``make_train_step``)."""
+    refuse_vlm(cfg, "ebft_run")
     wants = set(spec.baselines.split(",")) if spec.baselines else set()
     if wants - set(BASELINES):
         raise ValueError(f"unknown baselines {sorted(wants - set(BASELINES))}; "
@@ -322,9 +324,10 @@ def main(argv=None) -> RunResult:
     spec, device = parse(RunSpec, argv, "repro_torch.launch.ebft_run", __doc__,
                          {"method": METHODS})
     device = resolve_device(device)
+    cfg = get_config(spec.arch)
+    refuse_vlm(cfg, "ebft_run")
     obs_run = start_obs_run(spec, "ebft", device)
     say = obs_run.say if obs_run is not None else print
-    cfg = get_config(spec.arch)
     res = run(cfg, spec, device)
     if res.pretrain_losses:
         say(f"pretrained {spec.pretrain_steps} steps, final loss "

@@ -16,7 +16,7 @@ HLO statistics, which have no torch counterpart; it waits with
 6·N·D for training (forward + backward), 2·N·D for inference, and for an
 ``ebft`` shape one block's forward + backward over the calibration batch.
 The MoE family counts its active parameters (top-k routed experts, the
-shared ones, the router), as the reference; the SSM and hybrid families
+shared ones, the router), as the reference; the VLM, SSM and hybrid families
 count ``param_count`` as the dense one (the head in, for an ``ebft``
 shape the embedding out; the hybrid's shared block once).
 """
@@ -29,10 +29,10 @@ HBM_BW = 3.35e12      # bytes/s
 
 
 def model_flops_per_chip(cfg: ModelConfig, shape: ShapeConfig, chips: int) -> float:
-    """The reference's count for the dense, MoE, SSM and hybrid families
+    """The reference's count for the dense, VLM, MoE, SSM and hybrid families
     (embedding lookups are table reads, not FLOPs; the LM head is a matmul
     and is in ``param_count``)."""
-    if cfg.family not in ("dense", "moe", "ssm", "hybrid"):
+    if cfg.family not in ("dense", "vlm", "moe", "ssm", "hybrid"):
         raise NotImplementedError(f"model FLOPs of family {cfg.family!r} "
                                   "(ROADMAP.md queue A.5)")
     n = cfg.param_count(active_only=cfg.family == "moe")

@@ -6,7 +6,10 @@
 AdamW on a warmup-cosine schedule (20 warmup steps) over batches that are
 a pure function of the step, checkpointed every ``--ckpt-every`` steps.
 If ``--ckpt-dir`` holds a checkpoint, training resumes from it, and the
-run ends with the same weights as one that was never stopped. The
+run ends with the same weights as one that was never stopped. A VLM's
+batch is the reference's: the step's tokens cut to ``seq - P`` and then
+``patches`` (batch, P, d_model) drawn from the same generator, with P
+from ``Model.input_specs``. The
 checkpoint layout is the reference's, so either package resumes the
 other's run. Runs on the card unless ``--device cpu``. The step is
 ``obs.profile.profiled`` as ``train/step`` (first call apart, later calls
@@ -28,7 +31,7 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.checkpoint import ckpt as CK
 from repro_torch.configs import get_config
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.data.tokens import CorpusConfig, SyntheticCorpus
 from repro_torch.launch.api import parse, start_obs_run
 from repro_torch.models.model import build
@@ -78,6 +81,7 @@ def run(cfg: ModelConfig, spec: TrainSpec, device=None, params: Optional[Any] = 
     the port's init seeded with ``spec.seed``; they are trained in place."""
     device = resolve_device(device)
     model = build(cfg)
+    shape = ShapeConfig("cli", spec.seq, spec.batch, "train")
     corpus = SyntheticCorpus(CorpusConfig(vocab_size=cfg.vocab_size, seed=spec.seed))
     if params is None:
         params = model.init(torch.Generator(device=device).manual_seed(spec.seed))
@@ -90,7 +94,12 @@ def run(cfg: ModelConfig, spec: TrainSpec, device=None, params: Optional[Any] = 
     def data_fn(step: int):
         r = np.random.default_rng((spec.seed << 20) + step)
         toks = np.stack([corpus.sample(r, spec.seq) for _ in range(spec.batch)])
-        return {"tokens": torch.as_tensor(toks, device=device)}
+        batch = {"tokens": toks}
+        if cfg.family == "vlm":
+            P = model.input_specs(shape)["patches"].shape[1]
+            batch["tokens"] = toks[:, :spec.seq - P]
+            batch["patches"] = r.normal(size=(spec.batch, P, cfg.d_model)).astype(np.float32)
+        return {k: torch.as_tensor(v, device=device) for k, v in batch.items()}
 
     start = 0
     latest = CK.latest_step(spec.ckpt_dir) if spec.ckpt_dir else None

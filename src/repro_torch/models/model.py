@@ -1,5 +1,5 @@
-"""Model facade (port of ``repro.models.model``: the dense, MoE, SSM and
-hybrid families).
+"""Model facade (port of ``repro.models.model``: the dense, MoE, SSM,
+hybrid and VLM families).
 
 ``build(cfg)`` returns a ``Model`` with the reference's interface:
 
@@ -9,6 +9,7 @@ hybrid families).
     m.init_serve_state(batch, max_len, device=None) -> KV cache (None: the card)
     m.prefill(params, batch, state)           -> (last logits, state)
     m.decode_step(params, token, state)       -> (logits, state)
+    m.input_specs(shape)                      -> {batch key: TensorSpec}
 
 plus the block-level API the calibration walk uses:
 
@@ -26,18 +27,22 @@ the rest the MoE blocks; its loss is ``nll + 0.01·aux`` (the load-balance
 term) with the metrics ``{"nll", "aux"}``. In the hybrid family blocks
 ``0 .. num_layers - 1`` are the Mamba blocks in execution order and block
 ``num_layers`` the shared attention block, whose ``get_block`` is the
-live ``params["shared"]`` tree (counted once in ``num_blocks``).
+live ``params["shared"]`` tree (counted once in ``num_blocks``). The VLM
+is the dense model over [patches ; text]: its batch also holds
+``patches`` (B, P, d), its loss and ``forward`` cover the text positions,
+and ``embed_tokens``/``finalize`` the whole multimodal stream, as the
+reference's.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Dict, Optional
+from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
 
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.configs.base import ModelConfig
-from repro_torch.models import hybrid, layers, moe, ssm, transformer
+from repro_torch.configs.base import ModelConfig, ShapeConfig
+from repro_torch.models import hybrid, layers, moe, ssm, transformer, vlm
 
 Params = Dict[str, Any]
 
@@ -60,6 +65,18 @@ def _shift_loss(logits: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
     return cross_entropy(logits[:, :-1], tokens[:, 1:])
 
 
+class TensorSpec(NamedTuple):
+    """A batch entry's shape and dtype (the reference's
+    ``jax.ShapeDtypeStruct``)."""
+
+    shape: Tuple[int, ...]
+    dtype: torch.dtype
+
+
+def _token_specs(cfg: ModelConfig, shape: ShapeConfig) -> Dict[str, TensorSpec]:
+    return {"tokens": TensorSpec((shape.global_batch, shape.seq_len), torch.int32)}
+
+
 @dataclasses.dataclass
 class Model:
     cfg: ModelConfig
@@ -69,6 +86,7 @@ class Model:
     init_serve_state: Callable
     prefill: Callable
     decode_step: Callable
+    input_specs: Callable  # (ShapeConfig) -> {batch key: TensorSpec}
     num_blocks: int
     get_block: Callable
     set_block: Callable
@@ -96,6 +114,8 @@ def build(cfg: ModelConfig) -> Model:
         return _build_ssm(cfg)
     if cfg.family == "hybrid":
         return _build_hybrid(cfg)
+    if cfg.family == "vlm":
+        return _build_vlm(cfg)
     raise NotImplementedError(f"family {cfg.family!r} is not ported yet (ROADMAP.md queue A.5)")
 
 
@@ -130,8 +150,9 @@ def _nll_loss(forward):
 def _serving(M, cfg: ModelConfig) -> Dict[str, Callable]:
     """A model module's cache entries (``init_cache``, ``prefill``,
     ``decode_step``) as the ``Model`` fields; the cache on the card unless
-    ``device`` says otherwise."""
+    ``device`` says otherwise. Also the token-only ``input_specs``."""
     return dict(
+        input_specs=lambda shape: _token_specs(cfg, shape),
         init_serve_state=lambda b, ml, device=None: M.init_cache(cfg, b, ml,
                                                                  resolve_device(device)),
         prefill=lambda params, batch, state: M.prefill(params, cfg, batch["tokens"], state),
@@ -271,3 +292,25 @@ def _build_hybrid(cfg: ModelConfig) -> Model:
         embed_tokens=_embed_tokens(cfg),
         finalize=_finalize(cfg),
     )
+
+
+def _build_vlm(cfg: ModelConfig) -> Model:
+    """The dense model's blocks, cache and ``finalize``, over [patches ; text]."""
+    def forward(params, batch, masks=None):
+        return vlm.forward(params, cfg, batch["tokens"], batch["patches"], masks)
+
+    def input_specs(shape: ShapeConfig) -> Dict[str, TensorSpec]:
+        B, S = shape.global_batch, shape.seq_len
+        P = min(cfg.frontend_len, S // 2)
+        return {"tokens": TensorSpec((B, S - P), torch.int32),
+                "patches": TensorSpec((B, P, cfg.d_model), transformer.torch_dtype(cfg.dtype))}
+
+    def embed_tokens(params, batch):
+        h = vlm.embed(params, cfg, batch["tokens"], batch["patches"])
+        return h, torch.arange(h.shape[1], device=h.device)[None, :]
+
+    return dataclasses.replace(
+        _build_dense(cfg), init=lambda g: vlm.init(g, cfg), forward=forward,
+        loss=_nll_loss(forward), input_specs=input_specs, embed_tokens=embed_tokens,
+        prefill=lambda params, batch, state: vlm.prefill_multimodal(
+            params, cfg, batch["tokens"], batch["patches"], state))

@@ -115,10 +115,17 @@ def forward_hidden(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     h = L.embed(params["embed"]["tok"], tokens, torch_dtype(cfg.dtype))
     if positions is None:
         positions = torch.arange(tokens.shape[1], device=tokens.device)[None, :]
+    return L.apply_norm(params["final_norm"], run_blocks(params, cfg, h, positions, masks),
+                        cfg.norm)
+
+
+def run_blocks(params: Params, cfg: ModelConfig, h: torch.Tensor, positions: torch.Tensor,
+               masks: Optional[Params] = None) -> torch.Tensor:
+    """The embedded stream h (B, S, d) through every block, no final norm."""
     for i in range(cfg.num_layers):
         bm = slice_block(masks["blocks"], i) if masks is not None else None
         h = block_apply(slice_block(params["blocks"], i), cfg, h, positions, bm)
-    return L.apply_norm(params["final_norm"], h, cfg.norm)
+    return h
 
 
 def logits_from_hidden(params: Params, cfg: ModelConfig, h: torch.Tensor) -> torch.Tensor:
@@ -151,9 +158,17 @@ def prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor, cache: Param
     position's f32 logits (B, 1, V), the cache with ``len`` advanced by S).
     The cache's tensors are written in place: the state passed in is
     consumed."""
-    start, S = cache["len"], tokens.shape[1]
-    h = L.embed(params["embed"]["tok"], tokens, torch_dtype(cfg.dtype))
-    positions = torch.arange(start, start + S, device=tokens.device)[None, :]
+    return prefill_hidden(params, cfg, L.embed(params["embed"]["tok"], tokens,
+                                               torch_dtype(cfg.dtype)), cache)
+
+
+def prefill_hidden(params: Params, cfg: ModelConfig, h: torch.Tensor, cache: Params):
+    """``prefill`` from the embedded stream h (B, S, d): the blocks at
+    positions ``len .. len+S-1``, their keys and values written into the
+    cache, then the last position's f32 logits. The VLM's multimodal
+    prefill enters here with [patches ; text]."""
+    start, S = cache["len"], h.shape[1]
+    positions = torch.arange(start, start + S, device=h.device)[None, :]
     for i in range(cfg.num_layers):
         layer = {"k": cache["k"][i], "v": cache["v"][i], "len": start}
         h = block_apply(slice_block(params["blocks"], i), cfg, h, positions, cache=layer)

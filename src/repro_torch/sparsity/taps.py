@@ -93,8 +93,9 @@ def ssm_taps(bp, cfg: ModelConfig, h: torch.Tensor, positions=None) -> Dict[str,
 
 def taps_for_block(cfg: ModelConfig, block_index: int, num_blocks: int) -> Callable:
     """Which tap function applies to block ``block_index``; in the hybrid
-    family the last index is the shared attention block."""
-    if cfg.family == "dense":
+    family the last index is the shared attention block; the VLM's blocks
+    are dense blocks."""
+    if cfg.family in ("dense", "vlm"):
         return dense_taps
     if cfg.family == "moe":
         return moe_taps

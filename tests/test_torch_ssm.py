@@ -547,6 +547,53 @@ def test_served_tokens_match_reference(pair):
     assert cache["ssm"].dtype == torch.float32 and cache["len"] == 0
 
 
+def _bf16_decode_gaps(forward, prefill, decode, toks, s0):
+    """Each teacher-forced decode step's distance from the no-cache
+    forward's logits at its position, over the largest of those logits."""
+    full = np.asarray(forward(toks), dtype=np.float32)
+    state = prefill(toks[:, :s0])
+    gaps = []
+    for j in range(s0, toks.shape[1]):
+        logits, state = decode(toks[:, j:j + 1], state)
+        got = np.asarray(logits[:, -1], dtype=np.float32)
+        gaps.append(float(np.abs(got - full[:, j]).max() / np.abs(full[:, j]).max()))
+    return gaps
+
+
+@pytest.mark.parametrize("arch", ["tiny_ssm", "tiny_hybrid"])
+def test_bf16_cached_decode_departs_from_the_forward_as_the_reference_does(arch, one_thread):
+    """In bf16 the one-step recurrence of a Mamba block (decode) and the
+    chunked scan (the forward, and the prefill) round apart. With the same
+    weights and prompts, the port's cached decode is as far from its own
+    no-cache forward as the reference's is from its own, over 8 steps after
+    a 24-token prompt: the largest and the mean gap each within bf16's unit
+    rounding (2^-8) of the largest logit of the reference's (one step's gap
+    is one draw of the rounding, on each side its own; ROADMAP.md C.6)."""
+    kw = dict(dtype="bfloat16", param_dtype="bfloat16")
+    rcfg, cfg = ref_get_config(arch).replace(**kw), get_config(arch).replace(**kw)
+    rmodel, model = ref_build(rcfg), build(cfg)
+    rparams = jax.jit(rmodel.init)(jax.random.PRNGKey(0))
+    params = interop.params_to_torch(jax.tree.map(np.asarray, rparams), "cpu")
+    toks = np.random.default_rng(3).integers(0, cfg.vocab_size, (2, 32)).astype(np.int32)
+    rdec = jax.jit(lambda p, t, s: rmodel.decode_step(p, t, s))
+    want = _bf16_decode_gaps(
+        lambda t: jax.jit(lambda p, t_: rmodel.forward(p, {"tokens": t_}))(rparams, t),
+        lambda t: jax.jit(lambda p, t_, s: rmodel.prefill(p, {"tokens": t_}, s))(
+            rparams, t, rmodel.init_serve_state(2, 40))[1],
+        lambda t, s: rdec(rparams, jnp.asarray(t), s), toks, 24)
+    tt = torch.as_tensor
+    got = _bf16_decode_gaps(
+        lambda t: model.forward(params, {"tokens": tt(t)}).float(),
+        lambda t: model.prefill(params, {"tokens": tt(t)}, model.init_serve_state(2, 40,
+                                                                                 "cpu"))[1],
+        lambda t, s: (lambda lg, st: (lg.float(), st))(
+            *model.decode_step(params, tt(t), s)), toks, 24)
+    assert len(got) == len(want) == 8
+    assert max(want) > 1e-3  # the reference's own decode departs from its forward in bf16
+    assert max(got) <= max(want) + 2.0 ** -8, (got, want)
+    assert np.mean(got) <= np.mean(want) + 2.0 ** -8, (got, want)
+
+
 def test_checkpoint_restores_across_packages(pair, tmp_path):
     CK.save(str(tmp_path / "port"), {"params": pair["params"]}, step=1, async_write=False)
     out = RCK.restore(str(tmp_path / "port"), {"params": pair["rparams"]})
