@@ -38,7 +38,18 @@ then greedy serving through the cache's GQA branch and the
 teacher-forced check of the multimodal prefill and decode; then tiny_vlm
 (with the baselines) and the SMOKE sizes of Qwen1.5-4B, Nemotron-4-15B,
 Qwen2.5-32B and Qwen1.5-110B on the card against the CPU, whose leaf
-shapes, with LLaVA's, the ``masked_matmul_vlm`` phase holds. Every phase
+shapes, with LLaVA's, the ``masked_matmul_vlm`` phase holds. The
+``encdec`` phase runs the encoder-decoder family on Seamless-M4T-medium
+at its published widths, not reduced (12 encoder + 12 decoder layers,
+vocab 256206; seq 2048 decoder tokens over 256 seeded frames):
+pretraining through ``launch/train`` in 2 microbatches, Wanda 0.7, EBFT
+and perplexity with the frames passed as ``extra_batch`` (the decoder's
+cross-attention over the encoder memory: non-causal, Sq != Sk, its
+memory projections through the masked GEMM at M = 2048), then the
+teacher-forced check and greedy serving at the model level; then
+tiny_encdec (with the baselines) on the card against the CPU. The
+``masked_matmul_encdec`` phase and the attention phases hold its shapes.
+Every phase
 prints one JSON line; any
 failed check raises, so the script exits non-zero. The last three lines
 are the card's name and power limit, the per-kernel summary, and
@@ -142,12 +153,13 @@ def check_close(name, out, ref, dtype: str) -> float:
 
 
 def _refuses(name, fn) -> None:
-    """The wrapper must raise on operands its kernel does not take."""
+    """``fn`` must raise ValueError: a wrapper on operands its kernel does
+    not take, or a pruning method on a family it does not prune."""
     try:
         fn()
     except ValueError:
         return
-    raise AssertionError(f"{name}: the wrapper launched on operands it must refuse")
+    raise AssertionError(f"{name}: ran on what it must refuse")
 
 
 def check_repeat(name, fn, first) -> bool:
@@ -324,6 +336,19 @@ HYB_ATTN = {"ebft": (256, 2048, 2048, 64, True, 0),
 VLM_ATTN = {"ebft": (256, 2048, 2048, 128, True, 0),
             "serve_prefill": (256, 1536, 2048, 128, True, 0),
             "serve_decode": (256, 1, 2048, 128, True, 1550)}
+# the encdec path's attention (Seamless-M4T-medium: 16 heads x 64, EBFT's
+# microbatch of 8): the encoder's bidirectional self-attention over F = 256
+# frames, the decoder's cross-attention (2048 queries over the 256-frame
+# memory, non-causal) and causal self-attention; serving's decode step over
+# the memory and the cached self step (8 slots against a 1024-position
+# cache at len 527)
+ENCDEC_ATTN = {"enc": (128, 256, 256, 64, False, 0), "cross": (128, 2048, 256, 64, False, 0),
+               "self": (128, 2048, 2048, 64, True, 0),
+               "decode_cross": (128, 1, 256, 64, False, 0),
+               "decode_self": (128, 1, 1024, 64, True, 527)}
+# tiny_encdec's cross-attention on the card: 8 x 4 heads x 16, 64 queries
+# over F = 8 frames, fewer keys than one key tile
+TINY_CROSS = (32, 64, 8, 16, False, 0)
 ATTN_KEYS = ("BH", "Sq", "Sk", "q_offset", "max_abs_err", "ms", "plain_ms", "bound_ms",
              "bound_by", "library_ms")
 
@@ -333,11 +358,13 @@ def phase_flash_attention(g):
     q_offset > 0 case with Sq < Sk, the serve phase's decode and prefill
     shapes (``SERVE_ATTN``), the moe path's three (``MOE_ATTN``), the
     hybrid path's three at head width 64 (``HYB_ATTN``), the vlm path's
-    prefill and decode (``VLM_ATTN``), in f32 and bf16;
+    prefill and decode (``VLM_ATTN``), the encdec path's five, non-causal
+    with Sq != Sk among them (``ENCDEC_ATTN``; tiny_encdec's cross-attention
+    over fewer keys than a tile, ``TINY_CROSS``), in f32 and bf16;
     plus every compiled head width at a small shape. In every case the row
     log-sum-exp that the forward writes for the backward is held to the
     plain one. Returns the (256, 2048, 128) causal bf16 row, the bf16
-    serving rows and the bf16 moe, hybrid and vlm rows. The bound
+    serving rows and the bf16 moe, hybrid, vlm and encdec rows. The bound
     counts the keys a causal row can see (min(Sk, q_offset + Sq)); the
     library call is SDPA on the same inputs (at a decode shape over the
     len + 1 visible keys, non-causal: the same function)."""
@@ -353,9 +380,9 @@ def phase_flash_attention(g):
     cases = list(dict.fromkeys([
         (256, 2048, 2048, 128, True, 0), (64, 1024, 1024, 128, False, 0),
         (64, 512, 2048, 128, True, 1536), *SERVE_ATTN.values(), *MOE_ATTN.values(),
-        *HYB_ATTN.values(), *VLM_ATTN.values(), (8, 200, 333, 64, True, 133),
-        (8, 128, 128, 32, False, 0), (16, 128, 128, 16, True, 0)]))
-    summary, serve_rows, moe_rows, hyb_rows, vlm_rows = None, {}, {}, {}, {}
+        *HYB_ATTN.values(), *VLM_ATTN.values(), *ENCDEC_ATTN.values(), TINY_CROSS,
+        (8, 200, 333, 64, True, 133), (8, 128, 128, 32, False, 0), (16, 128, 128, 16, True, 0)]))
+    summary, serve_rows, moe_rows, hyb_rows, vlm_rows, enc_rows = None, {}, {}, {}, {}, {}
     for dtype in ("float32", "bfloat16"):
         dt = getattr(torch, dtype)
         for BH, Sq, Sk, d, causal, off in cases:
@@ -385,7 +412,9 @@ def phase_flash_attention(g):
                        None)
             vlm = next((n for n, c in VLM_ATTN.items() if c == (BH, Sq, Sk, d, causal, off)),
                        None)
-            if BH >= 64 or serving or moe or hyb or vlm:
+            encdec = next((n for n, c in ENCDEC_ATTN.items()
+                           if c == (BH, Sq, Sk, d, causal, off)), None)
+            if BH >= 64 or serving or moe or hyb or vlm or encdec:
                 row["ms"] = timed_ms(lambda: flash_attention(q, k, v, **kw))
                 row["plain_ms"] = timed_ms(lambda: flash_attention_plain(q, k, v, **kw))
                 keys = min(Sk, off + Sq) if causal else Sk
@@ -415,13 +444,16 @@ def phase_flash_attention(g):
                 if dtype == "bfloat16" and vlm:
                     row["vlm"] = vlm
                     vlm_rows[vlm] = row
+                if dtype == "bfloat16" and encdec:
+                    row["encdec"] = encdec
+                    enc_rows[encdec] = row
             emit(row)
             del q, k, v, out, ref
     buf = torch.randn(3, 8 * 200 * 64 + 1, device="cuda", generator=g).to(torch.bfloat16)
     q, k, v = (buf[i, 1:].view(8, 200, 64) for i in range(3))
     _refuses("flash_attention unaligned bf16", lambda: flash_attention(q, k, v))
     emit(dict(phase="flash_attention", case="unaligned bf16", refused=True))
-    return summary, serve_rows, moe_rows, hyb_rows, vlm_rows
+    return summary, serve_rows, moe_rows, hyb_rows, vlm_rows, enc_rows
 
 
 def phase_masked_matmul_bwd(g):
@@ -565,10 +597,12 @@ def phase_flash_attention_bwd(g):
     """The backward kernel (through ``FlashAttentionFn``) against the plain
     formula and against autograd of the plain attention in f32: (256, 2048, 128)
     causal, non-causal, q_offset with Sq < Sk, the moe path's EBFT shape
-    (128, 2048, 128) causal, the hybrid path's (256, 2048, 64) causal, and
-    every head width, in f32 and bf16. Gradients checked within tol x max
-    |plain|. Returns the (256, 2048, 128) bf16 row and the moe and hybrid
-    ones."""
+    (128, 2048, 128) causal, the hybrid path's (256, 2048, 64) causal, the
+    encdec path's three (its encoder's and cross-attention's non-causal,
+    cross-attention's at Sq != Sk, and tiny_encdec's over fewer keys than
+    a tile), and every head width, in f32 and bf16. Gradients checked within
+    tol x max |plain|. Returns the (256, 2048, 128) bf16 row and the moe,
+    hybrid and encdec ones."""
     import torch
     import torch.nn.functional as F
 
@@ -579,9 +613,10 @@ def phase_flash_attention_bwd(g):
 
     cases = [(256, 2048, 2048, 128, True, 0), (64, 1024, 1024, 128, False, 0),
              (64, 512, 2048, 128, True, 1536), MOE_ATTN["ebft"], HYB_ATTN["ebft"],
+             ENCDEC_ATTN["enc"], ENCDEC_ATTN["cross"], ENCDEC_ATTN["self"], TINY_CROSS,
              (8, 200, 333, 64, True, 133), (8, 128, 128, 32, False, 0),
              (16, 128, 128, 16, True, 0)]
-    summary, moe_rows, hyb_rows = None, {}, {}
+    summary, moe_rows, hyb_rows, enc_rows = None, {}, {}, {}
     for dtype in ("float32", "bfloat16"):
         dt = getattr(torch, dtype)
         for BH, Sq, Sk, d, causal, off in cases:
@@ -637,6 +672,11 @@ def phase_flash_attention_bwd(g):
                 if dtype == "bfloat16" and (BH, Sq, Sk, d, causal, off) == HYB_ATTN["ebft"]:
                     row["hybrid"] = "ebft"
                     hyb_rows["ebft"] = row
+                encdec = next((n for n, c in ENCDEC_ATTN.items()
+                               if c == (BH, Sq, Sk, d, causal, off)), None)
+                if dtype == "bfloat16" and encdec:
+                    row["encdec"] = encdec
+                    enc_rows[encdec] = row
             emit(row)
             del q, k, v, do, o, lse
             torch.cuda.empty_cache()
@@ -647,7 +687,7 @@ def phase_flash_attention_bwd(g):
     _refuses("flash_attention_bwd unaligned bf16",
              lambda: FA.flash_attention_bwd(ok, ok, ok, ok, bad, lse))
     emit(dict(phase="flash_attention_bwd", case="unaligned bf16", refused=True))
-    return summary, moe_rows, hyb_rows
+    return summary, moe_rows, hyb_rows, enc_rows
 
 
 # ---------------------------------------------------------------------------
@@ -2323,23 +2363,27 @@ def _rel_norm(a, b) -> float:
     return float((a - b).norm() / b.norm().clamp_min(1e-30))
 
 
-def _mask_flips(masks_a, masks_b, gap_fn, tie):
+def _mask_flips(masks_a, masks_b, gap_fn, tie, first=None):
     """Slots where two full mask trees differ, per (block, path): each must
     lie within ``tie`` (relative) of its comparison group's threshold, as
     ``gap_fn(block, path, diff)`` measures it; returns {path: [flips per
-    block]}."""
+    block]}. ``first`` maps a stack (``dec_blocks``) to the model's index
+    of its first block (0 if absent)."""
     from repro_torch import tree as T
     from repro_torch.sparsity import sparse_params as SP
 
+    first = first or {}
     out = {}
     for path, m in T.leaves_with_path(masks_b):
         if not SP.is_prunable(path, m):
             continue
         diff = T.get_path(masks_a, path).cpu() != m.cpu()
-        out["/".join(path[1:])] = [int(diff[i].sum()) for i in range(m.shape[0])]
+        out["/".join(path[1:] if path[0] == "blocks" else path)] = \
+            [int(diff[i].sum()) for i in range(m.shape[0])]
         for i in range(m.shape[0]):
             if diff[i].any():
-                gap = gap_fn(i, path, SP.to_matrix(path[-1], diff[i])[0])
+                gap = gap_fn(i + first.get(path[0], 0), path,
+                             SP.to_matrix(path[-1], diff[i])[0])
                 if gap > tie:
                     raise AssertionError(f"tiny baselines: {path} block {i} flipped a slot "
                                          f"{gap:.2e} from its threshold (limit {tie:.0e})")
@@ -2349,9 +2393,10 @@ def _mask_flips(masks_a, masks_b, gap_fn, tie):
 def phase_tiny_baselines(model, weights, calib, ev, corpus, rel=1e-4, arch="tiny_dense",
                          calib_x=None, ev_x=None, lora_x=None):
     """SparseGPT, DSnoT and FLAP prunes, mask tuning and 20 LoRA steps on
-    tiny_dense (or ``arch``: tiny_vlm, with its patches ``calib_x``, ``ev_x``
-    and each LoRA step's ``lora_x(step)``) in f32, from the same weights on
-    the card (kernels) and on
+    tiny_dense (or ``arch``: tiny_vlm or tiny_encdec, with its patches or
+    frames ``calib_x``, ``ev_x`` and each LoRA step's ``lora_x(step)``;
+    FLAP refuses the encoder-decoder on both devices) in f32, from the same
+    weights on the card (kernels) and on
     the CPU (plain versions); mask tuning and LoRA start from the CPU's
     SparseGPT masks and LoRA from one CPU-drawn adapter init. The prunes'
     masks agree but for slots near their threshold: SparseGPT's within 1e-4
@@ -2379,10 +2424,17 @@ def phase_tiny_baselines(model, weights, calib, ev, corpus, rel=1e-4, arch="tiny
     from repro_torch.data.tokens import corpus_iterator
     from repro_torch.sparsity import sparse_params as SP
 
-    runs = {"sparsegpt": 0.5, "dsnot": 0.5, "flap": 0.3}
+    encdec = model.cfg.family == "encdec"
+    runs = {"sparsegpt": 0.5, "dsnot": 0.5} if encdec else \
+        {"sparsegpt": 0.5, "dsnot": 0.5, "flap": 0.3}
+    first = {"dec_blocks": model.cfg.enc_layers}
     out = {dev: {} for dev in ("cuda", "cpu")}
     for dev in ("cuda", "cpu"):
         params = interop.params_to_torch(weights, dev)
+        if encdec:
+            _refuses(f"tiny baselines: flap on {arch} ({dev})",
+                     lambda: prune(model, params, calib, method="flap", sparsity=0.3,
+                                   extra_batch=calib_x))
         for method, sp in runs.items():
             scores = {}
             masks, pruned = prune(model, params, calib, method=method, sparsity=sp,
@@ -2396,27 +2448,29 @@ def phase_tiny_baselines(model, weights, calib, ev, corpus, rel=1e-4, arch="tiny
     row["sparsegpt_flips"] = _mask_flips(card["sparsegpt"]["masks"], cpu["sparsegpt"]["masks"],
                                          lambda i, p, d: float(SP.threshold_gaps(
                                              cpu["sparsegpt"]["scores"][(i, *p[1:])], 0.5)[d]
-                                             .max()), 1e-4)
+                                             .max()), 1e-4, first)
     row["dsnot_flips"] = _mask_flips(card["dsnot"]["masks"], cpu["dsnot"]["masks"],
-                                     lambda i, p, d: math.inf, 0.0)
+                                     lambda i, p, d: math.inf, 0.0, first)
 
     # FLAP: each unit (a head, a channel) whose mask differs must lie near
     # the global threshold of the CPU's standardised scores
-    std = [{k: FLAP._standardize(cpu["flap"]["scores"][(i, k)]) for k in ("heads", "channels")}
-           for i in range(model.num_blocks)]
-    allv = torch.cat([v for b in std for v in b.values()])
-    thr = torch.sort(allv).values[-max(1, int(round(allv.numel() * (1 - runs["flap"]))))]
     row["flap_flips"] = 0
-    for i in range(model.num_blocks):
-        units = [{"heads": mb["attn"]["wo"][:, 0, 0].cpu(), "channels": mb["mlp"]["w_down"][:, 0]
-                  .cpu()} for mb in (model.get_block(out[d]["flap"]["masks"], i) for d in out)]
-        for kind, d in ((k, units[0][k] != units[1][k]) for k in units[0]):
-            if d.any():
-                gap = float(((std[i][kind] - thr).abs() / thr.abs())[d].max())
-                if gap > 1e-5:
-                    raise AssertionError(f"tiny baselines: flap block {i} flipped a unit {gap:.2e} "
-                                         "from the threshold (limit 1e-5)")
-                row["flap_flips"] += int(d.sum())
+    if "flap" in runs:
+        std = [{k: FLAP._standardize(cpu["flap"]["scores"][(i, k)])
+                for k in ("heads", "channels")} for i in range(model.num_blocks)]
+        allv = torch.cat([v for b in std for v in b.values()])
+        thr = torch.sort(allv).values[-max(1, int(round(allv.numel() * (1 - runs["flap"]))))]
+        for i in range(model.num_blocks):
+            units = [{"heads": mb["attn"]["wo"][:, 0, 0].cpu(),
+                      "channels": mb["mlp"]["w_down"][:, 0].cpu()}
+                     for mb in (model.get_block(out[d]["flap"]["masks"], i) for d in out)]
+            for kind, d in ((k, units[0][k] != units[1][k]) for k in units[0]):
+                if d.any():
+                    gap = float(((std[i][kind] - thr).abs() / thr.abs())[d].max())
+                    if gap > 1e-5:
+                        raise AssertionError(f"tiny baselines: flap block {i} flipped a unit "
+                                             f"{gap:.2e} from the threshold (limit 1e-5)")
+                    row["flap_flips"] += int(d.sum())
     flipped = {m for m in ("sparsegpt", "dsnot")
                if any(any(v) for v in row[f"{m}_flips"].values())}
     if row["flap_flips"]:
@@ -2462,8 +2516,9 @@ def phase_tiny_baselines(model, weights, calib, ev, corpus, rel=1e-4, arch="tiny
         sa, sb = sa.double().cpu(), res["cpu"]["scores"][(i, *path)].double()
         ta, tb = SP.thresholds(sa, 0.5), SP.thresholds(sb, 0.5)
         move = (sa - sb).abs() + (ta - tb).abs()
-        d = SP.to_matrix(path[-1], T.get_path(res["cuda"]["masks"]["blocks"], path)[i].cpu()
-                         != T.get_path(res["cpu"]["masks"]["blocks"], path)[i])[0]
+        d = SP.to_matrix(path[-1],
+                         T.get_path(model.get_block(res["cuda"]["masks"], i), path).cpu()
+                         != T.get_path(model.get_block(res["cpu"]["masks"], i), path))[0]
         mt["worst_score_move_rel"][i] = max(mt["worst_score_move_rel"][i],
                                             float((move / ta.abs()).max()))
         if d.any():
@@ -2869,9 +2924,9 @@ def phase_masked_matmul_mamba(g):
     return _masked_leaves(g, MAMBA_LEAVES, "masked_matmul_mamba")
 
 
-def _masked_leaves(g, groups, phase):
+def _masked_leaves(g, groups, phase, m_rows=M_ROWS):
     """The masked matmul forward, dX and dW at each (leaf, K, N) of
-    ``groups`` ({group: [...]}), bf16, M = 16384, each held against its
+    ``groups`` ({group: [...]}), bf16, M = ``m_rows``, each held against its
     plain version (the forward within tol, dX and dW within tol x max
     |plain|; dW exactly 0 in every pruned slot), timed beside it, the
     PyTorch product on the masked weights and the bound. A mask whose rows
@@ -2885,23 +2940,24 @@ def _masked_leaves(g, groups, phase):
     )
 
     dt = torch.bfloat16
+    M = m_rows
     out = {fam: {k: {} for k in MASKED} for fam in groups}
     for fam, leaves in groups.items():
         for leaf, K, N in leaves:
             w = (torch.randn(K, N, device="cuda", generator=g) / math.sqrt(K)).to(dt)
             m = MM.aligned_mask(torch.rand(K, N, device="cuda", generator=g) < 0.3)
-            x = torch.randn(M_ROWS, K, device="cuda", generator=g).to(dt)
-            dy = torch.randn(M_ROWS, N, device="cuda", generator=g).to(dt)
+            x = torch.randn(M, K, device="cuda", generator=g).to(dt)
+            dy = torch.randn(M, N, device="cuda", generator=g).to(dt)
             wm = w * m.to(dt)
             nnz = float(m.sum())
             es = x.element_size()
             cases = (
                 ("masked_matmul", lambda: MM.masked_matmul(x, w, m),
                  lambda: masked_matmul_plain(x, w, m), lambda: torch.matmul(x, wm), check_close,
-                 (x.numel() + w.numel() + M_ROWS * N) * es + K * N),
+                 (x.numel() + w.numel() + M * N) * es + K * N),
                 ("masked_matmul_dx", lambda: MM.masked_matmul_dx(dy, w, m),
                  lambda: masked_matmul_dx_plain(dy, w, m), lambda: torch.matmul(dy, wm.T),
-                 check_scaled, (dy.numel() + w.numel() + M_ROWS * K) * es + K * N),
+                 check_scaled, (dy.numel() + w.numel() + M * K) * es + K * N),
                 ("masked_matmul_dw", lambda: MM.masked_matmul_dw(x, dy, m),
                  lambda: masked_matmul_dw_plain(x, dy, m), lambda: torch.matmul(x.T, dy) * m,
                  check_scaled, (x.numel() + dy.numel() + K * N) * es + K * N),
@@ -2912,9 +2968,9 @@ def _masked_leaves(g, groups, phase):
                 err = check(f"{name} {fam} {leaf}", got, plain(), "bfloat16")
                 if name == "masked_matmul_dw" and bool((got[~m] != 0).any()):
                     raise AssertionError(f"{name} {fam} {leaf}: a pruned slot is not 0")
-                b_ms, b_by = bound_ms(nbytes, 2.0 * M_ROWS * nnz, "bfloat16")
+                b_ms, b_by = bound_ms(nbytes, 2.0 * M * nnz, "bfloat16")
                 row = dict(phase=phase, family=fam, kernel=name, leaf=leaf,
-                           dtype="bfloat16", M=M_ROWS, K=K, N=N, mask_strides=list(m.stride()),
+                           dtype="bfloat16", M=M, K=K, N=N, mask_strides=list(m.stride()),
                            max_abs_err=err, tol=TOL["bfloat16"], ms=timed_ms(kern),
                            plain_ms=timed_ms(plain), library_ms=timed_ms(lib), bound_ms=b_ms,
                            bound_by=b_by,
@@ -3144,8 +3200,11 @@ def phase_tiny_family(arch: str, rel=1e-4, smoke=False):
     a 1e-6 move of the weights at those settings (``_ebft_spread``): a
     router top-k on a near-tie can flip with the order of a sum, and at a
     larger lr Adam carries such a flip far. tiny_vlm takes seeded patches
-    in front of every batch (``extra_batch``) and then goes on through
-    ``phase_tiny_baselines`` (SparseGPT, DSnoT, FLAP, mask tuning, LoRA)."""
+    in front of every batch (``extra_batch``), tiny_encdec seeded frames
+    beside it (at seq 64, F = 8: cross-attention over fewer keys than one
+    key tile, forward and backward), and both go on through
+    ``phase_tiny_baselines`` (SparseGPT, DSnoT, FLAP, mask tuning, LoRA;
+    FLAP refuses the encoder-decoder on both devices)."""
     import numpy as np
     import torch
 
@@ -3164,11 +3223,16 @@ def phase_tiny_family(arch: str, rel=1e-4, smoke=False):
     model = build(cfg)
     weights = interop.params_to_numpy(model.init(torch.Generator().manual_seed(0)))
     corpus = SyntheticCorpus(CorpusConfig(vocab_size=cfg.vocab_size, seed=0))
-    calib, ev = calibration_set(corpus, 16, 128), eval_set(corpus, 16, 128)
-    toks = np.random.default_rng(0).integers(0, cfg.vocab_size, (4, 128))
+    seq = 64 if cfg.family == "encdec" else 128
+    calib, ev = calibration_set(corpus, 16, seq), eval_set(corpus, 16, seq)
+    toks = np.random.default_rng(0).integers(0, cfg.vocab_size, (4, seq))
 
     def extra(n, seed):
-        return _patches(cfg, n, cfg.frontend_len, seed) if cfg.family == "vlm" else None
+        if cfg.family == "vlm":
+            return _patches(cfg, n, cfg.frontend_len, seed)
+        if cfg.family == "encdec":
+            return _frames(cfg, n, max(cfg.frontend_len, seq // 8), seed)
+        return None
 
     calib_x, ev_x = extra(16, 1), extra(16, 2)
     out = {}
@@ -3186,7 +3250,8 @@ def phase_tiny_family(arch: str, rel=1e-4, smoke=False):
                         masks=masks, scores=scores)
     K = cfg.hybrid_attn_every
     # a stacked leaf's slice j -> the model's block index
-    first = {"moe_blocks": cfg.moe_first_dense, "trailing": K and cfg.num_layers // K * K}
+    first = {"moe_blocks": cfg.moe_first_dense, "trailing": K and cfg.num_layers // K * K,
+             "dec_blocks": cfg.enc_layers}
 
     def block_of(path, j):
         return cfg.num_layers if path[0] == "shared" else j + first.get(path[0], 0)
@@ -3225,7 +3290,7 @@ def phase_tiny_family(arch: str, rel=1e-4, smoke=False):
     if max(spread["loss_rel"], spread["ppl_rel"]) > rel / 5:
         raise AssertionError(f"{tag}: the CPU's own EBFT spread {spread} is not 5 times "
                              f"below the card-vs-CPU limit {rel:.0e}")
-    if cfg.family == "vlm":
+    if cfg.family in ("vlm", "encdec"):
         phase_tiny_baselines(model, weights, calib, ev, corpus, rel, arch=tag, calib_x=calib_x,
                              ev_x=ev_x, lora_x=lambda step: extra(8, 100 + step))
 
@@ -3263,6 +3328,15 @@ def _patches(cfg, n, P, seed):
         size=(n, P, cfg.d_model)).astype(np.float32)}
 
 
+def _frames(cfg, n, F, seed):
+    """Seeded stand-ins for the stub audio frontend's frame embeddings, as
+    the reference's ``launch/train`` draws them: {"frames": (n, F, d) f32}."""
+    import numpy as np
+
+    return {"frames": np.random.default_rng(seed).normal(
+        size=(n, F, cfg.d_model)).astype(np.float32)}
+
+
 def vlm_cfg(dtype: str = "bfloat16"):
     """LLaVA-NeXT-Mistral-7B at its published widths, cut to VLM["layers"]
     of its 32 layers, with the flash attention kernel."""
@@ -3297,13 +3371,22 @@ def _vlm_expected(cfg, res):
     return out
 
 
-def _vlm_greedy(model, params, prompts, extra, conf):
-    """Greedy serving of [patches ; prompt] from one cache: the multimodal
-    prefill (its first token), then conf["max_new"] - 1 decode steps, each
-    fenced; every kernel count is set to 0 just before and read just after,
-    and only the attention may run, once a layer per call."""
+def _greedy(model, params, prompts, extra, conf, tag="vlm", attn=None):
+    """Greedy serving of a prompt with its ``extra`` arrays (a VLM's
+    patches in front of it, an encoder-decoder's frames beside it) from one
+    cache: the prefill (its first token), then conf["max_new"] - 1 decode
+    steps, each fenced; every kernel count is set to 0 just before and read
+    just after, and only the attention may run: ``attn`` launches (by
+    default once a layer per call). Then the card's time for the prefill
+    and for one decode step with the host queued ahead (``timed_ms`` of one
+    call a window, the median of 5), beside the fenced times."""
+    import statistics
+
     import numpy as np
     import torch
+
+    def length(state):
+        return state["len"] if "len" in state else state["cache"]["len"]
 
     seq = torch.as_tensor(np.stack(prompts), device="cuda").long()
     state = model.init_serve_state(len(prompts), conf["max_len"], "cuda")
@@ -3314,7 +3397,7 @@ def _vlm_greedy(model, params, prompts, extra, conf):
     tok = logits[:, -1].argmax(-1)
     torch.cuda.synchronize()
     prefill_ms = (time.perf_counter() - t0) * 1e3
-    toks, step_ms, lens = [tok], [], [state["len"]]
+    toks, step_ms, lens = [tok], [], [length(state)]
     for _ in range(conf["max_new"] - 1):
         t1 = time.perf_counter()
         logits, state = model.decode_step(params, tok[:, None], state)
@@ -3322,19 +3405,28 @@ def _vlm_greedy(model, params, prompts, extra, conf):
         torch.cuda.synchronize()
         step_ms.append((time.perf_counter() - t1) * 1e3)
         toks.append(tok)
-        lens.append(state["len"])
+        lens.append(length(state))
     wall = time.perf_counter() - t0
     launches = read_counts()
     expected = {k: 0 for k in launches}
-    expected["flash_attention"] = model.cfg.num_layers * conf["max_new"]
+    expected["flash_attention"] = model.cfg.num_layers * conf["max_new"] if attn is None \
+        else attn
     if launches != expected:
-        raise AssertionError(f"vlm greedy: launches {launches}, expected {expected}")
+        raise AssertionError(f"{tag} greedy: launches {launches}, expected {expected}")
     out = torch.stack(toks, dim=1)
     if out.shape != (len(prompts), conf["max_new"]) or max(lens) > conf["max_len"]:
-        raise AssertionError(f"vlm greedy: tokens {tuple(out.shape)}, len {max(lens)}")
+        raise AssertionError(f"{tag} greedy: tokens {tuple(out.shape)}, len {max(lens)}")
     step_ms.sort()
+    batch = {"tokens": seq, **extra}
+    fresh = model.init_serve_state(len(prompts), conf["max_len"], "cuda")
+    device_ms = {name: statistics.median(timed_ms(fn, reps=1, hold_ms=50.0) for _ in range(5))
+                 for name, fn in (("prefill", lambda: model.prefill(params, batch, fresh)),
+                                  ("decode", lambda: model.decode_step(params, tok[:, None],
+                                                                       state)))}
+    del fresh
     return dict(prompts=len(prompts), new_tokens=conf["max_new"], prefill_ms=prefill_ms,
                 decode_ms=sum(step_ms) / len(step_ms), decode_p50_ms=step_ms[len(step_ms) // 2],
+                prefill_device_ms=device_ms["prefill"], decode_device_ms=device_ms["decode"],
                 tokens_per_s=out.numel() / wall, first_len=lens[0], top_len=max(lens),
                 launches=launches)
 
@@ -3375,7 +3467,7 @@ def phase_vlm(walls):
     each, and must equal what the blocks give (``_vlm_expected``). Every
     EBFT block loss must drop, EBFT's perplexity must be below Wanda's and
     nothing may be NaN. Then, on the EBFT weights, greedy serving of 8
-    multimodal prompts (``_vlm_greedy``; the cache's GQA branch, whose
+    multimodal prompts (``_greedy``; the cache's GQA branch, whose
     repeat ``_kv_repeat_ms`` times) and the teacher-forced check of the
     cached decode against the no-cache forward (``_serve_forced``); then
     tiny_vlm and the four dense SMOKE configs on the card against the CPU
@@ -3522,7 +3614,7 @@ def phase_vlm(walls):
     prompts = [corpus.sample(rng, VLM_SERVE["prompt_len"]) for _ in range(VLM_SERVE["slots"])]
     x = {k: torch.as_tensor(v, device="cuda")
          for k, v in _patches(cfg, VLM_SERVE["slots"], P, 3).items()}
-    greedy = _vlm_greedy(model, tuned, prompts, x, VLM_SERVE)
+    greedy = _greedy(model, tuned, prompts, x, VLM_SERVE)
     forced = _serve_forced(model, tuned, prompts, "vlm ebft", VLM_SERVE, extra=x)
     kv = _kv_repeat_ms(cfg, VLM_SERVE, torch.Generator(device="cuda").manual_seed(0))
     emit(dict(phase="vlm_serve", weights="ebft", patches=P, **VLM_SERVE, greedy=greedy,
@@ -3539,6 +3631,260 @@ def phase_vlm(walls):
     for arch in DENSE_SMOKES:
         phase_tiny_family(arch, smoke=True)
     walls["dense_smokes"] = time.perf_counter() - t0
+    return launches, pre["launches"]
+
+
+# ---------------------------------------------------------------------------
+# the encoder-decoder family: Seamless-M4T-medium at its published widths
+# ---------------------------------------------------------------------------
+# the masked GEMM at Seamless's leaves (d 1024, 16 heads x 64, d_ff 4096),
+# bf16: the attention projections (self- and cross-attention's wq, wk, wv,
+# wo) 1024 x 1024, w_up 1024 x 4096, w_down 4096 x 1024, each at the
+# decoder's M = 8 x 2048 = 16384 rows and at the encoder's (and the memory
+# projections') M = 8 x 256 = 2048
+ENCDEC_LEAVES = [("attn", 1024, 1024), ("w_up", 1024, 4096), ("w_down", 4096, 1024)]
+ENCDEC_M = {"M2048": 8 * 256, "M16384": M_ROWS}
+# seq 2048 decoder tokens and F = max(frontend_len 0, 2048 // 8) = 256
+# frames; pretraining through launch/train.run in 2 microbatches (the
+# 256256-entry vocabulary's f32 logits and their gradient set the peak),
+# EBFT at the paper's settings
+ENCDEC = dict(pretrain_steps=50, batch=8, seq=2048, microbatches=2, pretrain_lr=3e-3, calib=16,
+              eval=16)
+# 8 prompts of 512 tokens over 256 frames each, 32 greedy tokens, a
+# 1024-position cache; the teacher-forced check over 32 steps
+ENCDEC_SERVE = dict(slots=8, prompt_len=512, max_new=32, max_len=1024, forced_steps=32)
+
+
+def encdec_cfg(dtype: str = "bfloat16"):
+    """Seamless-M4T-medium at its published widths (12 + 12 layers, not
+    reduced), with the flash attention kernel."""
+    from repro_torch.configs import get_config
+
+    return get_config("seamless_m4t_medium").replace(dtype=dtype, param_dtype=dtype,
+                                                     attn_impl="flash")
+
+
+def phase_masked_matmul_encdec(g):
+    """The masked matmul forward, dX and dW at ``ENCDEC_LEAVES``, each at
+    both of ``ENCDEC_M``'s row counts (``_masked_leaves``). Returns
+    {kernel: {"<leaf> M<rows>": row}}."""
+    out = {k: {} for k in MASKED}
+    for label, rows in ENCDEC_M.items():
+        by_kernel = _masked_leaves(g, {label: ENCDEC_LEAVES}, "masked_matmul_encdec", rows)
+        for k in MASKED:
+            out[k].update({f"{leaf} {label}": r for leaf, r in by_kernel[label][k].items()})
+    return out
+
+
+def _encdec_expected(cfg, res):
+    """The tuning run's launches, from the block structure: a forward of an
+    encoder block runs 6 masked linears and 1 bidirectional attention, of a
+    decoder block 10 masked linears (2 of them cross-attention's memory
+    projections) and 2 attentions (causal self, cross). Per block the prune
+    walk's student advance, the two evaluations with masks, EBFT's loss
+    before and after and its student advance, plus one per EBFT step, whose
+    backward runs dW of every masked linear and dX of all but the memory
+    projections (the memory takes no gradient), and each attention's
+    backward. The attention also runs unmasked in the dense evaluation,
+    the prune walk's taps and EBFT's teacher. The memory is encoded once per
+    microbatch when the decoder segment starts: by the dense encoder in the
+    prune walk (unmasked), by the teacher's and the student's (masked) in
+    EBFT's."""
+    n_cal = math.ceil(ENCDEC["calib"] / 8)
+    n_ev = math.ceil(ENCDEC["eval"] / 8)
+    E, D = cfg.enc_layers, cfg.num_layers
+    steps_e = sum(r.epochs_run for r in res.reports if r.kind == "enc") * n_cal
+    steps_d = sum(r.epochs_run for r in res.reports if r.kind == "dec") * n_cal
+    per_block = n_cal + 2 * n_ev + 3 * n_cal  # masked forwards a block, bar the steps
+    out = {k: 0 for k in _counters()}
+    out.update(masked_matmul=6 * (E * per_block + steps_e + E * n_cal)
+               + 10 * (D * per_block + steps_d),
+               masked_matmul_dx=6 * steps_e + 8 * steps_d,
+               masked_matmul_dw=6 * steps_e + 10 * steps_d,
+               flash_attention=(E + 2 * D) * (3 * n_ev + 6 * n_cal) + 3 * n_cal * E
+               + steps_e + 2 * steps_d,
+               flash_attention_bwd=steps_e + 2 * steps_d)
+    return out
+
+
+def phase_encdec(walls):
+    """The encoder-decoder family's path on Seamless-M4T-medium at its
+    published widths (12 encoder + 12 decoder layers, d_model 1024, 16 heads
+    x 64, d_ff 4096, GELU, LayerNorm, vocab 256206 padded to 256256; about
+    0.88 B parameters), not reduced, bf16, the flash attention kernel, seq
+    2048 decoder tokens over F = 256 seeded frames: the seeded init
+    pretrained ENCDEC["pretrain_steps"] steps through ``launch/train.run``
+    (batch 8 in 2 microbatches, its seeded frames, AdamW lr 3e-3), then from
+    those weights, each walk and evaluation with the same seeded frames
+    (``extra_batch``): the dense perplexity, Wanda 0.7, its perplexity,
+    EBFT (lr 2e-4, 10 epochs, patience 2) and its perplexity, all in one obs
+    run (``chiprun_out/BENCH_ebft_encdec.json``). Every kernel count is set
+    to 0 just before pretraining and before the tuning run, read just after
+    each, and must equal what the blocks give (``_encdec_expected``). Every
+    EBFT block loss must drop, encoder's and decoder's, EBFT's perplexity
+    must be below Wanda's and nothing may be NaN. Then, at the model level
+    on the EBFT weights (the reference's ``Server`` does not serve the
+    family), the teacher-forced check of the cached decode against the
+    no-cache forward (``_serve_forced``) and greedy serving of 8 prompts
+    over their frames (``_greedy``: the prefill encodes the frames, each
+    decode step runs the cached self-attention and cross-attention over the
+    memory); then tiny_encdec on the card against the CPU
+    (``phase_tiny_family``). Returns the tuning run's launches and the
+    pretraining's."""
+    import numpy as np
+    import torch
+
+    from repro_torch import tree as T
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.core import ebft
+    from repro_torch.core.evaluate import perplexity
+    from repro_torch.core.masks import prune
+    from repro_torch.data.tokens import CorpusConfig, SyntheticCorpus, calibration_set, eval_set
+    from repro_torch.launch import ebft_run, train
+    from repro_torch.launch.api import start_obs_run
+    from repro_torch.launch.rooflines import model_flops_per_chip
+    from repro_torch.models.model import build
+    from repro_torch.sparsity import sparse_params as SP
+
+    t0 = time.perf_counter()
+    cfg = encdec_cfg()
+    model = build(cfg)
+    shape = ShapeConfig("encdec", ENCDEC["seq"], ENCDEC["batch"], "train")
+    F = model.input_specs(shape)["frames"].shape[1]
+    S = ENCDEC["seq"]
+    corpus = SyntheticCorpus(CorpusConfig(vocab_size=cfg.vocab_size, seed=0))
+    calib, ev = calibration_set(corpus, ENCDEC["calib"], S), eval_set(corpus, ENCDEC["eval"], S)
+    calib_x, ev_x = _frames(cfg, ENCDEC["calib"], F, 1), _frames(cfg, ENCDEC["eval"], F, 2)
+    spec = ebft_run.RunSpec(arch="seamless_m4t_medium", seed=0, seq=S,
+                            calib_samples=ENCDEC["calib"],
+                            pretrain_steps=ENCDEC["pretrain_steps"], batch=ENCDEC["batch"],
+                            lr=2e-4, epochs=10, bench_out="")
+    tspec = train.TrainSpec(arch="seamless_m4t_medium", steps=ENCDEC["pretrain_steps"],
+                            batch=ENCDEC["batch"], seq=S, lr=ENCDEC["pretrain_lr"], seed=0,
+                            microbatches=ENCDEC["microbatches"])
+    dev = torch.device("cuda")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    obs_run = start_obs_run(spec, "ebft", "cuda", name="chip_smoke/encdec", console=False)
+    reset_counts()
+    with ebft_run._phase(dev, "phase/pretrain", steps=tspec.steps) as sp:
+        tr = train.run(cfg, tspec, "cuda", say=lambda *a: None)
+    pre = dict(launches=read_counts(), peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30)
+    dense, hist = tr.params, tr.history
+    del tr
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t1 = time.perf_counter()
+    phases, ppl = {"pretrain": sp.duration}, {}
+    with ebft_run._phase(dev, "phase/eval", what="dense") as sp:
+        ppl["dense"] = perplexity(model, dense, ev, extra_batch=ev_x)
+    phases["eval_dense"] = sp.duration
+    with ebft_run._phase(dev, "phase/prune", method="wanda", sparsity=0.7) as sp:
+        masks, pruned = prune(model, dense, calib, method="wanda", sparsity=0.7,
+                              extra_batch=calib_x)
+    phases["prune"] = sp.duration
+    ppl["wanda"] = perplexity(model, pruned, ev, extra_batch=ev_x, masks=masks)
+    ecfg = ebft.EBFTConfig(lr=spec.lr, epochs=spec.epochs, patience=2)
+    with ebft_run._phase(dev, "phase/ebft", lr=spec.lr, epochs=spec.epochs) as sp:
+        tuned, reports = ebft.finetune(model, dense, pruned, masks, calib, ecfg,
+                                       extra_batch=calib_x)
+    phases["ebft"] = sp.duration
+    with ebft_run._phase(dev, "phase/eval", what="ebft") as sp:
+        ppl["EBFT"] = perplexity(model, tuned, ev, extra_batch=ev_x, masks=masks)
+    phases["eval_ebft"] = sp.duration
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t1
+    launches = read_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    res = ebft_run.RunResult(ppl, phases, SP.sparsity_of(masks, dense), dense, masks, pruned,
+                             tuned=tuned, reports=reports)
+    summ = obs_run.payload()["metrics"]
+    art = finish_obs(obs_run, ebft_run.bench_record(spec, res, summ), "BENCH_ebft_encdec.json")
+    expected = _encdec_expected(cfg, res)
+    attn_pre = (cfg.enc_layers + 2 * cfg.num_layers) * tspec.steps * tspec.microbatches
+    pre_expected = {k: 0 for k in launches}
+    pre_expected.update(flash_attention=attn_pre, flash_attention_bwd=attn_pre)
+    stats = kernel_stats(art["metrics"])
+    per_step = phases["pretrain"] / tspec.steps
+    flops = model_flops_per_chip(cfg, shape, 1)
+    blocks = [dict(block=r.index, kind=r.kind, loss_before=r.loss_before,
+                   loss_after=r.loss_after, epochs_run=r.epochs_run, early_stop=r.early_stop)
+              for r in reports]
+    row = dict(phase="encdec", arch="seamless_m4t_medium", enc_layers=cfg.enc_layers,
+               num_layers=cfg.num_layers, reduced=None, dtype=cfg.dtype,
+               attn_impl=cfg.attn_impl, seq=S, frames=F, num_heads=cfg.num_heads,
+               head_dim=cfg.resolved_head_dim, vocab=cfg.padded_vocab,
+               params=sum(t.numel() for _, t in T.leaves_with_path(dense)),
+               pretrain=dict(steps=tspec.steps, batch=tspec.batch,
+                             microbatches=tspec.microbatches, lr=tspec.lr,
+                             loss=[dict(step=i, loss=l) for i, l in hist],
+                             s_per_step=per_step, model_flops_per_step=flops,
+                             tflops_6nd=flops / per_step / 1e12,
+                             peak_mem_gib=pre["peak_mem_gib"], launches=pre["launches"],
+                             expected_launches=pre_expected),
+               method="wanda", sparsity=0.7, achieved_sparsity=res.sparsity, perplexity=ppl,
+               ebft_below_pruned=ppl["EBFT"] < ppl["wanda"], blocks=blocks, phases_s=phases,
+               wall_s=wall, peak_mem_gib=peak,
+               live_block_bytes=max(r.live_bytes for r in reports), launches=launches,
+               expected_launches=expected,
+               obs_booked={k: stats.get(k, {}).get("calls", 0) for k in launches},
+               in_run_ms={k: v["mean_ms"] for k, v in stats.items()},
+               kernel_s={k: v["total_s"] for k, v in stats.items()},
+               artifact="chiprun_out/BENCH_ebft_encdec.json")
+    emit(row)
+    for k, v in ppl.items():
+        if not math.isfinite(v):
+            raise AssertionError(f"encdec: {k} perplexity is {v}")
+    if not all(math.isfinite(l) for _, l in hist) or not hist[-1][1] < hist[0][1]:
+        raise AssertionError(f"encdec: pretraining losses {hist} are not finite or did not drop")
+    bad = [b for b in blocks if not (math.isfinite(b["loss_after"])
+                                     and b["loss_after"] < b["loss_before"])]
+    if bad:
+        raise AssertionError(f"encdec: EBFT block losses that did not drop: {bad}")
+    if [b["kind"] for b in blocks] != ["enc"] * cfg.enc_layers + ["dec"] * cfg.num_layers:
+        raise AssertionError(f"encdec: EBFT tuned the blocks {[b['kind'] for b in blocks]}")
+    if pre["launches"] != pre_expected:
+        raise AssertionError(f"encdec: pretraining launches {pre['launches']} != {pre_expected}")
+    if launches != expected:
+        raise AssertionError(f"encdec: launches {launches} != expected {expected}")
+    if any(row["obs_booked"][k] != launches[k] + pre["launches"][k] for k in launches):
+        raise AssertionError(f"encdec: obs booked {row['obs_booked']}, the wrappers {launches} "
+                             f"after pretraining's {pre['launches']}")
+    if not ppl["EBFT"] < ppl["wanda"]:
+        raise AssertionError(f"encdec: EBFT perplexity {ppl['EBFT']} is not below the pruned "
+                             f"model's {ppl['wanda']}")
+    _check_pruned(res, cfg, 1.0 - 0.7, None)
+    for path, m in T.leaves_with_path(masks):
+        if SP.is_prunable(path, m):
+            t = T.get_path(tuned, path)
+            if bool((t[~m] != 0).any()) or not bool(torch.isfinite(t).all()):
+                raise AssertionError(f"encdec: {path} tuned weights are not 0 in pruned slots "
+                                     "or not finite")
+    walls["encdec_path"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    del res, dense, pruned
+    torch.cuda.empty_cache()
+    rng = np.random.default_rng(0)
+    conf = ENCDEC_SERVE
+    prompts = [corpus.sample(rng, conf["prompt_len"]) for _ in range(conf["slots"])]
+    x = {k: torch.as_tensor(v, device="cuda")
+         for k, v in _frames(cfg, conf["slots"], F, 3).items()}
+    forced = _serve_forced(model, tuned, prompts, "encdec ebft", conf, extra=x)
+    # the prefill encodes the frames (one attention an encoder layer), each
+    # call then runs the decoder's self- and cross-attention a layer
+    greedy = _greedy(model, tuned, prompts, x, conf, tag="encdec",
+                     attn=cfg.enc_layers + 2 * cfg.num_layers * conf["max_new"])
+    emit(dict(phase="encdec_serve", weights="ebft", frames=F, **conf, greedy=greedy,
+              forced=forced, phase_s=time.perf_counter() - t0))
+    walls["encdec_serve"] = time.perf_counter() - t0
+    del tuned, masks, x
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    phase_tiny_family("tiny_encdec")
+    walls["encdec_tiny"] = time.perf_counter() - t0
     return launches, pre["launches"]
 
 
@@ -3577,13 +3923,14 @@ def main() -> int:
     for op in ("dx", "dw"):
         rows[f"masked_matmul_{op}"], moe_shapes[f"masked_matmul_{op}"] = bwd[op], moe_bwd[op]
     rows["masked_matmul_dm"] = phase_masked_matmul_dm(g)
-    hyb_shapes = {}
+    hyb_shapes, enc_shapes = {}, {}
     vlm_shapes = {"vlm": {}, "dense_configs": {}}
     rows["flash_attention"], serve_rows, moe_shapes["flash_attention"], \
-        hyb_shapes["flash_attention"], vlm_shapes["vlm"]["flash_attention"] = \
-        phase_flash_attention(g)
+        hyb_shapes["flash_attention"], vlm_shapes["vlm"]["flash_attention"], \
+        enc_shapes["flash_attention"] = phase_flash_attention(g)
     rows["flash_attention_bwd"], moe_shapes["flash_attention_bwd"], \
-        hyb_shapes["flash_attention_bwd"] = phase_flash_attention_bwd(g)
+        hyb_shapes["flash_attention_bwd"], enc_shapes["flash_attention_bwd"] = \
+        phase_flash_attention_bwd(g)
     torch.cuda.empty_cache()
     rows.update(phase_masked_matmul_batched(g))
     torch.cuda.empty_cache()
@@ -3594,6 +3941,9 @@ def main() -> int:
     for group, by_kernel in phase_masked_matmul_vlm(g).items():
         vlm_shapes[group].update(by_kernel)
     vlm_shapes["vlm"]["flash_attention_bwd"] = {"ebft": rows["flash_attention_bwd"]}
+    torch.cuda.empty_cache()
+    # Seamless's leaves at the decoder's and the encoder's rows
+    enc_shapes.update(phase_masked_matmul_encdec(g))
     torch.cuda.empty_cache()
     from repro_torch.data.tokens import CorpusConfig, SyntheticCorpus, calibration_set, eval_set
     from repro_torch.configs import get_config
@@ -3683,6 +4033,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     # the VLM family's path, tiny_vlm and the dense configs' SMOKEs
     vlm_launches, vlm_pre_launches = phase_vlm(walls)
+    torch.cuda.empty_cache()
+    # the encoder-decoder family's path and tiny_encdec
+    enc_launches, enc_pre_launches = phase_encdec(walls)
     emit(dict(phase="walls", seconds=walls, total_s=time.perf_counter() - t_start))
 
     root = "src/repro_torch/kernels/csrc/"
@@ -3700,6 +4053,8 @@ def main() -> int:
                             launches_hybrid=fam_launches["hybrid"][name],
                             launches_vlm=vlm_launches[name],
                             launches_vlm_pretrain=vlm_pre_launches[name],
+                            launches_encdec=enc_launches[name],
+                            launches_encdec_pretrain=enc_pre_launches[name],
                             launches_pretrain=pre_launches[name],
                             launches_path_a=by_path["A"][name], launches_path_b=by_path["B"][name],
                             launches_serve=serve_launches[name],
@@ -3738,6 +4093,13 @@ def main() -> int:
                 keys = ATTN_KEYS if k["name"].startswith("flash") else MMM_KEYS
                 k[group] = {label: {key: r.get(key) for key in keys}
                             for label, r in shapes.items()}
+    # the encdec path's shapes: Seamless's leaves at M 2048 and 16384, its attention
+    for k in kernels:
+        shapes = enc_shapes.get(k["name"], {})
+        if shapes:
+            keys = ATTN_KEYS if k["name"].startswith("flash") else MMM_KEYS + ("M",)
+            k["encdec"] = {label: {key: r.get(key) for key in keys}
+                           for label, r in shapes.items()}
     print(smi(), flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,12 +1,13 @@
 """Config registry: ``get_config(name)``.
 
-A copy of the JAX package's registry, cut to the configurations the port
-runs so far: the dense family (the paper's own Llama-7B, its tiny test
+A copy of the JAX package's registry, with every configuration of every
+family: the dense family (the paper's own Llama-7B, its tiny test
 variant, Qwen1.5-4B, Nemotron-4-15B, Qwen2.5-32B and Qwen1.5-110B), the
 MoE family (DeepSeek-MoE-16B, its tiny variant, and Kimi-K2, whose full
 width waits for the distributed port, ROADMAP.md A.8), the SSM family
-(Mamba2-130M, tiny_ssm), the hybrid (Zamba2-1.2B, tiny_hybrid) and the
-VLM (LLaVA-NeXT-Mistral-7B, tiny_vlm). Each module exposes ``CONFIG``
+(Mamba2-130M, tiny_ssm), the hybrid (Zamba2-1.2B, tiny_hybrid), the
+VLM (LLaVA-NeXT-Mistral-7B, tiny_vlm) and the encoder-decoder
+(Seamless-M4T-medium, tiny_encdec). Each module exposes ``CONFIG``
 (published numbers) and ``SMOKE`` (same family, reduced) ModelConfigs.
 """
 from __future__ import annotations
@@ -18,7 +19,7 @@ from repro_torch.configs.base import ModelConfig
 CONFIG_IDS = ["llama_7b", "tiny_dense", "qwen1_5_4b", "nemotron_4_15b", "qwen2_5_32b",
               "qwen1_5_110b", "deepseek_moe_16b", "tiny_moe", "kimi_k2_1t_a32b",
               "mamba2_130m", "tiny_ssm", "zamba2_1_2b", "tiny_hybrid",
-              "llava_next_mistral_7b", "tiny_vlm"]
+              "llava_next_mistral_7b", "tiny_vlm", "seamless_m4t_medium", "tiny_encdec"]
 
 _ALIAS = {i.replace("_", "-"): i for i in CONFIG_IDS}
 

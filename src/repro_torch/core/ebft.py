@@ -1,5 +1,5 @@
 """EBFT: block-wise fine-tuning of sparse LLMs (port of
-``repro.core.ebft``, the dense, VLM, MoE, SSM and hybrid families),
+``repro.core.ebft``, every family),
 Algorithm 1:
 
     for block l = 1..L:
@@ -100,17 +100,18 @@ class BlockReport:
         return dataclasses.asdict(self)
 
 
-def _loss_and_grads(model, i: int, bw, leaves, mask_bp, h, target, pos):
+def _loss_and_grads(model, i: int, bw, leaves, mask_bp, h, target, pos, aux=None):
     with torch.enable_grad():
-        loss = R.block_loss(model, i, bw, mask_bp, h, target, pos)
+        loss = R.block_loss(model, i, bw, mask_bp, h, target, pos, aux)
         return loss, torch.autograd.grad(loss, leaves)
 
 
 def tune_block(model, i: int, bp: Params, mask_bp: Params, data: List[Tuple],
                ecfg: EBFTConfig, step_cache: Dict) -> Tuple[Params, BlockReport]:
-    """Tune block ``i`` on ``data`` = [(h, target, positions), ...]
-    microbatches. ``bp`` is not modified: the weights being tuned are fresh
-    leaf tensors (clones of its views) that Adam updates in place under
+    """Tune block ``i`` on ``data`` = [(h, target, positions[, aux]), ...]
+    microbatches (``aux``: the segment's keyword arguments, the
+    encoder-decoder's memory). ``bp`` is not modified: the weights being
+    tuned are fresh leaf tensors (clones of its views) that Adam updates in place under
     ``torch.no_grad()``. ``step_cache`` (one dict per walk) keeps the
     block kind's first-call timers across blocks. Returns the tuned,
     re-masked block and its report."""
@@ -183,7 +184,11 @@ def finetune(model, dense_params: Params, pruned_params: Params, masks: Params,
              extra_batch: Optional[Dict[str, Any]] = None,
              log: Optional[Callable[[str], None]] = None) -> Tuple[Params, List[BlockReport]]:
     """Algorithm 1 over the whole model. ``masks`` is a full mask tree (``core.masks``);
-    ``extra_batch`` the calibration batch's other arrays (a VLM's ``patches``).
+    ``extra_batch`` the calibration batch's other arrays (a VLM's
+    ``patches``, an encoder-decoder's ``frames``). The encoder-decoder's
+    blocks are tuned encoder first (kind ``"enc"``), then decoder (``"dec"``),
+    whose teacher reads the dense encoder's memory and student the memory
+    of its tuned encoder.
     Returns (fine-tuned sparse params, per-block reports); the student is a
     fresh tree, ``apply_masks(pruned_params, masks)``, so neither input
     tree is written."""
@@ -200,7 +205,7 @@ def finetune(model, dense_params: Params, pruned_params: Params, masks: Params,
         shared_sites: List[Tuple] = []
 
         def visit(i, bp, ctx):
-            data = list(zip(ctx["h_mb"], ctx["target_mb"], ctx["pos_mb"]))
+            data = list(zip(ctx["h_mb"], ctx["target_mb"], ctx["pos_mb"], ctx["aux_mb"]))
             if i == shared_idx:
                 shared_sites.extend(data)  # tuned once on the union of the sites
                 return None

@@ -19,7 +19,8 @@ def perplexity(model, params: Params, tokens: np.ndarray, microbatch: int = 8,
                masks: Optional[Params] = None) -> float:
     """exp(mean next-token NLL) over the evaluation segments, each
     microbatch weighted by its row count. ``extra_batch`` holds the batch's
-    other arrays (a VLM's ``patches``), sliced per microbatch as the
+    other arrays (a VLM's ``patches``, an encoder-decoder's ``frames``),
+    sliced per microbatch as the
     tokens. With ``masks`` every masked linear runs through the masked
     matmul kernel."""
     device = params["embed"]["tok"].device

@@ -107,10 +107,10 @@ def finetune_lora(model, pruned_params: Params, masks: Params, data_iter: Iterat
     written), by default :func:`init_lora` seeded with ``lcfg.seed`` on the
     params' device. ``data_iter`` yields (B, S) token arrays;
     ``extra_batch_fn(step)``, when given, the step's other batch arrays (a
-    VLM's ``patches``). ``losses``,
+    VLM's ``patches``, an encoder-decoder's ``frames``). ``losses``,
     when a list, gets each step's LM loss as a 0-d device tensor (no
     sync)."""
-    if model.cfg.family not in ("dense", "vlm"):
+    if model.cfg.family not in ("dense", "vlm", "encdec"):
         raise NotImplementedError(f"LoRA on the {model.cfg.family} family is not ported yet "
                                   "(ROADMAP.md A.5)")
     lcfg = lcfg or LoRAConfig()

@@ -100,7 +100,7 @@ def finetune_masks(model, dense_params: Params, init_masks: Params, sparsity: fl
     ``histories``, when a list, gets each block's epoch mean losses;
     ``scores_out``, when a dict, each prunable leaf's final (R, O) scores,
     keyed by ``(block, *path)``."""
-    if model.cfg.family not in ("dense", "vlm"):
+    if model.cfg.family not in ("dense", "vlm", "encdec"):
         raise NotImplementedError(f"mask tuning on the {model.cfg.family} family (on MoE a "
                                   "batched dM) is not ported yet (ROADMAP.md A.5)")
     ecfg = ecfg or EBFTConfig(lr=2e-2)  # scores need a larger step than weights
@@ -119,14 +119,14 @@ def finetune_masks(model, dense_params: Params, init_masks: Params, sparsity: fl
         leaves = [s for _, s in T.leaves_with_path(scores)]
         opt = adam(ecfg.lr)
         state = opt.init(scores)
-        data = list(zip(ctx["h_mb"], ctx["target_mb"], ctx["pos_mb"]))
+        data = list(zip(ctx["h_mb"], ctx["target_mb"], ctx["pos_mb"], ctx["aux_mb"]))
         history: List[float] = []
         for _ in range(ecfg.epochs):
             losses = []
-            for h, t, p in data:
+            for h, t, p, a in data:
                 with torch.enable_grad():
                     mb = _masked_block(dense_bp, scores, sparsity, pattern)
-                    loss = R.block_loss(model, i, dense_bp, mb, h, t, p)
+                    loss = R.block_loss(model, i, dense_bp, mb, h, t, p, a)
                     grads = torch.autograd.grad(loss, leaves)
                 it = iter(grads)
                 updates, state = opt.update(T.tree_map(lambda _: next(it), scores), state,

@@ -20,7 +20,11 @@ dense under N:M), and the hybrid's shared block at each of its sites, as
 the reference's walk visits it; FLAP refuses them, SparseGPT and DSnoT
 are not ported for them yet and raise. The VLM family is pruned as the
 dense one, by every method, on the stream over [patches ; text]
-(``extra_batch``).
+(``extra_batch``). The encoder-decoder is pruned by every method but
+FLAP (which refuses it, as the reference's assert does): the encoder's
+blocks on the frames (``extra_batch={"frames": ...}``), then the
+decoder's, whose cross-attention reads the memory the dense encoder
+gives (the reference's single-stream rule; ``walk_blocks``).
 
 A mask the bf16 kernel could not read by TMA (a single output axis whose
 rows are not 16 bytes apart: Mamba2-130M's ``in_dt``, (768, 24)) is kept
@@ -92,7 +96,7 @@ def prune(model, params: Params, calib: Optional[np.ndarray], method: str = "wan
     if method == "magnitude":
         masks = align_masks(expand_masks(params, MAG.make_masks(params, sparsity, pattern)))
         return masks, SP.apply_masks(params, masks)
-    if model.cfg.family not in ("dense", "vlm") and method in ("sparsegpt", "dsnot"):
+    if model.cfg.family not in ("dense", "vlm", "encdec") and method in ("sparsegpt", "dsnot"):
         raise NotImplementedError(f"{method} on the {model.cfg.family} family is not ported "
                                   "yet (ROADMAP.md A.5)")
     if method == "flap":
@@ -109,7 +113,7 @@ def prune(model, params: Params, calib: Optional[np.ndarray], method: str = "wan
     want_h = method == "sparsegpt"
 
     def visit(i, bp, ctx):
-        stats = C.collect_block_stats(model, bp, i, ctx["h_mb"], ctx["pos_mb"],
+        stats = C.collect_block_stats(model, bp, i, ctx["h_mb"], ctx["pos_mb"], ctx["aux_mb"],
                                       want_hessian=want_h)
         mask_bp = model.get_block(masks, i)
         new_bp = T.tree_map(lambda x: x, bp)
@@ -146,7 +150,7 @@ def _dsnot_walk(model, params, init_masks, calib, microbatch, extra_batch, cycle
     masks = T.tree_map(torch.clone, init_masks)
 
     def visit(i, bp, ctx):
-        stats = C.collect_block_stats(model, bp, i, ctx["h_mb"], ctx["pos_mb"])
+        stats = C.collect_block_stats(model, bp, i, ctx["h_mb"], ctx["pos_mb"], ctx["aux_mb"])
         mask_bp = model.get_block(masks, i)
         dense_bp = model.get_block(params, i)
         new_bp = T.tree_map(lambda x: x, bp)
@@ -181,7 +185,7 @@ def _prune_flap(model, params, calib, sparsity, microbatch, extra_batch, scores_
     scores = []
 
     def score_visit(i, bp, ctx):
-        stats = C.collect_block_stats(model, bp, i, ctx["h_mb"], ctx["pos_mb"])
+        stats = C.collect_block_stats(model, bp, i, ctx["h_mb"], ctx["pos_mb"], ctx["aux_mb"])
         scores.append(FLAP.block_unit_scores(bp, stats, cfg))
         if scores_out is not None:
             scores_out.update({(i, kind): s for kind, s in scores[-1].items()})

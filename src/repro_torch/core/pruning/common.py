@@ -110,14 +110,15 @@ def _merge(a: Optional[LeafStats], b: LeafStats) -> LeafStats:
 
 
 def collect_block_stats(model, bp, block_index: int, h_mb: List[torch.Tensor],
-                        pos_mb: List[torch.Tensor],
+                        pos_mb: List[torch.Tensor], aux_mb: Optional[List[Dict]] = None,
                         want_hessian: bool = False) -> Dict[str, LeafStats]:
-    """Run block ``block_index``'s taps over each microbatch of the stream;
+    """Run block ``block_index``'s taps over each microbatch of the stream
+    (``aux_mb``: each microbatch's segment aux, the encoder memory);
     accumulate stats (with ``want_hessian``, each leaf's f64 Gram too)."""
     tapfn = taps_for_block(model.cfg, block_index, model.num_blocks)
     stats: Dict[str, LeafStats] = {}
-    for h, pos in zip(h_mb, pos_mb):
-        for key, x in tapfn(bp, model.cfg, h, pos).items():
+    for h, pos, aux in zip(h_mb, pos_mb, aux_mb or [{}] * len(h_mb)):
+        for key, x in tapfn(bp, model.cfg, h, pos, **aux).items():
             stats[key] = _merge(stats.get(key), _acc_stats(x, want_hessian))
     return stats
 
@@ -142,6 +143,12 @@ def _make_batches(calib: np.ndarray, microbatch: int, device,
             for s in range(0, calib.shape[0], microbatch)]
 
 
+def _aux_kw(aux: Dict) -> Dict:
+    """``R.advance_with``'s ``aux`` argument, left out where a segment has
+    none."""
+    return {"aux": aux} if aux else {}
+
+
 def walk_blocks(model, params, calib: np.ndarray, visit_fn: Callable, microbatch: int = 8,
                 extra_batch: Optional[Dict] = None, params_student=None, masks=None,
                 dual_stream: bool = False):
@@ -162,14 +169,26 @@ def walk_blocks(model, params, calib: np.ndarray, visit_fn: Callable, microbatch
     later work (ROADMAP.md).
 
     ``extra_batch`` holds the batch's other arrays beside the tokens (the
-    VLM's ``patches`` (N, P, d)), sliced per microbatch as the tokens are
-    and moved to the walk's device.
+    VLM's ``patches`` (N, P, d), the encoder-decoder's ``frames`` (N, F,
+    d)), sliced per microbatch as the tokens are and moved to the walk's
+    device.
+
+    A segment's ``aux`` (the encoder-decoder's memory) is computed once per
+    microbatch when the segment starts, as the reference's: in single-stream
+    mode from the dense ``params`` (the reference's list walk takes the
+    stream's start and aux from ``params``, so every decoder visit sees the
+    dense encoder's memory, never the pruned one); in dual-stream mode the
+    teacher's from ``params`` and the student's from its own tree under
+    ``masks``, after every encoder block has been tuned (its stored
+    weights are masked, so the masks change no value; they route the
+    encoder's linears through the masked matmul kernel).
 
     ``visit_fn(i, bp, ctx)`` returns the block's new params or None; ctx
-    holds ``h_mb``, ``pos_mb``, ``site`` (and ``target_mb`` in dual-stream
-    mode). With ``masks`` (a full mask tree, which a pruning visitor fills
-    in), each student advance runs the block's masked linears through the
-    masked matmul kernel; the teacher runs dense. Returns the updated
+    holds ``h_mb``, ``pos_mb``, ``aux_mb`` (the student stream's aux per
+    microbatch), ``site`` (and ``target_mb`` in dual-stream mode). With
+    ``masks`` (a full mask tree, which a pruning visitor fills in), each
+    student advance runs the block's masked linears through the masked
+    matmul kernel; the teacher runs dense. Returns the updated
     params (``params_student``, updated in place; never ``params`` in
     dual-stream mode).
 
@@ -184,7 +203,8 @@ def walk_blocks(model, params, calib: np.ndarray, visit_fn: Callable, microbatch
     per microbatch advance: each stream's ``h0`` per segment, then the
     teacher's and the student's advance per block. The reference counts
     one per scanned advance of the stacked microbatches; the port's loop
-    advances microbatch by microbatch, and that is its unit. The
+    advances microbatch by microbatch, and that is its unit; a segment's
+    aux counts one more per microbatch and stream. The
     reference's ``ebft/walk/prefetch_inflight`` gauge has no counterpart
     (no prefetcher).
     """
@@ -201,6 +221,7 @@ def walk_blocks(model, params, calib: np.ndarray, visit_fn: Callable, microbatch
     adv = FirstCallTimer(R.advance_with)
     for seg in R.execution_plan(model):
         hs_mb, ht_mb, pos_mb = [], [], []
+        aux_s = aux_t = [{}] * len(batch_all)
         with torch.no_grad():
             for b in batch_all:
                 h, pos = seg.h0(out_params, b)
@@ -208,16 +229,20 @@ def walk_blocks(model, params, calib: np.ndarray, visit_fn: Callable, microbatch
                 pos_mb.append(pos)
                 if dual_stream:
                     ht_mb.append(seg.h0(params, b)[0])
+            if seg.aux is not None:
+                aux_t = [seg.aux(params, b) for b in batch_all]
+                aux_s = [seg.aux(out_params, b, masks) for b in batch_all] if dual_stream \
+                    else aux_t
         if dual_stream:
-            ledger.dispatch(2 * len(batch_all))
+            ledger.dispatch((2 if seg.aux is None else 4) * len(batch_all))
         clock.take()  # segment setup is not a phase
         for (i, site) in seg.visits:
-            ctx = dict(h_mb=hs_mb, pos_mb=pos_mb, site=site)
+            ctx = dict(h_mb=hs_mb, pos_mb=pos_mb, aux_mb=aux_s, site=site)
             if dual_stream:
                 dense_bp = model.get_block(params, i)
                 with span("walk/teacher", block=i) as sp_t, torch.no_grad():
-                    ht_mb = sp_t.fence([adv(model, params, i, dense_bp, h, p)
-                                        for h, p in zip(ht_mb, pos_mb)])
+                    ht_mb = sp_t.fence([adv(model, params, i, dense_bp, h, p, **_aux_kw(a))
+                                        for h, p, a in zip(ht_mb, pos_mb, aux_t)])
                     ledger.dispatch(len(ht_mb))
                 ctx["target_mb"] = ht_mb
             c_teacher = clock.take()
@@ -230,8 +255,8 @@ def walk_blocks(model, params, calib: np.ndarray, visit_fn: Callable, microbatch
                 bp = model.get_block(out_params, i)
             mb = model.get_block(masks, i) if masks is not None else None
             with span("walk/student", block=i) as sp_s, torch.no_grad():
-                hs_mb = sp_s.fence([adv(model, out_params, i, bp, h, p, mb)
-                                    for h, p in zip(hs_mb, pos_mb)])
+                hs_mb = sp_s.fence([adv(model, out_params, i, bp, h, p, mb, **_aux_kw(a))
+                                    for h, p, a in zip(hs_mb, pos_mb, aux_s)])
                 if dual_stream:
                     ledger.dispatch(len(hs_mb))
             c_student = clock.take()

@@ -2,7 +2,8 @@
 obs run each launcher opens (the part of ``repro.launch.api`` the port's
 launchers use): a flag ``--field-name`` per field, with the field's type
 and default (a bool field is a switch), and ``--device``; and the pipeline
-and serving drivers' refusal of the VLM family (``refuse_vlm``)."""
+and serving drivers' refusal of the families whose batch carries a stub
+frontend's arrays (``refuse_frontend_families``)."""
 from __future__ import annotations
 
 import argparse
@@ -10,10 +11,20 @@ import dataclasses
 from typing import Any, Dict, Optional, Sequence, Tuple
 
 
-def refuse_vlm(cfg, driver: str) -> None:
+def refuse_frontend_families(cfg, driver: str) -> None:
     """The reference's ``ebft_run`` and ``Server`` pass the tokens alone, so
-    its ``--arch tiny_vlm`` stops at the missing ``patches``; the port's
-    drivers refuse the family before any work (ROADMAP.md C.4)."""
+    its ``--arch tiny_vlm`` stops at the missing ``patches`` and its
+    ``--arch tiny_encdec`` at the missing ``frames``; the port's drivers
+    refuse both families before any work (ROADMAP.md C.4)."""
+    if cfg.family == "encdec":
+        raise NotImplementedError(
+            f"{driver} does not run the encdec family ({cfg.name}): its batch needs frames, "
+            "which the reference's driver never passes (ROADMAP.md C.4). The library calls "
+            "run it with extra_batch={'frames': ...}: core.masks.prune, "
+            "core.ebft.finetune, core.evaluate.perplexity and cloze_accuracy, "
+            "core.mask_tuning.finetune_masks, core.lora.finetune_lora (extra_batch_fn), "
+            "the model's prefill (batch with frames) and decode_step, and launch.train, "
+            "which draws the frames as the reference's does")
     if cfg.family == "vlm":
         raise NotImplementedError(
             f"{driver} does not run the vlm family ({cfg.name}): its batch needs patches, "

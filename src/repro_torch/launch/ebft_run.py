@@ -26,8 +26,9 @@ span tree, and the sections ``phases``, ``blocks``, ``perplexity``,
 (``python -m repro_torch.obs report`` renders it, and so does the
 reference's CLI). ``--obs-jsonl`` streams the events as they happen.
 ``--no-obs`` turns all of it off and writes no artifact; the console
-lines are the same either way. The VLM family is refused
-(``launch.api.refuse_vlm``): the reference's driver passes no patches.
+lines are the same either way. The VLM and encoder-decoder families are
+refused (``launch.api.refuse_frontend_families``): the reference's driver
+passes no patches and no frames.
 """
 from __future__ import annotations
 
@@ -48,7 +49,7 @@ from repro_torch.core.pruning.flap import remaining_param_fraction
 from repro_torch.data.tokens import (
     CorpusConfig, SyntheticCorpus, calibration_set, corpus_iterator, eval_set,
 )
-from repro_torch.launch.api import parse, refuse_vlm, start_obs_run
+from repro_torch.launch.api import parse, refuse_frontend_families, start_obs_run
 from repro_torch.models.model import build
 from repro_torch.obs import metrics as OM
 from repro_torch.obs import trace as OT
@@ -185,7 +186,7 @@ def run(cfg: ModelConfig, spec: RunSpec, device=None, params: Optional[Any] = No
     its eval, as the reference's ``ebft_run.py``. ``params`` defaults to
     the port's init seeded with ``spec.seed``; they are not changed.
     ``on_stage`` is handed to each pretraining step (``make_train_step``)."""
-    refuse_vlm(cfg, "ebft_run")
+    refuse_frontend_families(cfg, "ebft_run")
     wants = set(spec.baselines.split(",")) if spec.baselines else set()
     if wants - set(BASELINES):
         raise ValueError(f"unknown baselines {sorted(wants - set(BASELINES))}; "
@@ -325,7 +326,7 @@ def main(argv=None) -> RunResult:
                          {"method": METHODS})
     device = resolve_device(device)
     cfg = get_config(spec.arch)
-    refuse_vlm(cfg, "ebft_run")
+    refuse_frontend_families(cfg, "ebft_run")
     obs_run = start_obs_run(spec, "ebft", device)
     say = obs_run.say if obs_run is not None else print
     res = run(cfg, spec, device)

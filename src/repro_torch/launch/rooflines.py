@@ -18,7 +18,10 @@ HLO statistics, which have no torch counterpart; it waits with
 The MoE family counts its active parameters (top-k routed experts, the
 shared ones, the router), as the reference; the VLM, SSM and hybrid families
 count ``param_count`` as the dense one (the head in, for an ``ebft``
-shape the embedding out; the hybrid's shared block once).
+shape the embedding out; the hybrid's shared block once). In the
+encoder-decoder the encoder's parameters see 8x fewer tokens than the
+decoder's (the frame stream is S // 8 long), and an ``ebft`` shape's
+block is the mean over both stacks.
 """
 from __future__ import annotations
 
@@ -29,21 +32,20 @@ HBM_BW = 3.35e12      # bytes/s
 
 
 def model_flops_per_chip(cfg: ModelConfig, shape: ShapeConfig, chips: int) -> float:
-    """The reference's count for the dense, VLM, MoE, SSM and hybrid families
-    (embedding lookups are table reads, not FLOPs; the LM head is a matmul
-    and is in ``param_count``)."""
-    if cfg.family not in ("dense", "vlm", "moe", "ssm", "hybrid"):
-        raise NotImplementedError(f"model FLOPs of family {cfg.family!r} "
-                                  "(ROADMAP.md queue A.5)")
+    """The reference's count (embedding lookups are table reads, not FLOPs;
+    the LM head is a matmul and is in ``param_count``)."""
     n = cfg.param_count(active_only=cfg.family == "moe")
+    embed = cfg.padded_vocab * cfg.d_model * (1 if cfg.tie_embeddings else 2)
+    if cfg.family == "encdec":
+        dec_frac = cfg.num_layers / max(cfg.num_layers + cfg.enc_layers, 1)
+        n = (n - embed) * (dec_frac + (1 - dec_frac) / 8.0) + embed
     tokens = shape.global_batch * shape.seq_len
     if shape.kind == "train":
         return 6.0 * n * tokens / chips
     if shape.kind == "prefill":
         return 2.0 * n * tokens / chips
     if shape.kind == "ebft":
-        embed = cfg.padded_vocab * cfg.d_model * (1 if cfg.tie_embeddings else 2)
-        n_block = (n - embed) / max(cfg.num_layers, 1)
+        n_block = (n - embed) / max(cfg.num_layers + cfg.enc_layers, 1)
         return 6.0 * n_block * tokens / chips
     # decode: one token per sequence per step
     return 2.0 * n * shape.global_batch / chips

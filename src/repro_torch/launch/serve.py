@@ -13,9 +13,9 @@ so either package serves the other's weights. Runs on the card unless
 spans and metrics and ends with the ``served`` section (``--bench-out``
 writes the artifact, ``--obs-jsonl`` streams the events, ``--no-obs``
 turns it all off). The reference's deprecated ``--batch`` spelling of
-``--slots`` is not taken. The VLM family is refused
-(``launch.api.refuse_vlm``): the reference's ``Server`` passes the tokens
-alone.
+``--slots`` is not taken. The VLM and encoder-decoder families are
+refused (``launch.api.refuse_frontend_families``): the reference's
+``Server`` passes the tokens alone.
 """
 from __future__ import annotations
 
@@ -31,7 +31,7 @@ from repro_torch.checkpoint import ckpt as CK
 from repro_torch.configs import get_config
 from repro_torch.core.masks import prune
 from repro_torch.data.tokens import CorpusConfig, SyntheticCorpus, calibration_set
-from repro_torch.launch.api import parse, refuse_vlm, start_obs_run
+from repro_torch.launch.api import parse, refuse_frontend_families, start_obs_run
 from repro_torch.models.model import build
 from repro_torch.obs import metrics as OM
 from repro_torch.serving.decode import Request, Server
@@ -61,7 +61,7 @@ def main(argv=None) -> Dict[int, List[int]]:
     spec, device = parse(ServeSpec, argv, "repro_torch.launch.serve", __doc__)
     device = resolve_device(device)
     cfg = get_config(spec.arch)
-    refuse_vlm(cfg, "serve")
+    refuse_frontend_families(cfg, "serve")
     run = start_obs_run(spec, "serve", device)
 
     model = build(cfg)

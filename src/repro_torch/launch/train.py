@@ -99,6 +99,9 @@ def run(cfg: ModelConfig, spec: TrainSpec, device=None, params: Optional[Any] = 
             P = model.input_specs(shape)["patches"].shape[1]
             batch["tokens"] = toks[:, :spec.seq - P]
             batch["patches"] = r.normal(size=(spec.batch, P, cfg.d_model)).astype(np.float32)
+        if cfg.family == "encdec":
+            F = model.input_specs(shape)["frames"].shape[1]
+            batch["frames"] = r.normal(size=(spec.batch, F, cfg.d_model)).astype(np.float32)
         return {k: torch.as_tensor(v, device=device) for k, v in batch.items()}
 
     start = 0

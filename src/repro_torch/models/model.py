@@ -1,5 +1,5 @@
 """Model facade (port of ``repro.models.model``: the dense, MoE, SSM,
-hybrid and VLM families).
+hybrid, VLM and encoder-decoder families).
 
 ``build(cfg)`` returns a ``Model`` with the reference's interface:
 
@@ -15,7 +15,7 @@ plus the block-level API the calibration walk uses:
 
     m.num_blocks
     m.get_block(params, i) / m.set_block(params, i, bp)
-    m.apply_block(params, i, bp, h, positions, masks=None) -> h'
+    m.apply_block(params, i, bp, h, positions, masks=None, **aux) -> h'
     m.embed_tokens(params, batch) -> (h0, positions)
     m.finalize(params, h) -> logits
 
@@ -31,7 +31,12 @@ live ``params["shared"]`` tree (counted once in ``num_blocks``). The VLM
 is the dense model over [patches ; text]: its batch also holds
 ``patches`` (B, P, d), its loss and ``forward`` cover the text positions,
 and ``embed_tokens``/``finalize`` the whole multimodal stream, as the
-reference's.
+reference's. In the encoder-decoder family the batch also holds
+``frames`` (B, F, d) with F = max(frontend_len, S // 8); blocks ``0 ..
+enc_layers - 1`` are the encoder's and the rest the decoder's, whose
+``apply_block`` takes the encoder ``memory=`` (the walk's segment
+``aux``); ``embed_tokens`` and ``finalize`` are the decoder's, and the
+serve state is ``{"cache", "memory"}``, the memory encoded at prefill.
 """
 from __future__ import annotations
 
@@ -42,7 +47,7 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig, ShapeConfig
-from repro_torch.models import hybrid, layers, moe, ssm, transformer, vlm
+from repro_torch.models import encdec, hybrid, layers, moe, ssm, transformer, vlm
 
 Params = Dict[str, Any]
 
@@ -116,6 +121,8 @@ def build(cfg: ModelConfig) -> Model:
         return _build_hybrid(cfg)
     if cfg.family == "vlm":
         return _build_vlm(cfg)
+    if cfg.family == "encdec":
+        return _build_encdec(cfg)
     raise NotImplementedError(f"family {cfg.family!r} is not ported yet (ROADMAP.md queue A.5)")
 
 
@@ -138,7 +145,7 @@ def _finalize(cfg: ModelConfig):
 
 
 def _nll_loss(forward):
-    """The loss of the dense, SSM and hybrid families: the next-token NLL of
+    """The loss of every family but the MoE: the next-token NLL of
     ``forward``'s logits, also its one metric ``{"nll"}``."""
     def loss(params, batch, masks=None):
         l = _shift_loss(forward(params, batch, masks), batch["tokens"])
@@ -314,3 +321,69 @@ def _build_vlm(cfg: ModelConfig) -> Model:
         loss=_nll_loss(forward), input_specs=input_specs, embed_tokens=embed_tokens,
         prefill=lambda params, batch, state: vlm.prefill_multimodal(
             params, cfg, batch["tokens"], batch["patches"], state))
+
+
+def _build_encdec(cfg: ModelConfig) -> Model:
+    """Encoder blocks ``[0, n_enc)``, decoder blocks ``[n_enc, n_enc +
+    n_dec)``; the loss is the next-token NLL over the decoder's tokens."""
+    M = encdec
+    n_enc = cfg.enc_layers
+    dtype = transformer.torch_dtype(cfg.dtype)
+
+    def forward(params, batch, masks=None):
+        return M.forward(params, cfg, batch["tokens"], batch["frames"], masks)
+
+    def input_specs(shape: ShapeConfig) -> Dict[str, TensorSpec]:
+        B, S = shape.global_batch, shape.seq_len
+        F = max(cfg.frontend_len, S // 8)
+        return {"tokens": TensorSpec((B, S), torch.int32),
+                "frames": TensorSpec((B, F, cfg.d_model), dtype)}
+
+    def init_serve_state(b, ml, device=None):
+        device = resolve_device(device)
+        F = max(cfg.frontend_len, ml // 8)
+        return {"cache": M.init_cache(cfg, b, ml, device),
+                "memory": torch.zeros((b, F, cfg.d_model), dtype=dtype, device=device)}
+
+    def prefill(params, batch, state):
+        memory = M.encode(params, cfg, batch["frames"])
+        logits, cache = M.prefill(params, cfg, batch["tokens"], state["cache"], memory)
+        return logits, {"cache": cache, "memory": memory}
+
+    def decode_step(params, token, state):
+        logits, cache = M.decode_step(params, cfg, token, state["cache"], state["memory"])
+        return logits, {"cache": cache, "memory": state["memory"]}
+
+    def group(i):
+        return ("enc_blocks", i) if i < n_enc else ("dec_blocks", i - n_enc)
+
+    def get_block(params, i):
+        name, j = group(i)
+        return transformer.slice_block(params[name], j)
+
+    def set_block(params, i, bp):
+        name, j = group(i)
+        _set_tree(params[name], j, bp)
+        return params
+
+    def apply_block(params, i, bp, h, positions, masks=None, memory=None):
+        if i < n_enc:
+            return M.enc_block_apply(bp, cfg, h, positions, masks)
+        return M.dec_block_apply(bp, cfg, h, memory, positions, masks)
+
+    return Model(
+        cfg=cfg,
+        init=lambda g: M.init(g, cfg),
+        forward=forward,
+        loss=_nll_loss(forward),
+        init_serve_state=init_serve_state,
+        prefill=prefill,
+        decode_step=decode_step,
+        input_specs=input_specs,
+        num_blocks=n_enc + cfg.num_layers,
+        get_block=get_block,
+        set_block=set_block,
+        apply_block=apply_block,
+        embed_tokens=_embed_tokens(cfg),
+        finalize=_finalize(cfg),
+    )

@@ -89,14 +89,17 @@ def init(g: torch.Generator, cfg: ModelConfig) -> Params:
 
 
 def block_apply(bp: Params, cfg: ModelConfig, h: torch.Tensor, positions: torch.Tensor,
-                masks: Optional[Params] = None, cache: Optional[Params] = None) -> torch.Tensor:
+                masks: Optional[Params] = None, cache: Optional[Params] = None,
+                causal: bool = True) -> torch.Tensor:
     """One transformer block; ``masks`` is the block's mask dict or None,
-    ``cache`` the block's KV cache (written in place) or None."""
+    ``cache`` the block's KV cache (written in place) or None. ``causal=False``
+    is the encoder-decoder family's encoder block (bidirectional, RoPE
+    all the same)."""
     mk = masks or {}
     attn_in = L.apply_norm(bp["ln1"], h, cfg.norm)
     h = h + L.attention_block(
         bp["attn"], attn_in, positions=positions, rope_theta=cfg.rope_theta,
-        causal=True, impl=cfg.attn_impl, chunk=cfg.attn_chunk,
+        causal=causal, impl=cfg.attn_impl, chunk=cfg.attn_chunk,
         q_chunk=cfg.attn_q_chunk, masks=mk.get("attn"), cache=cache,
     )
     mlp_in = L.apply_norm(bp["ln2"], h, cfg.norm)
