@@ -89,7 +89,8 @@ PRETRAIN_STEPS = 200
 PRETRAIN_BATCH = 8
 # the sections of the pipeline's artifact (BENCH_ebft.json), all required
 # the expert-batched entries of the masked matmul kernel (the MoE path's)
-BATCHED = ("masked_matmul_batched", "masked_matmul_batched_dx", "masked_matmul_batched_dw")
+BATCHED = ("masked_matmul_batched", "masked_matmul_batched_dx", "masked_matmul_batched_dw",
+           "masked_matmul_batched_dm")
 OBS_REQUIRE = ["blocks", "phases", "perplexity", "ebft", "dispatch", "walk_phases", "mesh",
                "kernel_tuning"]
 
@@ -730,7 +731,8 @@ def _counters():
             "flash_attention_bwd": (FA, "bwd_launches"), "nm_spmm": (NM, "launches"),
             "masked_matmul_batched": (MM, "batched_launches"),
             "masked_matmul_batched_dx": (MM, "batched_dx_launches"),
-            "masked_matmul_batched_dw": (MM, "batched_dw_launches")}
+            "masked_matmul_batched_dw": (MM, "batched_dw_launches"),
+            "masked_matmul_batched_dm": (MM, "batched_dm_launches")}
 
 
 def reset_counts() -> None:
@@ -2363,27 +2365,57 @@ def _rel_norm(a, b) -> float:
     return float((a - b).norm() / b.norm().clamp_min(1e-30))
 
 
-def _mask_flips(masks_a, masks_b, gap_fn, tie, first=None):
+def _block_slices(cfg, path, t):
+    """[(block index, slice)] of a prunable leaf of a full tree: a stacked
+    leaf's slices by the model's block index (a stack's first block:
+    ``moe_blocks`` after the dense ones, the hybrid's ``groups`` (G, K)
+    from 0 and its ``trailing`` blocks after them, ``dec_blocks`` after the
+    encoder's); the hybrid's unstacked ``shared`` block is block
+    ``num_layers``."""
+    from repro_torch.sparsity import sparse_params as SP
+
+    name = path[-1]
+    stack = t.dim() - SP._LOGICAL_NDIM[name] - SP.is_expert_batched(name, t[0])
+    if stack == 0:
+        return [(cfg.num_layers, t)]
+    K = cfg.hybrid_attn_every
+    first = {"moe_blocks": cfg.moe_first_dense, "trailing": K and cfg.num_layers // K * K,
+             "dec_blocks": cfg.enc_layers}.get(path[0], 0)
+    flat = t.reshape(-1, *t.shape[stack:])
+    return [(first + j, flat[j]) for j in range(flat.shape[0])]
+
+
+def _sgpt_gaps(scores, sparsity):
+    """Each slot's distance from its SparseGPT comparison group's
+    threshold, relative to it: the column's top (1 - sparsity) share of
+    each 128-row block of the (..., R, O) scores."""
+    import torch
+
+    from repro_torch.sparsity import sparse_params as SP
+
+    R = scores.shape[-2]
+    return torch.cat([SP.threshold_gaps(scores[..., v:v + 128, :], sparsity)
+                      for v in range(0, R, 128)], dim=-2)
+
+
+def _mask_flips(masks_a, masks_b, gap_fn, tie, cfg):
     """Slots where two full mask trees differ, per (block, path): each must
     lie within ``tie`` (relative) of its comparison group's threshold, as
     ``gap_fn(block, path, diff)`` measures it; returns {path: [flips per
-    block]}. ``first`` maps a stack (``dec_blocks``) to the model's index
-    of its first block (0 if absent)."""
+    block]}, the blocks of a stacked leaf as ``_block_slices`` gives them."""
     from repro_torch import tree as T
     from repro_torch.sparsity import sparse_params as SP
 
-    first = first or {}
     out = {}
     for path, m in T.leaves_with_path(masks_b):
         if not SP.is_prunable(path, m):
             continue
-        diff = T.get_path(masks_a, path).cpu() != m.cpu()
+        diffs = _block_slices(cfg, path, T.get_path(masks_a, path).cpu() != m.cpu())
         out["/".join(path[1:] if path[0] == "blocks" else path)] = \
-            [int(diff[i].sum()) for i in range(m.shape[0])]
-        for i in range(m.shape[0]):
-            if diff[i].any():
-                gap = gap_fn(i + first.get(path[0], 0), path,
-                             SP.to_matrix(path[-1], diff[i])[0])
+            [int(d.sum()) for _, d in diffs]
+        for i, d in diffs:
+            if d.any():
+                gap = gap_fn(i, path, SP.to_matrix(path[-1], d)[0])
                 if gap > tie:
                     raise AssertionError(f"tiny baselines: {path} block {i} flipped a slot "
                                          f"{gap:.2e} from its threshold (limit {tie:.0e})")
@@ -2395,12 +2427,13 @@ def phase_tiny_baselines(model, weights, calib, ev, corpus, rel=1e-4, arch="tiny
     """SparseGPT, DSnoT and FLAP prunes, mask tuning and 20 LoRA steps on
     tiny_dense (or ``arch``: tiny_vlm or tiny_encdec, with its patches or
     frames ``calib_x``, ``ev_x`` and each LoRA step's ``lora_x(step)``;
-    FLAP refuses the encoder-decoder on both devices) in f32, from the same
+    tiny_moe, tiny_ssm, tiny_hybrid; FLAP refuses all but the dense family
+    and the VLM on both devices) in f32, from the same
     weights on the card (kernels) and on
     the CPU (plain versions); mask tuning and LoRA start from the CPU's
     SparseGPT masks and LoRA from one CPU-drawn adapter init. The prunes'
     masks agree but for slots near their threshold: SparseGPT's within 1e-4
-    of its block scores' threshold (its scores pass through an inverse and
+    of its 128-row block scores' threshold (its scores pass through an inverse and
     a Cholesky factor of a Gram damped by 1% of its diagonal mean), FLAP's
     units within 1e-5 of the global threshold; DSnoT's masks (from Wanda's,
     which agree here) equal; and where they agree, weights and perplexities
@@ -2409,7 +2442,8 @@ def phase_tiny_baselines(model, weights, calib, ev, corpus, rel=1e-4, arch="tiny
     sign-like steps turn rounding in a near-zero gradient into a move of
     up to lr a step, as the reference's own run moves under a 1e-6 change of
     its start. Its epoch histories agree within rel 1e-4 up to the first
-    block whose masks differ (the streams are the same until then), and its
+    visit (in the walk's order: the hybrid's shared block at its first
+    site) of a block whose masks differ (the streams are the same until then), and its
     perplexity too when no block's do. LoRA's 20 steps: LM losses, merged
     weights and perplexity within rel 1e-4."""
     import torch
@@ -2424,14 +2458,15 @@ def phase_tiny_baselines(model, weights, calib, ev, corpus, rel=1e-4, arch="tiny
     from repro_torch.data.tokens import corpus_iterator
     from repro_torch.sparsity import sparse_params as SP
 
-    encdec = model.cfg.family == "encdec"
-    runs = {"sparsegpt": 0.5, "dsnot": 0.5} if encdec else \
-        {"sparsegpt": 0.5, "dsnot": 0.5, "flap": 0.3}
-    first = {"dec_blocks": model.cfg.enc_layers}
+    from repro_torch.core import reconstruction as R
+
+    cfg = model.cfg
+    flap = cfg.family in ("dense", "vlm")
+    runs = {"sparsegpt": 0.5, "dsnot": 0.5, **({"flap": 0.3} if flap else {})}
     out = {dev: {} for dev in ("cuda", "cpu")}
     for dev in ("cuda", "cpu"):
         params = interop.params_to_torch(weights, dev)
-        if encdec:
+        if not flap:
             _refuses(f"tiny baselines: flap on {arch} ({dev})",
                      lambda: prune(model, params, calib, method="flap", sparsity=0.3,
                                    extra_batch=calib_x))
@@ -2444,13 +2479,13 @@ def phase_tiny_baselines(model, weights, calib, ev, corpus, rel=1e-4, arch="tiny
                                                    masks=masks))
     row = dict(phase="tiny_baselines", arch=arch, dtype="float32", rtol=rel)
     cpu, card = out["cpu"], out["cuda"]
-    # SparseGPT: every tiny leaf has R <= 128, one block per column
+    # SparseGPT ranks each column within each 128-row block
     row["sparsegpt_flips"] = _mask_flips(card["sparsegpt"]["masks"], cpu["sparsegpt"]["masks"],
-                                         lambda i, p, d: float(SP.threshold_gaps(
+                                         lambda i, p, d: float(_sgpt_gaps(
                                              cpu["sparsegpt"]["scores"][(i, *p[1:])], 0.5)[d]
-                                             .max()), 1e-4, first)
+                                             .max()), 1e-4, cfg)
     row["dsnot_flips"] = _mask_flips(card["dsnot"]["masks"], cpu["dsnot"]["masks"],
-                                     lambda i, p, d: math.inf, 0.0, first)
+                                     lambda i, p, d: math.inf, 0.0, cfg)
 
     # FLAP: each unit (a head, a channel) whose mask differs must lie near
     # the global threshold of the CPU's standardised scores
@@ -2532,15 +2567,18 @@ def phase_tiny_baselines(model, weights, calib, ev, corpus, rel=1e-4, arch="tiny
     mt.update(histories_cuda=res["cuda"]["hist"], histories_cpu=res["cpu"]["hist"],
               ppl=[res["cuda"]["mt_ppl"], res["cpu"]["mt_ppl"]])
     row["mask_tune"] = mt
-    # up to the first block whose masks flipped, the two runs see the same
-    # streams: their epoch histories, and with no flip the perplexity, agree
-    first = next((i for i, n in enumerate(mt["flips"]) if n), nb)
-    for b in range(first):
-        for x, y in zip(res["cuda"]["hist"][b], res["cpu"]["hist"][b]):
+    # up to the first visit of a block whose masks flipped, the two runs see
+    # the same streams: their epoch histories, and with no flip the
+    # perplexity, agree
+    order = [i for seg in R.execution_plan(model) for i, _ in seg.visits]
+    first = next((v for v, i in enumerate(order) if mt["flips"][i]), len(order))
+    for v in range(first):
+        for x, y in zip(res["cuda"]["hist"][v], res["cpu"]["hist"][v]):
             if abs(x / y - 1) > rel:
                 emit(row)
-                raise AssertionError(f"tiny baselines: mask tuning block {b} history differs")
-    if first == nb and abs(res["cuda"]["mt_ppl"] / res["cpu"]["mt_ppl"] - 1) > rel:
+                raise AssertionError(f"tiny baselines: mask tuning block {order[v]} (visit "
+                                     f"{v}) history differs")
+    if first == len(order) and abs(res["cuda"]["mt_ppl"] / res["cpu"]["mt_ppl"] - 1) > rel:
         emit(row)
         raise AssertionError("tiny baselines: mask tuning ppl differs")
     worst = max(abs(x / y - 1) for x, y in zip(res["cuda"]["losses"], res["cpu"]["losses"]))
@@ -2578,21 +2616,23 @@ def moe_cfg(dtype: str = "bfloat16"):
 
 
 def phase_masked_matmul_batched(g):
-    """The expert-batched masked GEMM (forward, dX, dW) in bf16 at the EBFT
-    microbatch's expert slabs, and in f32 at a ragged shape whose every
-    operand is a strided view (``BATCHED_RAGGED``), each held (a) against
-    its plain version within the 2-D rows' tolerances, (b) against the 2-D
-    kernel launched on each expert's slab alone, bit for bit, and (c)
-    against a repeat of itself. The bf16 ones are timed (``timed_ms``)
-    beside their plain version, ``torch.bmm`` on the masked weights and
-    their bound (the bytes of the operands; the operations 2 x C x the
-    mask's nonzeros). Returns the w_up rows."""
+    """The expert-batched masked GEMM (forward, dX, dW, and mask tuning's
+    dM) in bf16 at the EBFT microbatch's expert slabs, and in f32 at a
+    ragged shape whose every operand is a strided view
+    (``BATCHED_RAGGED``), each held (a) against its plain version within
+    the 2-D rows' tolerances, (b) against the 2-D kernel launched on each
+    expert's slab alone, bit for bit, and (c) against a repeat of itself.
+    The bf16 ones are timed (``timed_ms``) beside their plain version,
+    ``torch.bmm`` (on the masked weights; dM's scaled by w) and their bound
+    (the bytes of the operands and the output; the operations 2 x C x the
+    mask's nonzeros, dM's 2 x E x C x K x N: it needs every slot). Returns
+    the w_up rows."""
     import torch
 
     from repro_torch.kernels.masked_matmul import ops as MM
     from repro_torch.kernels.masked_matmul.ref import (
-        masked_matmul_batched_dw_plain, masked_matmul_batched_dx_plain,
-        masked_matmul_batched_plain,
+        masked_matmul_batched_dm_plain, masked_matmul_batched_dw_plain,
+        masked_matmul_batched_dx_plain, masked_matmul_batched_plain,
     )
 
     summary = {}
@@ -2611,24 +2651,30 @@ def phase_masked_matmul_batched(g):
         m = view(K, N, lambda *s: torch.rand(*s, device="cuda", generator=g) < 0.3)
         dy = view(C, N, lambda *s: torch.randn(*s, device="cuda", generator=g).to(dt))
         es = x.element_size()
+        masked_ops = 2.0 * C * float(m.sum())
         cases = (
             ("masked_matmul_batched", lambda: MM.masked_matmul_batched(x, w, m),
              lambda: masked_matmul_batched_plain(x, w, m), "torch.bmm(x, w * m)",
              lambda: torch.bmm(x, wm),
              lambda e: MM._launch(x[e], w[e], m[e]), check_close,
-             (x.numel() + w.numel() + E * C * N) * es + m.numel()),
+             (x.numel() + w.numel() + E * C * N) * es + m.numel(), masked_ops),
             ("masked_matmul_batched_dx", lambda: MM.masked_matmul_batched_dx(dy, w, m),
              lambda: masked_matmul_batched_dx_plain(dy, w, m), "torch.bmm(dy, (w * m)^T)",
              lambda: torch.bmm(dy, wm.transpose(1, 2)),
              lambda e: MM._launch_dx(dy[e], w[e], m[e]), check_scaled,
-             (dy.numel() + w.numel() + E * C * K) * es + m.numel()),
+             (dy.numel() + w.numel() + E * C * K) * es + m.numel(), masked_ops),
             ("masked_matmul_batched_dw", lambda: MM.masked_matmul_batched_dw(x, dy, m),
              lambda: masked_matmul_batched_dw_plain(x, dy, m), "torch.bmm(x^T, dy) * m",
              lambda: torch.bmm(x.transpose(1, 2), dy) * m,
              lambda e: MM._launch_dw(x[e], dy[e], m[e]), check_scaled,
-             (x.numel() + dy.numel() + E * K * N) * es + m.numel()),
+             (x.numel() + dy.numel() + E * K * N) * es + m.numel(), masked_ops),
+            ("masked_matmul_batched_dm", lambda: MM.masked_matmul_batched_dm(x, dy, w),
+             lambda: masked_matmul_batched_dm_plain(x, dy, w), "torch.bmm(x^T, dy) * w",
+             lambda: torch.bmm(x.transpose(1, 2), dy) * w,
+             lambda e: MM._launch_dm(x[e], dy[e], w[e]), check_scaled,
+             (x.numel() + dy.numel() + w.numel() + E * K * N) * es, 2.0 * E * C * K * N),
         )
-        for name, kern, plain, lib_name, lib, per_expert, check, nbytes in cases:
+        for name, kern, plain, lib_name, lib, per_expert, check, nbytes, ops in cases:
             out = kern()
             torch.cuda.synchronize()
             err = check(f"{name} {leaf}", out, plain(), dtype)
@@ -2643,7 +2689,7 @@ def phase_masked_matmul_batched(g):
                        deterministic=check_repeat(f"{name} {leaf}", kern, out))
             if timed:
                 wm = w * m.to(dt)
-                b_ms, b_by = bound_ms(nbytes, 2.0 * C * float(m.sum()), dtype)
+                b_ms, b_by = bound_ms(nbytes, ops, dtype)
                 row.update(ms=timed_ms(kern), plain_ms=timed_ms(plain), library_ms=timed_ms(lib),
                            library=lib_name, bound_ms=b_ms, bound_by=b_by,
                            bound_ms_dense_ops=2.0 * E * C * K * N / PEAK_FLOPS[dtype] * 1e3,
@@ -2666,6 +2712,181 @@ def phase_masked_matmul_batched(g):
              lambda: MM.masked_matmul_batched(x, w, m))
     emit(dict(phase="masked_matmul_batched", case="bf16 mask row stride 40", refused=True))
     return summary
+
+
+# per block kind: (2-D masked linears, expert-batched ones, attentions, and
+# under mask tuning the 2-D and the batched linears whose input takes a
+# gradient: dX runs on those only, the block's input and its norm being
+# frozen). A dense (or the hybrid's shared) block: wq, wk, wv, wo, w_gate,
+# w_up, w_down, dX on wo and the MLP's three; an MoE block the same with
+# its shared experts as the MLP, and the routed experts' three batched; a
+# Mamba block in_z, in_x, in_B, in_C, in_dt and out, dX on out
+BLOCK_KINDS = {"dense": (7, 0, 1, 4, 0), "moe": (7, 3, 1, 4, 3), "shared": (7, 0, 1, 4, 0),
+               "mamba": (6, 0, 0, 1, 0)}
+# LoRA on the SSM and hybrid paths: steps at batch 4 x 2048 (the driver's
+# 200 steps at batch 8 would double the script's time, and Zamba2 at batch
+# 8 in one microbatch does not fit the card), lr 1e-3 as the driver's
+FAM_LORA = dict(steps=20, batch=4, lr=1e-3)
+
+
+def _visit_kinds(model):
+    """The walk's visits in order, each by its ``BLOCK_KINDS`` key."""
+    from repro_torch.core import reconstruction as R
+
+    def kind(i):
+        k = R.block_kind(model, i)
+        return {"block": "mamba" if model.cfg.family == "ssm" else "dense"}.get(k, k)
+
+    return [kind(i) for seg in R.execution_plan(model) for i, _ in seg.visits]
+
+
+def _baselines_expected(model, res, calib, evals, lora_steps=0):
+    """The baselines' launches beside the main run's: SparseGPT's walk
+    (taps, student) and its eval; DSnoT's Wanda walk, its own walk and its
+    eval; mask tuning's steps (a masked forward, dX where the input takes a
+    gradient, dM of every masked linear, the attention's backward), its
+    teacher and student advances and its eval; and ``lora_steps`` LoRA
+    steps (one microbatch each: a masked forward, dW of every masked
+    linear, dX of all but the first block's input projections, whose input
+    is the frozen embedding), then its eval. Counted per visit of the walk
+    (the hybrid's shared block at each site) as ``BLOCK_KINDS`` gives each
+    visit's linears; the attention also runs unmasked in every walk's taps
+    and in mask tuning's teacher."""
+    n_cal, n_ev = math.ceil(calib / 8), math.ceil(evals / 8)
+    kinds = _visit_kinds(model)
+    mt = [len(h) * n_cal for h in res.baselines["mask"]["histories"]]
+    if len(mt) != len(kinds):
+        raise AssertionError(f"mask tuning visited {len(mt)} blocks, the walk has {len(kinds)}")
+    out = {k: 0 for k in _counters()}
+    for v, kind in enumerate(kinds):
+        n2, nb, att, dx, bdx = BLOCK_KINDS[kind]
+        masked = (n_cal + n_ev) + (2 * n_cal + n_ev) + (mt[v] + n_cal + n_ev) + \
+            ((lora_steps + n_ev) if lora_steps else 0)
+        for key, n in (("masked_matmul", n2 * masked), ("masked_matmul_batched", nb * masked),
+                       ("flash_attention", att * (masked + 4 * n_cal)),
+                       ("masked_matmul_dx", dx * mt[v] + n2 * lora_steps),
+                       ("masked_matmul_batched_dx", bdx * mt[v] + nb * lora_steps),
+                       ("masked_matmul_dm", n2 * mt[v]), ("masked_matmul_batched_dm", nb * mt[v]),
+                       ("masked_matmul_dw", n2 * lora_steps),
+                       ("masked_matmul_batched_dw", nb * lora_steps),
+                       ("flash_attention_bwd", att * (mt[v] + lora_steps))):
+            out[key] += n
+    first = {"mamba": 5, "dense": 3}[kinds[0]]  # its input projections: no dX under LoRA
+    out["masked_matmul_dx"] -= first * lora_steps
+    return out
+
+
+def _sum_counts(a, b):
+    return {k: a.get(k, 0) + b.get(k, 0) for k in set(a) | set(b)}
+
+
+def _check_baselines(tag, cfg, dense, res, sg_masks, sg, sparsity=0.7):
+    """The baselines of a family's path against their own rules: every
+    perplexity finite and SparseGPT's at most Wanda's x 1.1; SparseGPT's
+    masks keep round(b x 0.3) of each column's rows in each block of b <=
+    128 rows (the last block of a leaf may be shorter; ``conv_w`` takes
+    Wanda's mask, which keeps the same) and its weights are 0 in pruned
+    slots; DSnoT keeps each column's kept count of its init (Wanda) masks
+    and raises no column's |E| (its expected error, beyond 1e-6 of the sum
+    of |W mu|); mask tuning's weights are the dense ones under its masks,
+    bit for bit, each column keeping round(R x 0.3). Returns the phase
+    line's readings."""
+    import torch
+
+    from repro_torch import tree as T
+    from repro_torch.sparsity import sparse_params as SP
+
+    ppl = res.perplexity
+    for k, v in ppl.items():
+        if not math.isfinite(v):
+            raise AssertionError(f"{tag}: {k} perplexity is {v}")
+    if not ppl["sparsegpt"] <= 1.1 * ppl["wanda"]:
+        raise AssertionError(f"{tag}: SparseGPT's perplexity {ppl['sparsegpt']} is above "
+                             f"Wanda's {ppl['wanda']} x 1.1")
+    ds, mt = res.baselines["dsnot"], res.baselines["mask"]
+    for path, m in T.leaves_with_path(sg_masks):
+        if not SP.is_prunable(path, m):
+            continue
+        mat = SP.to_matrix_stacked(path[-1], m)[0]
+        R = mat.shape[-2]
+        for v in range(0, R, 128):
+            b = min(128, R - v)
+            keep = max(1, int(round(b * (1 - sparsity))))
+            if not bool((mat[..., v:v + b, :].sum(dim=-2) == keep).all()):
+                raise AssertionError(f"{tag} sparsegpt: {path} rows {v}:{v + b} do not keep "
+                                     f"{keep} a column")
+        w = T.get_path(sg, path)
+        if bool((w[~m] != 0).any()) or not bool(torch.isfinite(w).all()):
+            raise AssertionError(f"{tag} sparsegpt: {path} weights not 0 in pruned slots or "
+                                 "not finite")
+        if not torch.equal(_column_counts(path, T.get_path(ds["masks"], path)),
+                           _column_counts(path, T.get_path(res.masks, path))):
+            raise AssertionError(f"{tag} dsnot: {path} changed a column's kept count")
+    worst_e, e_before, e_after = 0.0, 0.0, 0.0
+    for before, after, scale in ds["errors"].values():
+        worst_e = max(worst_e, float(((after - before) / scale.clamp_min(1e-30)).max()))
+        e_before += float(before.sum())
+        e_after += float(after.sum())
+    if worst_e > 1e-6:
+        raise AssertionError(f"{tag} dsnot: a column's |E| grew by {worst_e:.2e} of its sum |c|")
+    for path, w in T.leaves_with_path(mt["params"]):
+        m = T.get_path(mt["masks"], path)
+        if not torch.equal(w, T.get_path(dense, path) * m):
+            raise AssertionError(f"{tag} mask tuning: {path} weights are not the dense ones "
+                                 "under its masks")
+        if SP.is_prunable(path, m):
+            want = max(1, int(round(SP.to_matrix_stacked(path[-1], m)[0].shape[-2]
+                                    * (1 - sparsity))))
+            if not bool((_column_counts(path, m) == want).all()):
+                raise AssertionError(f"{tag} mask tuning: {path} columns keep other than {want}")
+    flipped = sum(int((T.get_path(mt["masks"], p) != T.get_path(res.masks, p)).sum())
+                  for p, m in T.leaves_with_path(res.masks) if SP.is_prunable(p, m))
+    return dict(sparsegpt_over_wanda=ppl["sparsegpt"] / ppl["wanda"],
+                dsnot_sum_abs_e=[e_before, e_after], dsnot_worst_e_growth=worst_e,
+                mask_tune_histories=mt["histories"], mask_tune_flipped_slots=flipped)
+
+
+def _moe_expert_readings(model, params, calib, block=1, microbatch=8):
+    """Block ``block``'s routed experts on the calibration set, the dense
+    stream in front of it: the slots each expert filled (its capacity C a
+    microbatch; an empty slot is a row of zeros) and the smallest eigenvalue
+    of each expert's damped f64 Gram (SparseGPT's H + (1% of its diagonal
+    mean + 1e-8) I; an expert with few tokens has a Gram of low rank, the
+    damping keeps it positive definite), the least over experts."""
+    import torch
+
+    from repro_torch.core import reconstruction as R
+    from repro_torch.sparsity.taps import taps_for_block
+
+    cfg = model.cfg
+    tapfn = taps_for_block(cfg, block, model.num_blocks)
+    bp = model.get_block(params, block)
+    filled = H = None
+    slots = 0
+    with torch.no_grad():
+        for s in range(0, len(calib), microbatch):
+            h, pos = model.embed_tokens(
+                params, {"tokens": torch.as_tensor(calib[s:s + microbatch], device="cuda")})
+            for i in range(block):
+                h = R.advance(model, params, i, h, pos)
+            x = tapfn(bp, cfg, h, pos)["w_up"]  # (E, C, d)
+            f = (x != 0).any(dim=-1).sum(dim=-1)
+            x64 = x.double()
+            g = x64.mT @ x64
+            filled, H = (f, g) if H is None else (filled + f, H + g)
+            slots += x.shape[1]
+            del x, x64, g
+        damp = 0.01 * torch.diagonal(H, dim1=-2, dim2=-1).mean(dim=-1) + 1e-8
+        H += damp[:, None, None] * torch.eye(H.shape[-1], dtype=H.dtype, device=H.device)
+        eig = torch.linalg.eigvalsh(H)
+    lo = eig[:, 0]
+    out = dict(block=block, slots_per_expert=slots, filled=filled.tolist(),
+               min_filled=int(filled.min()), max_filled=int(filled.max()),
+               min_eig_damped=float(lo.min()), min_eig_expert=int(lo.argmin()),
+               max_eig_damped=float(eig[:, -1].max()))
+    del H, eig
+    torch.cuda.empty_cache()
+    return out
 
 
 def _moe_expected(cfg, res, microbatch=8):
@@ -2732,10 +2953,17 @@ def phase_moe(walls):
     routed experts of width 1408, top-6, 2 shared), 5 of its 28 layers, bf16,
     the flash attention: the seeded init pretrained MOE["pretrain_steps"]
     steps (AdamW lr 3e-3, batch 8 x 2048 in 4 microbatches of 2), Wanda 0.7,
-    EBFT (lr 2e-4, 10 epochs, patience 2), the evaluations, through
-    ``ebft_run.run`` in an obs run (``chiprun_out/BENCH_ebft_moe.json``);
-    every kernel count is set to 0 just before it and read just after, and
-    must equal ``_moe_expected``. Then one MoE block's EBFT twice, the
+    EBFT (lr 2e-4, 10 epochs, patience 2), the evaluations and the
+    baselines DSnoT (from Wanda's masks) and mask tuning (from them too:
+    the routed experts' masks through the batched dM) through
+    ``ebft_run.run``, then SparseGPT 0.7 and its perplexity, all in one obs
+    run (``chiprun_out/BENCH_ebft_moe.json``); LoRA is left out here: its
+    routed-expert adapters alone, with their gradients and AdamW's moments,
+    would take about 71 GB of the card (ROADMAP.md A.5d). Every kernel count
+    is set to 0 just before it and read just after, and must equal
+    ``_moe_expected`` and ``_baselines_expected``; the baselines are held to
+    ``_check_baselines``, and block 1's routed experts' filled slots and
+    damped Grams are read (``_moe_expert_readings``). Then one MoE block's EBFT twice, the
     teacher-forced check of the pretrained weights at cf = E/k + 1 (no
     drops), ``Server.serve`` of the tuned weights (16 requests of 512
     tokens, 32 greedy tokens each, 8 slots, max_len 1024) and the tiny_moe
@@ -2745,7 +2973,9 @@ def phase_moe(walls):
 
     from repro_torch import tree as T
     from repro_torch.configs.base import ShapeConfig
-    from repro_torch.data.tokens import CorpusConfig, SyntheticCorpus, calibration_set
+    from repro_torch.core.evaluate import perplexity
+    from repro_torch.core.masks import prune
+    from repro_torch.data.tokens import CorpusConfig, SyntheticCorpus, calibration_set, eval_set
     from repro_torch.launch import ebft_run
     from repro_torch.launch.api import start_obs_run
     from repro_torch.launch.rooflines import model_flops_per_chip
@@ -2754,13 +2984,15 @@ def phase_moe(walls):
 
     t0 = time.perf_counter()
     cfg = moe_cfg()
+    model = build(cfg)
     corpus = SyntheticCorpus(CorpusConfig(vocab_size=cfg.vocab_size, seed=0))
     calib = calibration_set(corpus, MOE["calib"], MOE["seq"])
+    ev = eval_set(corpus, ebft_run.EVAL_SAMPLES, MOE["seq"])
     data_s = time.perf_counter() - t0
     spec = ebft_run.RunSpec(arch="deepseek_moe_16b", seed=0, seq=MOE["seq"],
                             calib_samples=MOE["calib"], pretrain_steps=MOE["pretrain_steps"],
                             batch=MOE["batch"], microbatches=MOE["microbatches"], lr=2e-4,
-                            epochs=10, bench_out="")
+                            epochs=10, baselines="dsnot,mask", bench_out="")
     pre = {}
     ends = [0]
 
@@ -2780,19 +3012,24 @@ def phase_moe(walls):
     obs_run = start_obs_run(spec, "ebft", "cuda", name="chip_smoke/moe", console=False)
     t1 = time.perf_counter()
     res = ebft_run.run(cfg, spec, "cuda", on_stage=on_stage)
+    with ebft_run._phase(torch.device("cuda"), "phase/baseline", which="sparsegpt") as sp:
+        sg_masks, sg = prune(model, res.dense, calib, method="sparsegpt", sparsity=0.7)
+        res.perplexity["sparsegpt"] = perplexity(model, sg, ev, masks=sg_masks)
+    res.phases["baseline_sparsegpt"] = sp.duration
     torch.cuda.synchronize()
     wall = time.perf_counter() - t1
     launches = read_counts()
     peak = torch.cuda.max_memory_allocated() / 2**30
     summ = obs_run.payload()["metrics"]
     art = finish_obs(obs_run, ebft_run.bench_record(spec, res, summ), "BENCH_ebft_moe.json")
-    expected = _moe_expected(cfg, res)
+    expected = _sum_counts(_moe_expected(cfg, res),
+                           _baselines_expected(model, res, MOE["calib"], MOE["eval"]))
     stats = kernel_stats(art["metrics"])
     phases = {}
     for n in art["trace"]:
         if n["name"].startswith("phase/"):
             key = n["name"][len("phase/"):] + "".join(
-                f"_{n['attrs'][a]}" for a in ("what",) if a in n.get("attrs", {}))
+                f"_{n['attrs'][a]}" for a in ("what", "which") if a in n.get("attrs", {}))
             phases[key] = dict(s=n["duration_s"], kernel_s=n["attrs"].get("kernel_s"),
                                kernel_launches=n["attrs"].get("kernel_launches"))
     hist = res.pretrain_losses
@@ -2802,6 +3039,7 @@ def phase_moe(walls):
     blocks = [dict(block=r.index, kind=r.kind, loss_before=r.loss_before,
                    loss_after=r.loss_after, epochs_run=r.epochs_run, early_stop=r.early_stop)
               for r in res.reports]
+    experts = _moe_expert_readings(model, res.dense, calib)
     row = dict(phase="moe", arch="deepseek_moe_16b", num_layers=cfg.num_layers,
                reduced="num_layers 28->5", dtype=cfg.dtype, attn_impl=cfg.attn_impl,
                seq=spec.seq, params=sum(t.numel() for _, t in T.leaves_with_path(res.dense)),
@@ -2815,6 +3053,8 @@ def phase_moe(walls):
                method="wanda", sparsity=0.7, achieved_sparsity=res.sparsity,
                perplexity=res.perplexity,
                ebft_below_pruned=res.perplexity["EBFT"] < res.perplexity["wanda"],
+               baselines="dsnot,mask + sparsegpt 0.7; no LoRA (its adapters would not fit)",
+               expert_readings=experts,
                blocks=blocks, phases_s=res.phases, phase_spans=phases, wall_s=wall,
                data_s=data_s, peak_mem_gib=peak,
                live_block_bytes=max(r.live_bytes for r in res.reports),
@@ -2832,8 +3072,7 @@ def phase_moe(walls):
         raise AssertionError(f"moe: pretraining loss {hist[0][1]} -> {hist[-1][1]} did not drop")
     if launches != expected:
         raise AssertionError(f"moe: launches {launches} != expected {expected}")
-    idle = [k for k, v in launches.items() if v == 0 and k not in (
-        "masked_matmul_dm", "nm_spmm")]
+    idle = [k for k, v in launches.items() if v == 0 and k != "nm_spmm"]
     if idle:
         raise AssertionError(f"moe: kernels of the path launched no time: {idle}")
     if any(row["obs_booked"][k] != launches[k] for k in launches):
@@ -2848,10 +3087,14 @@ def phase_moe(walls):
     for path, m in T.leaves_with_path(res.masks):
         if SP.is_prunable(path, m) and bool((T.get_path(res.tuned, path)[~m] != 0).any()):
             raise AssertionError(f"moe: {path} tuned weights are not 0 in pruned slots")
+    emit(dict(phase="moe_baselines", **_check_baselines("moe", cfg, res.dense, res, sg_masks,
+                                                        sg)))
+    del sg, sg_masks
+    res.baselines.clear()
+    torch.cuda.empty_cache()
     walls["moe_path"] = time.perf_counter() - t0
 
     t0 = time.perf_counter()
-    model = build(cfg)
     rep = _moe_repeat_block(model, res.dense, res, calib, cfg.moe_first_dense)
     emit(dict(phase="moe_repeat", block=cfg.moe_first_dense, epochs=3, bit_equal=True,
               history=rep["history"], seconds=time.perf_counter() - t0))
@@ -2920,8 +3163,39 @@ def phase_masked_matmul_mamba(g):
     both families (``MAMBA_LEAVES``, ``_masked_leaves``). The mask is laid
     out as ``prune`` keeps it (``aligned_mask``): Mamba2-130M's in_dt mask,
     (768, 24), is a view into a (768, 32) buffer, and the wrapper refuses
-    the contiguous one. Returns {family: {kernel: {leaf: row}}}."""
-    return _masked_leaves(g, MAMBA_LEAVES, "masked_matmul_mamba")
+    the contiguous one. Then mask tuning's product on in_dt: a tuned (float,
+    requiring grad) mask, which the wrapper lays out as ``aligned_mask``
+    itself, through the bf16 forward, dX and dM kernels, held against their
+    plain versions. Returns {family: {kernel: {leaf: row}}}."""
+    import torch
+
+    from repro_torch.kernels.masked_matmul import ops as MM
+    from repro_torch.kernels.masked_matmul.ref import (
+        masked_matmul_dm_plain, masked_matmul_dx_plain, masked_matmul_plain,
+    )
+
+    out = _masked_leaves(g, MAMBA_LEAVES, "masked_matmul_mamba")
+    dt, (K, N) = torch.bfloat16, (768, 24)
+    x = torch.randn(M_ROWS, K, device="cuda", generator=g).to(dt).requires_grad_(True)
+    w = (torch.randn(K, N, device="cuda", generator=g) / math.sqrt(K)).to(dt)
+    m = (torch.rand(K, N, device="cuda", generator=g) < 0.3).to(dt).requires_grad_(True)
+    dy = torch.randn(M_ROWS, N, device="cuda", generator=g).to(dt)
+    before = read_counts()
+    y = MM.masked_matmul(x, w, m)
+    gx, gm = torch.autograd.grad(y, (x, m), dy)
+    torch.cuda.synchronize()
+    ran = {k: v - before[k] for k, v in read_counts().items() if v != before[k]}
+    if ran != {"masked_matmul": 1, "masked_matmul_dx": 1, "masked_matmul_dm": 1}:
+        raise AssertionError(f"tuned in_dt mask: launches {ran}")
+    with torch.no_grad():
+        errs = [check_close("tuned in_dt forward", y, masked_matmul_plain(x, w, m), "bfloat16"),
+                check_scaled("tuned in_dt dX", gx, masked_matmul_dx_plain(dy, w, m != 0),
+                             "bfloat16"),
+                check_scaled("tuned in_dt dM", gm, masked_matmul_dm_plain(x, dy, w), "bfloat16")]
+    emit(dict(phase="masked_matmul_mamba", family="ssm", leaf="in_dt", case="tuned float mask",
+              dtype="bfloat16", M=M_ROWS, K=K, N=N, launches=ran,
+              max_abs_err=dict(zip(("forward", "dx", "dm"), errs)), tol=TOL["bfloat16"]))
+    return out
 
 
 def _masked_leaves(g, groups, phase, m_rows=M_ROWS):
@@ -3026,12 +3300,16 @@ def phase_family(family: str, walls):
     kernel: the seeded init pretrained FAM["pretrain_steps"] steps by the
     ``ebft_run.pretrain`` (AdamW at FAMILY[family]["pretrain_lr"], batch 8 x
     2048 in FAMILY[family]["microbatches"] microbatches), then from those
-    weights Wanda 0.7, EBFT (lr 2e-4, 10 epochs, patience 2) and the
-    evaluations through ``ebft_run.run``, all in one obs run
-    (``chiprun_out/BENCH_ebft_<family>.json``);
+    weights Wanda 0.7, EBFT (lr 2e-4, 10 epochs, patience 2), the
+    evaluations and the baselines DSnoT (from Wanda's masks) and mask
+    tuning (from them too) through ``ebft_run.run``, then SparseGPT 0.7 and
+    ``FAM_LORA`` LoRA steps from the Wanda prune, each with its perplexity,
+    all in one obs run (``chiprun_out/BENCH_ebft_<family>.json``);
     every kernel count is set to 0 just before it and read just after, and
-    must equal ``_family_expected``. Every EBFT block loss must drop, EBFT's
-    perplexity must be below Wanda's and nothing may be NaN. Then the
+    must equal ``_family_expected`` and ``_baselines_expected``. Every EBFT
+    block loss must drop, EBFT's perplexity must be below Wanda's, nothing
+    may be NaN, the baselines hold ``_check_baselines``, and LoRA's merged
+    weights are 0 in pruned slots with finite losses. Then the
     teacher-forced check of the pretrained weights in f32
     (``_serve_forced_f32``), ``Server.serve`` of the
     tuned weights (16 requests of 512 tokens, 32 greedy tokens each, 8
@@ -3044,7 +3322,12 @@ def phase_family(family: str, walls):
 
     from repro_torch import tree as T
     from repro_torch.configs.base import ShapeConfig
-    from repro_torch.data.tokens import CorpusConfig, SyntheticCorpus
+    from repro_torch.core import lora
+    from repro_torch.core.evaluate import perplexity
+    from repro_torch.core.masks import prune
+    from repro_torch.data.tokens import (
+        CorpusConfig, SyntheticCorpus, calibration_set, corpus_iterator, eval_set,
+    )
     from repro_torch.launch import ebft_run
     from repro_torch.launch.api import start_obs_run
     from repro_torch.launch.rooflines import model_flops_per_chip
@@ -3056,7 +3339,8 @@ def phase_family(family: str, walls):
     cfg = family_cfg(family)
     spec = ebft_run.RunSpec(arch=f["arch"], seed=0, seq=FAM["seq"], calib_samples=FAM["calib"],
                             pretrain_steps=FAM["pretrain_steps"], batch=FAM["batch"],
-                            microbatches=f["microbatches"], lr=2e-4, epochs=10, bench_out="")
+                            microbatches=f["microbatches"], lr=2e-4, epochs=10,
+                            baselines="dsnot,mask", bench_out="")
     pre = {}
     ends = [0]
 
@@ -3085,6 +3369,21 @@ def phase_family(family: str, walls):
     res = ebft_run.run(cfg, dataclasses.replace(spec, pretrain_steps=0), "cuda", params=dense)
     res.phases = {"pretrain": sp.duration, **res.phases}
     res.pretrain_losses = hist
+    dev = torch.device("cuda")
+    calib = calibration_set(corpus, spec.calib_samples, spec.seq)
+    ev = eval_set(corpus, ebft_run.EVAL_SAMPLES, spec.seq)
+    with ebft_run._phase(dev, "phase/baseline", which="sparsegpt") as sp:
+        sg_masks, sg = prune(model, res.dense, calib, method="sparsegpt", sparsity=0.7)
+        res.perplexity["sparsegpt"] = perplexity(model, sg, ev, masks=sg_masks)
+    res.phases["baseline_sparsegpt"] = sp.duration
+    lora_losses = []
+    with ebft_run._phase(dev, "phase/baseline", which="lora") as sp:
+        lp = lora.finetune_lora(
+            model, res.pruned, res.masks,
+            corpus_iterator(corpus, batch=FAM_LORA["batch"], seq_len=spec.seq, seed=9),
+            lora.LoRAConfig(steps=FAM_LORA["steps"], lr=FAM_LORA["lr"]), losses=lora_losses)
+        res.perplexity["LoRA"] = perplexity(model, lp, ev, masks=res.masks)
+    res.phases["baseline_lora"] = sp.duration
     torch.cuda.synchronize()
     wall = time.perf_counter() - t1
     launches = read_counts()
@@ -3092,13 +3391,15 @@ def phase_family(family: str, walls):
     summ = obs_run.payload()["metrics"]
     art = finish_obs(obs_run, ebft_run.bench_record(spec, res, summ),
                      f"BENCH_ebft_{family}.json")
-    expected = _family_expected(cfg, res, f["microbatches"])
+    expected = _sum_counts(_family_expected(cfg, res, f["microbatches"]),
+                           _baselines_expected(model, res, FAM["calib"], FAM["eval"],
+                                               FAM_LORA["steps"]))
     stats = kernel_stats(art["metrics"])
     phases = {}
     for n in art["trace"]:
         if n["name"].startswith("phase/"):
             key = n["name"][len("phase/"):] + "".join(
-                f"_{n['attrs'][a]}" for a in ("what",) if a in n.get("attrs", {}))
+                f"_{n['attrs'][a]}" for a in ("what", "which") if a in n.get("attrs", {}))
             phases[key] = dict(s=n["duration_s"], kernel_s=n["attrs"].get("kernel_s"),
                                kernel_launches=n["attrs"].get("kernel_launches"))
     hist = res.pretrain_losses
@@ -3121,6 +3422,8 @@ def phase_family(family: str, walls):
                method="wanda", sparsity=0.7, achieved_sparsity=res.sparsity,
                perplexity=res.perplexity,
                ebft_below_pruned=res.perplexity["EBFT"] < res.perplexity["wanda"],
+               baselines="dsnot,mask + sparsegpt 0.7 + LoRA",
+               lora=dict(FAM_LORA, losses=[float(v) for v in lora_losses]),
                blocks=blocks, phases_s=res.phases, phase_spans=phases, wall_s=wall,
                peak_mem_gib=peak, live_block_bytes=max(r.live_bytes for r in res.reports),
                launches=launches, expected_launches=expected,
@@ -3143,7 +3446,7 @@ def phase_family(family: str, walls):
         raise AssertionError(f"{family}: EBFT block losses that did not drop: {bad}")
     if launches != expected:
         raise AssertionError(f"{family}: launches {launches} != expected {expected}")
-    path_kernels = MASKED + (("flash_attention", "flash_attention_bwd")
+    path_kernels = MASKED + ("masked_matmul_dm",) + (("flash_attention", "flash_attention_bwd")
                              if family == "hybrid" else ())
     idle = [k for k in path_kernels if launches[k] == 0]
     if idle:
@@ -3161,6 +3464,17 @@ def phase_family(family: str, walls):
             if bool((t[~m] != 0).any()) or not bool(torch.isfinite(t).all()):
                 raise AssertionError(f"{family}: {path} tuned weights are not 0 in pruned "
                                      "slots or not finite")
+            t = T.get_path(lp, path)
+            if bool((t[~m] != 0).any()) or not bool(torch.isfinite(t).all()):
+                raise AssertionError(f"{family}: {path} LoRA's merged weights are not 0 in "
+                                     "pruned slots or not finite")
+    if not all(math.isfinite(float(v)) for v in lora_losses):
+        raise AssertionError(f"{family}: a LoRA loss is not finite")
+    emit(dict(phase=f"{family}_baselines", **_check_baselines(family, cfg, res.dense, res,
+                                                              sg_masks, sg)))
+    del sg, sg_masks, lp
+    res.baselines.clear()
+    torch.cuda.empty_cache()
     walls[f"{family}_path"] = time.perf_counter() - t0
 
     t0 = time.perf_counter()
@@ -3202,9 +3516,9 @@ def phase_tiny_family(arch: str, rel=1e-4, smoke=False):
     larger lr Adam carries such a flip far. tiny_vlm takes seeded patches
     in front of every batch (``extra_batch``), tiny_encdec seeded frames
     beside it (at seq 64, F = 8: cross-attention over fewer keys than one
-    key tile, forward and backward), and both go on through
-    ``phase_tiny_baselines`` (SparseGPT, DSnoT, FLAP, mask tuning, LoRA;
-    FLAP refuses the encoder-decoder on both devices)."""
+    key tile, forward and backward). Every family but the dense configs'
+    SMOKEs goes on through ``phase_tiny_baselines`` (SparseGPT, DSnoT, FLAP,
+    mask tuning, LoRA; FLAP refuses all but the VLM on both devices)."""
     import numpy as np
     import torch
 
@@ -3248,27 +3562,16 @@ def phase_tiny_family(arch: str, rel=1e-4, smoke=False):
                         dense=perplexity(model, params, ev, extra_batch=ev_x),
                         wanda=perplexity(model, pruned, ev, extra_batch=ev_x, masks=masks),
                         masks=masks, scores=scores)
-    K = cfg.hybrid_attn_every
-    # a stacked leaf's slice j -> the model's block index
-    first = {"moe_blocks": cfg.moe_first_dense, "trailing": K and cfg.num_layers // K * K,
-             "dec_blocks": cfg.enc_layers}
-
-    def block_of(path, j):
-        return cfg.num_layers if path[0] == "shared" else j + first.get(path[0], 0)
-
     flips, worst = 0, 0.0
     for path, m in T.leaves_with_path(out["cpu"]["masks"]):
         if not SP.is_prunable(path, m):
             continue
-        diff = m != T.get_path(out["cuda"]["masks"], path).cpu()
-        stack = m.dim() - SP._LOGICAL_NDIM[path[-1]] - SP.is_expert_batched(path[-1], m[0])
-        diff = diff.reshape(-1, *m.shape[stack:]) if stack else diff[None]
-        for j in range(diff.shape[0]):
-            if diff[j].any():
-                s = out["cpu"]["scores"][(block_of(path, j), *path[1:])]
-                gap = float(SP.threshold_gaps(s, 0.5)[diff[j].reshape(s.shape)].max())
+        for i, d in _block_slices(cfg, path, m != T.get_path(out["cuda"]["masks"], path).cpu()):
+            if d.any():
+                s = out["cpu"]["scores"][(i, *path[1:])]
+                gap = float(SP.threshold_gaps(s, 0.5)[d.reshape(s.shape)].max())
                 worst = max(worst, gap)
-                flips += int(diff[j].sum())
+                flips += int(d.sum())
     keys = [k for k in out["cpu"] if k not in ("masks", "scores")]
     emit(dict(phase=tag, arch=arch, dtype="float32", attn_impl="flash",
               cuda={k: out["cuda"][k] for k in keys}, cpu={k: out["cpu"][k] for k in keys},
@@ -3290,9 +3593,10 @@ def phase_tiny_family(arch: str, rel=1e-4, smoke=False):
     if max(spread["loss_rel"], spread["ppl_rel"]) > rel / 5:
         raise AssertionError(f"{tag}: the CPU's own EBFT spread {spread} is not 5 times "
                              f"below the card-vs-CPU limit {rel:.0e}")
-    if cfg.family in ("vlm", "encdec"):
+    if cfg.family != "dense":
         phase_tiny_baselines(model, weights, calib, ev, corpus, rel, arch=tag, calib_x=calib_x,
-                             ev_x=ev_x, lora_x=lambda step: extra(8, 100 + step))
+                             ev_x=ev_x,
+                             lora_x=(lambda step: extra(8, 100 + step)) if calib_x else None)
 
 # ---------------------------------------------------------------------------
 # the VLM family: LLaVA-NeXT-Mistral-7B at its published widths, 4 of its 32

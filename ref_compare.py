@@ -3,8 +3,10 @@
 
     PYTHONPATH=src python ref_compare.py --method flap [--pretrain-steps 200] [--spread]
     PYTHONPATH=src python ref_compare.py --arch tiny_hybrid [--pretrain-steps 25]
+    PYTHONPATH=src python ref_compare.py --arch tiny_moe --baselines dsnot,mask,lora [--spread]
 
-Runs ``repro_torch.launch.ebft_run.run`` with ``--baselines dsnot,mask,lora``
+Runs ``repro_torch.launch.ebft_run.run`` with ``--baselines`` (tiny_dense's
+default ``dsnot,mask,lora``, the other families' none)
 at the driver's defaults (tiny_dense, seq 128, 64 calibration segments,
 sparsity 0.7; ``--epochs`` 4; ``--pretrain-steps`` 0, or N AdamW steps on
 batches of 32) on the reference's seeded weights, and the reference's
@@ -17,10 +19,12 @@ from starts moved by a relative 1e-6 (mask tuning's bonus, LoRA's A), and
 with pretraining its whole run from pretraining weights moved so, several
 times, and prints how far the reference's own perplexities move, and
 whether each difference is within twice that: the part of a difference
-that the algorithms' sensitivity explains. ``--arch tiny_ssm`` and
-``--arch tiny_hybrid`` run magnitude or Wanda and EBFT without the
-baselines (the port does not run them on those families yet); there
-``--spread`` needs ``--pretrain-steps``.
+that the algorithms' sensitivity explains. ``--arch tiny_moe``,
+``tiny_ssm`` and ``tiny_hybrid`` take every method but FLAP (which the
+reference refuses on them) and any of the baselines; without baselines
+``--spread`` needs ``--pretrain-steps``. tiny_hybrid wants a smaller
+EBFT ``--lr`` (2e-4): at 1e-2 the reference's SSD gradient goes NaN
+(ROADMAP.md C.4).
 """
 from __future__ import annotations
 
@@ -31,37 +35,28 @@ import time
 MOVES = (1 - 1e-6, 1 + 1e-6, 1 + 2e-6, 1 - 3e-6)
 
 
-def _lora_port(ref_lora):
-    """The reference's adapter tree (None at the other leaves) as the
-    port's (only the prunable leaves' paths)."""
-    import numpy as np
-    import torch
-
-    out = {}
-    for k, v in ref_lora.items():
-        if isinstance(v, dict) and set(v) == {"A", "B"}:
-            out[k] = {n: torch.tensor(np.asarray(a)) for n, a in v.items()}
-        elif isinstance(v, dict):
-            sub = _lora_port(v)
-            if sub:
-                out[k] = sub
-    return out
-
-
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--arch", default="tiny_dense",
-                    choices=("tiny_dense", "tiny_ssm", "tiny_hybrid"))
+                    choices=("tiny_dense", "tiny_moe", "tiny_ssm", "tiny_hybrid"))
     ap.add_argument("--method", default="wanda",
                     choices=("magnitude", "wanda", "sparsegpt", "dsnot", "flap"))
     ap.add_argument("--epochs", type=int, default=4)
     ap.add_argument("--lr", type=float, default=1e-2, help="EBFT's lr (ebft_run's default)")
     ap.add_argument("--pretrain-steps", type=int, default=0)
     ap.add_argument("--spread", action="store_true")
+    ap.add_argument("--baselines", default=None,
+                    help="comma list of dsnot, mask, lora (tiny_dense: all three; others: none)")
     args = ap.parse_args(argv)
-    baselines = args.arch == "tiny_dense"
-    if not baselines and args.method not in ("magnitude", "wanda"):
-        ap.error(f"--arch {args.arch} takes --method magnitude or wanda")
+    if args.baselines is None:
+        args.baselines = "dsnot,mask,lora" if args.arch == "tiny_dense" else ""
+    wants = set(args.baselines.split(",")) - {""}
+    if wants - {"dsnot", "mask", "lora"}:
+        ap.error(f"--baselines takes dsnot, mask, lora, got {args.baselines}")
+    if args.arch != "tiny_dense" and args.method == "flap":
+        ap.error(f"--arch {args.arch} takes every method but flap")
+    if args.spread and not (wants & {"mask", "lora"} or args.pretrain_steps):
+        ap.error("--spread needs --baselines mask or lora, or --pretrain-steps")
 
     import jax
     import numpy as np
@@ -83,7 +78,7 @@ def main(argv=None) -> int:
 
     spec = ebft_run.RunSpec(arch=args.arch, pretrain_steps=args.pretrain_steps,
                             epochs=args.epochs, lr=args.lr, method=args.method,
-                            baselines="dsnot,mask,lora" if baselines else "", bench_out="")
+                            baselines=",".join(sorted(wants)), bench_out="")
     model = ref_build(ref_config(spec.arch))
     params0 = model.init(jax.random.PRNGKey(spec.seed))
     corpus = RTOK.SyntheticCorpus(RTOK.CorpusConfig(vocab_size=model.cfg.vocab_size,
@@ -129,20 +124,22 @@ def main(argv=None) -> int:
         tuned, _ = REBFT.finetune(model, p, pruned, masks, calib,
                                   REBFT.EBFTConfig(lr=spec.lr, epochs=spec.epochs))
         out["EBFT"] = ref_ppl(model, tuned, ev)
-        if not baselines:
-            return out, masks, pruned
-        _, ds = ref_prune(model, p, calib, method="dsnot", sparsity=spec.sparsity,
-                          dsnot_init=spec.method if spec.method != "dsnot" else "wanda")
-        out["DSnoT"] = ref_ppl(model, ds, ev)
-        out["mask-tune"] = mask_ppl(p, masks)
-        out["LoRA"] = lora_ppl(masks, pruned)
+        if "dsnot" in wants:
+            _, ds = ref_prune(model, p, calib, method="dsnot", sparsity=spec.sparsity,
+                              dsnot_init=spec.method if spec.method != "dsnot" else "wanda")
+            out["DSnoT"] = ref_ppl(model, ds, ev)
+        if "mask" in wants:
+            out["mask-tune"] = mask_ppl(p, masks)
+        if "lora" in wants:
+            out["LoRA"] = lora_ppl(masks, pruned)
         return out, masks, pruned
 
     ref, masks, pruned = chain(params)
     t_ref = time.perf_counter() - t0
 
-    if baselines:
-        ref_a = _lora_port(RLORA.init_lora(pruned, lcfg))
+    if "lora" in wants:
+        ref_a = interop.lora_to_torch(jax.tree.map(np.asarray, RLORA.init_lora(pruned, lcfg)),
+                                      "cpu")
         LORA.init_lora = lambda *a, **k: ref_a
     t0 = time.perf_counter()
     res = ebft_run.run(get_config(spec.arch), spec, "cpu",
@@ -159,10 +156,14 @@ def main(argv=None) -> int:
     if args.spread:
         out["moves"] = MOVES
         spreads = []
-        if baselines:
-            out["ref_spread"] = {
-                "mask-tune": [mask_ppl(params, masks, m) / ref["mask-tune"] - 1 for m in MOVES],
-                "LoRA": [lora_ppl(masks, pruned, m) / ref["LoRA"] - 1 for m in MOVES]}
+        if wants & {"mask", "lora"}:
+            out["ref_spread"] = {}
+            if "mask" in wants:
+                out["ref_spread"]["mask-tune"] = [mask_ppl(params, masks, m) / ref["mask-tune"] - 1
+                                                  for m in MOVES]
+            if "lora" in wants:
+                out["ref_spread"]["LoRA"] = [lora_ppl(masks, pruned, m) / ref["LoRA"] - 1
+                                             for m in MOVES]
             spreads.append(out["ref_spread"])
         if spec.pretrain_steps:  # every perplexity, from moved pretraining starts
             moved = [chain(pretrained(jax.tree.map(lambda a: a * m, params0))[0])[0]

@@ -14,8 +14,13 @@ clips the gradient to global norm 1 and takes an AdamW step.
 
 The views are the reference's ``to_matrix`` on the whole model's stacked
 leaves: a 3-D MLP leaf (L, R, O) is taken per layer (its expert-batched
-view), every other leaf is flattened over its first reduction axis and the
-leading L: wq (L, d·H·hd), wo (L·H, hd·d).
+view: the dense MLP's, an MoE layer's shared experts'), every other leaf
+is flattened over its reduction axes and every stack axis before them: wq
+(L, d·H·hd), wo (L·H, hd·d); a routed-expert leaf (L, E, d, f) is one
+(L, E·d·f) matrix, so its A is (L, r) and its B (r, E·d·f); a Mamba leaf
+likewise (tiny_ssm's out (L, H, P, d): (L·H, P·d)), ``conv_w`` (L, K, ch)
+as (L, K·ch); the hybrid's unstacked shared block as the 2-D leaves they
+are.
 """
 from __future__ import annotations
 
@@ -46,7 +51,8 @@ class LoRAConfig:
 
 
 def _matrix(name: str, leaf: torch.Tensor) -> torch.Tensor:
-    """(R, O), or (L, R, O) for a 3-D MLP leaf."""
+    """(R, O), or (L, R, O) for a 3-D MLP leaf: the reference's
+    ``to_matrix`` of the stacked leaf."""
     if name in _PER_LAYER and leaf.dim() == 3:
         return leaf
     return SP.to_matrix(name, leaf)[0]
@@ -110,9 +116,6 @@ def finetune_lora(model, pruned_params: Params, masks: Params, data_iter: Iterat
     VLM's ``patches``, an encoder-decoder's ``frames``). ``losses``,
     when a list, gets each step's LM loss as a 0-d device tensor (no
     sync)."""
-    if model.cfg.family not in ("dense", "vlm", "encdec"):
-        raise NotImplementedError(f"LoRA on the {model.cfg.family} family is not ported yet "
-                                  "(ROADMAP.md A.5)")
     lcfg = lcfg or LoRAConfig()
     device = pruned_params["embed"]["tok"].device
     if lora is None:

@@ -11,7 +11,13 @@ change, which is why it loses to weight tuning (the paper's Tab. 6).
 In the port the hard mask goes to the block's masked linears as their
 mask (``MaskedMatmulFn``), so each step's backward runs the dX and dM
 kernels and no dW: the mask's gradient ``(xᵀ dy) ⊙ w`` is what the
-reference's autodiff of ``w * m`` gives.
+reference's autodiff of ``w * m`` gives. An MoE block's routed experts
+take their (E, R, O) masks through the batched kernels (dM too), each
+expert's columns ranked on their own; the scores start from one maximum
+over the whole leaf, all its experts. The hybrid's shared block is tuned
+at each of its sites, in the walk's order: each visit starts from the
+masks the previous site left (its scores' init reads them) and writes its
+own back, as the reference's.
 """
 from __future__ import annotations
 
@@ -23,6 +29,7 @@ import torch
 from repro_torch import tree as T
 from repro_torch.core import reconstruction as R
 from repro_torch.core.ebft import EBFTConfig
+from repro_torch.core.masks import clone_masks
 from repro_torch.core.pruning import common as C
 from repro_torch.optim.optimizers import adam, apply_updates
 from repro_torch.optim.schedules import plateau_early_stop
@@ -93,18 +100,16 @@ def finetune_masks(model, dense_params: Params, init_masks: Params, sparsity: fl
     written.
 
     The scores start at the leaf's |W| over its largest |W| (one maximum
-    per leaf, as the reference's code takes it), plus ``bonus`` on the
+    per leaf, over all of an expert leaf's experts, as the reference's code
+    takes it), plus ``bonus`` on the
     slots ``init_masks`` keeps, so the first hard mask is about the init
     mask; Adam (lr 2e-2 by default) moves them one step per microbatch, an
     epoch at a time, until the epoch mean loss plateaus.
     ``histories``, when a list, gets each block's epoch mean losses;
     ``scores_out``, when a dict, each prunable leaf's final (R, O) scores,
     keyed by ``(block, *path)``."""
-    if model.cfg.family not in ("dense", "vlm", "encdec"):
-        raise NotImplementedError(f"mask tuning on the {model.cfg.family} family (on MoE a "
-                                  "batched dM) is not ported yet (ROADMAP.md A.5)")
     ecfg = ecfg or EBFTConfig(lr=2e-2)  # scores need a larger step than weights
-    masks = T.tree_map(torch.clone, init_masks)
+    masks = clone_masks(init_masks)
     student = SP.apply_masks(dense_params, masks)
 
     def visit(i, bp, ctx):

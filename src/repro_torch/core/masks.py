@@ -10,15 +10,16 @@ pruned, each student advance through the masked matmul kernel); magnitude
 needs no data; DSnoT reselects the masks of another method; FLAP walks
 twice (its unit scores are ranked globally, then expanded into masks).
 
-On the MoE family, magnitude and Wanda prune every routed expert's leaves
-as matrices of their own (per expert, per output column) and never the
-router. FLAP refuses it, as the reference does (it targets attention + MLP
-stacks); SparseGPT and DSnoT on expert leaves (the reference ``vmap``s
-them over E) are not ported yet and raise. On the SSM and hybrid families
-magnitude and Wanda prune the Mamba projections and ``conv_w`` (kept
-dense under N:M), and the hybrid's shared block at each of its sites, as
-the reference's walk visits it; FLAP refuses them, SparseGPT and DSnoT
-are not ported for them yet and raise. The VLM family is pruned as the
+On the MoE family every method but FLAP prunes each routed expert's leaves
+as matrices of their own (per expert, per output column; SparseGPT
+against each expert's own Gram, DSnoT on each expert's own mean, as the
+reference ``vmap``s them over E) and never the router. FLAP refuses it, as
+the reference does (it targets attention + MLP stacks). On the SSM and
+hybrid families every method but FLAP (refused) prunes the Mamba
+projections and ``conv_w`` (kept dense under N:M; SparseGPT gives it
+Wanda's mask and no update, DSnoT keeps its init mask, as the
+reference's), and the hybrid's shared block at each of its sites, as the
+reference's walk visits it. The VLM family is pruned as the
 dense one, by every method, on the stream over [patches ; text]
 (``extra_batch``). The encoder-decoder is pruned by every method but
 FLAP (which refuses it, as the reference's assert does): the encoder's
@@ -68,6 +69,13 @@ def align_masks(masks: Params) -> Params:
     return T.map_with_path(g, masks)
 
 
+def clone_masks(masks: Params) -> Params:
+    """A copy of a full mask tree in ``align_masks``'s layout (a clone of a
+    row-padded view is a contiguous tensor, which the bf16 kernel refuses
+    where its rows are not 16 bytes apart)."""
+    return align_masks(T.tree_map(torch.clone, masks))
+
+
 def expand_masks(params: Params, masks: Params) -> Params:
     """Scalar-placeholder masks -> full arrays (so block slicing works)."""
     return T.tree_map(lambda m, p: m.expand(p.shape).clone() if m.dim() == 0 else m,
@@ -87,7 +95,8 @@ def prune(model, params: Params, calib: Optional[np.ndarray], method: str = "wan
     ``calib``; every walk slices it per microbatch.
 
     ``scores_out``, when a dict, gets what each method ranked, keyed by
-    ``(block, *path)`` of each pruned leaf: Wanda's (R, O) scores, SparseGPT's
+    ``(block, *path)`` of each pruned leaf (an expert leaf's with a leading
+    E): Wanda's (R, O) scores, SparseGPT's
     (R, O) scores of each 128-row block at its start, DSnoT's per-column
     (|E| of the init mask, |E| of the reselected one, sum_r |W[r,o] mu_r|)
     in f64; for FLAP
@@ -96,9 +105,6 @@ def prune(model, params: Params, calib: Optional[np.ndarray], method: str = "wan
     if method == "magnitude":
         masks = align_masks(expand_masks(params, MAG.make_masks(params, sparsity, pattern)))
         return masks, SP.apply_masks(params, masks)
-    if model.cfg.family not in ("dense", "vlm", "encdec") and method in ("sparsegpt", "dsnot"):
-        raise NotImplementedError(f"{method} on the {model.cfg.family} family is not ported "
-                                  "yet (ROADMAP.md A.5)")
     if method == "flap":
         return _prune_flap(model, params, calib, sparsity, microbatch, extra_batch, scores_out)
     if method == "dsnot":
@@ -147,7 +153,7 @@ def _dsnot_walk(model, params, init_masks, calib, microbatch, extra_batch, cycle
     """Reselect ``init_masks`` block by block on the stream of the blocks
     already reselected; each block's statistics come from its init-masked
     weights, its new weights are the dense ones under the new masks."""
-    masks = T.tree_map(torch.clone, init_masks)
+    masks = clone_masks(init_masks)
 
     def visit(i, bp, ctx):
         stats = C.collect_block_stats(model, bp, i, ctx["h_mb"], ctx["pos_mb"], ctx["aux_mb"])
@@ -159,12 +165,12 @@ def _dsnot_walk(model, params, init_masks, calib, microbatch, extra_batch, cycle
             dense_leaf = T.get_path(dense_bp, names)
             mk_old = T.get_path(mask_bp, names)
             mk = DSNOT.leaf_reselect(names[-1], dense_leaf, mk_old, st, cycles, pattern)
-            if scores_out is not None and st is not None:
+            if scores_out is not None and st is not None and names[-1] != "conv_w":
                 mat, _ = SP.to_matrix(names[-1], dense_leaf)
                 mat, mean = mat.double(), st.mean.double()
                 scores_out[(i, *names)] = tuple(
                     DSNOT.expected_error(mat, SP.to_matrix(names[-1], m)[0], mean).abs()
-                    for m in (mk_old, mk)) + ((mat * mean[:, None]).abs().sum(dim=0),)
+                    for m in (mk_old, mk)) + ((mat * mean[..., :, None]).abs().sum(dim=-2),)
             T.set_path(mask_bp, names, mk)
             T.set_path(new_bp, names, dense_leaf * mk.to(dense_leaf.dtype))
         model.set_block(masks, i, mask_bp)

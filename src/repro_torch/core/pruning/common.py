@@ -114,13 +114,22 @@ def collect_block_stats(model, bp, block_index: int, h_mb: List[torch.Tensor],
                         want_hessian: bool = False) -> Dict[str, LeafStats]:
     """Run block ``block_index``'s taps over each microbatch of the stream
     (``aux_mb``: each microbatch's segment aux, the encoder memory);
-    accumulate stats (with ``want_hessian``, each leaf's f64 Gram too)."""
+    accumulate stats (with ``want_hessian``, each leaf's f64 Gram too, but
+    ``conv_w``'s: no method reads it). Keys whose taps are one tensor (the
+    projections that read one input: wq, wk and wv; an expert's w_gate and
+    w_up; a Mamba block's five in-projections) share one stats object, so
+    each Gram is summed and held once."""
     tapfn = taps_for_block(model.cfg, block_index, model.num_blocks)
     stats: Dict[str, LeafStats] = {}
+    alias: Dict[str, str] = {}
     for h, pos, aux in zip(h_mb, pos_mb, aux_mb or [{}] * len(h_mb)):
+        first: Dict[int, str] = {}
         for key, x in tapfn(bp, model.cfg, h, pos, **aux).items():
-            stats[key] = _merge(stats.get(key), _acc_stats(x, want_hessian))
-    return stats
+            alias[key] = first.setdefault(id(x), key)
+            if alias[key] == key:
+                stats[key] = _merge(stats.get(key),
+                                    _acc_stats(x, want_hessian and key != "conv_w"))
+    return {key: stats[src] for key, src in alias.items()}
 
 
 def stats_for_leaf(stats: Dict[str, LeafStats], names: Tuple[str, ...]) -> Optional[LeafStats]:

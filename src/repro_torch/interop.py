@@ -11,6 +11,10 @@ Masks: the reference's are f32 {0, 1} arrays on prunable leaves and
 either full ones or a scalar 1.0 elsewhere; the port's are bool. On the way
 back prunable leaves become f32 arrays and the others a scalar 1.0, as the
 reference's ``ones_masks``.
+
+LoRA adapters: the reference's tree (``repro.core.lora.init_lora``) holds
+``{"A", "B"}`` at each prunable leaf's path and None elsewhere; the port's
+holds the adapter dicts alone.
 """
 from __future__ import annotations
 
@@ -60,3 +64,22 @@ def masks_to_numpy(tree: Any) -> Any:
         return np.ones((), np.float32)
 
     return T.map_with_path(g, tree)
+
+
+def lora_to_torch(tree: Any, device=None) -> Any:
+    """A reference adapter tree (numpy arrays, None at the leaves with no
+    adapter) as the port's: the ``{"A", "B"}`` dicts at their paths, the
+    rest dropped."""
+    device = resolve_device(device)
+
+    def conv(t):
+        if not isinstance(t, dict):
+            return _tensor(t, device)
+        out = {}
+        for k, v in t.items():
+            c = None if v is None else conv(v)
+            if c is not None and not (isinstance(c, dict) and not c):
+                out[k] = c
+        return out
+
+    return conv(tree)

@@ -34,7 +34,7 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
            for op in ("", "_dx", "_dw", "_dm") for dt in ("f32", "bf16")},
         # E slabs: the row strides, then the slab strides
         **{f"masked_matmul_batched{op}_{dt}": [P, P, P, P, I, I, I, I, *[LL] * 8, P]
-           for op in ("", "_dx", "_dw") for dt in ("f32", "bf16")},
+           for op in ("", "_dx", "_dw", "_dm") for dt in ("f32", "bf16")},
     },
     "flash_attention": {
         **{fn: [P, P, P, P, P, I, I, I, I, I, I, F, P]

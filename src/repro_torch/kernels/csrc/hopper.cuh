@@ -118,6 +118,17 @@ inline EncodeTiledFn encode_tiled() {
   return fn;
 }
 
+// The driver encodes a map against the calling thread's current context,
+// and a host thread that has made no runtime call yet has none: the first
+// launch from autograd's backward thread, when a wrapper's backward was the
+// first operation it ran, failed its encode. The device that holds `p` is
+// made current first, which binds its primary context to the thread.
+inline bool bind_device_of(const void* p) {
+  cudaPointerAttributes a;
+  return cudaPointerGetAttributes(&a, p) == cudaSuccess && a.type == cudaMemoryTypeDevice &&
+         cudaSetDevice(a.device) == cudaSuccess;
+}
+
 inline CUtensorMapSwizzle swizzle_for(int row_bytes) {
   return row_bytes == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
          : row_bytes == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
@@ -141,7 +152,7 @@ inline bool aligned(const void* p, uintptr_t bytes) {
 inline bool make_map(CUtensorMap* map, const void* base, int rank, const uint64_t* dims,
                      const uint64_t* strides, const uint32_t* box, bool bytes = false) {
   EncodeTiledFn fn = encode_tiled();
-  if (fn == nullptr) return false;
+  if (fn == nullptr || !bind_device_of(base)) return false;
   cuuint64_t gd[3], gs[2];
   cuuint32_t bx[3], es[3] = {1, 1, 1};
   for (int i = 0; i < rank; ++i) {

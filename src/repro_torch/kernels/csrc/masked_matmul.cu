@@ -59,7 +59,7 @@
 //     cudaErrorInvalidValue. Each output is a sum in a fixed order: a
 //     repeated launch gives the same bits.
 //
-// The batched entry points (masked_matmul_batched{,_dx,_dw}) take E slabs
+// The batched entry points (masked_matmul_batched{,_dx,_dw,_dm}) take E slabs
 // of each operand, as the routed experts of an MoE layer hold them: x
 // (E, C, K), w and m (E, K, N), out (E, C, N), each slab at its own slab
 // stride. They replace no Pallas kernel: the JAX package computes its
@@ -72,7 +72,11 @@
 // slab bit for bit. At EBFT's microbatch (C = 1920 = 7.5 tiles of 256)
 // flattening E x C into M would instead put two experts in one tile. The
 // bound at that shape is the operand bytes (x, w, m and out, 1.4 GB for a
-// 64-expert w_up), not the operations.
+// 64-expert w_up), not the operations. The batched dM is mask tuning's
+// gradient of the routed experts' masks (the reference's autodiff of
+// W * STE(mask) on the expert leaves, src/repro/core/mask_tuning.py
+// `_masked_block`): dW's main loop over the slabs with w in the epilogue.
+// It needs every slot, so its bound is the operations, 2*E*C*K*N.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -289,6 +293,27 @@ int dw_bf16(const void* x, const void* dy, const void* m, void* dw, int E, int M
                                                        {sx, sdy, 0, sm, sdw}, stream);
 }
 
+int dm_f32(const void* x, const void* dy, const void* w, void* dm, int E, int M, int K, int N,
+           long long ldx, long long lddy, long long ldw, long long lddm, long long sx,
+           long long sdy, long long sw, long long sdm, void* stream) {
+  return launch_f32<true, false, false, gm::EPI_SCALE>(x, dy, nullptr, w, dm, E, K, M, N, ldx,
+                                                       lddy, 0, ldw, lddm, {sx, sdy, 0, sw, sdm},
+                                                       stream);
+}
+
+int dm_bf16(const void* x, const void* dy, const void* w, void* dm, int E, int M, int K, int N,
+            long long ldx, long long lddy, long long ldw, long long lddm, long long sx,
+            long long sdy, long long sw, long long sdm, void* stream) {
+  // dW's TMA rules for x and dy; w is read as bf16 pairs in the epilogue
+  if (!(K % 8 == 0 && N % 8 == 0 && ldx % 8 == 0 && lddy % 8 == 0 && ldw % 8 == 0 &&
+        sx % 8 == 0 && sdy % 8 == 0 && sw % 8 == 0 && hp::aligned(x, 16) &&
+        hp::aligned(dy, 16) && hp::aligned(w, 16)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return launch_bf16<true, false, false, gm::EPI_SCALE>(x, dy, nullptr, w, dm, E, K, M, N, ldx,
+                                                        lddy, 0, ldw, lddm,
+                                                        {sx, sdy, 0, sw, sdm}, stream);
+}
+
 }  // namespace
 
 // 2-D entry points: one slab.
@@ -331,21 +356,13 @@ extern "C" int masked_matmul_dw_bf16(const void* x, const void* dy, const void* 
 extern "C" int masked_matmul_dm_f32(const void* x, const void* dy, const void* w, void* dm,
                                     int M, int K, int N, long long ldx, long long lddy,
                                     long long ldw, long long lddm, void* stream) {
-  return launch_f32<true, false, false, gm::EPI_SCALE>(x, dy, nullptr, w, dm, 1, K, M, N, ldx,
-                                                       lddy, 0, ldw, lddm, {0, 0, 0, 0, 0},
-                                                       stream);
+  return dm_f32(x, dy, w, dm, 1, M, K, N, ldx, lddy, ldw, lddm, 0, 0, 0, 0, stream);
 }
 
 extern "C" int masked_matmul_dm_bf16(const void* x, const void* dy, const void* w, void* dm,
                                      int M, int K, int N, long long ldx, long long lddy,
                                      long long ldw, long long lddm, void* stream) {
-  // dW's TMA rules for x and dy; w is read as bf16 pairs in the epilogue
-  if (!(K % 8 == 0 && N % 8 == 0 && ldx % 8 == 0 && lddy % 8 == 0 && ldw % 8 == 0 &&
-        hp::aligned(x, 16) && hp::aligned(dy, 16) && hp::aligned(w, 16)))
-    return static_cast<int>(cudaErrorInvalidValue);
-  return launch_bf16<true, false, false, gm::EPI_SCALE>(x, dy, nullptr, w, dm, 1, K, M, N, ldx,
-                                                        lddy, 0, ldw, lddm, {0, 0, 0, 0, 0},
-                                                        stream);
+  return dm_bf16(x, dy, w, dm, 1, M, K, N, ldx, lddy, ldw, lddm, 0, 0, 0, 0, stream);
 }
 
 // Batched entry points: E slabs, each operand with its row stride (ld*) and
@@ -353,6 +370,7 @@ extern "C" int masked_matmul_dm_bf16(const void* x, const void* dy, const void* 
 //   forward: x (E, M, K), w (E, K, N)  -> out (E, M, N)
 //   dX:      dy (E, M, N), w (E, K, N) -> dx (E, M, K)
 //   dW:      x (E, M, K), dy (E, M, N) -> dw (E, K, N)     (m in the epilogue)
+//   dM:      x (E, M, K), dy (E, M, N) -> dm (E, K, N)     (w in the epilogue)
 extern "C" int masked_matmul_batched_f32(const void* x, const void* w, const void* m, void* out,
                                          int E, int M, int K, int N, long long ldx, long long ldw,
                                          long long ldm, long long ldout, long long sx,
@@ -399,4 +417,20 @@ extern "C" int masked_matmul_batched_dw_bf16(const void* x, const void* dy, cons
                                              long long sx, long long sdy, long long sm,
                                              long long sdw, void* stream) {
   return dw_bf16(x, dy, m, dw, E, M, K, N, ldx, lddy, ldm, lddw, sx, sdy, sm, sdw, stream);
+}
+
+extern "C" int masked_matmul_batched_dm_f32(const void* x, const void* dy, const void* w, void* dm,
+                                            int E, int M, int K, int N, long long ldx,
+                                            long long lddy, long long ldw, long long lddm,
+                                            long long sx, long long sdy, long long sw,
+                                            long long sdm, void* stream) {
+  return dm_f32(x, dy, w, dm, E, M, K, N, ldx, lddy, ldw, lddm, sx, sdy, sw, sdm, stream);
+}
+
+extern "C" int masked_matmul_batched_dm_bf16(const void* x, const void* dy, const void* w,
+                                             void* dm, int E, int M, int K, int N, long long ldx,
+                                             long long lddy, long long ldw, long long lddm,
+                                             long long sx, long long sdy, long long sw,
+                                             long long sdm, void* stream) {
+  return dm_bf16(x, dy, w, dm, E, M, K, N, ldx, lddy, ldw, lddm, sx, sdy, sw, sdm, stream);
 }

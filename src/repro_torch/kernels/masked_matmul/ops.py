@@ -12,20 +12,20 @@ its autograd edge. ``launches``, ``dx_launches``, ``dw_launches`` and
 ``dm_launches`` count kernel launches, so a run can show that its path
 went through each.
 
-The forward, dX and dW also take E slabs, x (E, C, K) against w and m
-(E, K, N), as an MoE layer's routed experts hold them, in one launch of
-the kernels' batched entries (the grid running over the slabs; each
-slab's output is the 2-D launch's on that slab); ``masked_matmul_batched``
-and its dX and dW take slabs only. ``batched_launches``,
-``batched_dx_launches`` and ``batched_dw_launches`` count those launches.
-A tuned mask (dM) on expert leaves is not taken: mask tuning on MoE waits
-(ROADMAP.md A.5).
+All four also take E slabs, x (E, C, K) against w and m (E, K, N), as an
+MoE layer's routed experts hold them, in one launch of the kernels'
+batched entries (the grid running over the slabs; each slab's output is
+the 2-D launch's on that slab); ``masked_matmul_batched`` and its dX, dW
+and dM take slabs only. ``batched_launches``, ``batched_dx_launches``,
+``batched_dw_launches`` and ``batched_dm_launches`` count those launches.
+A tuned mask on expert slabs (mask tuning on MoE) gets its gradient from
+the batched dM.
 
 While an obs run is live, each launch (or plain-version call on the CPU)
 goes through ``obs.profile.record_kernel`` as ``kernels/masked_matmul``,
 ``kernels/masked_matmul_dx``, ``_dw`` and ``_dm`` (the batched ones as
-``kernels/masked_matmul_batched``, ``_batched_dx`` and ``_batched_dw``), in
-the reference's accounting: 2·M·K·N FLOPs (2·E·C·K·N batched;
+``kernels/masked_matmul_batched``, ``_batched_dx``, ``_batched_dw`` and
+``_batched_dm``), in the reference's accounting: 2·M·K·N FLOPs (2·E·C·K·N batched;
 dense-equivalent, whatever the mask keeps) and the bytes of the operands
 and the output. With obs off that costs one
 check.
@@ -40,8 +40,9 @@ from repro_torch.kernels import _build
 from repro_torch.obs import trace as OT
 from repro_torch.obs.profile import is_abstract, record_kernel
 from repro_torch.kernels.masked_matmul.ref import (
-    masked_matmul_batched_dw_plain, masked_matmul_batched_dx_plain, masked_matmul_batched_plain,
-    masked_matmul_dm_plain, masked_matmul_dw_plain, masked_matmul_dx_plain, masked_matmul_plain,
+    masked_matmul_batched_dm_plain, masked_matmul_batched_dw_plain,
+    masked_matmul_batched_dx_plain, masked_matmul_batched_plain, masked_matmul_dm_plain,
+    masked_matmul_dw_plain, masked_matmul_dx_plain, masked_matmul_plain,
 )
 
 launches = 0
@@ -51,6 +52,7 @@ dm_launches = 0
 batched_launches = 0
 batched_dx_launches = 0
 batched_dw_launches = 0
+batched_dm_launches = 0
 
 _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
 _INT_MAX = 2**31 - 1
@@ -60,14 +62,11 @@ def masked_matmul(x: torch.Tensor, w: torch.Tensor, m: torch.Tensor) -> torch.Te
     """x (M, K); w and m (K, N) -> (M, N) in x's dtype. Or E slabs, as an
     MoE layer's routed experts hold them: x (E, C, K), w and m (E, K, N) ->
     (E, C, N), expert e's ``x[e] @ (w[e] ⊙ m[e])``, in one launch. The mask
-    may be bool, uint8 or int8 on the card (any dtype on the CPU), or, on
-    matrices under grad, a 0/1 float tensor that requires grad (a tuned
-    mask: its gradient is dM)."""
+    may be bool, uint8 or int8 on the card (any dtype on the CPU), or, under
+    grad, a 0/1 float tensor that requires grad (a tuned mask: its gradient
+    is dM)."""
     _dims("masked_matmul", x, w, m)
     _on_cpu("masked_matmul", x, w, m)  # checks the devices
-    if m.requires_grad and x.dim() == 3:
-        raise NotImplementedError("masked_matmul: a tuned mask (dM) on expert leaves is not "
-                                  "ported yet (ROADMAP.md A.5)")
     if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad or m.requires_grad):
         return MaskedMatmulFn.apply(x, w, m)
     return _call("masked_matmul", x, w, m)
@@ -87,8 +86,8 @@ def masked_matmul_dw(x: torch.Tensor, dy: torch.Tensor, m: torch.Tensor) -> torc
 
 def masked_matmul_dm(x: torch.Tensor, dy: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """x (M, K); dy (M, N); w (K, N) -> dm (K, N) in x's dtype, the gradient
-    of ``x @ (w ⊙ m)`` with respect to m (pruned slots are not zeroed).
-    Matrices only."""
+    of ``x @ (w ⊙ m)`` with respect to m (pruned slots are not zeroed); or
+    E slabs of each."""
     return _call("masked_matmul_dm", x, dy, w)
 
 
@@ -110,17 +109,25 @@ def masked_matmul_batched_dw(x: torch.Tensor, dy: torch.Tensor, m: torch.Tensor)
     return masked_matmul_dw(x, dy, m)
 
 
+def masked_matmul_batched_dm(x: torch.Tensor, dy: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """:func:`masked_matmul_dm` on E slabs only."""
+    _slabs("masked_matmul_batched_dm", x)
+    return masked_matmul_dm(x, dy, w)
+
+
 class MaskedMatmulFn(torch.autograd.Function):
     """``x @ (w ⊙ m)`` with the dX, dW and dM kernels as its backward (the
-    batched dX and dW on E slabs); pruned slots of dw are exactly 0. A float
+    batched ones on E slabs); pruned slots of dw are exactly 0. A float
     mask (0/1, in w's dtype) that requires grad gets dm. The kernels read
-    such a mask as ``m != 0``; the plain versions on the CPU multiply by its
-    values, so there the product is differentiable in m as written."""
+    such a mask as ``m != 0``, laid out as :func:`aligned_mask` lays it
+    (Mamba2-130M's tuned ``in_dt`` mask, (768, 24), reaches the bf16 kernel
+    so); the plain versions on the CPU multiply by its values, so there the
+    product is differentiable in m as written."""
 
     @staticmethod
     def forward(ctx, x, w, m):
         if m.is_floating_point() and m.device.type == "cuda":
-            m = m != 0
+            m = aligned_mask(m != 0)
         ctx.save_for_backward(x, w, m)
         return _call("masked_matmul", x, w, m)
 
@@ -141,7 +148,8 @@ _COUNTER = {"masked_matmul": "launches", "masked_matmul_dx": "dx_launches",
             "masked_matmul_dw": "dw_launches", "masked_matmul_dm": "dm_launches",
             "masked_matmul_batched": "batched_launches",
             "masked_matmul_batched_dx": "batched_dx_launches",
-            "masked_matmul_batched_dw": "batched_dw_launches"}
+            "masked_matmul_batched_dw": "batched_dw_launches",
+            "masked_matmul_batched_dm": "batched_dm_launches"}
 # each entry point's operands, as (name, its dims of (M, K, N)), and its output's dims
 _OPERANDS = {"masked_matmul": (("x", "MK"), ("w", "KN"), ("m", "KN"), "MN"),
              "masked_matmul_dx": (("dy", "MN"), ("w", "KN"), ("m", "KN"), "MK"),
@@ -173,20 +181,18 @@ def _shape(dims: str, lead, M: int, K: int, N: int):
 
 def _dims(fn: str, a: torch.Tensor, b: torch.Tensor, c: torch.Tensor):
     """(M, K, N) of ``fn``'s operands; raises on shapes that do not fit:
-    three matrices, or (but for dM) three stacks of E slabs."""
+    three matrices, or three stacks of E slabs."""
     *ops, _ = _OPERANDS[fn]
-    ranks = (2,) if fn == "masked_matmul_dm" else (2, 3)
-    ok = a.dim() in ranks and b.dim() == c.dim() == a.dim()
+    ok = a.dim() in (2, 3) and b.dim() == c.dim() == a.dim()
     if ok:
         M, K, N = _mkn(fn, a, b)
         ok = all(tuple(t.shape) == _shape(d, a.shape[:-2], M, K, N)
                  for (_, d), t in zip(ops, (a, b, c)))
     if not ok:
-        lead = "E," if len(ranks) == 2 else ""
         raise ValueError(
             f"{fn}: inconsistent operand shapes "
             + " ".join(f"{n}={tuple(t.shape)}" for (n, _), t in zip(ops, (a, b, c)))
-            + " (want " + ", ".join(f"{n}=({lead}{d[0]},{d[1]})" for n, d in ops) + ")")
+            + " (want " + ", ".join(f"{n}=(E,{d[0]},{d[1]})" for n, d in ops) + ")")
     return M, K, N
 
 

@@ -57,3 +57,11 @@ def masked_matmul_batched_dw_plain(x: torch.Tensor, dy: torch.Tensor,
     """x (E, C, K), dy (E, C, N), m (E, K, N) -> dw (E, K, N), slab by slab;
     exactly 0 wherever the mask is 0."""
     return torch.stack([masked_matmul_dw_plain(x[e], dy[e], m[e]) for e in range(x.shape[0])])
+
+
+def masked_matmul_batched_dm_plain(x: torch.Tensor, dy: torch.Tensor,
+                                   w: torch.Tensor) -> torch.Tensor:
+    """x (E, C, K), dy (E, C, N), w (E, K, N) -> dm (E, K, N), slab by slab:
+    the gradient of each expert's ``x[e] @ (w[e] ⊙ m[e])`` with respect to
+    its mask (pruned slots not zeroed)."""
+    return torch.stack([masked_matmul_dm_plain(x[e], dy[e], w[e]) for e in range(x.shape[0])])

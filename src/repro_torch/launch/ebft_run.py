@@ -191,9 +191,6 @@ def run(cfg: ModelConfig, spec: RunSpec, device=None, params: Optional[Any] = No
     if wants - set(BASELINES):
         raise ValueError(f"unknown baselines {sorted(wants - set(BASELINES))}; "
                          f"a comma list of {BASELINES}")
-    if wants and cfg.family != "dense":
-        raise NotImplementedError(f"the baselines (DSnoT, mask tuning, LoRA) on the "
-                                  f"{cfg.family} family are not ported yet (ROADMAP.md A.5)")
     device = resolve_device(device)
     model = build(cfg)
     corpus = SyntheticCorpus(CorpusConfig(vocab_size=cfg.vocab_size, seed=spec.seed))

@@ -252,26 +252,10 @@ def test_ste_passes_the_mask_gradient_to_the_scores():
 # ---------------------------------------------------------------------------
 # LoRA
 # ---------------------------------------------------------------------------
-def _ref_lora_to_port(ref_lora):
-    """The reference's adapter tree (None at the other leaves) as the port's
-    (only the prunable leaves' paths)."""
-    out = {}
-    for k, v in ref_lora.items():
-        if v is None:
-            continue
-        if isinstance(v, dict) and set(v) == {"A", "B"}:
-            out[k] = {n: torch.tensor(np.asarray(a)) for n, a in v.items()}
-        elif isinstance(v, dict):
-            sub = _ref_lora_to_port(v)
-            if sub:
-                out[k] = sub
-    return out
-
-
 def test_init_lora_shapes_match_reference(setup):
     s = setup
     lcfg = RLORA.LoRAConfig()
-    ref = _ref_lora_to_port(RLORA.init_lora(s["ref_pruned"], lcfg))
+    ref = interop.lora_to_torch(_np(RLORA.init_lora(s["ref_pruned"], lcfg)), "cpu")
     got = LORA.init_lora(s["pruned"], LORA.LoRAConfig(), torch.Generator().manual_seed(0))
     assert sorted(p for p, _ in T.leaves_with_path(got)) == \
         sorted(p for p, _ in T.leaves_with_path(ref))
@@ -291,7 +275,8 @@ def test_merge_matches_reference(setup):
     ref_l = jax.tree.map(lambda a: jnp.asarray(rng.normal(size=a.shape).astype(np.float32)),
                          RLORA.init_lora(s["ref_pruned"], lcfg))
     want = RLORA.merge(s["ref_pruned"], s["ref_masks"], ref_l, lcfg)
-    got = LORA.merge(s["pruned"], s["masks"], _ref_lora_to_port(ref_l), LORA.LoRAConfig())
+    got = LORA.merge(s["pruned"], s["masks"], interop.lora_to_torch(_np(ref_l), "cpu"),
+                     LORA.LoRAConfig())
     for path, w in T.leaves_with_path(got):
         np.testing.assert_allclose(w.numpy(), np.asarray(T.get_path(want, path)), rtol=1e-6,
                                    atol=1e-6)
@@ -305,7 +290,7 @@ def test_finetune_lora_matches_reference_from_its_init(setup):
     rl = RLORA.LoRAConfig(steps=steps, lr=1e-3)
     it = RTOK.corpus_iterator(s["corpus"], batch=4, seq_len=32, seed=9)
     want = RLORA.finetune_lora(s["ref_model"], s["ref_pruned"], s["ref_masks"], it, rl)
-    init = _ref_lora_to_port(RLORA.init_lora(s["ref_pruned"], rl))
+    init = interop.lora_to_torch(_np(RLORA.init_lora(s["ref_pruned"], rl)), "cpu")
     losses = []
     got = LORA.finetune_lora(s["model"], s["pruned"], s["masks"],
                              RTOK.corpus_iterator(s["corpus"], batch=4, seq_len=32, seed=9),
@@ -363,7 +348,7 @@ def test_driver_baselines_match_reference(setup, monkeypatch, method):
             else:
                 rel[k] = max(REL, 2 * abs(v / ppl[k] - 1))
 
-    ref_a = _ref_lora_to_port(init_lora(pruned, lcfg))
+    ref_a = interop.lora_to_torch(_np(init_lora(pruned, lcfg)), "cpu")
     monkeypatch.setattr(LORA, "init_lora", lambda *a, **k: ref_a)
     res = ebft_run.run(get_config("tiny_dense"), spec, "cpu", params=s["params"])
     assert set(res.perplexity) == set(ppl)

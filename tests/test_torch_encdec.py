@@ -561,20 +561,6 @@ def test_finetune_masks_matches_reference(pair, wanda, monkeypatch, one_thread):
                            wanda["masks"]["dec_blocks"]["xattn"]["wk"])
 
 
-def _ref_lora_to_port(ref_lora):
-    out = {}
-    for k, v in ref_lora.items():
-        if v is None:
-            continue
-        if isinstance(v, dict) and set(v) == {"A", "B"}:
-            out[k] = {n: torch.tensor(np.asarray(a)) for n, a in v.items()}
-        elif isinstance(v, dict):
-            sub = _ref_lora_to_port(v)
-            if sub:
-                out[k] = sub
-    return out
-
-
 def test_finetune_lora_matches_reference(pair, wanda, one_thread):
     """5 steps from the reference's adapter init, each step's frames from
     ``extra_batch_fn(step)``: merged weights within rel 1e-4, pruned slots
@@ -585,7 +571,7 @@ def test_finetune_lora_matches_reference(pair, wanda, one_thread):
     want = RLORA.finetune_lora(pair["rmodel"], wanda["rpruned"], wanda["rmasks"],
                                RTOK.corpus_iterator(pair["corpus"], batch=4, seq_len=SEQ, seed=9),
                                rl, extra_batch_fn=fn)
-    init = _ref_lora_to_port(RLORA.init_lora(wanda["rpruned"], rl))
+    init = interop.lora_to_torch(_np(RLORA.init_lora(wanda["rpruned"], rl)), "cpu")
     losses = []
     got = LORA.finetune_lora(pair["model"], wanda["pruned"], wanda["masks"],
                              RTOK.corpus_iterator(pair["corpus"], batch=4, seq_len=SEQ, seed=9),

@@ -40,13 +40,13 @@ from repro.models.model import build as ref_build
 from repro.serving.decode import Request as RRequest
 from repro.serving.decode import Server as RServer
 from repro.sparsity import taps as RTAPS
+from _torch_baselines import driver_matches_library, leaf_functions_match_reference
 from repro_torch import interop
 from repro_torch import tree as T
 from repro_torch.checkpoint import ckpt as CK
 from repro_torch.configs import get_config
 from repro_torch.configs.base import ShapeConfig
 from repro_torch.core import ebft as EBFT
-from repro_torch.core import lora, mask_tuning
 from repro_torch.core import reconstruction as R
 from repro_torch.core.evaluate import perplexity
 from repro_torch.core.masks import prune
@@ -264,21 +264,24 @@ def test_prune_masks_equal_reference(pair, pruned, method, pattern):
     assert not bool(r["masks"]["shared"]["attn"]["wq"].all())
 
 
-def test_unported_methods_raise(pair, pruned):
+def test_unported_methods_raise(pair, pruned, one_thread):
+    """FLAP still refuses the family. The baselines that refused it until
+    they were ported now agree with the reference: SparseGPT's (``conv_w``
+    Wanda's mask, no update) and DSnoT's leaf functions on Mamba block 1,
+    mask tuning's final masks and LoRA's merge
+    (``leaf_functions_match_reference``); and the driver takes ``--baselines
+    dsnot,mask`` on the family, their perplexities the library's
+    (``test_torch_hybrid_baselines.py`` holds the driver's baselines, the
+    walks and the shared block's order to the reference's)."""
     model, params, calib = pair["model"], pair["params"], pruned["calib"]
     with pytest.raises(ValueError, match="FLAP"):
         prune(model, params, calib, method="flap", sparsity=0.2)
-    for method in ("sparsegpt", "dsnot"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            prune(model, params, calib, method=method, sparsity=0.5)
-    w = pruned[("wanda", None)]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        mask_tuning.finetune_masks(model, params, w["masks"], 0.7, calib)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        lora.finetune_lora(model, w["pruned"], w["masks"], iter([]))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ebft_run.run(pair["cfg"], dataclasses.replace(SPEC, baselines="dsnot,mask"), "cpu",
-                     params=params)
+    assert leaf_functions_match_reference(model, params, pair["rmodel"], pair["rparams"],
+                                          calib[:8], pruned[("wanda", None)]["rmasks"],
+                                          block=1) == 7
+    res = driver_matches_library(pair["cfg"], params,
+                                 dataclasses.replace(SPEC, baselines="dsnot,mask", epochs=0))
+    assert len(res.baselines["mask"]["histories"]) == pair["cfg"].num_layers + 2
 
 
 @pytest.fixture(scope="module")

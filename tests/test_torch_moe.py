@@ -39,12 +39,12 @@ from repro.serving.decode import Request as RRequest
 from repro.serving.decode import Server as RServer
 from repro.sparsity import sparse_params as RSP
 from repro.sparsity import taps as RTAPS
+from _torch_baselines import driver_matches_library, leaf_functions_match_reference
 from repro_torch import interop
 from repro_torch import tree as T
 from repro_torch.configs import get_config
 from repro_torch.configs.base import ShapeConfig
 from repro_torch.core import ebft as EBFT
-from repro_torch.core import lora, mask_tuning
 from repro_torch.core import reconstruction as R
 from repro_torch.core.evaluate import perplexity
 from repro_torch.core.masks import prune
@@ -278,8 +278,20 @@ def test_batched_wrappers_refuse_what_they_do_not_take():
         MM.masked_matmul_batched_dx(torch.zeros(2, 3, 5), w, m)
     with pytest.raises(ValueError):
         MM.masked_matmul_batched_dw(x, torch.zeros(2, 4, 4), m)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        MM.masked_matmul_batched(x, w, m.float().requires_grad_(True))
+    with pytest.raises(ValueError):
+        MM.masked_matmul_batched_dm(x, torch.zeros(2, 3, 5), w)
+    # a tuned mask on slabs, refused until mask tuning on MoE was ported,
+    # takes its gradient from the batched dM: the reference's autodiff of
+    # the masked einsum with respect to the mask
+    rng = np.random.default_rng(3)
+    xs, ws, dy = (rng.normal(size=s).astype(np.float32) for s in ((2, 3, 8), (2, 8, 4), (2, 3, 4)))
+    ms = (rng.random((2, 8, 4)) < 0.5).astype(np.float32)
+    mt = torch.tensor(ms, requires_grad=True)
+    (gm,) = torch.autograd.grad(MM.masked_matmul_batched(torch.tensor(xs), torch.tensor(ws), mt),
+                                mt, torch.tensor(dy))
+    _, vjp = jax.vjp(lambda m_: jnp.einsum("eck,ekn->ecn", jnp.asarray(xs), jnp.asarray(ws) * m_),
+                     jnp.asarray(ms))
+    _close(gm, vjp(jnp.asarray(dy))[0], rel=1e-6)
     with pytest.raises(ValueError):  # mixed devices
         MM.masked_matmul_batched(x, w, m.to("meta"))
 
@@ -375,23 +387,27 @@ def test_prune_leaves_the_router_and_hits_the_sparsity(pair, pruned, method):
             np.testing.assert_array_equal(t.numpy(), want, err_msg=str(path))
 
 
-def test_unported_methods_raise(pair, pruned):
+def test_unported_methods_raise(pair, pruned, monkeypatch, one_thread):
+    """FLAP still refuses the family, as the reference's assert does. The
+    baselines that refused it until they were ported now agree with the
+    reference: SparseGPT's and DSnoT's leaf functions on block 1's routed
+    experts, shared experts and attention, mask tuning's final masks and
+    LoRA's merge (``leaf_functions_match_reference``); and the driver takes
+    ``--baselines dsnot`` on the family, its DSnoT perplexity the library's
+    (``test_torch_moe_baselines.py`` holds the driver's baselines and the
+    walks to the reference's)."""
     model, params, calib = pair["model"], pair["params"], pruned["calib"]
     with pytest.raises(ValueError, match="FLAP"):
         prune(model, params, calib, method="flap", sparsity=0.2)
     with pytest.raises(AssertionError):  # the reference refuses it too
         ref_prune(pair["rmodel"], pair["rparams"], calib, method="flap", sparsity=0.2)
-    for method in ("sparsegpt", "dsnot"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            prune(model, params, calib, method=method, sparsity=0.5)
-    w = pruned["wanda"]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        mask_tuning.finetune_masks(model, params, w["masks"], 0.7, calib)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        lora.finetune_lora(model, w["pruned"], w["masks"], iter([]))
-    spec = ebft_run.RunSpec(arch=pair["arch"], baselines="dsnot", pretrain_steps=0)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ebft_run.run(pair["cfg"], spec, "cpu", params=params)
+    assert leaf_functions_match_reference(model, params, pair["rmodel"], pair["rparams"],
+                                          calib[:8], pruned["wanda"]["rmasks"],
+                                          block=pair["cfg"].moe_first_dense) == 10
+    spec = ebft_run.RunSpec(arch=pair["arch"], baselines="dsnot", pretrain_steps=0, epochs=0,
+                            calib_samples=8, seq=16)
+    res = driver_matches_library(pair["cfg"], params, spec)
+    assert set(res.perplexity) == {"dense", "wanda", "EBFT", "DSnoT"}
 
 
 # lr 1e-3: at the dense tests' 1e-2 tiny_moe's EBFT is chaotic (a router

@@ -46,6 +46,7 @@ from repro.serving.decode import Request as RRequest
 from repro.serving.decode import Server as RServer
 from repro.sparsity import sparse_params as RSP
 from repro.sparsity import taps as RTAPS
+from _torch_baselines import driver_matches_library, leaf_functions_match_reference
 from repro_torch import interop
 from repro_torch import tree as T
 from repro_torch.checkpoint import ckpt as CK
@@ -429,23 +430,27 @@ def test_bf16_kernel_takes_a_narrow_mask_as_a_padded_view():
         MM.check_operands("masked_matmul", x, w, blk["in_dt"])
 
 
-def test_unported_methods_raise(pair, pruned):
+def test_unported_methods_raise(pair, pruned, monkeypatch, one_thread):
+    """FLAP still refuses the family, as the reference's assert does. The
+    baselines that refused it until they were ported now agree with the
+    reference: SparseGPT's (``conv_w`` Wanda's mask, no update) and DSnoT's
+    leaf functions on block 1, mask tuning's final masks and LoRA's merge
+    (``leaf_functions_match_reference``); and the driver takes ``--baselines
+    lora`` on the family (3 steps here), its perplexity the library's
+    (``test_torch_ssm_baselines.py`` holds the driver's baselines and the
+    walks to the reference's)."""
     model, params, calib = pair["model"], pair["params"], pruned["calib"]
     with pytest.raises(ValueError, match="FLAP"):
         prune(model, params, calib, method="flap", sparsity=0.2)
     with pytest.raises(AssertionError):  # the reference refuses it too
         ref_prune(pair["rmodel"], pair["rparams"], calib, method="flap", sparsity=0.2)
-    for method in ("sparsegpt", "dsnot"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            prune(model, params, calib, method=method, sparsity=0.5)
-    w = pruned[("wanda", None)]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        mask_tuning.finetune_masks(model, params, w["masks"], 0.7, calib)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        lora.finetune_lora(model, w["pruned"], w["masks"], iter([]))
-    spec = dataclasses.replace(SPEC, baselines="lora")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ebft_run.run(pair["cfg"], spec, "cpu", params=params)
+    assert leaf_functions_match_reference(model, params, pair["rmodel"], pair["rparams"],
+                                          calib[:8], pruned[("wanda", None)]["rmasks"],
+                                          block=1) == 7
+    monkeypatch.setattr(ebft_run, "LORA", lora.LoRAConfig(steps=3, lr=1e-3))
+    res = driver_matches_library(pair["cfg"], params,
+                                 dataclasses.replace(SPEC, baselines="lora", epochs=0))
+    assert len(res.baselines["lora"]["losses"]) == 3
 
 
 @pytest.fixture(scope="module")
