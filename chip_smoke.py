@@ -49,7 +49,16 @@ memory projections through the masked GEMM at M = 2048), then the
 teacher-forced check and greedy serving at the model level; then
 tiny_encdec (with the baselines) on the card against the CPU. The
 ``masked_matmul_encdec`` phase and the attention phases hold its shapes.
-Every phase
+Every path above runs with the tile autotuner off (``kernel_tune="off"``),
+on the default tiles. The ``tuning`` phase (last) holds every compiled
+instantiation's launch plan (``kernels/validation.py``) to the compiled
+kernel, every compiled candidate tile of every bf16 route to its plain
+version (repeated bit for bit, its bits compared with the default's),
+pre-tunes Llama-7B's and Seamless-M4T-medium's EBFT launches in ``search``
+mode (default and best ms of each), and runs ``ebft_run.run`` on a 2-layer
+Llama-7B with ``--kernel-tune search``, then ``cache`` (warm: no miss),
+then ``off``. The kernels line gives each row's default ``tiles``. Every
+phase
 prints one JSON line; any
 failed check raises, so the script exits non-zero. The last three lines
 are the card's name and power limit, the per-kernel summary, and
@@ -780,7 +789,8 @@ def run_path(tokens, params=None, tag="main", **spec_kw):
     steps = 0 if params is not None else PRETRAIN_STEPS
     spec = ebft_run.RunSpec(arch="llama_7b", seed=0, seq=calib.shape[1],
                             calib_samples=len(calib), pretrain_steps=steps,
-                            batch=PRETRAIN_BATCH, lr=2e-4, epochs=10, bench_out="", **spec_kw)
+                            batch=PRETRAIN_BATCH, lr=2e-4, epochs=10, bench_out="",
+                            kernel_tune="off", **spec_kw)
     pre = {}
     ends = [0]
 
@@ -2992,7 +3002,7 @@ def phase_moe(walls):
     spec = ebft_run.RunSpec(arch="deepseek_moe_16b", seed=0, seq=MOE["seq"],
                             calib_samples=MOE["calib"], pretrain_steps=MOE["pretrain_steps"],
                             batch=MOE["batch"], microbatches=MOE["microbatches"], lr=2e-4,
-                            epochs=10, baselines="dsnot,mask", bench_out="")
+                            epochs=10, baselines="dsnot,mask", bench_out="", kernel_tune="off")
     pre = {}
     ends = [0]
 
@@ -3340,7 +3350,7 @@ def phase_family(family: str, walls):
     spec = ebft_run.RunSpec(arch=f["arch"], seed=0, seq=FAM["seq"], calib_samples=FAM["calib"],
                             pretrain_steps=FAM["pretrain_steps"], batch=FAM["batch"],
                             microbatches=f["microbatches"], lr=2e-4, epochs=10,
-                            baselines="dsnot,mask", bench_out="")
+                            baselines="dsnot,mask", bench_out="", kernel_tune="off")
     pre = {}
     ends = [0]
 
@@ -3803,7 +3813,8 @@ def phase_vlm(walls):
     calib_x, ev_x = _patches(cfg, VLM["calib"], P, 1), _patches(cfg, VLM["eval"], P, 2)
     spec = ebft_run.RunSpec(arch="llava_next_mistral_7b", seed=0, seq=VLM["seq"],
                             calib_samples=VLM["calib"], pretrain_steps=VLM["pretrain_steps"],
-                            batch=VLM["batch"], lr=2e-4, epochs=10, bench_out="")
+                            batch=VLM["batch"], lr=2e-4, epochs=10, bench_out="",
+                            kernel_tune="off")
     tspec = train.TrainSpec(arch="llava_next_mistral_7b", steps=VLM["pretrain_steps"],
                             batch=VLM["batch"], seq=VLM["seq"], lr=VLM["pretrain_lr"], seed=0)
     dev = torch.device("cuda")
@@ -4062,7 +4073,7 @@ def phase_encdec(walls):
     spec = ebft_run.RunSpec(arch="seamless_m4t_medium", seed=0, seq=S,
                             calib_samples=ENCDEC["calib"],
                             pretrain_steps=ENCDEC["pretrain_steps"], batch=ENCDEC["batch"],
-                            lr=2e-4, epochs=10, bench_out="")
+                            lr=2e-4, epochs=10, bench_out="", kernel_tune="off")
     tspec = train.TrainSpec(arch="seamless_m4t_medium", steps=ENCDEC["pretrain_steps"],
                             batch=ENCDEC["batch"], seq=S, lr=ENCDEC["pretrain_lr"], seed=0,
                             microbatches=ENCDEC["microbatches"])
@@ -4193,6 +4204,332 @@ def phase_encdec(walls):
 
 
 # ---------------------------------------------------------------------------
+# ---------------------------------------------------------------------------
+# launch plans and the tile autotuner (kernels/validation.py, kernels/tuning.py)
+# ---------------------------------------------------------------------------
+# the 2-D GEMM shapes every compiled tile is held at: Llama-7B's w_up at the
+# slice's M, Seamless's 1024 x 1024 at the encoder's M 2048 (64 output
+# tiles of 256 x 128 on 132 SMs), Mamba2-130M's narrow in_B at M 16384
+TUNE_GEMMS = [("llama_w_up", M_ROWS, 4096, 11008), ("seamless_1024_M2048", 8 * 256, 1024, 1024),
+              ("mamba_in_B", M_ROWS, 768, 128)]
+# the attention shapes every compiled (bq, bk) is held at: serving's decode
+# step, and every forward the pre-tune searches (Llama-7B's walk at head
+# width 128; Seamless-M4T-medium's decoder self-attention, encoder
+# self-attention and cross-attention at width 64, 8 rows of 16 heads):
+# (BH, Sq, Sk, d, causal, q_offset)
+TUNE_ATTN = {"decode": SERVE_ATTN["decode"], "ebft": (256, 2048, 2048, 128, True, 0),
+             "seamless_dec_self": (128, 2048, 2048, 64, True, 0),
+             "seamless_enc_self": (128, 256, 256, 64, False, 0),
+             "seamless_cross": (128, 2048, 256, 64, False, 0)}
+# ebft_run at Llama-7B width, searched, then on the warm cache, then off,
+# then on a cache whose every entry names a tile other than the default
+TUNE_RUN = dict(layers=2, epochs=2, calib=16, seq=2048)
+# the tuned run's perplexities against the default tiles': the GEMMs keep
+# their summation order on every tile, the attention's key tile moves the
+# online softmax's rescale points (bits within the kernel's tolerance)
+TUNE_PPL_REL = 1e-2
+
+
+def _held_candidates(name, tag, cands, launch, check, ref, dtype="bfloat16"):
+    """Each candidate's tiles launched (uncounted, as the tuner launches
+    them), held to the plain version ``ref`` by ``check``, repeated bit for
+    bit, compared bit for bit with the default's (candidate 0) and timed."""
+    import torch
+
+    rows, default = [], None
+    for tiles in cands:
+        out = launch(tiles)
+        torch.cuda.synchronize()
+        label = f"{name} {tag} {tiles}"
+        err = check(label, out, ref, dtype) if not callable(ref) else ref(label, out)
+        check_repeat(label, lambda: launch(tiles), out)
+        default = out if default is None else default
+        rows.append(dict(tiles=tiles, max_abs_err=err,
+                         same_bits_as_default=bool(torch.equal(out, default)),
+                         ms=timed_ms(lambda: launch(tiles))))
+        del out
+    return rows
+
+
+def phase_tuning(g, walls):
+    """The launch plans and the tuner on the card.
+
+    (1) every compiled instantiation's plan (``kernels.validation``) held
+    to the library's own query and ``cudaFuncGetAttributes`` (shared
+    memory, threads, stages; registers and spilled bytes printed); (2)
+    every compiled candidate of every bf16 route (masked forward, dX, dW,
+    dM, 2-D at ``TUNE_GEMMS`` and batched at DeepSeek's w_up slabs,
+    ``nm_spmm`` 2:4 at Llama's w_up, the attention forward at
+    ``TUNE_ATTN``) held to its plain version within the route's tolerance,
+    repeated bit for bit, with whether its bits equal the default's and its
+    time; (3) ``tuning.pretune`` in ``search`` mode, into a cache under a
+    temporary directory, over ``ebft_workloads`` of Llama-7B and
+    Seamless-M4T-medium: each workload's default and best ms; (4)
+    ``ebft_run.run`` at Llama-7B width (``TUNE_RUN``) with
+    ``kernel_tune="search"``, then ``"cache"`` on that cache, then
+    ``"off"``, then ``"cache"`` on a copy of the cache whose every entry
+    names its last candidate (128 x 64 GEMMs, 64 / 64 attention): the
+    cache runs' artifacts pass the warm-cache validation, the first's
+    perplexities equal the search run's bit for bit, both lie within
+    ``TUNE_PPL_REL`` of the off run's, every run launches what the off
+    run launches, the kernel spans show the plan each tuned launch ran,
+    and the forced run's show the other tiles on every route it tuned.
+    The earlier phases run with the tuner off."""
+    import tempfile
+
+    import torch
+
+    from repro_torch.kernels import _build, tuning
+    from repro_torch.kernels import validation as V
+    from repro_torch.kernels.flash_attention import ops as FA
+    from repro_torch.kernels.flash_attention.ref import flash_attention_plain
+    from repro_torch.kernels.masked_matmul import ops as MM
+    from repro_torch.kernels.masked_matmul import ref as MR
+    from repro_torch.kernels.nm_spmm import ops as NM
+    from repro_torch.kernels.nm_spmm.ref import nm_spmm_plain
+    from repro_torch.launch import ebft_run
+    from repro_torch.launch.api import start_obs_run
+    from repro_torch.obs.run import validate_payload
+    from repro_torch.sparsity import sparse_params as SP
+
+    t0 = time.perf_counter()
+    # (1) the plans against the compiled kernels
+    inst = {}
+    for r, route in enumerate(("masked_matmul", "masked_matmul_dx", "masked_matmul_dw",
+                               "masked_matmul_dm")):
+        for bm, bn in V.GEMM_TILES:
+            inst[f"{route} {bm}x{bn}"] = (V.plan_masked_matmul(route, 4096, 4096, 4096, bm=bm,
+                                                               bn=bn),
+                                          _build.query("masked_matmul", r, bm, bn))
+    for m in V.NM_GROUPS:
+        for n in range(1, m + 1):
+            for bm, bn in V.GEMM_TILES:
+                inst[f"nm_spmm {n}:{m} {bm}x{bn}"] = (
+                    V.plan_nm_spmm(4096, 4096, 4096, n=n, m=m, bm=bm, bn=bn),
+                    _build.query("nm_spmm", n, m, bm, bn))
+    for d, tiles in V.ATTN_TILES.items():
+        for bq, bk in tiles:
+            inst[f"flash_attention d{d} {bq}/{bk}"] = (
+                V.plan_flash_attention(256, 2048, 2048, d, bq=bq, bk=bk),
+                _build.query("flash_attention", d, bq, bk))
+    for label, (plan, q) in inst.items():
+        if (q["smem"], q["threads"], q["stages"], q["max_dynamic_smem"], q["static_smem"]) != \
+                (plan.smem, plan.threads, plan.stages, plan.smem, 0) or \
+                q["max_threads"] < plan.threads:
+            raise AssertionError(f"tuning: {label}: plan {plan.smem} B, {plan.threads} threads, "
+                                 f"{plan.stages} stages; the compiled kernel {q}")
+    emit(dict(phase="tuning_plans", instantiations=len(inst),
+              plans_equal_the_compiled_kernels=True,
+              kernels={label: {k: q[k] for k in ("smem", "threads", "stages", "regs",
+                                                  "local_bytes")}
+                       for label, (_, q) in inst.items()},
+              spills={label: q["local_bytes"] for label, (_, q) in inst.items()
+                      if q["local_bytes"]}))
+
+    # (2) every candidate of every bf16 route against its plain version
+    bf = torch.bfloat16
+    mm_dt = {"x": "bfloat16", "w": "bfloat16"}
+    same_bits = {}
+
+    def held(route, tag, dims, args, plain, check):
+        cands = tuning.candidate_tiles(route, dims, mm_dt)
+        base = route.replace("_batched", "")
+        rows = _held_candidates(route, tag, cands,
+                                lambda t: MM.launch_uncounted(base, *args, t), check,
+                                plain(*args))
+        same_bits[f"{route} {tag}"] = all(r["same_bits_as_default"] for r in rows)
+        emit(dict(phase="tuning_candidates", route=route, shape=tag, **dims, candidates=rows))
+
+    for tag, M, K, N in TUNE_GEMMS:
+        x = torch.randn(M, K, device="cuda", generator=g).to(bf)
+        w = (torch.randn(K, N, device="cuda", generator=g) / math.sqrt(K)).to(bf)
+        m = torch.rand(K, N, device="cuda", generator=g) < 0.3
+        dy = torch.randn(M, N, device="cuda", generator=g).to(bf)
+        dims = {"M": M, "K": K, "N": N}
+        held("masked_matmul", tag, dims, (x, w, m), MR.masked_matmul_plain, check_close)
+        held("masked_matmul_dx", tag, dims, (dy, w, m), MR.masked_matmul_dx_plain, check_scaled)
+        held("masked_matmul_dw", tag, dims, (x, dy, m), MR.masked_matmul_dw_plain, check_scaled)
+        held("masked_matmul_dm", tag, dims, (x, dy, w), MR.masked_matmul_dm_plain, check_scaled)
+        if tag == "llama_w_up":  # nm_spmm 2:4 on the same x, its plain and masked_matmul's bits
+            mn = SP.nm_mask(torch.rand(K, N, device="cuda", generator=g), 2, 4)
+            vals, idx = SP.nm_compress(w, mn, 2, 4)
+            absprod = x.float().abs() @ (w * mn.to(bf)).float().abs()
+            plain = nm_spmm_plain(x, vals, idx, n=2, m=4)
+            mm_bits = MM.launch_uncounted("masked_matmul", x, w, mn, {})
+            cands = tuning.candidate_tiles("nm_spmm", dims, {"x": "bfloat16", "v": "bfloat16"},
+                                           {"n": 2, "m": 4})
+
+            def nm_check(label, out):
+                if not torch.equal(out, mm_bits):
+                    raise AssertionError(f"{label}: not masked_matmul's bits")
+                return check_bounded(label, out, plain, absprod, TOL["bfloat16"])[0]
+
+            rows = _held_candidates("nm_spmm", tag, cands,
+                                    lambda t: NM.launch_uncounted(x, vals, idx, 2, 4, t),
+                                    None, nm_check)
+            same_bits[f"nm_spmm {tag}"] = all(r["same_bits_as_default"] for r in rows)
+            emit(dict(phase="tuning_candidates", route="nm_spmm", shape=tag, n=2, m=4, **dims,
+                      limit=f"{TOL['bfloat16']} x |x| @ |w*m| per element; bitwise vs "
+                            "masked_matmul", candidates=rows))
+            del mn, vals, idx, absprod, plain, mm_bits
+        del x, w, m, dy
+        torch.cuda.empty_cache()
+    _, E, C, K, N = MOE_SLABS[0]
+    x = torch.randn(E, C, K, device="cuda", generator=g).to(bf)
+    w = (torch.randn(E, K, N, device="cuda", generator=g) / math.sqrt(K)).to(bf)
+    m = torch.rand(E, K, N, device="cuda", generator=g) < 0.3
+    dy = torch.randn(E, C, N, device="cuda", generator=g).to(bf)
+    dims = {"E": E, "M": C, "K": K, "N": N}
+    held("masked_matmul_batched", "moe_w_up", dims, (x, w, m), MR.masked_matmul_batched_plain,
+         check_close)
+    held("masked_matmul_batched_dx", "moe_w_up", dims, (dy, w, m),
+         MR.masked_matmul_batched_dx_plain, check_scaled)
+    held("masked_matmul_batched_dw", "moe_w_up", dims, (x, dy, m),
+         MR.masked_matmul_batched_dw_plain, check_scaled)
+    held("masked_matmul_batched_dm", "moe_w_up", dims, (x, dy, w),
+         MR.masked_matmul_batched_dm_plain, check_scaled)
+    del x, w, m, dy
+    torch.cuda.empty_cache()
+    for tag, (BH, Sq, Sk, d, causal, off) in TUNE_ATTN.items():
+        q, k, v = (torch.randn(BH, S, d, device="cuda", generator=g).to(bf) for S in (Sq, Sk, Sk))
+        cands = tuning.candidate_tiles("flash_attention", {"BH": BH, "Sq": Sq, "Sk": Sk, "d": d},
+                                       {"q": "bfloat16"}, {"causal": causal})
+        rows = _held_candidates("flash_attention", tag, cands,
+                                lambda t: FA.launch_uncounted(q, k, v, causal, off, t),
+                                check_close,
+                                flash_attention_plain(q, k, v, causal=causal, q_offset=off))
+        same_bits[f"flash_attention {tag}"] = all(r["same_bits_as_default"] for r in rows)
+        emit(dict(phase="tuning_candidates", route="flash_attention", shape=tag, BH=BH, Sq=Sq,
+                  Sk=Sk, d=d, causal=causal, q_offset=off, candidates=rows))
+        del q, k, v
+    emit(dict(phase="tuning_same_bits", every_candidate_equals_the_default=same_bits))
+
+    with tempfile.TemporaryDirectory() as tmp:
+        # (3) pretune in search mode over two configs' EBFT walks
+        tuning.configure(mode="search", path=os.path.join(tmp, "kernels.json"))
+        tuning.reset_stats()
+        t1 = time.perf_counter()
+        work = [("llama_7b", w) for w in tuning.ebft_workloads(llama_cfg(), M_ROWS, 2048)] + \
+            [("seamless_m4t_medium", w) for w in tuning.ebft_workloads(encdec_cfg(), M_ROWS,
+                                                                         2048)]
+        held_attn = {v[:5] for v in TUNE_ATTN.values()}
+        unheld = [(d, p) for _, (k, d, _, p) in work if k == "flash_attention" and
+                  (d["BH"], d["Sq"], d["Sk"], d["d"], p["causal"]) not in held_attn]
+        if unheld:
+            raise AssertionError(f"tuning: attention workloads whose candidates were not held "
+                                 f"to the plain version: {unheld}")
+        tuning.pretune([w for _, w in work], device="cuda")
+        pretune_s = time.perf_counter() - t1
+        entries = json.load(open(os.path.join(tmp, "kernels.json")))["entries"]
+        kind, rev = torch.cuda.get_device_name(0), tuning.code_rev()
+        table = []
+        for arch, (kernel, dims, dtypes, params) in work:
+            e = entries[tuning.cache_key(kernel, dims, dtypes, params, "cuda", kind, rev)]
+            ms = e["measured_s"]
+            table.append(dict(arch=arch, kernel=kernel, dims=dims, params=params,
+                              tiles=e["tiles"], candidates=e["candidates"],
+                              default_ms=ms["default"] * 1e3, best_ms=ms["best"] * 1e3,
+                              all_ms={json.dumps(t): s * 1e3 for t, s in ms["all"]}))
+            if ms["best"] > ms["default"]:
+                raise AssertionError(f"tuning: {kernel} {dims}: best above the default")
+        emit(dict(phase="tuning_pretune", workloads=len(work), seconds=pretune_s,
+                  stats=tuning.stats(), table=table))
+
+        # (4) ebft_run searched, then on the warm cache, then off
+        cfg = llama_cfg(TUNE_RUN["layers"])
+        cache = os.path.join(tmp, "ebft_run.json")
+        forced = os.path.join(tmp, "ebft_run_forced.json")
+        ppl, arts, counts, secs = {}, {}, {}, {}
+        for mode in ("search", "cache", "off", "forced"):
+            if mode == "forced":  # every entry the search wrote, on its last candidate
+                with open(cache) as f:
+                    payload = json.load(f)
+                for e in payload["entries"].values():
+                    e["tiles"] = tuning.candidate_tiles(e["kernel"], e["dims"], e["dtypes"],
+                                                        e["params"])[-1]
+                with open(forced, "w") as f:
+                    json.dump(payload, f)
+            spec = ebft_run.RunSpec(arch="llama_7b", seed=0, seq=TUNE_RUN["seq"],
+                                    calib_samples=TUNE_RUN["calib"], pretrain_steps=0, lr=2e-4,
+                                    epochs=TUNE_RUN["epochs"], bench_out="",
+                                    kernel_tune="cache" if mode == "forced" else mode,
+                                    kernel_cache=forced if mode == "forced" else cache)
+            torch.cuda.synchronize()
+            reset_counts()
+            obs_run = start_obs_run(spec, "ebft", "cuda", name=f"chip_smoke/tune_{mode}",
+                                    console=False)
+            t1 = time.perf_counter()
+            res = ebft_run.run(cfg, spec, "cuda")
+            torch.cuda.synchronize()
+            secs[mode] = time.perf_counter() - t1
+            counts[mode] = read_counts()
+            summ = obs_run.payload()["metrics"]
+            arts[mode] = finish_obs(obs_run, ebft_run.bench_record(spec, res, summ),
+                                    f"BENCH_ebft_tune_{mode}.json")
+            ppl[mode] = res.perplexity
+            del res
+            torch.cuda.empty_cache()
+        tuning.configure(mode="off")
+    for mode in ("cache", "forced"):
+        problems = validate_payload(arts[mode], require=OBS_REQUIRE, require_cache_hits=True)
+        kt = arts[mode]["kernel_tuning"]
+        if problems or kt["misses"] or kt["searches"]:
+            raise AssertionError(f"tuning: the {mode} run's artifact is not warm: {problems} "
+                                 f"{kt}")
+    if ppl["cache"] != ppl["search"]:
+        raise AssertionError(f"tuning: cache run {ppl['cache']} != search run {ppl['search']}")
+    rel = {mode: {k: abs(ppl[mode][k] / ppl["off"][k] - 1) for k in ppl["off"]}
+           for mode in ("cache", "forced")}
+    if max(max(r.values()) for r in rel.values()) > TUNE_PPL_REL:
+        raise AssertionError(f"tuning: tuned perplexities {ppl} against off's, rel {rel}")
+    if any(counts[m] != counts["off"] for m in counts) or counts["off"]["masked_matmul"] == 0:
+        raise AssertionError(f"tuning: launches differ across modes: {counts}")
+
+    def kernel_spans(nodes, out):
+        for sp in nodes:
+            if sp["name"].startswith("kernels/") and "plan" in sp.get("attrs", {}):
+                a = sp["attrs"]
+                key = f"{sp['name']} {a['plan']} " + json.dumps(
+                    {k: v for k, v in a.items() if k != "plan"}, sort_keys=True)
+                out[key] = out.get(key, 0) + 1
+            kernel_spans(sp.get("children", []), out)
+        return out
+
+    plans = kernel_spans(arts["cache"]["trace"], {})
+    if sum(plans.values()) == 0:
+        raise AssertionError("tuning: no launch of the cache run booked its tuned plan")
+    # the forced run: each tuned route's launches all on a tile other than its default
+    forced_plans = kernel_spans(arts["forced"]["trace"], {})
+    routes = {}
+    for key, n in forced_plans.items():
+        name, _, tiles = key.split(" ", 2)
+        default = _default_tiles(name.removeprefix("kernels/"))
+        routes.setdefault(name, set()).add(json.loads(tiles) != default)
+    if not routes or any(v != {True} for v in routes.values()) or \
+            "kernels/flash_attention" not in routes:
+        raise AssertionError(f"tuning: the forced run booked {forced_plans}")
+    walls["tuning"] = time.perf_counter() - t0
+    emit(dict(phase="tuning_ebft_run", layers=TUNE_RUN["layers"], epochs=TUNE_RUN["epochs"],
+              perplexity=ppl, rel_tuned_vs_off=rel, tol=TUNE_PPL_REL, seconds=secs,
+              kernel_tuning={m: arts[m]["kernel_tuning"] for m in arts},
+              launches=counts["cache"], tuned_launches_by_plan=plans,
+              forced_launches_by_plan=forced_plans, warm_cache_valid=True,
+              seconds_phase=walls["tuning"]))
+
+
+def _default_tiles(name: str) -> dict:
+    """The tiles of a kernel row's default launch plan (bf16)."""
+    from repro_torch.kernels import validation as V
+
+    if name == "flash_attention":
+        return V.plan_flash_attention(1, 128, 128, 128).tiles
+    if name == "flash_attention_bwd":
+        return V.plan_flash_attention(1, 128, 128, 128, route="flash_attention_bwd").tiles
+    if name == "nm_spmm":
+        return V.plan_nm_spmm(256, 256, 256, n=2, m=4).tiles
+    return V.plan_masked_matmul(name, 256, 256, 256, E=2 if "batched" in name else 1).tiles
+
+
 def main() -> int:
     # cuBLAS picks its workspace per stream; a fixed configuration makes a
     # product repeat bit for bit, which the resumed training run relies on.
@@ -4215,7 +4552,7 @@ def main() -> int:
               kind=torch.cuda.get_device_name(0), count=torch.cuda.device_count()))
     t0 = time.perf_counter()
     _build.build(["masked_matmul", "flash_attention", "nm_spmm"])
-    emit(dict(phase="build", seconds=time.perf_counter() - t0,
+    emit(dict(phase="build", seconds=time.perf_counter() - t0, per_library=_build.build_seconds,
               ptxas={n: [ln.strip() for ln in log.splitlines() if "Used" in ln or "spill" in ln]
                      for n, log in _build.build_log.items()}))
 
@@ -4319,7 +4656,7 @@ def main() -> int:
     # the order of their sums
     cfg32 = get_config("llama_7b").replace(num_layers=4, attn_impl="flash")
     spec32 = RunSpec(arch="llama_7b", seed=0, seq=2048, sparsity=0.7, calib_samples=16,
-                     pretrain_steps=0, epochs=0, bench_out="")
+                     pretrain_steps=0, epochs=0, bench_out="", kernel_tune="off")
     phase_mask_flips(cfg32, spec32, None, tokens, T.tree_map(lambda t: t.float(), dense))
     del dense
     torch.cuda.empty_cache()
@@ -4340,6 +4677,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     # the encoder-decoder family's path and tiny_encdec
     enc_launches, enc_pre_launches = phase_encdec(walls)
+    torch.cuda.empty_cache()
+    # the launch plans and the tile autotuner (every path above ran with it off)
+    phase_tuning(g, walls)
     emit(dict(phase="walls", seconds=walls, total_s=time.perf_counter() - t_start))
 
     root = "src/repro_torch/kernels/csrc/"
@@ -4362,6 +4702,7 @@ def main() -> int:
                             launches_pretrain=pre_launches[name],
                             launches_path_a=by_path["A"][name], launches_path_b=by_path["B"][name],
                             launches_serve=serve_launches[name],
+                            tiles=_default_tiles(name),
                             max_abs_err=row["max_abs_err"], ms=row["ms"],
                             plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
                             bound_by=row["bound_by"], library_ms=row.get("library_ms"),

@@ -20,6 +20,24 @@ It prints one JSON line per run and kernel, with the sha256 of the
 checkout's ``csrc/*.cu`` and ``*.cuh`` files, the sha256 of the kernel's
 output (``out``: two checkouts whose kernels give the same bits on these
 inputs print the same digest) and the card's name and power limit.
+
+    python3 kernel_ab.py --old DIR --builds
+
+times each checkout's build instead: its three ``nvcc`` processes, all
+started together, from an empty ``build/kernels/``, one checkout at a
+time in the same turns, one JSON line each.
+
+    python3 kernel_ab.py --old DIR --decode
+
+times each checkout's host path instead, in the same turns: a serving
+decode step and a prefill at Llama-7B width (4 layers, seeded weights,
+``chip_smoke._serve_split``: the step's fenced latency, the card's time
+and the host's share), and the host's microseconds per call of the masked
+matmul forward at a decode shape (8 x 4096 against 4096 x 4096) and of
+the attention forward at the decode step's (``chip_smoke.SERVE_ATTN``),
+the least over bursts of calls queued without a synchronise; in a checkout
+with ``kernels.tuning`` also with the tuner in ``cache`` mode on an empty
+cache.
 """
 from __future__ import annotations
 
@@ -80,6 +98,20 @@ def build_tree(tree: str) -> None:
     _build_of(Path(tree)).build(KERNELS)
 
 
+def build_seconds(tag: str, tree: str) -> None:
+    """Build ``tree``'s kernels from an empty build directory; print the
+    wall seconds."""
+    import shutil
+    import time
+
+    _build = _build_of(Path(tree))
+    shutil.rmtree(_build.BUILD_DIR, ignore_errors=True)
+    t0 = time.perf_counter()
+    _build.build(KERNELS)
+    cs.emit(dict(version=tag, sources=sources_sha(Path(tree)), card=cs.smi(),
+                 build_s=time.perf_counter() - t0))
+
+
 def time_tree(tag: str, tree: str) -> None:
     import torch
     import torch.nn.functional as F
@@ -131,6 +163,80 @@ def time_tree(tag: str, tree: str) -> None:
          leaf="w_up", pattern="2:4")
 
 
+def _host_us(fn, calls: int = 100, bursts: int = 9) -> float:
+    """The host's microseconds per call of ``fn``: the least over
+    ``bursts`` bursts of ``calls`` calls, each queued without a synchronise
+    (the card runs behind; fewer calls than CUDA's queue of pending
+    launches) and synchronised after. The least is the burst the shared
+    host's other work disturbed least."""
+    import time
+
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    out = []
+    for _ in range(bursts):
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        out.append((time.perf_counter() - t0) / calls * 1e6)
+        torch.cuda.synchronize()
+    return min(out)
+
+
+def decode_tree(tag: str, tree: str) -> None:
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    tree = Path(tree)
+    _build_of(tree)
+    from repro_torch.data.tokens import CorpusConfig, SyntheticCorpus
+    from repro_torch.kernels.flash_attention import ops as FA
+    from repro_torch.kernels.masked_matmul import ops as MM
+    from repro_torch.models.model import build
+
+    base = dict(version=tag, sources=sources_sha(tree), card=cs.smi())
+    cfg = cs.llama_cfg(4)
+    corpus = SyntheticCorpus(CorpusConfig(vocab_size=cfg.vocab_size, seed=0))
+    rng = np.random.default_rng(0)
+    prompts = [corpus.sample(rng, cs.SERVE["prompt_len"]) for _ in range(cs.SERVE["requests"])]
+    model = build(cfg)
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    split = cs._serve_split(model, params, prompts)
+    for kind, row in split.items():
+        cs.emit(dict(base, kind=kind, **{k: row[k] for k in ("step_ms", "step_device_ms",
+                                                              "host_ms")},
+                     device_ops=row["profile"].get("device_ops")))
+    del model, params
+    g = torch.Generator(device="cuda").manual_seed(0)
+    bf = torch.bfloat16
+    x = torch.randn(8, 4096, device="cuda", generator=g).to(bf)
+    w = torch.randn(4096, 4096, device="cuda", generator=g).to(bf)
+    m = torch.rand(4096, 4096, device="cuda", generator=g) < 0.3
+    BH, Sq, Sk, d, causal, off = cs.SERVE_ATTN["decode"]
+    q = torch.randn(BH, Sq, d, device="cuda", generator=g).to(bf)
+    kv = torch.randn(BH, Sk, d, device="cuda", generator=g).to(bf)
+    calls = {"masked_matmul": lambda: MM.masked_matmul(x, w, m),
+             "flash_attention": lambda: FA.flash_attention(q, kv, kv, causal=causal,
+                                                           q_offset=off)}
+    modes = ["none"]
+    try:
+        from repro_torch.kernels import tuning
+        modes += ["off", "cache"]
+    except ImportError:  # a checkout from before the tuner
+        tuning = None
+    with tempfile.TemporaryDirectory() as tmp:
+        for mode in modes:
+            if tuning is not None:
+                tuning.configure(mode="off" if mode == "none" else mode,
+                                 path=str(Path(tmp) / "kernels.json"))
+            for name, fn in calls.items():
+                cs.emit(dict(base, kernel=name, tuner=mode, host_us=_host_us(fn)))
+
+
 def _child(call: str) -> list:
     """A fresh interpreter that runs ``call`` of this module."""
     return [sys.executable, "-c",
@@ -141,18 +247,28 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--old", type=Path, required=True,
                     help="a checkout of the revision to time against")
-    old = ap.parse_args(argv).old.resolve()
+    ap.add_argument("--builds", action="store_true",
+                    help="time each checkout's kernel build alone instead, in turns")
+    ap.add_argument("--decode", action="store_true",
+                    help="time each checkout's serving step and per-call host cost instead")
+    args = ap.parse_args(argv)
     import torch
 
     if not torch.cuda.is_available():
         raise SystemExit("kernel_ab: no CUDA device; this script times kernels on a GPU")
-    trees = {"old": old, "new": ROOT}
+    trees = {"old": args.old.resolve(), "new": ROOT}
+    if args.builds:
+        for tag in ("old", "new", "new", "old"):
+            subprocess.run(_child(f"build_seconds({tag!r}, {str(trees[tag])!r})"), cwd=ROOT,
+                           check=True, timeout=600)
+        return 0
     builds = [subprocess.Popen(_child(f"build_tree({str(t)!r})"), cwd=ROOT)
               for t in trees.values()]
     if [p.wait(timeout=600) for p in builds] != [0, 0]:
         raise SystemExit("kernel_ab: a checkout's kernels did not build")
+    run = "decode_tree" if args.decode else "time_tree"
     for tag in ("old", "new", "new", "old"):
-        subprocess.run(_child(f"time_tree({tag!r}, {str(trees[tag])!r})"), cwd=ROOT,
+        subprocess.run(_child(f"{run}({tag!r}, {str(trees[tag])!r})"), cwd=ROOT,
                        check=True, timeout=600)
     return 0
 

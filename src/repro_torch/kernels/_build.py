@@ -7,7 +7,11 @@ CPU tests import every module on machines that have no ``nvcc``.
 
 Every C entry point takes device pointers and the CUDA stream as
 ``void*`` and returns ``cudaGetLastError()`` after its launch;
-:func:`check` turns a non-zero code into an exception.
+:func:`check` turns a non-zero code into an exception. The bf16 entries
+take the tile of their launch plan (``kernels.validation``) and launch
+that instantiation; each library's ``<name>_query`` says what an
+instantiation takes (:func:`query`). ``build_seconds`` holds each nvcc's
+wall time, ``build_log`` its output (registers, spills).
 """
 from __future__ import annotations
 
@@ -16,6 +20,7 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 from pathlib import Path
 from typing import Dict, Iterable
 
@@ -30,27 +35,35 @@ P, I, LL, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 # bare Python int would be cut to 32 bits)
 SIGNATURES: Dict[str, Dict[str, list]] = {
     "masked_matmul": {
-        **{f"masked_matmul{op}_{dt}": [P, P, P, P, I, I, I, LL, LL, LL, LL, P]
+        # the bf16 entries take the tile (bm, bn) before the stream
+        **{f"masked_matmul{op}_{dt}": [P, P, P, P, I, I, I, LL, LL, LL, LL,
+                                        *([I, I] if dt == "bf16" else []), P]
            for op in ("", "_dx", "_dw", "_dm") for dt in ("f32", "bf16")},
         # E slabs: the row strides, then the slab strides
-        **{f"masked_matmul_batched{op}_{dt}": [P, P, P, P, I, I, I, I, *[LL] * 8, P]
+        **{f"masked_matmul_batched{op}_{dt}": [P, P, P, P, I, I, I, I, *[LL] * 8,
+                                                *([I, I] if dt == "bf16" else []), P]
            for op in ("", "_dx", "_dw", "_dm") for dt in ("f32", "bf16")},
+        # (route, bm, bn, int[8]): what the compiled kernel takes
+        "masked_matmul_query": [I, I, I, P],
     },
     "flash_attention": {
-        **{fn: [P, P, P, P, P, I, I, I, I, I, I, F, P]
-           for fn in ("flash_attention_f32", "flash_attention_bf16")},
+        "flash_attention_f32": [P, P, P, P, P, I, I, I, I, I, I, F, P],
+        "flash_attention_bf16": [P, P, P, P, P, I, I, I, I, I, I, F, I, I, P],  # + (bq, bk)
         **{fn: [P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, F, P]
            for fn in ("flash_attention_bwd_f32", "flash_attention_bwd_bf16")},
+        "flash_attention_query": [I, I, I, P],  # (d, bq, bk, int[8])
     },
     "nm_spmm": {
-        fn: [P, P, P, P, I, I, I, I, I, LL, LL, LL, LL, P]
-        for fn in ("nm_spmm_f32", "nm_spmm_bf16")
+        "nm_spmm_f32": [P, P, P, P, I, I, I, I, I, LL, LL, LL, LL, P],
+        "nm_spmm_bf16": [P, P, P, P, I, I, I, I, I, LL, LL, LL, LL, I, I, P],  # + (bm, bn)
+        "nm_spmm_query": [I, I, I, I, P],  # (n, m, bm, bn, int[8])
     },
 }
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
 build_log: Dict[str, str] = {}  # name -> nvcc's output (registers, spills)
+build_seconds: Dict[str, float] = {}  # name -> its nvcc's wall seconds
 
 
 def _nvcc() -> str:
@@ -85,6 +98,7 @@ def build(names: Iterable[str]) -> None:
     nvcc = _nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
+    t0 = time.perf_counter()
     for n in todo:
         tmp = BUILD_DIR / f"lib{n}.so.tmp{os.getpid()}"
         cmd = [nvcc, *ARCH_FLAGS, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{n}.cu")]
@@ -94,6 +108,7 @@ def build(names: Iterable[str]) -> None:
     for n, (tmp, p) in procs.items():
         out, _ = p.communicate()
         build_log[n] = out
+        build_seconds[n] = time.perf_counter() - t0  # all started together
         if p.returncode != 0:
             failed.append(f"{n}:\n{out}")
         else:
@@ -114,6 +129,19 @@ def load(name: str) -> ctypes.CDLL:
                 getattr(lib, fn).restype = ctypes.c_int
             _LIBS[name] = lib
         return lib
+
+
+def query(name: str, *key: int) -> Dict[str, int]:
+    """What the compiled kernel of library ``name`` at ``key`` takes, from
+    its ``<name>_query`` (masked_matmul: route 0..3 (forward, dX, dW, dM),
+    bm, bn; nm_spmm: n, m, bm, bn; flash_attention: d, bq, bk): its dynamic
+    shared memory, threads and ring stages as the source computes them, and
+    ``cudaFuncGetAttributes``' registers, local (spilled) bytes a thread,
+    largest block, static shared bytes and dynamic shared-memory limit."""
+    out = (ctypes.c_int * 8)()
+    check(getattr(load(name), f"{name}_query")(*key, out), f"{name}_query{key}")
+    return dict(zip(("smem", "threads", "stages", "regs", "local_bytes", "max_threads",
+                     "static_smem", "max_dynamic_smem"), out))
 
 
 def check(code: int, what: str) -> None:

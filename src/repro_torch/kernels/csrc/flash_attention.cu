@@ -27,8 +27,9 @@
 //   * the normaliser is clamped at 1e-30.
 // Keys past the end of a ragged last tile contribute exactly zero.
 // Two kernels share these semantics:
-//   * bf16 (flash_fwd_tc): 128-row query tiles, two consumer warpgroups and
-//     a TMA warp; both products on wgmma, K and V streamed by TMA through
+//   * bf16 (flash_fwd_tc): 128-row query tiles of 128-key steps by default
+//     (64-row and 64-key tiles are compiled too at head widths 64 and 128),
+//     a consumer warpgroup for each 64 query rows and a TMA warp; both products on wgmma, K and V streamed by TMA through
 //     a ring, P kept in registers (see the kernel); it takes 16-byte-aligned
 //     operands only and refuses others with cudaErrorInvalidValue;
 //   * f32 (no TF32: IEEE products for the 2e-5 tolerance): SIMT fp32 FMAs,
@@ -41,6 +42,7 @@
 
 #include <cmath>
 #include <cstdint>
+#include <type_traits>
 
 #include "hopper.cuh"
 
@@ -274,12 +276,13 @@ bool head_map(CUtensorMap* map, const void* base, int BH, int S) {
   return hp::make_map(map, base, 3, dims, strides, box);
 }
 
-// The bf16 forward. One block per (bh, 128-row query tile); two consumer
-// warpgroups take 64 query rows each and one more warp issues the TMA
+// The bf16 forward. One block per (bh, FW_BQ-row query tile); a consumer
+// warpgroup for each 64 query rows and one more warp issues the TMA
 // loads. Q is loaded once; K and V stream in FW_BKV-key tiles through a
 // ring of FW_STAGES stages (mbarriers `full`, `empty`): the producer asks
-// for the tile FW_STAGES ahead as soon as both warpgroups have freed a
-// stage. 128-key tiles and 3 stages ran faster than 64-key tiles or 2
+// for the tile FW_STAGES ahead as soon as every warpgroup has freed a
+// stage. The tile is a template argument (FwTile); the default, 128 x 128
+// with 3 stages, ran faster at (256, 2048, 128) than 64-key tiles or 2
 // stages; a software pipeline that issued the next tile's S beside this
 // tile's PV (with registers moved to the consumers by setmaxnreg) ran
 // slower (PERF.md).
@@ -301,22 +304,47 @@ bool head_map(CUtensorMap* map, const void* base, int BH, int S) {
 // head as the fastest grid index, the 132 blocks on the card read 132
 // heads' K and V: about 2.3 GB from HBM at (256, 2048, 128)); within a
 // head the longest query tiles (under a causal mask) go first.
-constexpr int FW_BQ = 128, FW_BKV = 128, FW_STAGES = 3;
-constexpr int FW_CONSUMERS = FW_BQ / 64, FW_CTHREADS = 128 * FW_CONSUMERS;
-constexpr int FW_THREADS = FW_CTHREADS + 32;
 constexpr float LOG2E = 1.4426950408889634f;
+constexpr int FW_RING_KEYS = 384;    // keys in flight: 3 stages of 128, as before the tiles
 
-template <int HD>
-constexpr size_t fw_smem() {  // Q, the ring of K and V tiles, barriers
-  return 1024 + FW_CONSUMERS * TcTile<HD>::BYTES + 2 * FW_STAGES * TcTile<HD, FW_BKV>::BYTES +
-         (2 * FW_STAGES + 1) * sizeof(uint64_t);
+// The forward's tile: BQ query rows (BQ / 64 consumer warpgroups), BKV keys
+// a step, and a ring as deep as FW_RING_KEYS keys and shared memory allow.
+// Compiled: 128 / 128 (the default, every head width) and, at head widths
+// 64 and 128, 128 / 64, 64 / 128 and 64 / 64 (fw_with_tile;
+// kernels/validation.py holds the same list).
+template <int HD, int BQ_, int BKV_>
+struct FwTile {
+  static constexpr int BQ = BQ_, BKV = BKV_;
+  static constexpr int CONSUMERS = BQ / 64, CTHREADS = 128 * CONSUMERS, THREADS = CTHREADS + 32;
+  static constexpr int Q_BYTES = CONSUMERS * TcTile<HD>::BYTES;
+  static constexpr int KV_BYTES = 2 * TcTile<HD, BKV>::BYTES;  // a stage: K and V
+  static constexpr int FIT = (hp::SMEM_MAX - 1024 - Q_BYTES - 8) / (KV_BYTES + 16);
+  static constexpr int STAGES = FIT < FW_RING_KEYS / BKV ? FIT : FW_RING_KEYS / BKV;
+  // Q, the ring of K and V tiles, its barriers and Q's
+  static constexpr size_t SMEM = 1024 + Q_BYTES + STAGES * KV_BYTES + (2 * STAGES + 1) * 8;
+  static_assert(STAGES >= 2 && SMEM <= hp::SMEM_MAX, "the ring fits");
+};
+
+// `f` called with the FwTile of (bq, bkv) at head width HD, or
+// cudaErrorInvalidValue for a tile outside the compiled set
+template <int HD, class F>
+int fw_with_tile(int bq, int bkv, F&& f) {
+  if (bq == 128 && bkv == 128) return f(FwTile<HD, 128, 128>{});
+  if constexpr (HD == 64 || HD == 128) {
+    if (bq == 128 && bkv == 64) return f(FwTile<HD, 128, 64>{});
+    if (bq == 64 && bkv == 128) return f(FwTile<HD, 64, 128>{});
+    if (bq == 64 && bkv == 64) return f(FwTile<HD, 64, 64>{});
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
-template <int HD>
-__global__ void __launch_bounds__(FW_THREADS, 1)
+template <int HD, class FT>
+__global__ void __launch_bounds__(FT::THREADS, 1)
 flash_fwd_tc(const __grid_constant__ CUtensorMap map_q, const __grid_constant__ CUtensorMap map_k,
              const __grid_constant__ CUtensorMap map_v, __nv_bfloat16* __restrict__ o,
              float* __restrict__ lse, int Sq, int Sk, int causal, int q_offset, float scale) {
+  constexpr int FW_BQ = FT::BQ, FW_BKV = FT::BKV, FW_STAGES = FT::STAGES;
+  constexpr int FW_CONSUMERS = FT::CONSUMERS, FW_CTHREADS = FT::CTHREADS;
   using QT = TcTile<HD>;          // a warpgroup's 64 query rows
   using KT = TcTile<HD, FW_BKV>;  // a key tile, or a value tile
   extern __shared__ uint8_t t_smem_raw[];
@@ -456,21 +484,32 @@ flash_fwd_tc(const __grid_constant__ CUtensorMap map_q, const __grid_constant__ 
   }
 }
 
-template <int HD>
+template <int HD, class FT>
 int launch_fwd_tc(const void* q, const void* k, const void* v, void* o, float* lse, int BH,
                   int Sq, int Sk, int causal, int q_offset, float scale, cudaStream_t stream) {
   CUtensorMap mq, mk, mv;
   if (!(head_map<HD>(&mq, q, BH, Sq) && head_map<HD>(&mk, k, BH, Sk) &&
         head_map<HD>(&mv, v, BH, Sk)))
     return static_cast<int>(cudaErrorInvalidValue);
-  constexpr size_t smem = fw_smem<HD>();
-  cudaError_t err = cudaFuncSetAttribute(flash_fwd_tc<HD>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  cudaError_t err = cudaFuncSetAttribute(flash_fwd_tc<HD, FT>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)FT::SMEM);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((Sq + FW_BQ - 1) / FW_BQ, BH);
-  flash_fwd_tc<HD><<<grid, FW_THREADS, smem, stream>>>(mq, mk, mv, static_cast<__nv_bfloat16*>(o),
-                                                      lse, Sq, Sk, causal, q_offset, scale);
+  const dim3 grid((Sq + FT::BQ - 1) / FT::BQ, BH);
+  flash_fwd_tc<HD, FT><<<grid, FT::THREADS, FT::SMEM, stream>>>(
+      mq, mk, mv, static_cast<__nv_bfloat16*>(o), lse, Sq, Sk, causal, q_offset, scale);
   return static_cast<int>(cudaGetLastError());
+}
+
+// launch_fwd_tc at head width HD on the compiled tile (bq, bkv)
+template <int HD>
+int launch_fwd_tile(int bq, int bkv, const void* q, const void* k, const void* v, void* o,
+                    float* lse, int BH, int Sq, int Sk, int causal, int q_offset, float scale,
+                    cudaStream_t stream) {
+  return fw_with_tile<HD>(bq, bkv, [&](auto ft) {
+    return launch_fwd_tc<HD, decltype(ft)>(q, k, v, o, lse, BH, Sq, Sk, causal, q_offset, scale,
+                                           stream);
+  });
 }
 
 // ------------------------------------------------------------ backward ---
@@ -1035,17 +1074,36 @@ extern "C" int flash_attention_f32(const void* q, const void* k, const void* v,
 
 extern "C" int flash_attention_bf16(const void* q, const void* k, const void* v,
                                     void* o, void* lse, int BH, int Sq, int Sk, int d,
-                                    int causal, int q_offset, float scale,
+                                    int causal, int q_offset, float scale, int bq, int bkv,
                                     void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* l = static_cast<float*>(lse);
   if (!(hp::aligned(q, 16) && hp::aligned(k, 16) && hp::aligned(v, 16) && hp::aligned(o, 16)))
     return static_cast<int>(cudaErrorInvalidValue);
   switch (d) {
-    case 16: return launch_fwd_tc<16>(q, k, v, o, l, BH, Sq, Sk, causal, q_offset, scale, st);
-    case 32: return launch_fwd_tc<32>(q, k, v, o, l, BH, Sq, Sk, causal, q_offset, scale, st);
-    case 64: return launch_fwd_tc<64>(q, k, v, o, l, BH, Sq, Sk, causal, q_offset, scale, st);
-    case 128: return launch_fwd_tc<128>(q, k, v, o, l, BH, Sq, Sk, causal, q_offset, scale, st);
+    case 16: return launch_fwd_tile<16>(bq, bkv, q, k, v, o, l, BH, Sq, Sk, causal, q_offset, scale, st);
+    case 32: return launch_fwd_tile<32>(bq, bkv, q, k, v, o, l, BH, Sq, Sk, causal, q_offset, scale, st);
+    case 64: return launch_fwd_tile<64>(bq, bkv, q, k, v, o, l, BH, Sq, Sk, causal, q_offset, scale, st);
+    case 128: return launch_fwd_tile<128>(bq, bkv, q, k, v, o, l, BH, Sq, Sk, causal, q_offset, scale, st);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// The compiled bf16 forward at head width d on the tile (bq, bkv): out[0..7]
+// as hp::query_kernel gives them; cudaErrorInvalidValue for another.
+extern "C" int flash_attention_query(int d, int bq, int bkv, int* out) {
+  auto q = [&](auto hd) {
+    constexpr int HD = decltype(hd)::value;
+    return fw_with_tile<HD>(bq, bkv, [&](auto ft) {
+      using FT = decltype(ft);
+      return hp::query_kernel(flash_fwd_tc<HD, FT>, FT::SMEM, FT::THREADS, FT::STAGES, out);
+    });
+  };
+  switch (d) {
+    case 16: return q(std::integral_constant<int, 16>{});
+    case 32: return q(std::integral_constant<int, 32>{});
+    case 64: return q(std::integral_constant<int, 64>{});
+    case 128: return q(std::integral_constant<int, 128>{});
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

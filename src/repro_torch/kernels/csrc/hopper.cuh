@@ -33,6 +33,8 @@
 
 namespace hp {
 
+constexpr int SMEM_MAX = 232448;  // a block's shared memory on sm_90
+
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
@@ -146,11 +148,13 @@ inline bool aligned(const void* p, uintptr_t bytes) {
 // multiple of 16, the base 16-byte aligned), read in boxes of `box`
 // values. bf16 boxes take the swizzle of a box row (box[0] * 2 bytes: 128,
 // 64 or 32; a row of another width is stored unswizzled, for tiles that
-// the threads read and wgmma never does); uint8 boxes (`bytes`) are stored
-// unswizzled, row after row.
+// the threads read and wgmma never does); uint8 boxes (`bytes`) and the
+// `plain` ones (a tile the threads read, whatever its row's width) are
+// stored unswizzled, row after row.
 // Returns false when the map cannot be made.
 inline bool make_map(CUtensorMap* map, const void* base, int rank, const uint64_t* dims,
-                     const uint64_t* strides, const uint32_t* box, bool bytes = false) {
+                     const uint64_t* strides, const uint32_t* box, bool bytes = false,
+                     bool plain = false) {
   EncodeTiledFn fn = encode_tiled();
   if (fn == nullptr || !bind_device_of(base)) return false;
   cuuint64_t gd[3], gs[2];
@@ -162,7 +166,8 @@ inline bool make_map(CUtensorMap* map, const void* base, int rank, const uint64_
   }
   return fn(map, bytes ? CU_TENSOR_MAP_DATA_TYPE_UINT8 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank,
             const_cast<void*>(base), gd, gs, bx, es, CU_TENSOR_MAP_INTERLEAVE_NONE,
-            bytes ? CU_TENSOR_MAP_SWIZZLE_NONE : swizzle_for(static_cast<int>(box[0]) * 2),
+            bytes || plain ? CU_TENSOR_MAP_SWIZZLE_NONE
+                           : swizzle_for(static_cast<int>(box[0]) * 2),
             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
@@ -301,6 +306,26 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4],
         "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc));
+}
+
+// ------------------------------------------------------------- query ---
+// What a compiled kernel takes, for the launch plans to be held to
+// (kernels/validation.py): out[0..7] = dynamic shared-memory bytes,
+// threads, ring stages, then cudaFuncGetAttributes' registers a thread,
+// local (spilled) bytes a thread, largest block, static shared bytes and the
+// dynamic shared-memory limit it was given.
+template <class Kernel>
+int query_kernel(Kernel kernel, size_t smem, int threads, int stages, int* out) {
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  cudaFuncAttributes a{};
+  if (err == cudaSuccess) err = cudaFuncGetAttributes(&a, kernel);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int vals[8] = {(int)smem, threads, stages, a.numRegs, (int)a.localSizeBytes,
+                       a.maxThreadsPerBlock, (int)a.sharedSizeBytes,
+                       a.maxDynamicSharedSizeBytes};
+  for (int i = 0; i < 8; ++i) out[i] = vals[i];
+  return 0;
 }
 
 }  // namespace hp

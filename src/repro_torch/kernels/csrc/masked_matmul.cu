@@ -32,10 +32,13 @@
 // ragged edges are handled (11008 = 86*128; 777-row cases).
 //   * f32: a register-blocked SIMT GEMM with IEEE fp32 FMAs; no TF32, so it
 //     holds the reference's 2e-5 tolerance.
-//   * bf16: the wgmma main loop of gemm.cuh (a 256 x 128 output tile,
-//     64-deep reduction steps, f32 accumulators, a TMA ring of 4 stages
-//     filled by a lone warp, four consumer warpgroups), which nm_spmm.cu
-//     shares. x and dy come in the 128-byte swizzle that wgmma reads,
+//   * bf16: the wgmma main loop of gemm.cuh (a 256 x 128 output tile by
+//     default, 128 x 128 or 128 x 64 when the launch plan says so; 64-deep
+//     reduction steps, f32 accumulators, a TMA ring of 4 stages filled by a
+//     lone warp, a consumer warpgroup for each 64 rows), which nm_spmm.cu
+//     shares. Every bf16 entry point takes the tile (bm, bn) and launches
+//     that instantiation; the sums run in the same order along K on every
+//     tile. x and dy come in the 128-byte swizzle that wgmma reads,
 //     K-major as A of the forward and dX, MN-major as dW's x^T and dy; w
 //     MN-major in the forward, K-major in dX; and the uint8 mask tile,
 //     unswizzled, beside w in the same stage. TMA writes shared memory as it
@@ -81,6 +84,7 @@
 #include <cuda_runtime.h>
 
 #include <cstdint>
+#include <type_traits>
 
 #include "gemm.cuh"
 
@@ -202,34 +206,50 @@ int launch_f32(const void* A, const void* B, const void* bm, const void* ce, voi
 }
 
 // A_T / B_T as in gemm_f32: A_T reads A MN-major, B_T reads B K-major.
-// Every operand by TMA (gemm.cuh), E slabs through rank-3 maps: B = w,
-// MN-major (64 x 64 boxes) or K-major (128-row boxes), with the mask in w's
-// layout, one box a stage (64 x 128 or 128 x 64 bytes); or, for dW and dM,
-// B = dy MN-major as it is.
-template <bool A_T, bool B_T, bool B_MASK, int EPI>
+// Every operand by TMA (gemm.cuh), E slabs through rank-3 maps, on the
+// tile TL: B = w, MN-major (64 x 64 boxes) or K-major (BN-row boxes), with
+// the mask in w's layout, one box a stage (64 x BN or BN x 64 bytes); or, for
+// dW and dM, B = dy MN-major as it is.
+template <bool A_T, bool B_T, bool B_MASK>
+struct Policy {
+  template <class TL>
+  using of = std::conditional_t<B_MASK, gm::MaskedB<!B_T, TL>, gm::PlainB<TL>>;
+};
+
+template <bool A_T, bool B_T, bool B_MASK, int EPI, class TL>
 int launch_bf16(const void* A, const void* B, const void* bm, const void* ce, void* C, int E,
                 int Mc, int Kc, int Nc, long long lda, long long ldb, long long ldbm,
                 long long ldce, long long ldc, const SlabStrides& st, void* stream) {
+  using BT = typename Policy<A_T, B_T, B_MASK>::template of<TL>;
   CUtensorMap map_a{};
-  if (!gm::map_a(&map_a, A, Mc, Kc, lda, A_T, E, st.a))
+  if (!gm::map_a(&map_a, A, Mc, Kc, lda, A_T, TL::BM, E, st.a))
     return static_cast<int>(cudaErrorInvalidValue);
+  typename BT::Maps maps{};
   if constexpr (B_MASK) {
-    typename gm::MaskedB<!B_T>::Maps maps{};
-    const bool ok = B_T ? gm::map3(&maps.w, B, E, Nc, Kc, ldb, st.b, 64, 128) &&
-                              gm::map3(&maps.m, bm, E, Nc, Kc, ldbm, st.bm, 64, 128, true)
+    const bool ok = B_T ? gm::map3(&maps.w, B, E, Nc, Kc, ldb, st.b, 64, TL::BN) &&
+                              gm::map3(&maps.m, bm, E, Nc, Kc, ldbm, st.bm, 64, TL::BN, true)
                         : gm::map3(&maps.w, B, E, Kc, Nc, ldb, st.b, 64, 64) &&
-                              gm::map3(&maps.m, bm, E, Kc, Nc, ldbm, st.bm, 128, 64, true);
+                              gm::map3(&maps.m, bm, E, Kc, Nc, ldbm, st.bm, TL::BN, 64, true);
     if (!ok) return static_cast<int>(cudaErrorInvalidValue);
-    return gm::launch<A_T, gm::MaskedB<!B_T>, EPI>(map_a, maps, ce, C, Mc, Kc, Nc, ldce, ldc,
-                                                    stream, E, st.ce, st.c);
   } else {
     static_assert(!B_T, "an unmasked B is read MN-major");
-    gm::PlainB::Maps maps{};
     if (!gm::map3(&maps.b, B, E, Kc, Nc, ldb, st.b, 64, 64))
       return static_cast<int>(cudaErrorInvalidValue);
-    return gm::launch<A_T, gm::PlainB, EPI>(map_a, maps, ce, C, Mc, Kc, Nc, ldce, ldc, stream,
-                                            E, st.ce, st.c);
   }
+  return gm::launch<A_T, BT, EPI>(map_a, maps, ce, C, Mc, Kc, Nc, ldce, ldc, stream, E, st.ce,
+                                  st.c);
+}
+
+// launch_bf16 on the compiled tile (bm, bn); cudaErrorInvalidValue for another
+template <bool A_T, bool B_T, bool B_MASK, int EPI>
+int launch_tile(int bm_, int bn_, const void* A, const void* B, const void* bm, const void* ce,
+                void* C, int E, int Mc, int Kc, int Nc, long long lda, long long ldb,
+                long long ldbm, long long ldce, long long ldc, const SlabStrides& st,
+                void* stream) {
+  return gm::with_tile(bm_, bn_, [&](auto tl) {
+    return launch_bf16<A_T, B_T, B_MASK, EPI, decltype(tl)>(A, B, bm, ce, C, E, Mc, Kc, Nc, lda,
+                                                           ldb, ldbm, ldce, ldc, st, stream);
+  });
 }
 
 // The products, on E slabs (E = 1 and any slab strides: the 2-D entry
@@ -249,11 +269,11 @@ int fwd_f32(const void* x, const void* w, const void* m, void* out, int E, int M
 
 int fwd_bf16(const void* x, const void* w, const void* m, void* out, int E, int M, int K, int N,
              long long ldx, long long ldw, long long ldm, long long ldo, long long sx,
-             long long sw, long long sm, long long so, void* stream) {
+             long long sw, long long sm, long long so, int bm, int bn, void* stream) {
   const SlabStrides st{sx, sw, sm, 0, so};
   if (!bf16_ok(K, N, ldx, ldw, ldm, x, w, m, st)) return static_cast<int>(cudaErrorInvalidValue);
-  return launch_bf16<false, false, true, gm::EPI_NONE>(x, w, m, nullptr, out, E, M, K, N, ldx,
-                                                       ldw, ldm, 0, ldo, st, stream);
+  return launch_tile<false, false, true, gm::EPI_NONE>(bm, bn, x, w, m, nullptr, out, E, M, K, N,
+                                                       ldx, ldw, ldm, 0, ldo, st, stream);
 }
 
 int dx_f32(const void* dy, const void* w, const void* m, void* dx, int E, int M, int K, int N,
@@ -266,11 +286,11 @@ int dx_f32(const void* dy, const void* w, const void* m, void* dx, int E, int M,
 
 int dx_bf16(const void* dy, const void* w, const void* m, void* dx, int E, int M, int K, int N,
             long long lddy, long long ldw, long long ldm, long long lddx, long long sdy,
-            long long sw, long long sm, long long sdx, void* stream) {
+            long long sw, long long sm, long long sdx, int bm, int bn, void* stream) {
   const SlabStrides st{sdy, sw, sm, 0, sdx};
   if (!bf16_ok(N, K, lddy, ldw, ldm, dy, w, m, st)) return static_cast<int>(cudaErrorInvalidValue);
-  return launch_bf16<false, true, true, gm::EPI_NONE>(dy, w, m, nullptr, dx, E, M, N, K, lddy,
-                                                      ldw, ldm, 0, lddx, st, stream);
+  return launch_tile<false, true, true, gm::EPI_NONE>(bm, bn, dy, w, m, nullptr, dx, E, M, N, K,
+                                                      lddy, ldw, ldm, 0, lddx, st, stream);
 }
 
 int dw_f32(const void* x, const void* dy, const void* m, void* dw, int E, int M, int K, int N,
@@ -283,13 +303,13 @@ int dw_f32(const void* x, const void* dy, const void* m, void* dw, int E, int M,
 
 int dw_bf16(const void* x, const void* dy, const void* m, void* dw, int E, int M, int K, int N,
             long long ldx, long long lddy, long long ldm, long long lddw, long long sx,
-            long long sdy, long long sm, long long sdw, void* stream) {
+            long long sdy, long long sm, long long sdw, int bm, int bn, void* stream) {
   // x is read along its rows (K wide) into the transposed A tile
   if (!(K % 8 == 0 && N % 8 == 0 && ldx % 8 == 0 && lddy % 8 == 0 && sx % 8 == 0 &&
         sdy % 8 == 0 && hp::aligned(x, 16) && hp::aligned(dy, 16)))
     return static_cast<int>(cudaErrorInvalidValue);
-  return launch_bf16<true, false, false, gm::EPI_MASK>(x, dy, nullptr, m, dw, E, K, M, N, ldx,
-                                                       lddy, 0, ldm, lddw,
+  return launch_tile<true, false, false, gm::EPI_MASK>(bm, bn, x, dy, nullptr, m, dw, E, K, M, N,
+                                                       ldx, lddy, 0, ldm, lddw,
                                                        {sx, sdy, 0, sm, sdw}, stream);
 }
 
@@ -303,14 +323,14 @@ int dm_f32(const void* x, const void* dy, const void* w, void* dm, int E, int M,
 
 int dm_bf16(const void* x, const void* dy, const void* w, void* dm, int E, int M, int K, int N,
             long long ldx, long long lddy, long long ldw, long long lddm, long long sx,
-            long long sdy, long long sw, long long sdm, void* stream) {
+            long long sdy, long long sw, long long sdm, int bm, int bn, void* stream) {
   // dW's TMA rules for x and dy; w is read as bf16 pairs in the epilogue
   if (!(K % 8 == 0 && N % 8 == 0 && ldx % 8 == 0 && lddy % 8 == 0 && ldw % 8 == 0 &&
         sx % 8 == 0 && sdy % 8 == 0 && sw % 8 == 0 && hp::aligned(x, 16) &&
         hp::aligned(dy, 16) && hp::aligned(w, 16)))
     return static_cast<int>(cudaErrorInvalidValue);
-  return launch_bf16<true, false, false, gm::EPI_SCALE>(x, dy, nullptr, w, dm, E, K, M, N, ldx,
-                                                        lddy, 0, ldw, lddm,
+  return launch_tile<true, false, false, gm::EPI_SCALE>(bm, bn, x, dy, nullptr, w, dm, E, K, M,
+                                                        N, ldx, lddy, 0, ldw, lddm,
                                                         {sx, sdy, 0, sw, sdm}, stream);
 }
 
@@ -325,8 +345,8 @@ extern "C" int masked_matmul_f32(const void* x, const void* w, const void* m, vo
 
 extern "C" int masked_matmul_bf16(const void* x, const void* w, const void* m, void* out,
                                   int M, int K, int N, long long ldx, long long ldw,
-                                  long long ldm, long long ldo, void* stream) {
-  return fwd_bf16(x, w, m, out, 1, M, K, N, ldx, ldw, ldm, ldo, 0, 0, 0, 0, stream);
+                                  long long ldm, long long ldo, int bm, int bn, void* stream) {
+  return fwd_bf16(x, w, m, out, 1, M, K, N, ldx, ldw, ldm, ldo, 0, 0, 0, 0, bm, bn, stream);
 }
 
 extern "C" int masked_matmul_dx_f32(const void* dy, const void* w, const void* m, void* dx,
@@ -337,8 +357,8 @@ extern "C" int masked_matmul_dx_f32(const void* dy, const void* w, const void* m
 
 extern "C" int masked_matmul_dx_bf16(const void* dy, const void* w, const void* m, void* dx,
                                      int M, int K, int N, long long lddy, long long ldw,
-                                     long long ldm, long long lddx, void* stream) {
-  return dx_bf16(dy, w, m, dx, 1, M, K, N, lddy, ldw, ldm, lddx, 0, 0, 0, 0, stream);
+                                     long long ldm, long long lddx, int bm, int bn, void* stream) {
+  return dx_bf16(dy, w, m, dx, 1, M, K, N, lddy, ldw, ldm, lddx, 0, 0, 0, 0, bm, bn, stream);
 }
 
 extern "C" int masked_matmul_dw_f32(const void* x, const void* dy, const void* m, void* dw,
@@ -349,8 +369,8 @@ extern "C" int masked_matmul_dw_f32(const void* x, const void* dy, const void* m
 
 extern "C" int masked_matmul_dw_bf16(const void* x, const void* dy, const void* m, void* dw,
                                      int M, int K, int N, long long ldx, long long lddy,
-                                     long long ldm, long long lddw, void* stream) {
-  return dw_bf16(x, dy, m, dw, 1, M, K, N, ldx, lddy, ldm, lddw, 0, 0, 0, 0, stream);
+                                     long long ldm, long long lddw, int bm, int bn, void* stream) {
+  return dw_bf16(x, dy, m, dw, 1, M, K, N, ldx, lddy, ldm, lddw, 0, 0, 0, 0, bm, bn, stream);
 }
 
 extern "C" int masked_matmul_dm_f32(const void* x, const void* dy, const void* w, void* dm,
@@ -361,8 +381,8 @@ extern "C" int masked_matmul_dm_f32(const void* x, const void* dy, const void* w
 
 extern "C" int masked_matmul_dm_bf16(const void* x, const void* dy, const void* w, void* dm,
                                      int M, int K, int N, long long ldx, long long lddy,
-                                     long long ldw, long long lddm, void* stream) {
-  return dm_bf16(x, dy, w, dm, 1, M, K, N, ldx, lddy, ldw, lddm, 0, 0, 0, 0, stream);
+                                     long long ldw, long long lddm, int bm, int bn, void* stream) {
+  return dm_bf16(x, dy, w, dm, 1, M, K, N, ldx, lddy, ldw, lddm, 0, 0, 0, 0, bm, bn, stream);
 }
 
 // Batched entry points: E slabs, each operand with its row stride (ld*) and
@@ -383,8 +403,8 @@ extern "C" int masked_matmul_batched_bf16(const void* x, const void* w, const vo
                                           int E, int M, int K, int N, long long ldx, long long ldw,
                                           long long ldm, long long ldout, long long sx,
                                           long long sw, long long sm, long long sout,
-                                          void* stream) {
-  return fwd_bf16(x, w, m, out, E, M, K, N, ldx, ldw, ldm, ldout, sx, sw, sm, sout, stream);
+                                          int bm, int bn, void* stream) {
+  return fwd_bf16(x, w, m, out, E, M, K, N, ldx, ldw, ldm, ldout, sx, sw, sm, sout, bm, bn, stream);
 }
 
 extern "C" int masked_matmul_batched_dx_f32(const void* dy, const void* w, const void* m, void* dx,
@@ -399,8 +419,8 @@ extern "C" int masked_matmul_batched_dx_bf16(const void* dy, const void* w, cons
                                              void* dx, int E, int M, int K, int N, long long lddy,
                                              long long ldw, long long ldm, long long lddx,
                                              long long sdy, long long sw, long long sm,
-                                             long long sdx, void* stream) {
-  return dx_bf16(dy, w, m, dx, E, M, K, N, lddy, ldw, ldm, lddx, sdy, sw, sm, sdx, stream);
+                                             long long sdx, int bm, int bn, void* stream) {
+  return dx_bf16(dy, w, m, dx, E, M, K, N, lddy, ldw, ldm, lddx, sdy, sw, sm, sdx, bm, bn, stream);
 }
 
 extern "C" int masked_matmul_batched_dw_f32(const void* x, const void* dy, const void* m, void* dw,
@@ -415,8 +435,8 @@ extern "C" int masked_matmul_batched_dw_bf16(const void* x, const void* dy, cons
                                              void* dw, int E, int M, int K, int N, long long ldx,
                                              long long lddy, long long ldm, long long lddw,
                                              long long sx, long long sdy, long long sm,
-                                             long long sdw, void* stream) {
-  return dw_bf16(x, dy, m, dw, E, M, K, N, ldx, lddy, ldm, lddw, sx, sdy, sm, sdw, stream);
+                                             long long sdw, int bm, int bn, void* stream) {
+  return dw_bf16(x, dy, m, dw, E, M, K, N, ldx, lddy, ldm, lddw, sx, sdy, sm, sdw, bm, bn, stream);
 }
 
 extern "C" int masked_matmul_batched_dm_f32(const void* x, const void* dy, const void* w, void* dm,
@@ -431,6 +451,23 @@ extern "C" int masked_matmul_batched_dm_bf16(const void* x, const void* dy, cons
                                              void* dm, int E, int M, int K, int N, long long ldx,
                                              long long lddy, long long ldw, long long lddm,
                                              long long sx, long long sdy, long long sw,
-                                             long long sdm, void* stream) {
-  return dm_bf16(x, dy, w, dm, E, M, K, N, ldx, lddy, ldw, lddm, sx, sdy, sw, sdm, stream);
+                                             long long sdm, int bm, int bn, void* stream) {
+  return dm_bf16(x, dy, w, dm, E, M, K, N, ldx, lddy, ldw, lddm, sx, sdy, sw, sdm, bm, bn, stream);
+}
+
+// The compiled kernel of route (0 forward, 1 dX, 2 dW, 3 dM; the batched
+// entries run the same kernels) on the tile (bm, bn): out[0..7] as
+// hp::query_kernel gives them. cudaErrorInvalidValue for another route or
+// tile.
+extern "C" int masked_matmul_query(int route, int bm, int bn, int* out) {
+  return gm::with_tile(bm, bn, [&](auto tl) {
+    using TL = decltype(tl);
+    switch (route) {
+      case 0: return gm::query<false, gm::MaskedB<true, TL>, gm::EPI_NONE>(out);
+      case 1: return gm::query<false, gm::MaskedB<false, TL>, gm::EPI_NONE>(out);
+      case 2: return gm::query<true, gm::PlainB<TL>, gm::EPI_MASK>(out);
+      case 3: return gm::query<true, gm::PlainB<TL>, gm::EPI_SCALE>(out);
+      default: return static_cast<int>(cudaErrorInvalidValue);
+    }
+  });
 }

@@ -21,14 +21,15 @@
 // as the TPU kernel does in VMEM (no scatter; an offset outside [0, m) adds
 // nothing; slots s = 0..n-1 summed in order, from 0, in the weight's dtype).
 //   * bf16: the wgmma main loop of gemm.cuh, shared with masked_matmul.cu
-//     (a 256 x 128 output tile, four consumer warpgroups of
-//     wgmma.m64n128k16, a TMA ring filled by a lone warp). Each stage holds
-//     x's 256 x 64 tile (K-major, 128-byte swizzle) and the step's
-//     compressed rows of vals (bf16, rows of 256 bytes) and idx (int8,
-//     rows of 128 bytes), both unswizzled, by TMA. The B-tile policy NmB
-//     has the consumers decompress them into the dense 64 x 128 MN-major
-//     tile in the 128-byte swizzle wgmma reads: each thread takes two rows
-//     and 8 adjacent columns, reads the row's group's n slots, selects and
+//     (a BM x BN output tile of the compiled set, 256 x 128 by default; a
+//     consumer warpgroup of wgmma.m64n{BN}k16 for each 64 rows, a TMA ring
+//     filled by a lone warp). Each stage holds
+//     x's BM x 64 tile (K-major, 128-byte swizzle) and the step's
+//     compressed rows of vals (bf16, rows of 2 BN bytes) and idx (int8,
+//     rows of BN bytes), both unswizzled, by TMA. The B-tile policy NmB
+//     has the consumers decompress them into the dense 64 x BN MN-major
+//     tile in the 128-byte swizzle wgmma reads: each thread takes 64 BN /
+//     (8 consumer threads) rows (two at 256 x 128) and 8 adjacent columns, reads the row's group's n slots, selects and
 //     adds them as bf16 pairs (four offsets compared at a time) and stores
 //     16-byte chunks at their swizzled place, while the previous stage's
 //     products run; then the fence to the async proxy and the named
@@ -159,29 +160,38 @@ __device__ __forceinline__ uint32_t widen(uint32_t flags, uint32_t sel) {
   return r;
 }
 
-template <int NN, int MM>
+constexpr int up1024(int b) { return (b + 1023) / 1024 * 1024; }
+
+template <int NN, int MM, class TL>
 struct NmB {
+  using T = TL;
   struct Maps {
     CUtensorMap vals, idx;
   };
   static constexpr int ROWS = gm::BK / MM * NN;  // compressed rows of a step
-  static constexpr int V_BYTES = ROWS * gm::BN * 2, I_BYTES = ROWS * gm::BN;
+  static constexpr int V_BYTES = ROWS * TL::BN * 2, I_BYTES = ROWS * TL::BN;
   static constexpr bool B_MN = true, FORMS = true;
   static constexpr int TX = V_BYTES + I_BYTES;
-  static constexpr int STAGE = TX, EXTRA = DENSE_BUFS * gm::B_BYTES;
-  static constexpr int STAGES = gm::stages_for(STAGE, EXTRA);
-  static_assert(V_BYTES % 1024 == 0 && I_BYTES % 1024 == 0, "1024-byte stage parts");
-  static_assert(gm::BK * (gm::BN / 8) == 2 * gm::CTHREADS, "two dense chunks a thread");
+  // each part starts on a 1024-byte boundary (idx of an odd n:8 at BN 64 is
+  // 512 bytes a row group short of one)
+  static constexpr int I_OFF = up1024(V_BYTES);  // idx's place in the stage
+  static constexpr int STAGE = I_OFF + up1024(I_BYTES), EXTRA = DENSE_BUFS * TL::B_BYTES;
+  static constexpr int STAGES = TL::stages_for(STAGE, EXTRA);
+  static constexpr int CPR = TL::BN / 8;                      // 16-byte chunks of a dense row
+  static constexpr int RPT = gm::BK * CPR / TL::CTHREADS;      // dense rows a thread forms
+  static_assert(RPT >= 1 && gm::BK * CPR % TL::CTHREADS == 0, "whole dense rows a thread");
 
   static __device__ __forceinline__ void load(uint8_t* sb, const Maps& maps, uint64_t* bar,
                                               int k0, int col0, int /*z: one slab*/) {
     hp::tma_load_2d(sb, &maps.vals, bar, col0, k0 / MM * NN);
-    hp::tma_load_2d(sb + V_BYTES, &maps.idx, bar, col0, k0 / MM * NN);
+    hp::tma_load_2d(sb + I_OFF, &maps.idx, bar, col0, k0 / MM * NN);
   }
 
-  // the dense tile: thread tid writes rows r0 and r0 + 1 (r0 = 2 (tid / 16))
-  // at columns 8c .. 8c + 7 (c = tid % 16), four bf16 pairs a row, from the
-  // n slots of the row's group. Slot s adds its value where its offset byte
+  // the dense tile: thread tid writes rows r0 .. r0 + RPT - 1 (r0 = RPT
+  // (tid / CPR)) at columns 8c .. 8c + 7 (c = tid % CPR), four bf16 pairs a
+  // row, from the n slots of the row's group (at 256 x 128: two rows of 16
+  // chunks; each value is formed alone, so the split changes no bits).
+  // Slot s adds its value where its offset byte
   // equals the row's offset o: the bytes of idx ^ (o * 0x01010101) that
   // are zero flag the matches, and prmt's sign replication widens each flag
   // to its value's 16 bits. The sum is taken in bf16 from 0, slot after
@@ -189,12 +199,12 @@ struct NmB {
   // weight's dtype.
   static __device__ __forceinline__ const uint8_t* form(uint8_t* sb, uint8_t* extra, int kt,
                                                         int tid) {
-    uint8_t* dense = extra + (kt % DENSE_BUFS) * gm::B_BYTES;
+    uint8_t* dense = extra + (kt % DENSE_BUFS) * TL::B_BYTES;
     const uint8_t* sv = sb;  // the step's compressed rows: vals, then idx
-    const uint8_t* si = sv + V_BYTES;
-    const int c = tid % 16, r0 = 2 * (tid / 16);
+    const uint8_t* si = sv + I_OFF;
+    const int c = tid % CPR, r0 = RPT * (tid / CPR);
 #pragma unroll
-    for (int r = 0; r < 2; ++r) {  // a row at a time: few registers live beside the products
+    for (int r = 0; r < RPT; ++r) {  // a row at a time: few registers live beside the products
       const int row = r0 + r, grow = (row / MM) * NN;  // the group's first compressed row
       const uint32_t o4 = static_cast<uint32_t>(row % MM) * 0x01010101u;
       __nv_bfloat162 acc[4];
@@ -202,8 +212,8 @@ struct NmB {
       for (int j = 0; j < 4; ++j) acc[j] = __float2bfloat162_rn(0.f);
 #pragma unroll
       for (int s = 0; s < NN; ++s) {
-        const uint4 v = *reinterpret_cast<const uint4*>(sv + (grow + s) * (gm::BN * 2) + c * 16);
-        const uint2 ix = *reinterpret_cast<const uint2*>(si + (grow + s) * gm::BN + c * 8);
+        const uint4 v = *reinterpret_cast<const uint4*>(sv + (grow + s) * (TL::BN * 2) + c * 16);
+        const uint2 ix = *reinterpret_cast<const uint2*>(si + (grow + s) * TL::BN + c * 8);
         const uint32_t vw[4] = {v.x, v.y, v.z, v.w};
         const uint32_t hit[2] = {zero_bytes(ix.x ^ o4), zero_bytes(ix.y ^ o4)};
 #pragma unroll
@@ -221,19 +231,47 @@ struct NmB {
   }
 };
 
-template <int NN, int MM>
+template <int NN, int MM, class TL>
 int launch_bf16(const void* x, const void* vals, const void* idx, void* out, int M, int K, int N,
                 long long ldx, long long ldv, long long ldi, long long ldo, void* stream) {
+  using BT = NmB<NN, MM, TL>;
   CUtensorMap map_x{};
-  typename NmB<NN, MM>::Maps maps{};
+  typename BT::Maps maps{};
   const int rows = K / MM * NN;
-  if (!(gm::map_a(&map_x, x, M, K, ldx, false) &&
-        gm::map2(&maps.vals, vals, rows, N, ldv, gm::BN, NmB<NN, MM>::ROWS) &&
-        gm::map2(&maps.idx, idx, rows, N, ldi, gm::BN, NmB<NN, MM>::ROWS, true)))
+  if (!(gm::map_a(&map_x, x, M, K, ldx, false, TL::BM) &&
+        gm::map2(&maps.vals, vals, rows, N, ldv, TL::BN, BT::ROWS) &&
+        gm::map2(&maps.idx, idx, rows, N, ldi, TL::BN, BT::ROWS, true)))
     return static_cast<int>(cudaErrorInvalidValue);
-  return gm::launch<false, NmB<NN, MM>, gm::EPI_NONE>(map_x, maps, nullptr, out, M, K, N, 0, ldo,
-                                                      stream);
+  return gm::launch<false, BT, gm::EPI_NONE>(map_x, maps, nullptr, out, M, K, N, 0, ldo, stream);
 }
+
+// every (n, m) with 1 <= n <= m, m in {1, 2, 4, 8}, at [m][n - 1], on tile TL
+template <class TL, template <int, int, class> class F>
+struct ByPattern {
+  using Fn = decltype(&F<1, 1, TL>::run);
+  static constexpr Fn table[9][8] = {
+      {},
+      {F<1, 1, TL>::run},
+      {F<1, 2, TL>::run, F<2, 2, TL>::run},
+      {},
+      {F<1, 4, TL>::run, F<2, 4, TL>::run, F<3, 4, TL>::run, F<4, 4, TL>::run},
+      {}, {}, {},
+      {F<1, 8, TL>::run, F<2, 8, TL>::run, F<3, 8, TL>::run, F<4, 8, TL>::run,
+       F<5, 8, TL>::run, F<6, 8, TL>::run, F<7, 8, TL>::run, F<8, 8, TL>::run}};
+};
+
+template <int NN, int MM, class TL>
+struct Launch {
+  static int run(const void* x, const void* vals, const void* idx, void* out, int M, int K, int N,
+                 long long ldx, long long ldv, long long ldi, long long ldo, void* stream) {
+    return launch_bf16<NN, MM, TL>(x, vals, idx, out, M, K, N, ldx, ldv, ldi, ldo, stream);
+  }
+};
+
+template <int NN, int MM, class TL>
+struct Query {
+  static int run(int* out) { return gm::query<false, NmB<NN, MM, TL>, gm::EPI_NONE>(out); }
+};
 
 bool nm_ok(int K, int n, int m) {
   return (m == 1 || m == 2 || m == 4 || m == 8) && n >= 1 && n <= m && K % m == 0;
@@ -256,22 +294,23 @@ extern "C" int nm_spmm_f32(const void* x, const void* vals, const void* idx, voi
 
 extern "C" int nm_spmm_bf16(const void* x, const void* vals, const void* idx, void* out, int M,
                             int K, int N, int n, int m, long long ldx, long long ldv,
-                            long long ldi, long long ldo, void* stream) {
+                            long long ldi, long long ldo, int bm, int bn, void* stream) {
   // what the TMA takes: 16-byte-aligned bases, row strides of 16 bytes;
   // and N % 8 == 0, so an output pair is wholly in or out
   if (!(nm_ok(K, n, m) && K % 8 == 0 && N % 8 == 0 && ldx % 8 == 0 && ldv % 8 == 0 &&
         ldi % 16 == 0 && hp::aligned(x, 16) && hp::aligned(vals, 16) && hp::aligned(idx, 16)))
     return static_cast<int>(cudaErrorInvalidValue);
-  using Launch = decltype(&launch_bf16<1, 1>);
-  // every (n, m) with 1 <= n <= m, m in {1, 2, 4, 8}, at [m][n - 1]
-  static const Launch table[9][8] = {
-      {},
-      {launch_bf16<1, 1>},
-      {launch_bf16<1, 2>, launch_bf16<2, 2>},
-      {},
-      {launch_bf16<1, 4>, launch_bf16<2, 4>, launch_bf16<3, 4>, launch_bf16<4, 4>},
-      {}, {}, {},
-      {launch_bf16<1, 8>, launch_bf16<2, 8>, launch_bf16<3, 8>, launch_bf16<4, 8>,
-       launch_bf16<5, 8>, launch_bf16<6, 8>, launch_bf16<7, 8>, launch_bf16<8, 8>}};
-  return table[m][n - 1](x, vals, idx, out, M, K, N, ldx, ldv, ldi, ldo, stream);
+  return gm::with_tile(bm, bn, [&](auto tl) {
+    return ByPattern<decltype(tl), Launch>::table[m][n - 1](x, vals, idx, out, M, K, N, ldx, ldv,
+                                                           ldi, ldo, stream);
+  });
+}
+
+// The compiled kernel of pattern n:m on the tile (bm, bn): out[0..7] as
+// hp::query_kernel gives them; cudaErrorInvalidValue for another.
+extern "C" int nm_spmm_query(int n, int m, int bm, int bn, int* out) {
+  if (!nm_ok(m, n, m)) return static_cast<int>(cudaErrorInvalidValue);
+  return gm::with_tile(bm, bn, [&](auto tl) {
+    return ByPattern<decltype(tl), Query>::table[m][n - 1](out);
+  });
 }

@@ -17,14 +17,23 @@ CPU) is booked by ``obs.profile.record_kernel`` as
 FLOPs (half of it causal) and the bytes of q, k, v and the output, and as
 ``kernels/flash_attention_bwd`` with 2.5 × the forward's FLOPs (10·d
 against 4·d per pair) and the bytes of q, k, v, o, do, lse, dq, dk, dv.
+
+Every launch goes through its plan (``kernels.validation``): the bf16
+forward on explicit tiles (bq, bk) or on those ``kernels.tuning``
+resolves (128 / 128 by default; 64-row and 64-key tiles at head widths 64
+and 128; a causal launch at a q_offset above 0 resolves nothing and runs
+the default); the backward and the f32 forward keep their one tile. Nothing is
+resolved or counted on a CPU tensor.
 """
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, tuning
+from repro_torch.kernels import validation as V
 from repro_torch.kernels.flash_attention.ref import (
     flash_attention_bwd_plain, flash_attention_plain,
 )
@@ -35,13 +44,15 @@ launches = 0
 bwd_launches = 0
 
 _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
-HEAD_DIMS = (16, 32, 64, 128)  # the kernels' compiled head widths
-_MAX_GRID_Y = 65535
+_DTYPE = {torch.float32: "float32", torch.bfloat16: "bfloat16"}
 
 
-def flash_attention(q, k, v, *, causal: bool = True, q_offset: int = 0) -> torch.Tensor:
+def flash_attention(q, k, v, *, causal: bool = True, q_offset: int = 0,
+                    **tiles) -> torch.Tensor:
     """q (BH, Sq, d); k, v (BH, Sk, d). ``q_offset`` is the position of
-    q[:, 0] in the key timeline (shifts the causal diagonal)."""
+    q[:, 0] in the key timeline (shifts the causal diagonal). ``tiles``
+    (bq, bk) fix the forward's launch plan on the card; without them it
+    resolves through ``kernels.tuning``."""
     BH, Sq, d = q.shape
     if k.dim() != 3 or k.shape[0] != BH or v.shape != k.shape or k.shape[2] != d:
         raise ValueError(
@@ -55,8 +66,17 @@ def flash_attention(q, k, v, *, causal: bool = True, q_offset: int = 0) -> torch
     if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"flash_attention: no kernel for device {q.device}")
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
-        return FlashAttentionFn.apply(q, k, v, causal, int(q_offset))
-    return _forward(q, k, v, causal, int(q_offset))
+        return FlashAttentionFn.apply(q, k, v, causal, int(q_offset), tiles)
+    return _forward(q, k, v, causal, int(q_offset), tiles=tiles)
+
+
+def call(*operands, **params) -> torch.Tensor:
+    """The uniform entry point (``kernels.dispatch``): operands ``(q, k,
+    v)``, params ``causal``, ``q_offset``, ``layout`` (``"bshd"`` for the
+    model's (B, S, H, hd)) and the tile overrides."""
+    if params.pop("layout", "bhsd") == "bshd":
+        return flash_attention_bshd(*operands, **params)
+    return flash_attention(*operands, **params)
 
 
 def flash_attention_bwd(q, k, v, o, do, lse, *, causal: bool = True, q_offset: int = 0):
@@ -89,19 +109,42 @@ def _fwd_flops(q, k, causal: bool) -> float:
     return 4.0 * BH * Sq * k.shape[1] * d * (0.5 if causal else 1.0)
 
 
-def _forward(q, k, v, causal: bool, q_offset: int, with_lse: bool = False):
-    """The forward kernel (the plain version on the CPU); under a live obs
-    run booked with ``record_kernel``. With ``with_lse`` also returns the
-    f32 row log-sum-exp."""
+def _forward(q, k, v, causal: bool, q_offset: int, with_lse: bool = False, tiles=None):
+    """The forward kernel (the plain version on the CPU, where explicit
+    tiles are checked against the plan and nothing is resolved); under a
+    live obs run booked with ``record_kernel``, with the plan when the
+    tuner resolved it. With ``with_lse`` also returns the f32 row
+    log-sum-exp."""
+    plan = None
     if q.device.type == "cpu":
+        if tiles:
+            _plan(q, k, v, causal, q_offset, "flash_attention", tiles)
         fn = flash_attention_plain
         kw = dict(causal=causal, q_offset=q_offset, return_lse=with_lse)
     else:
-        fn, kw = _launch, dict(causal=causal, q_offset=q_offset, with_lse=with_lse)
+        tiles, source = _resolve(q, k, causal, q_offset, tiles)
+        fn = functools.partial(_launch, **tiles) if tiles else _launch
+        kw = dict(causal=causal, q_offset=q_offset, with_lse=with_lse)
+        if source in ("cache", "search"):
+            plan = dict(plan=source, **tiles)
     if not OT.enabled() or not (q.shape[0] and q.shape[1]) or is_abstract(q, k, v):
         return fn(q, k, v, **kw)
     return record_kernel("kernels/flash_attention", _fwd_flops(q, k, causal),
-                         _bytes(q, k, v) + _bytes(q), fn, q, k, v, device=q.device, **kw)
+                         _bytes(q, k, v) + _bytes(q), fn, q, k, v, device=q.device, plan=plan,
+                         **kw)
+
+
+def _resolve(q, k, causal: bool, q_offset: int, tiles):
+    """(tiles, source) of a forward launch: explicit tiles win; else
+    ``tuning.resolve`` keyed by (BH, Sq, Sk, d), the dtype and ``causal``.
+    A causal launch at ``q_offset`` > 0 (a decode step, a prefill into a
+    filled cache) runs the default: its work depends on the offset, which
+    the key leaves out (the search times offset 0)."""
+    if tiles or q.dtype not in _DTYPE or (causal and q_offset) or tuning.mode() == "off":
+        return dict(tiles or {}), None
+    BH, Sq, d = q.shape
+    return tuning.resolve("flash_attention", {"BH": BH, "Sq": Sq, "Sk": k.shape[1], "d": d},
+                          {"q": _DTYPE[q.dtype]}, {"causal": bool(causal)}, device=q.device)
 
 
 class FlashAttentionFn(torch.autograd.Function):
@@ -109,8 +152,8 @@ class FlashAttentionFn(torch.autograd.Function):
     is the backward kernel."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, q_offset):
-        o, lse = _forward(q, k, v, causal, q_offset, with_lse=True)
+    def forward(ctx, q, k, v, causal, q_offset, tiles=None):
+        o, lse = _forward(q, k, v, causal, q_offset, with_lse=True, tiles=tiles)
         ctx.save_for_backward(q, k, v, o, lse)
         ctx.causal, ctx.q_offset = causal, q_offset
         return o
@@ -120,58 +163,65 @@ class FlashAttentionFn(torch.autograd.Function):
         q, k, v, o, lse = ctx.saved_tensors
         dq, dk, dv = flash_attention_bwd(q, k, v, o, do, lse, causal=ctx.causal,
                                          q_offset=ctx.q_offset)
-        return dq, dk, dv, None, None
+        return dq, dk, dv, None, None, None
 
 
-def _check(q, k, v) -> None:
-    """What every kernel of the library takes."""
+def _plan(q, k, v, causal: bool, q_offset: int, route: str, tiles, **more):
+    """The launch plan of ``route`` (``kernels.validation``) on these
+    operands (``more``: the backward's o and do); raises TypeError on
+    dtypes the kernels do not take, ValueError where the plan refuses."""
     if q.dtype not in _SUFFIX or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"flash_attention: kernel takes f32 or bf16 q == k == v, got "
                         f"{q.dtype}, {k.dtype}, {v.dtype}")
     BH, Sq, d = q.shape
-    if d not in HEAD_DIMS:
-        raise ValueError(f"flash_attention: kernel takes head_dim in {HEAD_DIMS}, got {d}")
-    if BH > _MAX_GRID_Y:
-        raise ValueError(f"flash_attention: BH={BH} exceeds the grid's {_MAX_GRID_Y}")
-    if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
-        raise ValueError("flash_attention: kernel takes contiguous (BH, S, d) operands")
+    ops = {"q": q, "k": k, "v": v, **more}
+    return V.plan_flash_attention(BH, Sq, k.shape[1], d, dtype=_DTYPE[q.dtype], causal=causal,
+                                  q_offset=q_offset, route=route, **tiles,
+                                  operands={n: (t.stride(), t.data_ptr()) for n, t in ops.items()})
 
 
-def _launch(q, k, v, causal: bool, q_offset: int, with_lse: bool = False):
-    """The forward kernel; with ``with_lse`` also returns the f32 row
-    log-sum-exp (BH, Sq)."""
+def launch_uncounted(q, k, v, causal: bool, q_offset: int, tiles):
+    """The forward on the plan of ``tiles``, not counted: the tuner's
+    measurements (``kernels.tuning.search``)."""
+    return _launch(q, k, v, causal, q_offset, count=False, **tiles)
+
+
+def _launch(q, k, v, causal: bool, q_offset: int, with_lse: bool = False, *,
+            count: bool = True, **tiles):
+    """The forward kernel on the plan of ``tiles`` (the default's when none
+    are given; the wrapper resolves them first), counted; with ``with_lse``
+    also returns the f32 row log-sum-exp (BH, Sq)."""
     global launches
-    _check(q, k, v)
+    plan = _plan(q, k, v, causal, q_offset, "flash_attention", tiles)
     BH, Sq, d = q.shape
     Sk = k.shape[1]
-    if q.dtype == torch.bfloat16 and any(t.data_ptr() % 16 for t in (q, k, v)):
-        raise ValueError("flash_attention: the bf16 kernel takes 16-byte-aligned operands")
-    if q_offset + Sq + Sk > 2**31 - 1:
-        raise ValueError("flash_attention: sequence positions exceed int32")
     out = torch.empty_like(q)
     lse = torch.empty((BH, Sq), dtype=torch.float32, device=q.device) if with_lse else None
     if BH and Sq:
         lib = _build.load("flash_attention")
         stream = torch.cuda.current_stream(q.device).cuda_stream
+        tile = [plan.tiles["bq"], plan.tiles["bk"]] if q.dtype == torch.bfloat16 else []
         code = getattr(lib, f"flash_attention_{_SUFFIX[q.dtype]}")(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             lse.data_ptr() if with_lse else None, BH, Sq, Sk, d,
-            int(causal), q_offset, 1.0 / math.sqrt(d), stream,
+            int(causal), q_offset, 1.0 / math.sqrt(d), *tile, stream,
         )
         _build.check(code, "flash_attention")
-        launches += 1
+        if count:
+            launches += 1
     return (out, lse) if with_lse else out
 
 
 def _launch_bwd(q, k, v, o, do, lse, causal: bool, q_offset: int):
     global bwd_launches
-    _check(q, k, v)
+    if q.dtype not in _SUFFIX or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"flash_attention: kernel takes f32 or bf16 q == k == v, got "
+                        f"{q.dtype}, {k.dtype}, {v.dtype}")
     if not (o.dtype == do.dtype == q.dtype and o.is_contiguous() and do.is_contiguous()):
         raise ValueError("flash_attention_bwd: o and do must be contiguous, in q's dtype")
     if lse.dtype != torch.float32 or not lse.is_contiguous():
         raise ValueError("flash_attention_bwd: lse must be a contiguous f32 (BH, Sq) tensor")
-    if q.dtype == torch.bfloat16 and any(t.data_ptr() % 16 for t in (q, k, v, o, do)):
-        raise ValueError("flash_attention_bwd: the bf16 kernel takes 16-byte-aligned operands")
+    _plan(q, k, v, causal, q_offset, "flash_attention_bwd", {}, o=o, do=do)
     BH, Sq, d = q.shape
     Sk = k.shape[1]
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
@@ -192,7 +242,7 @@ def _launch_bwd(q, k, v, o, do, lse, causal: bool, q_offset: int):
     return dq, dk, dv
 
 
-def flash_attention_bshd(q, k, v, *, causal: bool = True, q_offset: int = 0):
+def flash_attention_bshd(q, k, v, *, causal: bool = True, q_offset: int = 0, **tiles):
     """q (B, Sq, H, hd); k, v (B, Sk, H, hd), already GQA-repeated."""
     B, Sq, H, hd = q.shape
     Sk = k.shape[1]
@@ -201,5 +251,5 @@ def flash_attention_bshd(q, k, v, *, causal: bool = True, q_offset: int = 0):
         return x.transpose(1, 2).reshape(B * H, S, hd).contiguous()
 
     o = flash_attention(fold(q, Sq), fold(k, Sk), fold(v, Sk),
-                        causal=causal, q_offset=q_offset)
+                        causal=causal, q_offset=q_offset, **tiles)
     return o.reshape(B, H, Sq, hd).transpose(1, 2)

@@ -21,6 +21,15 @@ and dM take slabs only. ``batched_launches``, ``batched_dx_launches``,
 A tuned mask on expert slabs (mask tuning on MoE) gets its gradient from
 the batched dM.
 
+Every launch goes through a launch plan (``kernels.validation``) built
+from its operands before anything runs: an operand the kernel cannot take,
+or a tile outside the compiled set, raises ValueError. On the card each
+wrapper takes explicit tiles (``bm``, ``bn``; ``bk`` is 64), which always
+win; without them the route (``masked_matmul``, ``_dx``, ``_dw``, ``_dm``,
+each batched entry a route of its own) resolves its tiles through
+``kernels.tuning`` (mode ``off``, the library's default: 256 x 128). On a
+CPU tensor nothing is resolved and nothing is counted.
+
 While an obs run is live, each launch (or plain-version call on the CPU)
 goes through ``obs.profile.record_kernel`` as ``kernels/masked_matmul``,
 ``kernels/masked_matmul_dx``, ``_dw`` and ``_dm`` (the batched ones as
@@ -32,11 +41,13 @@ check.
 """
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, tuning
+from repro_torch.kernels import validation as V
 from repro_torch.obs import trace as OT
 from repro_torch.obs.profile import is_abstract, record_kernel
 from repro_torch.kernels.masked_matmul.ref import (
@@ -55,64 +66,75 @@ batched_dw_launches = 0
 batched_dm_launches = 0
 
 _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
-_INT_MAX = 2**31 - 1
+_DTYPE = {torch.float32: "float32", torch.bfloat16: "bfloat16"}
 
 
-def masked_matmul(x: torch.Tensor, w: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
+def masked_matmul(x: torch.Tensor, w: torch.Tensor, m: torch.Tensor, **tiles) -> torch.Tensor:
     """x (M, K); w and m (K, N) -> (M, N) in x's dtype. Or E slabs, as an
     MoE layer's routed experts hold them: x (E, C, K), w and m (E, K, N) ->
     (E, C, N), expert e's ``x[e] @ (w[e] ⊙ m[e])``, in one launch. The mask
     may be bool, uint8 or int8 on the card (any dtype on the CPU), or, under
     grad, a 0/1 float tensor that requires grad (a tuned mask: its gradient
-    is dM)."""
+    is dM). ``tiles`` (bm, bn, bk) fix the forward's launch plan; without
+    them the card's launch resolves its tiles through ``kernels.tuning``."""
     _dims("masked_matmul", x, w, m)
     _on_cpu("masked_matmul", x, w, m)  # checks the devices
     if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad or m.requires_grad):
-        return MaskedMatmulFn.apply(x, w, m)
-    return _call("masked_matmul", x, w, m)
+        return MaskedMatmulFn.apply(x, w, m, tiles)
+    return _call("masked_matmul", x, w, m, tiles)
 
 
-def masked_matmul_dx(dy: torch.Tensor, w: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
+def masked_matmul_dx(dy: torch.Tensor, w: torch.Tensor, m: torch.Tensor, **tiles) -> torch.Tensor:
     """dy (M, N); w and m (K, N) -> dx (M, K) in dy's dtype; or E slabs of
     each."""
-    return _call("masked_matmul_dx", dy, w, m)
+    return _call("masked_matmul_dx", dy, w, m, tiles)
 
 
-def masked_matmul_dw(x: torch.Tensor, dy: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
+def masked_matmul_dw(x: torch.Tensor, dy: torch.Tensor, m: torch.Tensor, **tiles) -> torch.Tensor:
     """x (M, K); dy (M, N); m (K, N) -> dw (K, N) in x's dtype, exactly 0
     wherever m is 0; or E slabs of each."""
-    return _call("masked_matmul_dw", x, dy, m)
+    return _call("masked_matmul_dw", x, dy, m, tiles)
 
 
-def masked_matmul_dm(x: torch.Tensor, dy: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+def masked_matmul_dm(x: torch.Tensor, dy: torch.Tensor, w: torch.Tensor, **tiles) -> torch.Tensor:
     """x (M, K); dy (M, N); w (K, N) -> dm (K, N) in x's dtype, the gradient
     of ``x @ (w ⊙ m)`` with respect to m (pruned slots are not zeroed); or
     E slabs of each."""
-    return _call("masked_matmul_dm", x, dy, w)
+    return _call("masked_matmul_dm", x, dy, w, tiles)
 
 
-def masked_matmul_batched(x: torch.Tensor, w: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
+def masked_matmul_batched(x: torch.Tensor, w: torch.Tensor, m: torch.Tensor,
+                          **tiles) -> torch.Tensor:
     """:func:`masked_matmul` on E slabs only: x (E, C, K), w and m (E, K, N)."""
     _slabs("masked_matmul_batched", x)
-    return masked_matmul(x, w, m)
+    return masked_matmul(x, w, m, **tiles)
 
 
-def masked_matmul_batched_dx(dy: torch.Tensor, w: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
+def masked_matmul_batched_dx(dy: torch.Tensor, w: torch.Tensor, m: torch.Tensor,
+                             **tiles) -> torch.Tensor:
     """:func:`masked_matmul_dx` on E slabs only."""
     _slabs("masked_matmul_batched_dx", dy)
-    return masked_matmul_dx(dy, w, m)
+    return masked_matmul_dx(dy, w, m, **tiles)
 
 
-def masked_matmul_batched_dw(x: torch.Tensor, dy: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
+def masked_matmul_batched_dw(x: torch.Tensor, dy: torch.Tensor, m: torch.Tensor,
+                             **tiles) -> torch.Tensor:
     """:func:`masked_matmul_dw` on E slabs only."""
     _slabs("masked_matmul_batched_dw", x)
-    return masked_matmul_dw(x, dy, m)
+    return masked_matmul_dw(x, dy, m, **tiles)
 
 
-def masked_matmul_batched_dm(x: torch.Tensor, dy: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+def masked_matmul_batched_dm(x: torch.Tensor, dy: torch.Tensor, w: torch.Tensor,
+                             **tiles) -> torch.Tensor:
     """:func:`masked_matmul_dm` on E slabs only."""
     _slabs("masked_matmul_batched_dm", x)
-    return masked_matmul_dm(x, dy, w)
+    return masked_matmul_dm(x, dy, w, **tiles)
+
+
+def call(*operands, **params) -> torch.Tensor:
+    """The uniform entry point (``kernels.dispatch``): operands ``(x, w, m)``,
+    params the tile overrides."""
+    return masked_matmul(*operands, **params)
 
 
 class MaskedMatmulFn(torch.autograd.Function):
@@ -125,11 +147,11 @@ class MaskedMatmulFn(torch.autograd.Function):
     product is differentiable in m as written."""
 
     @staticmethod
-    def forward(ctx, x, w, m):
+    def forward(ctx, x, w, m, tiles=None):
         if m.is_floating_point() and m.device.type == "cuda":
             m = aligned_mask(m != 0)
         ctx.save_for_backward(x, w, m)
-        return _call("masked_matmul", x, w, m)
+        return _call("masked_matmul", x, w, m, tiles)
 
     @staticmethod
     def backward(ctx, dy):
@@ -139,7 +161,7 @@ class MaskedMatmulFn(torch.autograd.Function):
         dx = masked_matmul_dx(dy, w, m) if ctx.needs_input_grad[0] else None
         dw = masked_matmul_dw(x, dy, m) if ctx.needs_input_grad[1] else None
         dm = masked_matmul_dm(x, dy, w) if ctx.needs_input_grad[2] else None
-        return dx, dw, dm
+        return dx, dw, dm, None
 
 
 # each kernel's launch counter, by the name it is launched and booked under
@@ -196,18 +218,42 @@ def _dims(fn: str, a: torch.Tensor, b: torch.Tensor, c: torch.Tensor):
     return M, K, N
 
 
-def _call(fn: str, a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
-    """``fn`` on its operands: the plain version on the CPU, the kernel on
-    the card; booked under a live obs run."""
+def _call(fn: str, a: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
+          tiles=None) -> torch.Tensor:
+    """``fn`` on its operands: the plain version on the CPU (explicit tiles
+    are checked against the plan, nothing is resolved), the kernel on the
+    card on the tiles given or resolved; booked under a live obs run, with
+    the plan when the tuner resolved it."""
     M, K, N = _dims(fn, a, b, c)
     name = _entry(fn, a)
+    E = a.shape[0] if a.dim() == 3 else 1
+    plan = None
     # ``<name>_plain`` or ``_launch<suffix>``, looked up at call time (a
     # test may wrap either)
-    run = globals()[f"{name}_plain" if _on_cpu(name, a, b, c)
-                    else "_launch" + fn.removeprefix("masked_matmul")]
-    E = a.shape[0] if a.dim() == 3 else 1
+    if _on_cpu(name, a, b, c):
+        if tiles:
+            check_operands(fn, a, b, c, **tiles)
+        run = globals()[f"{name}_plain"]
+    else:
+        tiles, source = _resolve(name, a, M, K, N, E, tiles)
+        run = globals()["_launch" + fn.removeprefix("masked_matmul")]
+        if tiles:
+            run = functools.partial(run, **tiles)
+        if source in ("cache", "search"):
+            plan = dict(plan=source, **tiles)
     return _recorded("kernels/" + name, run, a, b, c, M, K, N,
-                     _shape(_OPERANDS[fn][3], a.shape[:-2], M, K, N), E)
+                     _shape(_OPERANDS[fn][3], a.shape[:-2], M, K, N), E, plan)
+
+
+def _resolve(name: str, a: torch.Tensor, M: int, K: int, N: int, E: int, tiles):
+    """(tiles, source) of a launch of ``name``: explicit tiles win; else
+    ``tuning.resolve`` keyed by the route, the forward's (M, K, N) (and E)
+    and the dtype."""
+    if tiles or a.dtype not in _DTYPE or tuning.mode() == "off":
+        return dict(tiles or {}), None
+    dims = {"M": M, "K": K, "N": N, **({"E": E} if a.dim() == 3 else {})}
+    dt = _DTYPE[a.dtype]
+    return tuning.resolve(name, dims, {"x": dt, "w": dt}, device=a.device)
 
 
 def _on_cpu(what: str, *ts: torch.Tensor) -> bool:
@@ -221,32 +267,34 @@ def _on_cpu(what: str, *ts: torch.Tensor) -> bool:
     return dev.type == "cpu"
 
 
-def _recorded(name: str, fn, a, b, c, M: int, K: int, N: int, out_shape, E: int = 1):
+def _recorded(name: str, fn, a, b, c, M: int, K: int, N: int, out_shape, E: int = 1,
+              plan=None):
     """``fn(a, b, c)``; under a live obs run booked with ``record_kernel``
     (2·E·M·K·N FLOPs over E slabs; the three operands read once, the
-    output, in a's dtype, written once). A product with an empty dimension
-    launches nothing and is not booked."""
+    output, in a's dtype, written once), with the tuner's ``plan``. A
+    product with an empty dimension launches nothing and is not booked."""
     if not OT.enabled() or min(E, M, K, N) == 0 or is_abstract(a, b, c):
         return fn(a, b, c)
     nbytes = sum(t.numel() * t.element_size() for t in (a, b, c)) + \
         math.prod(out_shape) * a.element_size()
-    return record_kernel(name, 2.0 * E * M * K * N, nbytes, fn, a, b, c, device=a.device)
+    return record_kernel(name, 2.0 * E * M * K * N, nbytes, fn, a, b, c, device=a.device,
+                         plan=plan)
 
 
-def _launch(x: torch.Tensor, w: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
-    return _kernel("masked_matmul", x, w, m)
+def _launch(x: torch.Tensor, w: torch.Tensor, m: torch.Tensor, **tiles) -> torch.Tensor:
+    return _kernel("masked_matmul", x, w, m, tiles)
 
 
-def _launch_dx(dy: torch.Tensor, w: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
-    return _kernel("masked_matmul_dx", dy, w, m)
+def _launch_dx(dy: torch.Tensor, w: torch.Tensor, m: torch.Tensor, **tiles) -> torch.Tensor:
+    return _kernel("masked_matmul_dx", dy, w, m, tiles)
 
 
-def _launch_dw(x: torch.Tensor, dy: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
-    return _kernel("masked_matmul_dw", x, dy, m)
+def _launch_dw(x: torch.Tensor, dy: torch.Tensor, m: torch.Tensor, **tiles) -> torch.Tensor:
+    return _kernel("masked_matmul_dw", x, dy, m, tiles)
 
 
-def _launch_dm(x: torch.Tensor, dy: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    return _kernel("masked_matmul_dm", x, dy, w)
+def _launch_dm(x: torch.Tensor, dy: torch.Tensor, w: torch.Tensor, **tiles) -> torch.Tensor:
+    return _kernel("masked_matmul_dm", x, dy, w, tiles)
 
 
 def aligned_mask(m: torch.Tensor) -> torch.Tensor:
@@ -263,17 +311,22 @@ def aligned_mask(m: torch.Tensor) -> torch.Tensor:
     return buf[..., :N]
 
 
-def check_operands(fn: str, a: torch.Tensor, b: torch.Tensor, m: torch.Tensor):
+def check_operands(fn: str, a: torch.Tensor, b: torch.Tensor, m: torch.Tensor, **tiles):
     """The checks every entry point of the library needs, on operands of
-    any device: raises TypeError or ValueError on operands the kernel does
-    not take. Returns the third operand as the kernel reads it (a mask as
-    uint8)."""
+    any device: raises TypeError, or ValueError where the launch plan
+    (``kernels.validation.plan_masked_matmul``, on ``tiles`` or the
+    default's) refuses the operands. Returns the third operand as the kernel
+    reads it (a mask as uint8)."""
+    return _plan(fn, a, b, m, tiles)[1]
+
+
+def _plan(fn: str, a: torch.Tensor, b: torch.Tensor, m: torch.Tensor, tiles):
+    """(the launch plan, the third operand as the kernel reads it)."""
     name = _entry(fn, a)
     if a.dtype not in _SUFFIX or b.dtype != a.dtype:
         raise TypeError(f"{name}: kernel takes f32 or bf16 operands of one dtype, got "
                         f"{a.dtype} and {b.dtype}")
-    scale = fn == "masked_matmul_dm"
-    if scale:
+    if fn == "masked_matmul_dm":
         if m.dtype != a.dtype:
             raise TypeError(f"{name}: kernel takes w in the operands' dtype {a.dtype}, "
                             f"got {m.dtype}")
@@ -282,40 +335,29 @@ def check_operands(fn: str, a: torch.Tensor, b: torch.Tensor, m: torch.Tensor):
             m = m.view(torch.uint8)
         if m.dtype != torch.uint8:
             raise TypeError(f"{name}: kernel takes a bool/uint8/int8 mask, got {m.dtype}")
-    third = "weight" if scale else "mask"
-    batched = a.dim() == 3
-    E = a.shape[0] if batched else 1
     M, K, N = _mkn(fn, a, b)
-    for what, t in (("first operand", a), ("second operand", b), (third, m)):
-        if t.stride(-1) != 1:
-            raise ValueError(f"{name}: {what} needs unit column stride, got strides {t.stride()}")
-    # the bf16 kernel reads every operand by TMA: 16-byte-aligned bases and
-    # row (and slab) strides of 16 bytes (8 values, 16 mask bytes); dM's w,
-    # read in the epilogue, keeps the same rule
-    strides = [t.stride(-2) for t in (a, b, m)] + ([t.stride(0) for t in (a, b, m)]
-                                                   if batched else [])
-    if a.dtype == torch.bfloat16 and not (
-            K % 8 == 0 and N % 8 == 0
-            and all(st % 8 == 0 for st in strides)
-            and all(st % (8 if scale else 16) == 0 for st in strides[2::3])
-            and a.data_ptr() % 16 == 0 and b.data_ptr() % 16 == 0 and m.data_ptr() % 16 == 0):
-        raise ValueError(f"{name}: the bf16 kernel takes K, N and row strides that are "
-                         "multiples of 8, a mask row stride that is a multiple of 16, on "
-                         f"16-byte-aligned matrices and {third}")
-    if max(E, M, K, N) > _INT_MAX:
-        raise ValueError(f"{name}: dims {(E, M, K, N)} exceed int32")
-    return m
+    E = a.shape[0] if a.dim() == 3 else 1
+    plan = V.plan_masked_matmul(name, M, K, N, E, dtype=_DTYPE[a.dtype], **tiles,
+                                operands=[(t.stride(), t.data_ptr()) for t in (a, b, m)])
+    return plan, m
 
 
-def _kernel(fn: str, a: torch.Tensor, b: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
+def launch_uncounted(fn: str, a: torch.Tensor, b: torch.Tensor, m: torch.Tensor, tiles):
+    """``fn``'s kernel on the plan of ``tiles``, not counted: the tuner's
+    measurements (``kernels.tuning.search``), which are not a path's work."""
+    return _kernel(fn, a, b, m, tiles, count=False)
+
+
+def _kernel(fn: str, a: torch.Tensor, b: torch.Tensor, m: torch.Tensor, tiles=None,
+            count: bool = True) -> torch.Tensor:
     """Launch ``<fn>_<dtype>`` (``fn``'s batched entry on E slabs, each
     passed with its row and slab strides) on ``a``, ``b`` of one dtype and
-    a (K, N) mask (for dM the weight w, in their dtype) after
-    ``check_operands``, and count the launch. A product with an empty
-    dimension launches nothing: zeros (an empty reduction) or an empty
-    tensor."""
-    m = check_operands(fn, a, b, m)
-    name = _entry(fn, a)
+    a (K, N) mask (for dM the weight w, in their dtype) on the plan of
+    ``tiles`` (the default's when none are given; the wrappers resolve them
+    first), and count the launch. A product with an empty dimension
+    launches nothing: zeros (an empty reduction) or an empty tensor."""
+    plan, m = _plan(fn, a, b, m, tiles or {})
+    name = plan.route
     batched = a.dim() == 3
     E = a.shape[0] if batched else 1
     M, K, N = _mkn(fn, a, b)
@@ -327,10 +369,12 @@ def _kernel(fn: str, a: torch.Tensor, b: torch.Tensor, m: torch.Tensor) -> torch
     stream = torch.cuda.current_stream(a.device).cuda_stream
     rows = [t.stride(-2) for t in (a, b, m, out)]
     slabs = [t.stride(0) for t in (a, b, m, out)] if batched else []
+    tile = [plan.tiles["bm"], plan.tiles["bn"]] if a.dtype == torch.bfloat16 else []
     code = getattr(lib, f"{name}_{_SUFFIX[a.dtype]}")(
         a.data_ptr(), b.data_ptr(), m.data_ptr(), out.data_ptr(), *([E] if batched else []),
-        M, K, N, *rows, *slabs, stream,
+        M, K, N, *rows, *slabs, *tile, stream,
     )
     _build.check(code, name)
-    globals()[_COUNTER[name]] += 1
+    if count:
+        globals()[_COUNTER[name]] += 1
     return out

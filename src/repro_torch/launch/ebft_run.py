@@ -26,9 +26,21 @@ span tree, and the sections ``phases``, ``blocks``, ``perplexity``,
 (``python -m repro_torch.obs report`` renders it, and so does the
 reference's CLI). ``--obs-jsonl`` streams the events as they happen.
 ``--no-obs`` turns all of it off and writes no artifact; the console
-lines are the same either way. The VLM and encoder-decoder families are
-refused (``launch.api.refuse_frontend_families``): the reference's driver
-passes no patches and no frames.
+lines are the same either way.
+
+``--kernel-tune {off,cache,search}`` (default ``cache``, as the
+reference's) and ``--kernel-cache PATH`` (default
+``experiments/kernel_cache_torch.json``) drive the tile autotuner
+(``kernels.tuning``): unless the mode is ``off``, a ``phase/kernel_tune``
+first resolves every launch shape the run makes (``ebft_workloads``),
+measuring and persisting the misses in ``search``, and every launch on the
+card then takes its tiles from the cache. ``kernel_tuning`` in the
+artifact holds the mode, the cache path and the hits, misses, searches and
+search seconds; a second run on a warm cache shows no miss.
+
+The VLM and encoder-decoder families are refused
+(``launch.api.refuse_frontend_families``): the reference's driver passes
+no patches and no frames.
 """
 from __future__ import annotations
 
@@ -49,6 +61,7 @@ from repro_torch.core.pruning.flap import remaining_param_fraction
 from repro_torch.data.tokens import (
     CorpusConfig, SyntheticCorpus, calibration_set, corpus_iterator, eval_set,
 )
+from repro_torch.kernels import tuning
 from repro_torch.launch.api import parse, refuse_frontend_families, start_obs_run
 from repro_torch.models.model import build
 from repro_torch.obs import metrics as OM
@@ -88,6 +101,8 @@ class RunSpec:
     bench_out: str = "BENCH_ebft.json"
     no_obs: bool = False
     obs_jsonl: str = ""
+    kernel_tune: str = "cache"  # off | cache | search (kernels.tuning)
+    kernel_cache: str = ""      # "" keeps the tuner's path (experiments/kernel_cache_torch.json)
 
 
 @dataclasses.dataclass
@@ -109,6 +124,11 @@ class RunResult:
     # mean losses); "lora" {"params", "losses", each step's LM loss as a
     # 0-d device tensor}
     baselines: Dict[str, Dict[str, Any]] = dataclasses.field(default_factory=dict)
+    # the kernel_tune phase's one record per workload (kernels.tuning.pretune)
+    kernel_plans: List[Dict[str, Any]] = dataclasses.field(default_factory=list)
+    # the artifact's kernel_tuning section: mode, cache path and the tuner's
+    # stats at the run's end (the pre-tune and every launch's resolution)
+    kernel_tuning: Dict[str, Any] = dataclasses.field(default_factory=dict)
 
 
 def _sync(device: torch.device) -> None:
@@ -201,6 +221,17 @@ def run(cfg: ModelConfig, spec: RunSpec, device=None, params: Optional[Any] = No
     phases: Dict[str, float] = {}
     ppl: Dict[str, float] = {}
     history: List[Tuple[int, float, float]] = []
+    pattern = tuple(int(x) for x in spec.pattern.split(":")) if spec.pattern else None
+    tuning.configure(mode=spec.kernel_tune, path=spec.kernel_cache or None)
+    tuning.reset_stats()
+    plans: List[Dict[str, Any]] = []
+    if spec.kernel_tune != "off":
+        # the tile plans of every launch shape this run makes, resolved (and
+        # in search mode measured) before the hot path; in cache mode a
+        # lookup each, whose hits and misses land in the artifact
+        with _phase(device, "phase/kernel_tune", mode=spec.kernel_tune) as sp:
+            plans = tuning.pretune(run_workloads(cfg, spec, pattern, wants), device=device)
+        phases["kernel_tune"] = sp.duration
     if spec.pretrain_steps > 0:
         with _phase(device, "phase/pretrain", steps=spec.pretrain_steps) as sp:
             params, history = pretrain(model, params, corpus, spec.pretrain_steps, spec.batch,
@@ -208,7 +239,6 @@ def run(cfg: ModelConfig, spec: RunSpec, device=None, params: Optional[Any] = No
         phases["pretrain"] = sp.duration
     calib = calibration_set(corpus, spec.calib_samples, spec.seq)
     ev = eval_set(corpus, EVAL_SAMPLES, spec.seq)
-    pattern = tuple(int(x) for x in spec.pattern.split(":")) if spec.pattern else None
 
     with _phase(device, "phase/eval", what="dense") as sp:
         ppl["dense"] = perplexity(model, params, ev)
@@ -219,7 +249,7 @@ def run(cfg: ModelConfig, spec: RunSpec, device=None, params: Optional[Any] = No
     phases["prune"] = sp.duration
     ppl[spec.method] = perplexity(model, pruned, ev, masks=masks)  # not a phase, as the reference
     res = RunResult(ppl, phases, sparsity_of(masks, params), params, masks, pruned,
-                    pretrain_losses=history)
+                    pretrain_losses=history, kernel_plans=plans)
     ecfg = ebft.EBFTConfig(lr=spec.lr, epochs=spec.epochs)
     with _phase(device, "phase/ebft", lr=spec.lr, epochs=spec.epochs) as sp:
         res.tuned, res.reports = ebft.finetune(model, params, pruned, masks, calib, ecfg)
@@ -253,7 +283,37 @@ def run(cfg: ModelConfig, spec: RunSpec, device=None, params: Optional[Any] = No
             ppl["LoRA"] = perplexity(model, lr_params, ev, masks=masks)
         phases["baseline_lora"] = sp.duration
         res.baselines["lora"] = dict(params=lr_params, losses=losses)
+    res.kernel_tuning = {"mode": spec.kernel_tune, "cache_path": tuning.state()["path"],
+                         **tuning.stats()}
     return res
+
+
+def run_workloads(cfg: ModelConfig, spec: RunSpec, pattern, baselines=()) -> List[Tuple]:
+    """Every tunable launch shape of ``run``: ``tuning.ebft_workloads`` at
+    each microbatch the walks and the evaluations take (8 rows, and a
+    ragged last one), the pretraining's attention forward, and mask
+    tuning's dM routes when that baseline runs."""
+    mb = ebft.EBFTConfig().microbatch
+    rows = {min(mb, spec.calib_samples), spec.calib_samples % mb, min(mb, EVAL_SAMPLES),
+            EVAL_SAMPLES % mb} - {0}
+    work: List[Tuple] = []
+    for r in sorted(rows, reverse=True):
+        work += tuning.ebft_workloads(cfg, tokens=r * spec.seq, seq=spec.seq, pattern=pattern)
+    if "mask" in baselines:
+        work += [(kernel.replace("_dw", "_dm"), dims, dtypes, params)
+                 for kernel, dims, dtypes, params in work if kernel.endswith("_dw")]
+    if spec.pretrain_steps > 0 and cfg.family != "ssm":
+        BH = spec.batch // max(spec.microbatches, 1) * cfg.num_heads
+        work.append(("flash_attention", {"BH": BH, "Sq": spec.seq, "Sk": spec.seq,
+                                         "d": cfg.resolved_head_dim},
+                     {"q": cfg.dtype}, {"causal": True}))
+    seen, out = set(), []
+    for w in work:
+        key = tuning.cache_key(w[0], w[1], w[2], w[3], "", "", "")
+        if key not in seen:
+            seen.add(key)
+            out.append(w)
+    return out
 
 
 def bench_record(spec: RunSpec, res: RunResult,
@@ -264,8 +324,9 @@ def bench_record(spec: RunSpec, res: RunResult,
     ``walk_phases`` and ``kernel_tuning``, and the spec as ``run_spec``.
     ``summ`` is the run's metric summary; without it the sections that
     read it hold None. The port runs the per-epoch loop on one device: no
-    fused blocks, no prefetch, an inactive 1-device mesh, and no
-    launch-config cache (``kernel_tuning`` mode ``off``, ROADMAP.md A.6)."""
+    fused blocks, no prefetch, an inactive 1-device mesh. ``kernel_tuning``
+    is the tuner's mode, cache path, hits, misses, searches and search
+    seconds over the run, the reference's keys."""
     reports = res.reports
     summ = summ or {}
 
@@ -309,8 +370,7 @@ def bench_record(spec: RunSpec, res: RunResult,
             **{f"{p}_compile": metric(f"ebft/walk/{p}_compile_s", "sum")
                for p in ("teacher", "tune", "student")},
         },
-        "kernel_tuning": {"mode": "off", "cache_path": None, "hits": 0, "misses": 0,
-                          "searches": 0, "search_s": 0.0},
+        "kernel_tuning": dict(res.kernel_tuning),
     }
 
 
@@ -320,13 +380,17 @@ def _mean_drop(reports) -> float:
 
 def main(argv=None) -> RunResult:
     spec, device = parse(RunSpec, argv, "repro_torch.launch.ebft_run", __doc__,
-                         {"method": METHODS})
+                         {"method": METHODS, "kernel_tune": tuning.MODES})
     device = resolve_device(device)
     cfg = get_config(spec.arch)
     refuse_frontend_families(cfg, "ebft_run")
     obs_run = start_obs_run(spec, "ebft", device)
     say = obs_run.say if obs_run is not None else print
     res = run(cfg, spec, device)
+    if spec.kernel_tune != "off":
+        got = [p["source"] for p in res.kernel_plans]
+        say(f"kernel plans: {len(got)} workloads, {got.count('cache')} cached, "
+            f"{got.count('search')} searched ({res.phases['kernel_tune']:.0f}s)")
     if res.pretrain_losses:
         say(f"pretrained {spec.pretrain_steps} steps, final loss "
             f"{res.pretrain_losses[-1][1]:.3f}")

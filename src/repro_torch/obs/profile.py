@@ -24,9 +24,11 @@ of ``repro.obs.profile``).
     per launch would serialise the host and the card on the thousand
     launches of an EBFT walk and change the times it reports. On the CPU
     the plain versions are synchronous, so the host clock serves and the
-    launch is booked at once. No kernel span is opened: the reference
-    opens one only for a tuned tile plan, and the port has no tuner yet
-    (ROADMAP.md A.6).
+    launch is booked at once. A launch that runs a plan the tuner resolved
+    (``kernels.tuning``: ``plan`` "cache" or "search", and the tiles) opens
+    a kernel span carrying that plan, as the reference's does, so the
+    artifact shows which plan each launch ran; the span is not fenced
+    either, so its duration is the host's time to queue the launch.
 
   * :func:`live_bytes` / :func:`param_count` / :func:`ebft_live_block_bytes`
     account tree memory; the EBFT walk uses them to record the paper's
@@ -46,7 +48,7 @@ of ``repro.obs.profile``).
 from __future__ import annotations
 
 import time
-from typing import Any, Callable, List, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 
@@ -148,12 +150,16 @@ def _book(name: str, flops: float, bytes_moved: float, dt: float) -> None:
 
 
 def record_kernel(name: str, flops: float, bytes_moved: float, fn: Callable, *args,
-                  device: torch.device, **kw):
+                  device: torch.device, plan: Optional[Dict[str, Any]] = None, **kw):
     """Run ``fn(*args, **kw)``, the launch of one kernel on ``device``, and
     book it against the roofline: on the card through a CUDA event pair on
     the current stream, resolved later by :func:`flush_kernels`; on the
-    CPU by the host clock, at once. Callers guard with
-    ``trace.enabled() and not is_abstract(...)``."""
+    CPU by the host clock, at once. ``plan`` (the tuner's: ``plan`` and the
+    tiles) opens an unfenced span ``name`` with it as attributes around the
+    launch. Callers guard with ``trace.enabled() and not is_abstract(...)``."""
+    if plan:
+        with OT.span(name, **plan):
+            return record_kernel(name, flops, bytes_moved, fn, *args, device=device, **kw)
     if device.type != "cuda":
         t0 = time.perf_counter()
         out = fn(*args, **kw)

@@ -220,8 +220,8 @@ def validate_payload(
     ``require_cache_hits`` gates a warm launch-config cache run: the
     artifact's ``kernel_tuning`` section must show every plan resolution
     served from the cache — at least one hit, zero misses, zero searches,
-    zero search seconds. The port has no such cache yet, so its
-    ``kernel_tuning`` (mode ``off``) fails this check by design.
+    zero search seconds: an ``ebft_run`` on a warm ``--kernel-cache`` in
+    ``--kernel-tune cache`` passes it.
     """
     problems: List[str] = []
     if not isinstance(payload, dict):

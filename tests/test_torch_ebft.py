@@ -318,7 +318,7 @@ def test_ebft_run_writes_the_reference_sections(tmp_path):
                          "--calib-samples", "16", "--seq", "32", "--device", "cpu",
                          "--bench-out", str(out)])
     data = json.loads(out.read_text())
-    assert set(data["phases"]) == {"eval_dense", "prune", "ebft", "eval_ebft"}
+    assert set(data["phases"]) == {"kernel_tune", "eval_dense", "prune", "ebft", "eval_ebft"}
     assert data["perplexity"] == res.perplexity and np.isfinite(data["perplexity"]["EBFT"])
     assert len(data["blocks"]) == 2
     assert set(data["blocks"][0]) == {f.name for f in dataclasses.fields(EBFT.BlockReport)}

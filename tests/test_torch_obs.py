@@ -621,8 +621,9 @@ def test_pipeline_trace_and_metrics(pipeline_runs):
     payload = load_artifact(str(on["bench"]))
     res = on["res"]
     roots = [s["name"] for s in payload["trace"]]
-    assert roots == ["phase/pretrain", "phase/eval", "phase/prune", "phase/ebft", "phase/eval"]
-    ebft_phase = payload["trace"][3]
+    assert roots == ["phase/kernel_tune", "phase/pretrain", "phase/eval", "phase/prune",
+                     "phase/ebft", "phase/eval"]
+    ebft_phase = payload["trace"][4]
     assert [c["name"] for c in ebft_phase["children"]] == ["ebft/walk"]
     walk = ebft_phase["children"][0]
     assert walk["attrs"]["fused"] is False and walk["attrs"]["prefetch_depth"] == 0
@@ -651,7 +652,7 @@ def test_pipeline_trace_and_metrics(pipeline_runs):
                                "peak_live_block_bytes_per_shard":
                                    payload["ebft"]["peak_live_block_bytes"],
                                "collective_bytes_total": 0}
-    assert payload["kernel_tuning"]["mode"] == "off"
+    assert payload["kernel_tuning"]["mode"] == "cache"
     assert payload["dispatch"]["per_block_max"] == payload["dispatch"]["tune_per_block_max"]
     for b, r in zip(payload["blocks"], res.reports):
         assert b["device_dispatches"] == b["dispatches"] == r.dispatches

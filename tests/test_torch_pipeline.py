@@ -79,7 +79,7 @@ def test_run_matches_reference_path(method, sparsity, pattern):
     res = ebft_run.run(get_config("tiny_dense"), spec, "cpu", params=params)
     assert res.perplexity["dense"] == pytest.approx(ref_dense, rel=REL)
     assert res.perplexity[method] == pytest.approx(ref_sparse, rel=REL)
-    assert set(res.phases) == {"eval_dense", "prune", "ebft", "eval_ebft"}
+    assert set(res.phases) == {"kernel_tune", "eval_dense", "prune", "ebft", "eval_ebft"}
     assert res.sparsity == pytest.approx(sparsity, abs=0.02)
 
 
@@ -101,7 +101,7 @@ def test_main_cli_writes_bench(tmp_path):
                          "--calib-samples", "8", "--seq", "32", "--device", "cpu",
                          "--bench-out", str(out)])
     data = json.loads(out.read_text())
-    assert set(data["phases"]) == {"eval_dense", "prune", "ebft", "eval_ebft"}
+    assert set(data["phases"]) == {"kernel_tune", "eval_dense", "prune", "ebft", "eval_ebft"}
     assert data["perplexity"] == res.perplexity
     assert data["run_spec"]["method"] == "wanda"
 
@@ -125,7 +125,7 @@ def test_unported_tuning_raises(argv, tmp_path, one_thread):
                                 "--seq", "32", "--calib-samples", "8"])
     steps = int(argv[1]) if argv[:1] == ["--pretrain-steps"] else 200
     assert list(json.loads(out.read_text())["phases"]) == [
-        "pretrain", "eval_dense", "prune", "ebft", "eval_ebft"]
+        "kernel_tune", "pretrain", "eval_dense", "prune", "ebft", "eval_ebft"]
     assert [s for s, _, _ in res.pretrain_losses][-1] == steps - 1
     assert all(np.isfinite(loss) for _, loss, _ in res.pretrain_losses)
 
@@ -153,7 +153,8 @@ def test_epochs_0_output_matches_reference(tmp_path, one_thread):
     ref_ebft_run.main(argv + ["--kernel-tune", "off", "--bench-out", str(ref_out)])
     ref = json.loads(ref_out.read_text())
 
-    spec = ebft_run.RunSpec(pretrain_steps=0, epochs=0, calib_samples=8, seq=32)
+    spec = ebft_run.RunSpec(pretrain_steps=0, epochs=0, calib_samples=8, seq=32,
+                            kernel_tune="off")
     ref_params = ref_build(ref_get_config("tiny_dense")).init(jax.random.PRNGKey(spec.seed))
     params = interop.params_to_torch(jax.tree.map(np.asarray, ref_params), "cpu")
     port = ebft_run.bench_record(spec, ebft_run.run(get_config("tiny_dense"), spec, "cpu",

@@ -432,7 +432,8 @@ def test_pretrain_matches_reference():
         assert loss == pytest.approx(want, rel=1e-5) and np.isfinite(gnorm)
     for k, v in ref.items():
         assert res.perplexity[k] == pytest.approx(v, rel=1e-4), k
-    assert list(res.phases) == ["pretrain", "eval_dense", "prune", "ebft", "eval_ebft"]
+    assert list(res.phases) == ["kernel_tune", "pretrain", "eval_dense", "prune", "ebft",
+                                "eval_ebft"]
     # the caller's weights are left as they were; the run's carry no autograd state
     assert all(torch.equal(a, T.get_path(before, p)) for p, a in T.leaves_with_path(carried))
     assert not any(t.requires_grad for _, t in T.leaves_with_path(res.dense))
