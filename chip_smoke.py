@@ -55,7 +55,9 @@ instantiation's launch plan (``kernels/validation.py``) to the compiled
 kernel, every compiled candidate tile of every bf16 route to its plain
 version (repeated bit for bit, its bits compared with the default's),
 pre-tunes Llama-7B's and Seamless-M4T-medium's EBFT launches in ``search``
-mode (default and best ms of each), and runs ``ebft_run.run`` on a 2-layer
+mode (default and best ms of each), runs the static checks (``python -m
+repro_torch.analysis``, phase ``analysis``) over every config with that
+searched cache, and runs ``ebft_run.run`` on a 2-layer
 Llama-7B with ``--kernel-tune search``, then ``cache`` (warm: no miss),
 then ``off``. The kernels line gives each row's default ``tiles``. Every
 phase
@@ -4264,7 +4266,8 @@ def phase_tuning(g, walls):
     repeated bit for bit, with whether its bits equal the default's and its
     time; (3) ``tuning.pretune`` in ``search`` mode, into a cache under a
     temporary directory, over ``ebft_workloads`` of Llama-7B and
-    Seamless-M4T-medium: each workload's default and best ms; (4)
+    Seamless-M4T-medium: each workload's default and best ms, then the
+    static checks over that cache (``phase_analysis``); (4)
     ``ebft_run.run`` at Llama-7B width (``TUNE_RUN``) with
     ``kernel_tune="search"``, then ``"cache"`` on that cache, then
     ``"off"``, then ``"cache"`` on a copy of the cache whose every entry
@@ -4434,6 +4437,7 @@ def phase_tuning(g, walls):
                 raise AssertionError(f"tuning: {kernel} {dims}: best above the default")
         emit(dict(phase="tuning_pretune", workloads=len(work), seconds=pretune_s,
                   stats=tuning.stats(), table=table))
+        phase_analysis(os.path.join(tmp, "kernels.json"))
 
         # (4) ebft_run searched, then on the warm cache, then off
         cfg = llama_cfg(TUNE_RUN["layers"])
@@ -4515,6 +4519,96 @@ def phase_tuning(g, walls):
               launches=counts["cache"], tuned_launches_by_plan=plans,
               forced_launches_by_plan=forced_plans, warm_cache_valid=True,
               seconds_phase=walls["tuning"]))
+
+
+def _query_key(plan):
+    """The ``_build.query`` key of a bf16 plan's compiled instantiation, or
+    None where the library exports no query (the attention backward)."""
+    from repro_torch.analysis.kernel_check import NM
+
+    t = plan.tiles
+    if plan.kernel == "masked_matmul":
+        base = plan.route.replace("masked_matmul_batched", "masked_matmul")
+        routes = ("masked_matmul", "masked_matmul_dx", "masked_matmul_dw", "masked_matmul_dm")
+        return ("masked_matmul", routes.index(base), t["bm"], t["bn"])
+    if plan.kernel == "nm_spmm":
+        return ("nm_spmm", *NM, t["bm"], t["bn"])
+    if plan.route == "flash_attention":
+        return ("flash_attention", plan.maps[0].dims[0], t["bq"], t["bk"])
+    return None
+
+
+def phase_analysis(cache_path):
+    """The static checks (``python -m repro_torch.analysis``) on this
+    machine, in a subprocess with the card hidden, over every config and
+    pass with ``--tuning-cache`` the tuning phase's searched cache: exit 0,
+    no error and no TUN finding. Beside it, the seeded fixtures
+    (``tests/_torch_analysis_fixtures.py``) must exit 1 with KER001 and
+    CFG002. Every bf16 plan the kernel pass builds for Llama-7B and
+    Seamless-M4T-medium is held to the compiled kernel's own query
+    (shared memory, threads, stages), as the tuning phase holds its plans;
+    the attention backward exports no query."""
+    from collections import Counter
+
+    from repro_torch.analysis.kernel_check import planned
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import _build
+
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="",
+               PYTHONPATH=os.pathsep.join([os.path.join(ROOT, "src"),
+                                           os.path.join(ROOT, "tests")]))
+    cmd = [sys.executable, "-m", "repro_torch.analysis", "--json"]
+    t0 = time.perf_counter()
+    procs = {"all": subprocess.Popen(cmd + ["--tuning-cache", cache_path], env=env, cwd=ROOT,
+                                     stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True),
+             "fixtures": subprocess.Popen(cmd + ["--configs", "tiny_dense", "--passes", "kernels",
+                                                 "sharding", "--extra-config-module",
+                                                 "_torch_analysis_fixtures"],
+                                          env=env, cwd=ROOT, stdout=subprocess.PIPE,
+                                          stderr=subprocess.PIPE, text=True)}
+    held, no_query, seen = 0, Counter(), {}
+    for arch in ("llama_7b", "seamless_m4t_medium"):
+        plans, _ = planned(arch, get_config(arch))
+        for loc, plan in plans:
+            if plan.dtype != "bfloat16":
+                continue
+            key = _query_key(plan)
+            if key is None:
+                no_query[plan.route] += 1
+                continue
+            if key not in seen:
+                seen[key] = _build.query(*key)
+            q = seen[key]
+            if (q["smem"], q["threads"], q["stages"], q["max_dynamic_smem"], q["static_smem"]) != \
+                    (plan.smem, plan.threads, plan.stages, plan.smem, 0) or \
+                    q["max_threads"] < plan.threads:
+                raise AssertionError(f"analysis: {arch} {loc}: plan {plan.smem} B, "
+                                     f"{plan.threads} threads, {plan.stages} stages; the "
+                                     f"compiled kernel {q}")
+            held += 1
+    out = {}
+    for name, p in procs.items():
+        stdout, stderr = p.communicate(timeout=600)
+        out[name] = (p.returncode, stdout, stderr, time.perf_counter() - t0)
+    rc, stdout, stderr, secs = out["all"]
+    if rc != 0:
+        raise AssertionError(f"analysis: exit {rc}\n{stdout[-4000:]}\n{stderr[-4000:]}")
+    findings = json.loads(stdout)["findings"]
+    bad = [f for f in findings if f["severity"] == "error" or f["code"].startswith("TUN")]
+    if bad:
+        raise AssertionError(f"analysis: {bad}")
+    entries = len(json.load(open(cache_path))["entries"])
+    frc, fout, ferr, _ = out["fixtures"]
+    fcodes = {f["code"] for f in json.loads(fout)["findings"]} if fout.strip() else set()
+    if frc != 1 or not {"KER001", "CFG002"} <= fcodes:
+        raise AssertionError(f"analysis: the fixtures exit {frc} with {fcodes}\n{ferr[-4000:]}")
+    emit(dict(phase="analysis", seconds=secs, exit_code=rc, cache_entries=entries,
+              counts=dict(Counter(f["code"] for f in findings)),
+              findings=[f"{f['code']} {f['config']} {f['location']}" for f in findings],
+              fixtures_exit_code=frc, fixtures_codes=sorted(fcodes),
+              plans_held_to_query=held, instantiations_queried=len(seen),
+              plans_without_query=dict(no_query),
+              seconds_phase=time.perf_counter() - t0))
 
 
 def _default_tiles(name: str) -> dict:

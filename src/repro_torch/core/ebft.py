@@ -149,6 +149,7 @@ def tune_block(model, i: int, bp: Params, mask_bp: Params, data: List[Tuple],
             ledger.dispatch(n_mb + 1)
             ledger.host_sync()
             epochs_run += 1
+            # obs: sync-ok (host-side plateau check needs the epoch mean)
             history.append(float(torch.stack(losses).mean()))
             if plateau_early_stop(history, ecfg.patience, ecfg.rel_tol):
                 early_stop = "plateau"

@@ -142,6 +142,7 @@ def finetune_lora(model, pruned_params: Params, masks: Params, data_iter: Iterat
         if losses is not None:
             losses.append(loss.detach())
         if log and s % max(1, lcfg.steps // 10) == 0:
+            # obs: sync-ok (caller-requested logging, 1-in-10 cadence)
             log(f"lora step {s}: lm-loss {float(loss):.4f}")
     with torch.no_grad():
         return merge(pruned_params, masks, lora, lcfg)

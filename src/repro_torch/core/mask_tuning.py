@@ -139,6 +139,7 @@ def finetune_masks(model, dense_params: Params, init_masks: Params, sparsity: fl
                 apply_updates(scores, updates)
                 losses.append(loss.detach())
             # the epoch mean, reduced on the device: one scalar read per epoch
+            # obs: sync-ok (host-side plateau check needs the epoch mean)
             history.append(float(torch.stack(losses).mean()))
             if plateau_early_stop(history, ecfg.patience, ecfg.rel_tol):
                 break

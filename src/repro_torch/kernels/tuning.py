@@ -14,10 +14,10 @@ Entries are keyed by ``(kernel, dims, dtypes, params, backend,
 device_kind, code_rev)``; ``kernel`` is the route (``masked_matmul_dw``,
 ``masked_matmul_batched``, ... each a launch of its own), ``code_rev`` a
 hash of this package's Python files and its ``csrc/*.cu`` and ``*.cuh``,
-so an edited kernel or tuner makes its entries miss (the reference's
-``tuning_cache`` pass, TUN001-004, which flags stale and malformed entries,
-comes with the port's static checks, ROADMAP.md A.7). Writes are atomic
-(a temporary file and ``os.replace``).
+so an edited kernel or tuner makes its entries miss (the static checks'
+``tuning_cache`` pass, ``repro_torch.analysis.tuning_cache``, TUN001-004,
+flags stale, unplannable and malformed entries). Writes are atomic (a
+temporary file and ``os.replace``).
 
 Three modes (``configure``; the launcher's ``--kernel-tune``)::
 
@@ -227,6 +227,9 @@ _PLANNERS: Dict[str, Tuple[Tuple[str, ...], Callable[..., KernelPlan]]] = {
         dims["BH"], dims["Sq"], dims["Sk"], dims["d"], **tiles,
         dtype=dtypes.get("q", "bfloat16"), causal=bool(params.get("causal", True)))),
 }
+
+
+KERNELS = tuple(_PLANNERS)  # the tunable launches, a cache entry's ``kernel``
 
 
 def build_plan(kernel: str, dims: Dict[str, int], dtypes: Dict[str, str],

@@ -30,9 +30,10 @@ The compiled tile sets:
   * the f32 SIMT kernels and the attention backward keep their one tile:
     each of their plans has exactly one candidate.
 
-The reference's static analyzer reads its plans (``analysis/kernel_check``,
-KER001-005); the port's counterpart comes with its static checks
-(ROADMAP.md A.7).
+The static checks read these plans: ``repro_torch.analysis.kernel_check``
+(KER001-005) builds every launch a config's walk and its serving make, at
+the config's full widths, and ``analysis.tuning_cache`` (TUN001-004) every
+cached entry's.
 """
 from __future__ import annotations
 

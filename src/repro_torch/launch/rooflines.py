@@ -9,8 +9,9 @@ launchers need), for one NVIDIA H100 SXM:
 Both assume the card's full 700 W power limit; a card set below it runs
 slower under load, so a roofline share is stated with the card's power
 limit beside it. The reference's ``terms()`` reads a compiled program's
-HLO statistics, which have no torch counterpart; it waits with
-``launch/hlo_analysis.py`` (ROADMAP.md A.7).
+HLO statistics, which have no torch counterpart: the port compiles no HLO,
+so ``terms()`` and ``launch/hlo_analysis.py`` are out of its scope
+(ROADMAP.md A.7).
 
 ``model_flops_per_chip`` is the classic parameter-math lower bound:
 6·N·D for training (forward + backward), 2·N·D for inference, and for an

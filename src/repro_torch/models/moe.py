@@ -124,7 +124,10 @@ def dispatch(router_w: torch.Tensor, xf: torch.Tensor, cfg: ModelConfig):
     gates, idx, probs = route(router_w, xf, k)
     C = capacity(cfg, T_)
     flat_idx = idx.reshape(-1)
-    pos = torch.cumsum(F.one_hot(flat_idx, E), dim=0, dtype=torch.int32) - 1  # within expert
+    # the one-hot as a comparison, as the reference's: F.one_hot reads the
+    # indices' bounds to the host on the CPU
+    onehot = flat_idx[:, None] == torch.arange(E, device=flat_idx.device)
+    pos = torch.cumsum(onehot, dim=0, dtype=torch.int32) - 1  # within expert
     pos = torch.gather(pos, 1, flat_idx[:, None])[:, 0].long()
     keep = pos < C
     pos = torch.where(keep, pos, torch.zeros_like(pos))
@@ -148,6 +151,16 @@ def expert_ffn(ew: Params, disp: torch.Tensor, masks: Optional[Params] = None) -
     return masked_matmul_batched(F.silu(gate_h) * up_h, ew["w_down"], masks["w_down"])
 
 
+def expert_counts(idx: torch.Tensor, E: int) -> torch.Tensor:
+    """The number of assignments of each of the E experts, in f32, as the
+    reference's scatter-add of ones (exact integers). ``torch.bincount``
+    would give the same numbers, but its output size depends on the data,
+    so on the card it reads the largest index to the host."""
+    flat = idx.reshape(-1)
+    ones = torch.ones(flat.shape, dtype=torch.float32, device=flat.device)
+    return torch.zeros(E, dtype=torch.float32, device=flat.device).index_add_(0, flat, ones)
+
+
 def _dispatch_group(p: Params, xf: torch.Tensor, cfg: ModelConfig,
                     masks: Optional[Params] = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Route, dispatch and combine one token group. xf (T, d) -> (out, aux)."""
@@ -157,7 +170,7 @@ def _dispatch_group(p: Params, xf: torch.Tensor, cfg: ModelConfig,
 
     # load-balance auxiliary loss (Switch-style)
     me = probs.mean(dim=0)
-    ce = torch.bincount(idx.reshape(-1), minlength=E).float() / (T_ * k)
+    ce = expert_counts(idx, E) / (T_ * k)
     aux = E * torch.sum(me * ce)
 
     eout = expert_ffn(p["experts"], disp, (masks or {}).get("experts"))

@@ -92,6 +92,7 @@ class Server:
         outs: List[List[int]] = [[] for _ in range(B)]
         tok = self._sample(logits, gen)
         for _ in range(max_new):
+            # obs: sync-ok (the host hands the sampled tokens back)
             for i, t in enumerate(tok.tolist()):
                 outs[i].append(t)
             logits, state = self._decode(self.params, tok[:, None], state)
@@ -143,6 +144,7 @@ class Server:
                         sum(1 for a in active if a is not None) / self.B)
                 logits, state = self._decode(self.params, last_tok, state)
                 tok = self._sample(logits, gen)
+                # obs: sync-ok (the host needs the sampled token to retire requests)
                 for slot, t in enumerate(tok.tolist()):
                     req = active[slot]
                     if req is None:

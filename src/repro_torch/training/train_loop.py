@@ -123,10 +123,12 @@ class Trainer:
                     params, opt_state, batch, err_state)
                 OM.counter("train/steps").inc()
                 if step % self.log_every == 0:
+                    # obs: sync-ok (log_every is the user's sync-cadence knob)
                     loss = float(metrics["loss"])
                     history.append((step, loss))
                     if OM.enabled():
                         OM.series("train/loss").append(loss, step=step)
+                        # obs: sync-ok (the same cadence)
                         OM.series("train/grad_norm").append(float(metrics["grad_norm"]),
                                                             step=step)
                 if self.ckpt_dir and (step + 1) % self.ckpt_every == 0:
