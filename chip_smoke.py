@@ -49,6 +49,11 @@ memory projections through the masked GEMM at M = 2048), then the
 teacher-forced check and greedy serving at the model level; then
 tiny_encdec (with the baselines) on the card against the CPU. The
 ``masked_matmul_encdec`` phase and the attention phases hold its shapes.
+The ``mesh`` phase runs the EBFT walk on a mesh of ranks (``MeshPlan``,
+``core/ebft.py``) at Llama-7B's widths (2 layers, f32): one process, a
+one-rank nccl check of the inactive plans, then a 2 × 1 and a 1 × 2 mesh
+of gloo ranks on the one card, each held to the one process's per-block
+losses with its kernels launched on every rank's local shards.
 Every path above runs with the tile autotuner off (``kernel_tune="off"``),
 on the default tiles. The ``tuning`` phase (last) holds every compiled
 instantiation's launch plan (``kernels/validation.py``) to the compiled
@@ -2055,7 +2060,7 @@ def phase_checkpoint(dense):
         shutil.rmtree(root, ignore_errors=True)
 
 
-def phase_train_obs(cfg, steps=20):
+def phase_train_obs(cfg, steps=10):
     """``launch/train``'s ``run`` at the main path's width and depth (AdamW
     at lr 3e-3 on batches of PRETRAIN_BATCH x 2048 tokens, from the seeded
     init) with obs off, on, on, off: seconds per step over the whole of
@@ -2738,7 +2743,7 @@ BLOCK_KINDS = {"dense": (7, 0, 1, 4, 0), "moe": (7, 3, 1, 4, 3), "shared": (7, 0
 # LoRA on the SSM and hybrid paths: steps at batch 4 x 2048 (the driver's
 # 200 steps at batch 8 would double the script's time, and Zamba2 at batch
 # 8 in one microbatch does not fit the card), lr 1e-3 as the driver's
-FAM_LORA = dict(steps=20, batch=4, lr=1e-3)
+FAM_LORA = dict(steps=10, batch=4, lr=1e-3)  # 10 steps: the mesh phase's time (PERF.md §4)
 
 
 def _visit_kinds(model):
@@ -4624,6 +4629,287 @@ def _default_tiles(name: str) -> dict:
     return V.plan_masked_matmul(name, 256, 256, 256, E=2 if "batched" in name else 1).tiles
 
 
+# ---------------------------------------------------------------------------
+# the EBFT walk on a mesh of ranks (core/ebft.py with an active MeshPlan)
+# ---------------------------------------------------------------------------
+# Llama-7B's widths at 2 layers in f32 (the kernels' f32 routes), 16
+# segments of 2048 in microbatches of 8, 2 EBFT epochs; magnitude 0.5
+MESH = dict(arch="llama_7b", layers=2, seq=2048, calib=16, microbatch=8, epochs=2, lr=2e-4,
+            sparsity=0.5)
+MESH_SHAPES = ((2, 1), (1, 2))  # (data, model): 2 ranks each, all on the one card
+MESH_KERNELS = ("masked_matmul", "masked_matmul_dx", "masked_matmul_dw", "flash_attention",
+                "flash_attention_bwd")
+MESH_RTOL, MESH_ATOL = 2e-3, 1e-5  # the reference's own (tests/test_mesh_ebft.py)
+
+
+def _mesh_setup(device, layers, conf=MESH):
+    """The mesh phase's model, weights (seeded on ``device``), magnitude
+    masks and calibration segments; every rank builds the same bits."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.masks import prune
+    from repro_torch.data.tokens import CorpusConfig, SyntheticCorpus, calibration_set
+    from repro_torch.models.model import build
+
+    cfg = get_config(conf["arch"]).replace(num_layers=layers, dtype="float32",
+                                           param_dtype="float32", attn_impl="flash")
+    model = build(cfg)
+    params = model.init(torch.Generator(device=device).manual_seed(0))
+    calib = calibration_set(SyntheticCorpus(CorpusConfig(vocab_size=cfg.vocab_size, seed=0)),
+                            conf["calib"], conf["seq"])
+    masks, pruned = prune(model, params, np.asarray(calib), method="magnitude",
+                          sparsity=conf["sparsity"])
+    return model, params, pruned, masks, calib
+
+
+def _mesh_ecfg(plan=None, conf=MESH):
+    from repro_torch.core import ebft
+
+    return ebft.EBFTConfig(lr=conf["lr"], epochs=conf["epochs"], microbatch=conf["microbatch"],
+                           mesh_plan=plan)
+
+
+def mesh_rank():
+    """One rank of the ``mesh`` phase (``RANK``, ``WORLD_SIZE``,
+    ``MESH_STORE``, ``MESH_SHAPE`` "data,model", ``MESH_GO``,
+    ``MESH_OUT``, ``MESH_DEVICE`` in the environment): a gloo group over a
+    file store, every rank on the one card; once the file ``MESH_GO``
+    exists, EBFT on that mesh, its kernels' launches and masked-matmul
+    shapes counted on this rank. Writes ``<data>x<model>_rank<r>.json``
+    into ``MESH_OUT``."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch import tree as T
+    from repro_torch.core import ebft
+    from repro_torch.kernels.masked_matmul import ops as MM
+    from repro_torch.launch.mesh import make_ebft_plan
+
+    rank, world = int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"])
+    device = os.environ.get("MESH_DEVICE", "cuda")
+    conf = json.loads(os.environ.get("MESH_CONF", json.dumps(MESH)))
+    if device == "cuda":
+        torch.cuda.set_device(0)
+        torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_process_group("gloo", init_method="file://" + os.environ["MESH_STORE"],
+                            rank=rank, world_size=world)
+    # started ahead of their turn: the card is theirs once the parent says so
+    deadline = time.perf_counter() + 900
+    while not os.path.exists(os.environ["MESH_GO"]):
+        if time.perf_counter() > deadline:
+            raise TimeoutError("mesh: the parent never let the ranks start")
+        time.sleep(0.1)
+    t0 = time.perf_counter()
+    model, params, pruned, masks, calib = _mesh_setup(device, conf["layers"], conf)
+    out = {"setup_s": time.perf_counter() - t0}
+    shapes = set()
+    call = MM._call
+
+    def spy(fn, a, b, c, tiles=None, **kw):
+        shapes.add((fn, tuple(a.shape), tuple(b.shape)))
+        return call(fn, a, b, c, tiles, **kw)
+
+    MM._call = spy
+    data, model_axis = (int(x) for x in os.environ["MESH_SHAPE"].split(","))
+    plan = make_ebft_plan(data, model_axis, device_type=device)
+    reset_counts()
+    _sync(device)
+    t0 = time.perf_counter()
+    tuned, reports = ebft.finetune(model, params, pruned, masks, calib, _mesh_ecfg(plan, conf))
+    _sync(device)
+    out.update(
+        seconds=time.perf_counter() - t0, devices=plan.device_count, describe=plan.describe(),
+        launches=read_counts(), reports=[r.asdict() for r in reports],
+        whole=all(type(t) is torch.Tensor for t in T.tensors(tuned)),
+        tuned={"/".join(p): t.double().sum().item() for p, t in T.leaves_with_path(tuned)},
+        masked_shapes=sorted(shapes))
+    MM._call = call
+    with open(os.path.join(os.environ["MESH_OUT"], f"{data}x{model_axis}_rank{rank}.json"),
+              "w") as f:
+        json.dump(out, f)
+    dist.destroy_process_group()
+
+
+def _sync(device):
+    import torch
+
+    if device == "cuda":
+        torch.cuda.synchronize()
+
+
+def _nccl_one_rank(device, conf=MESH):
+    """A one-rank group (nccl on the card): ``make_ebft_plan(1, 1)`` and a
+    ``MeshPlan`` on a 1 × 1 ``DeviceMesh`` must give the bits of
+    ``mesh_plan=None`` on one layer (one segment)."""
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch import tree as T
+    from repro_torch.core import ebft
+    from repro_torch.distributed.meshplan import MeshPlan
+    from repro_torch.launch.mesh import make_debug_mesh, make_ebft_plan
+
+    t0 = time.perf_counter()
+    store = tempfile.mkdtemp(prefix="mesh_nccl_")
+    backend = "nccl" if device == "cuda" else "gloo"
+    dist.init_process_group(backend, init_method=f"file://{store}/store", rank=0, world_size=1)
+    try:
+        model, params, pruned, masks, calib = _mesh_setup(device, 1, conf)
+        calib = calib[:1]
+        plans = {"none": None, "make_ebft_plan(1, 1)": make_ebft_plan(1, 1, device_type=device),
+                 "DeviceMesh 1x1": MeshPlan.from_mesh(make_debug_mesh(1, 1, device))}
+        runs = {k: ebft.finetune(model, params, pruned, masks, calib, _mesh_ecfg(p, conf))
+                for k, p in plans.items()}
+    finally:
+        dist.destroy_process_group()
+    base_w, base_r = runs["none"]
+    for name, (w, r) in runs.items():
+        if plans[name] is not None and plans[name].active:
+            raise AssertionError(f"mesh: {name} is an active plan on one rank")
+        if [x.asdict() for x in r] != [x.asdict() for x in base_r] or not all(
+                torch.equal(t, T.get_path(base_w, p)) for p, t in T.leaves_with_path(w)):
+            raise AssertionError(f"mesh: {name} on a one-rank {backend} group is not the bits "
+                                 "of mesh_plan=None")
+    return dict(backend=backend, plans=list(plans), bits_equal=True,
+                seconds=time.perf_counter() - t0)
+
+
+def phase_mesh(walls, device="cuda", conf=MESH):
+    """EBFT on a mesh of ranks at Llama-7B's widths (``MESH``): one process
+    first (the reference run), then the one-rank nccl check
+    (``_nccl_one_rank``), then a 2 × 1 (data) and a 1 × 2 (model: 16
+    heads and 5504 ff columns a rank) mesh, each two gloo ranks of its own
+    group, all four on the one card at once (nccl takes one rank a GPU).
+    Each mesh's wall is so taken under the other's load. Each mesh's
+    per-block loss histories must equal one process's within rtol 2e-3,
+    atol 1e-5 (the reference
+    test's); every rank returns the same whole tensors; each rank launches
+    the masked matmul (forward, dX, dW) and the attention (forward,
+    backward) on its local shards, counted from 0 for each mesh; the
+    accounting holds (device dispatches, collective bytes on the data
+    axis, per-shard live bytes below the whole on the model axis)."""
+    import tempfile
+
+    import torch
+
+    from repro_torch.core import ebft
+
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="mesh_ranks_")
+    world = 2
+    env = dict(os.environ, WORLD_SIZE=str(world), PYTHONFAULTHANDLER="1", MESH_OUT=tmp,
+               MESH_DEVICE=device, MESH_CONF=json.dumps(conf),
+               PYTHONPATH=os.pathsep.join([ROOT, os.path.join(ROOT, "src")]))
+    # each mesh is a group of its own, all started now (imports, the card,
+    # the group); the first mesh runs beside this process's own pass, the
+    # second after the first (four sets of weights and activations at once
+    # do not fit the card's 80 GB), each on its go file
+    keys = [f"{d}x{m}" for d, m in MESH_SHAPES]
+    jobs = [(key, r) for key in keys for r in range(world)]
+    go = {key: os.path.join(tmp, f"{key}.go") for key in keys}
+    logs = [open(os.path.join(tmp, f"{key}_rank{r}.log"), "w") for key, r in jobs]
+    procs = [subprocess.Popen([sys.executable, "-c", "import chip_smoke; chip_smoke.mesh_rank()"],
+                              env=dict(env, RANK=str(r), MESH_SHAPE=key.replace("x", ","),
+                                       MESH_STORE=os.path.join(tmp, f"{key}.store"),
+                                       MESH_GO=go[key]),
+                              cwd=ROOT, stdout=log, stderr=subprocess.STDOUT)
+             for (key, r), log in zip(jobs, logs)]
+    ranks_s = {}
+    try:
+        t_mesh = time.perf_counter()
+        open(go[keys[0]], "w").close()
+        model, params, pruned, masks, calib = _mesh_setup(device, conf["layers"], conf)
+        reset_counts()
+        _sync(device)
+        t0 = time.perf_counter()
+        _, single = ebft.finetune(model, params, pruned, masks, calib, _mesh_ecfg(None, conf))
+        _sync(device)
+        single_s = time.perf_counter() - t0
+        single_launches = read_counts()
+        del model, params, pruned, masks
+        if device == "cuda":
+            torch.cuda.empty_cache()
+        one_rank = _nccl_one_rank(device, conf)
+        if device == "cuda":
+            torch.cuda.empty_cache()
+        for (key, _), p in zip(jobs, procs):
+            if key == keys[1] and not os.path.exists(go[key]):
+                ranks_s[keys[0]] = time.perf_counter() - t_mesh
+                t_mesh = time.perf_counter()
+                open(go[key], "w").close()
+            p.wait(timeout=600)
+        ranks_s[keys[1]] = time.perf_counter() - t_mesh
+    finally:
+        for p, log in zip(procs, logs):
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+            log.close()
+    if any(p.returncode != 0 for p in procs):
+        tails = [open(os.path.join(tmp, f"{key}_rank{r}.log")).read()[-3000:] for key, r in jobs]
+        raise AssertionError(f"mesh: ranks exit {[p.returncode for p in procs]}\n" +
+                             "\n".join(tails))
+    by_mesh = {}
+    for key, r in jobs:
+        by_mesh.setdefault(key, []).append(
+            json.load(open(os.path.join(tmp, f"{key}_rank{r}.json"))))
+
+    hist = [r.history for r in single]
+    meshes = {}
+    for data, model_axis in MESH_SHAPES:
+        key = f"{data}x{model_axis}"
+        ranks = by_mesh[key]
+        rec = ranks[0]
+        reps = rec["reports"]
+        if len(reps) != len(single):
+            raise AssertionError(f"mesh {key}: {len(reps)} reports, one process {len(single)}")
+        rel = 0.0
+        for rs, rm in zip(single, reps):
+            if (rm["epochs_run"], rm["early_stop"]) != (rs.epochs_run, rs.early_stop):
+                raise AssertionError(f"mesh {key}: block {rm['index']} stopped otherwise")
+            a, b = torch.tensor(rm["history"], dtype=torch.float64), \
+                torch.tensor(rs.history, dtype=torch.float64)
+            if not torch.allclose(a, b, rtol=MESH_RTOL, atol=MESH_ATOL):
+                raise AssertionError(f"mesh {key}: block {rm['index']} history {rm['history']} "
+                                     f"against one process's {rs.history}")
+            rel = max(rel, float(((a - b).abs() / b.abs()).max()))
+            if rm["device_dispatches"] != rm["dispatches"] * rec["devices"]:
+                raise AssertionError(f"mesh {key}: device dispatches {rm['device_dispatches']}")
+        for r in ranks:
+            if not r["whole"] or r["tuned"] != rec["tuned"] or r["reports"] != reps:
+                raise AssertionError(f"mesh {key}: the ranks' results differ")
+            missing = [k for k in MESH_KERNELS if r["launches"][k] == 0]
+            if missing and device == "cuda":  # a CPU rehearsal runs the plain versions
+                raise AssertionError(f"mesh {key}: a rank launched no {missing}")
+        coll = sum(r["collective_bytes"] for r in reps)
+        live = max(r["live_bytes"] for r in reps)
+        shard = max(r["live_bytes_per_shard"] for r in reps)
+        if data > 1 and coll <= 0:
+            raise AssertionError(f"mesh {key}: no collective bytes on a data axis of {data}")
+        if (model_axis > 1) != (shard < live):
+            raise AssertionError(f"mesh {key}: live bytes a shard {shard} of {live}")
+        rows = {a[0] for _, a, _ in rec["masked_shapes"]}
+        dw = sorted({(tuple(a), tuple(b)) for fn, a, b in rec["masked_shapes"]
+                     if fn == "masked_matmul_dw"})
+        meshes[key] = dict(seconds=[r["seconds"] for r in ranks],
+                           setup_s=[r["setup_s"] for r in ranks], max_rel=rel,
+                           collective_bytes=coll, live_bytes=live,
+                           live_bytes_per_shard=shard,
+                           launches=[{k: r["launches"][k] for k in MESH_KERNELS}
+                                     for r in ranks],
+                           masked_rows=sorted(rows), tune_dw_shapes=dw,
+                           histories=[r["history"] for r in reps])
+    walls["mesh"] = time.perf_counter() - t_phase
+    emit(dict(phase="mesh", conf=conf, single_s=single_s, single_histories=hist,
+              single_launches={k: single_launches[k] for k in MESH_KERNELS},
+              one_rank=one_rank, ranks_s=ranks_s, meshes=meshes,
+              seconds_phase=walls["mesh"]))
+
+
 def main() -> int:
     # cuBLAS picks its workspace per stream; a fixed configuration makes a
     # product repeat bit for bit, which the resumed training run relies on.
@@ -4771,6 +5057,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     # the encoder-decoder family's path and tiny_encdec
     enc_launches, enc_pre_launches = phase_encdec(walls)
+    torch.cuda.empty_cache()
+    # the EBFT walk on a mesh of ranks: two gloo ranks on the one card
+    phase_mesh(walls)
     torch.cuda.empty_cache()
     # the launch plans and the tile autotuner (every path above ran with it off)
     phase_tuning(g, walls)

@@ -13,9 +13,10 @@ Six passes, one report (``python -m repro_torch.analysis``):
     contraction, plus concrete N:M mask-tree validation (MSK0xx);
   * ``graph``    — lint of the traced EBFT tune step and serving decode
     step: silent widenings, host reads, cast round-trips (LNT0xx);
-  * ``sharding`` — config arithmetic (CFG0xx); the reference's
-    PartitionSpec and HLO checks wait for the distributed layer
-    (ROADMAP.md A.8) or have no counterpart (the port compiles no HLO);
+  * ``sharding`` — config arithmetic (CFG0xx), then the sharding rules
+    on the production 16 × 16 mesh, leaf by leaf, and the EBFT walk's
+    ``MeshPlan`` layouts (SHD0xx); the reference's HLO checks have no
+    counterpart (the port compiles no HLO);
   * ``source_lint`` — config-independent source hygiene: ``print()`` in
     hot-path packages, non-monotonic ``time.time()`` anywhere in
     ``src/repro_torch``, and host reads inside hot loops must go through

@@ -17,7 +17,9 @@ from typing import Dict, List, Tuple
 import torch
 
 from repro_torch import tree as T
-from repro_torch.analysis.config_check import check_model_config
+from repro_torch.analysis.config_check import (
+    check_ebft_mesh_plan, check_model_config, check_sharding,
+)
 from repro_torch.analysis.findings import Finding
 from repro_torch.analysis.graph_lint import lint_graph
 from repro_torch.analysis.graph_utils import trace
@@ -117,9 +119,13 @@ def run_kernel_pass(name: str, cfg: ModelConfig, smoke: ModelConfig) -> List[Fin
 
 
 def run_sharding_pass(name: str, cfg: ModelConfig, smoke: ModelConfig) -> List[Finding]:
-    """CFG001–007; the SHD rules wait for the distributed layer (ROADMAP.md
-    A.8)."""
-    return check_model_config(name, cfg)
+    """CFG001–007, then (when the config math holds) SHD001–004 on the
+    16 × 16 production mesh and the EBFT walk's layouts (SHD005)."""
+    findings = check_model_config(name, cfg)
+    if not any(f.severity == "error" for f in findings):
+        findings += check_sharding(name, cfg, multi_pod=False)
+        findings += check_ebft_mesh_plan(name, cfg)
+    return findings
 
 
 def run_mask_pass(name: str, cfg: ModelConfig, smoke: ModelConfig) -> List[Finding]:

@@ -23,7 +23,7 @@ not share their storage) and writes in a background thread; ``wait_all``
 joins the writers and raises the first error one of them met. A crash
 mid-write leaves only a ``.tmp`` directory, which ``latest_step`` ignores
 and the next save of that step removes. Restoring onto a mesh
-(``shardings``) waits for the distributed port (ROADMAP.md A.8).
+(``shardings``) waits for the sharded steps (ROADMAP.md A.8c).
 """
 from __future__ import annotations
 

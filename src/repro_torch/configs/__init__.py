@@ -4,7 +4,7 @@ A copy of the JAX package's registry, with every configuration of every
 family: the dense family (the paper's own Llama-7B, its tiny test
 variant, Qwen1.5-4B, Nemotron-4-15B, Qwen2.5-32B and Qwen1.5-110B), the
 MoE family (DeepSeek-MoE-16B, its tiny variant, and Kimi-K2, whose full
-width waits for the distributed port, ROADMAP.md A.8), the SSM family
+width waits for the sharded steps, ROADMAP.md A.8c), the SSM family
 (Mamba2-130M, tiny_ssm), the hybrid (Zamba2-1.2B, tiny_hybrid), the
 VLM (LLaVA-NeXT-Mistral-7B, tiny_vlm) and the encoder-decoder
 (Seamless-M4T-medium, tiny_encdec). Each module exposes ``CONFIG``

@@ -27,6 +27,26 @@ None, so the student stream at later sites runs the untuned sparse shared
 block; after the walk ``tune_block`` runs on every site's microbatches
 together, its report comes last and its weights are set back.
 
+On a mesh (``EBFTConfig.mesh_plan`` an active
+:class:`~repro_torch.distributed.meshplan.MeshPlan`, ranks started under
+``torchrun``) the same loop runs SPMD over DTensors: each microbatch of
+the teacher and student streams is sharded on its batch dim over the
+data axes (``walk_blocks``), the live block's weights and masks over
+"model" by ``plan.block_pspecs`` (Adam's moments follow their weights),
+and every kernel runs on its rank's local shards
+(``distributed.local_kernels``). The reference shards its fused scan,
+whose gradient all-reduce GSPMD inserts; here each step's gradients are
+summed over the data axes explicitly, redistributed to their weights'
+placements before the update. The losses are global means, so every
+rank takes the same early-stop decision. The tuned block is gathered
+whole on every rank, so everything after EBFT is unchanged. The report
+books the reference's accounting: ``device_dispatches`` = dispatches ×
+devices, ``collective_bytes`` = epochs × microbatches ×
+``plan.allreduce_bytes(live_bytes(block))`` and ``live_bytes_per_shard``
+from ``plan.sharded_bytes``. The dense family runs on a mesh; an
+active plan on any other family raises (ROADMAP.md A.8e). An inactive
+plan (``make_ebft_plan(1, 1)``) is the single-device path bit for bit.
+
 Observability, at the reference's call sites and names: ``finetune``
 opens ``ebft/walk`` (``fused=False``, ``prefetch_depth=0``) and
 ``tune_block`` opens ``ebft/block``, books the ``ebft/live_block_bytes``
@@ -47,9 +67,13 @@ import torch
 from repro_torch import tree as T
 from repro_torch.core import reconstruction as R
 from repro_torch.core.pruning import common as C
+from repro_torch.distributed import local_kernels as LK
+from repro_torch.distributed import sharding as SH
+from repro_torch.distributed.meshplan import MeshPlan
 from repro_torch.obs import metrics as OM
 from repro_torch.obs import trace as OT
-from repro_torch.obs.profile import DispatchLedger, FirstCallTimer, ebft_live_block_bytes
+from repro_torch.obs.profile import (DispatchLedger, FirstCallTimer, ebft_live_block_bytes,
+                                     live_bytes)
 from repro_torch.optim.optimizers import adam, apply_updates
 from repro_torch.optim.schedules import plateau_early_stop
 from repro_torch.sparsity.sparse_params import apply_masks
@@ -59,8 +83,8 @@ Params = Any
 
 @dataclasses.dataclass
 class EBFTConfig:
-    """The reference's fields that the port reads, with its defaults. A
-    ``mesh_plan`` is refused (distribution is ROADMAP.md queue A.8)."""
+    """The reference's fields that the port reads, with its defaults.
+    ``mesh_plan`` is a ``MeshPlan`` or None (one device)."""
 
     lr: float = 2e-4
     epochs: int = 10          # paper: T = 10
@@ -72,14 +96,15 @@ class EBFTConfig:
 
 @dataclasses.dataclass
 class BlockReport:
-    """The reference's fields, on one device. ``path`` is always "legacy"
-    (the per-epoch loop). ``dispatches`` counts the loop's steps as the
-    reference's legacy ledger does (a loss evaluation or a training step
-    per microbatch, one reduction per pass, the final masking);
+    """The reference's fields. ``path`` is always "legacy" (the per-epoch
+    loop). ``dispatches`` counts the loop's steps as the reference's
+    legacy ledger does (a loss evaluation or a training step per
+    microbatch, one reduction per pass, the final masking);
     ``host_syncs`` the scalars it reads back (two means and one per
     epoch). On one device ``device_dispatches`` equals ``dispatches``,
     ``live_bytes_per_shard`` equals ``live_bytes`` and
-    ``collective_bytes`` is 0."""
+    ``collective_bytes`` is 0; on a mesh they follow the plan (the module
+    docstring)."""
 
     index: int
     kind: str
@@ -98,6 +123,19 @@ class BlockReport:
 
     def asdict(self) -> Dict[str, Any]:
         return dataclasses.asdict(self)
+
+
+def _global_loss(loss: torch.Tensor) -> torch.Tensor:
+    """A loss as one plain scalar on every rank (a DTensor's mean over the
+    data-sharded rows is summed across them; a plain loss passes)."""
+    return loss.full_tensor() if LK.any_dtensor(loss) else loss
+
+
+def _reduce_grads(grads, leaves):
+    """Each gradient in its weight's placements. A weight replicated over
+    the data axes gets a partial sum from each rank's rows (``Partial``),
+    which this all-reduces; the gradient the reference's GSPMD sums."""
+    return [g.redistribute(w.device_mesh, w.placements) for g, w in zip(grads, leaves)]
 
 
 def _loss_and_grads(model, i: int, bw, leaves, mask_bp, h, target, pos, aux=None):
@@ -119,16 +157,23 @@ def tune_block(model, i: int, bp: Params, mask_bp: Params, data: List[Tuple],
     if kind not in step_cache:
         step_cache[kind] = (FirstCallTimer(R.block_loss), FirstCallTimer(_loss_and_grads))
     eval_loss, step = step_cache[kind]
-    bw = T.tree_map(lambda t: t.detach().clone().requires_grad_(True), bp)
+    plan = ecfg.mesh_plan
+    sharded = plan is not None and plan.active
+    if sharded:  # the block's weights and masks over "model"
+        bw = T.tree_map(lambda t: t.detach().clone().requires_grad_(True),
+                        plan.put_block(T.tree_map(lambda t: t.detach(), bp)))
+        mask_bp = plan.put_block(mask_bp)
+    else:
+        bw = T.tree_map(lambda t: t.detach().clone().requires_grad_(True), bp)
     leaves = [t for _, t in T.leaves_with_path(bw)]
     opt = adam(ecfg.lr)
     n_mb = len(data)
-    ledger = DispatchLedger("ebft/tune")
+    ledger = DispatchLedger("ebft/tune", devices=plan.device_count if sharded else 1)
 
     with OT.span("ebft/block", index=i, kind=kind) as sp:
         def eval_mean() -> float:
             with torch.no_grad():
-                losses = [eval_loss(model, i, bw, mask_bp, *mb) for mb in data]
+                losses = [_global_loss(eval_loss(model, i, bw, mask_bp, *mb)) for mb in data]
             ledger.dispatch(n_mb + 1)
             ledger.host_sync()
             return float(torch.stack(losses).mean())
@@ -142,10 +187,12 @@ def tune_block(model, i: int, bp: Params, mask_bp: Params, data: List[Tuple],
             losses = []
             for mb in data:
                 loss, grads = step(model, i, bw, leaves, mask_bp, *mb)
+                if sharded:
+                    grads = _reduce_grads(grads, leaves)
                 it = iter(grads)
                 updates, state = opt.update(T.tree_map(lambda _: next(it), bw), state, bw)
                 apply_updates(bw, updates)
-                losses.append(loss.detach())
+                losses.append(_global_loss(loss.detach()))
             ledger.dispatch(n_mb + 1)
             ledger.host_sync()
             epochs_run += 1
@@ -161,12 +208,24 @@ def tune_block(model, i: int, bp: Params, mask_bp: Params, data: List[Tuple],
         # the streaming claim, measured: only this block's weights, masks
         # and Adam moments are optimizer-live now
         live = ebft_live_block_bytes(tuned, mask_bp)
+        live_shard, collective = live, 0
+        if sharded:
+            moments = T.tree_map(lambda t: SH.ShapeLeaf(t.shape, torch.float32), tuned)
+            live_shard = (plan.sharded_bytes(tuned) + plan.sharded_bytes(mask_bp)
+                          + 2 * plan.sharded_bytes(moments))
+            # one all-reduce of the block's gradients per optimizer step (ring)
+            collective = epochs_run * n_mb * plan.allreduce_bytes(live_bytes(tuned))
+            tuned = plan.gather(tuned)
         report = BlockReport(
             i, kind, epochs_run, before, after, early_stop, history, live, "legacy",
-            ledger.dispatches, ledger.host_syncs, ledger.device_dispatches, live, 0)
+            ledger.dispatches, ledger.host_syncs, ledger.device_dispatches, live_shard,
+            collective)
         if OT.enabled():
             OM.gauge("ebft/live_block_bytes").set(live)  # summary max = peak
-            OM.gauge("ebft/live_block_bytes_per_shard").set(live)
+            OM.gauge("ebft/live_block_bytes_per_shard").set(live_shard)
+            if collective:
+                OM.counter("ebft/collective_bytes").inc(collective)
+                OM.gauge("ebft/collective_bytes_per_block").set(collective)
             OM.series("ebft/loss_before").append(before, step=i)
             OM.series("ebft/loss_after").append(after, step=i)
             OM.series("ebft/epochs_run").append(epochs_run, step=i)
@@ -194,11 +253,18 @@ def finetune(model, dense_params: Params, pruned_params: Params, masks: Params,
     fresh tree, ``apply_masks(pruned_params, masks)``, so neither input
     tree is written."""
     ecfg = ecfg or EBFTConfig()
-    if ecfg.mesh_plan is not None:
-        raise NotImplementedError("EBFT over a device mesh is not ported yet "
-                                  "(ROADMAP.md queue A.8)")
+    plan = ecfg.mesh_plan
+    if plan is not None and not isinstance(plan, MeshPlan):
+        raise TypeError(f"EBFTConfig.mesh_plan must be a MeshPlan or None, got "
+                        f"{type(plan).__name__}")
+    sharded = plan is not None and plan.active
+    if sharded and model.cfg.family != "dense":
+        raise NotImplementedError(
+            f"EBFT on a mesh holds the dense family only; the {model.cfg.family} family "
+            "on a mesh is not ported yet (ROADMAP.md A.8e)")
     with OT.span("ebft/walk", epochs=ecfg.epochs, lr=ecfg.lr, microbatch=ecfg.microbatch,
-                 fused=False, prefetch_depth=0, mesh_devices=1):
+                 fused=False, prefetch_depth=0,
+                 mesh_devices=plan.device_count if sharded else 1):
         student = apply_masks(pruned_params, masks)
         reports: List[BlockReport] = []
         step_cache: Dict = {}
@@ -220,7 +286,7 @@ def finetune(model, dense_params: Params, pruned_params: Params, masks: Params,
 
         result = C.walk_blocks(model, dense_params, calib, visit, microbatch=ecfg.microbatch,
                                extra_batch=extra_batch, params_student=student, masks=masks,
-                               dual_stream=True)
+                               dual_stream=True, mesh_plan=plan)
         if shared_sites:
             # tune_block trains clones of the live leaves get_block returns
             tuned, rep = tune_block(model, shared_idx, model.get_block(result, shared_idx),

@@ -160,7 +160,7 @@ def _aux_kw(aux: Dict) -> Dict:
 
 def walk_blocks(model, params, calib: np.ndarray, visit_fn: Callable, microbatch: int = 8,
                 extra_batch: Optional[Dict] = None, params_student=None, masks=None,
-                dual_stream: bool = False):
+                dual_stream: bool = False, mesh_plan=None):
     """Block-by-block calibration walk over per-microbatch lists.
 
     Single-stream mode (the pruning methods, Wanda/SparseGPT convention):
@@ -216,7 +216,29 @@ def walk_blocks(model, params, calib: np.ndarray, visit_fn: Callable, microbatch
     aux counts one more per microbatch and stream. The
     reference's ``ebft/walk/prefetch_inflight`` gauge has no counterpart
     (no prefetcher).
+
+    With an active ``mesh_plan`` (EBFT on a mesh, ``core/ebft.py``) each
+    microbatch of both streams is sharded on its batch dim over the data
+    axes when its segment starts (``plan.put_stacked``); the advances run
+    SPMD on those shards, with the blocks' weights whole on every rank,
+    under the plan's activation policy (``act_sharding``) and DTensor's
+    implicit replication of plain tensors. ``visit_fn`` returns whole
+    tensors.
     """
+    if mesh_plan is not None and mesh_plan.active:
+        from torch.distributed.tensor.experimental import implicit_replication
+
+        from repro_torch.distributed import act_sharding as AS
+
+        with implicit_replication(), AS.policy(AS.make_mesh_policy(mesh_plan.mesh)):
+            return _walk(model, params, calib, visit_fn, microbatch, extra_batch,
+                         params_student, masks, dual_stream, mesh_plan.put_stacked)
+    return _walk(model, params, calib, visit_fn, microbatch, extra_batch, params_student,
+                 masks, dual_stream, lambda x: x)
+
+
+def _walk(model, params, calib, visit_fn, microbatch, extra_batch, params_student, masks,
+          dual_stream, put_stream):
     out_params = params_student if params_student is not None else params
     if dual_stream and out_params is params:
         raise ValueError("walk_blocks: the dual-stream walk needs a student tree of its own "
@@ -242,6 +264,8 @@ def walk_blocks(model, params, calib: np.ndarray, visit_fn: Callable, microbatch
                 aux_t = [seg.aux(params, b) for b in batch_all]
                 aux_s = [seg.aux(out_params, b, masks) for b in batch_all] if dual_stream \
                     else aux_t
+            hs_mb = [put_stream(h) for h in hs_mb]
+            ht_mb = [put_stream(h) for h in ht_mb]
         if dual_stream:
             ledger.dispatch((2 if seg.aux is None else 4) * len(batch_all))
         clock.take()  # segment setup is not a phase

@@ -32,6 +32,7 @@ import math
 
 import torch
 
+from repro_torch.distributed import local_kernels as LK
 from repro_torch.kernels import _build, tuning
 from repro_torch.kernels import validation as V
 from repro_torch.kernels.flash_attention.ref import (
@@ -52,7 +53,11 @@ def flash_attention(q, k, v, *, causal: bool = True, q_offset: int = 0,
     """q (BH, Sq, d); k, v (BH, Sk, d). ``q_offset`` is the position of
     q[:, 0] in the key timeline (shifts the causal diagonal). ``tiles``
     (bq, bk) fix the forward's launch plan on the card; without them it
-    resolves through ``kernels.tuning``."""
+    resolves through ``kernels.tuning``. A DTensor raises: attention on a
+    mesh runs through ``models.layers.attend``, which maps its shards."""
+    if LK.any_dtensor(q, k, v):
+        raise TypeError("flash_attention: DTensor operands go through models.layers.attend "
+                        "(distributed.local_kernels.attend)")
     BH, Sq, d = q.shape
     if k.dim() != 3 or k.shape[0] != BH or v.shape != k.shape or k.shape[2] != d:
         raise ValueError(
@@ -244,6 +249,9 @@ def _launch_bwd(q, k, v, o, do, lse, causal: bool, q_offset: int):
 
 def flash_attention_bshd(q, k, v, *, causal: bool = True, q_offset: int = 0, **tiles):
     """q (B, Sq, H, hd); k, v (B, Sk, H, hd), already GQA-repeated."""
+    if LK.any_dtensor(q, k, v):
+        raise TypeError("flash_attention_bshd: DTensor operands go through "
+                        "models.layers.attend (distributed.local_kernels.attend)")
     B, Sq, H, hd = q.shape
     Sk = k.shape[1]
 

@@ -46,6 +46,7 @@ import math
 
 import torch
 
+from repro_torch.distributed import local_kernels as LK
 from repro_torch.kernels import _build, tuning
 from repro_torch.kernels import validation as V
 from repro_torch.obs import trace as OT
@@ -76,7 +77,11 @@ def masked_matmul(x: torch.Tensor, w: torch.Tensor, m: torch.Tensor, **tiles) ->
     may be bool, uint8 or int8 on the card (any dtype on the CPU), or, under
     grad, a 0/1 float tensor that requires grad (a tuned mask: its gradient
     is dM). ``tiles`` (bm, bn, bk) fix the forward's launch plan; without
-    them the card's launch resolves its tiles through ``kernels.tuning``."""
+    them the card's launch resolves its tiles through ``kernels.tuning``.
+    DTensor operands run on their local shards
+    (``distributed.local_kernels``)."""
+    if LK.any_dtensor(x, w, m):
+        return LK.masked_matmul(masked_matmul, x, w, m, **tiles)
     _dims("masked_matmul", x, w, m)
     _on_cpu("masked_matmul", x, w, m)  # checks the devices
     if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad or m.requires_grad):

@@ -58,15 +58,16 @@ def parse(spec_cls, argv: Optional[Sequence[str]], prog: str, description: str,
 def to_manifest(spec, kind: str) -> Dict[str, Any]:
     """The manifest header of the reference's ``RunSpec.to_manifest``:
     ``run_spec`` (``kind`` and every field of the spec) and the flat keys
-    the reference's artifacts carry. The port's EBFT is the per-epoch loop
-    on one device: ``fused_epochs`` False, ``prefetch_depth`` 0, a 1 × 1
-    mesh."""
+    the reference's artifacts carry. The port's EBFT is the per-epoch loop:
+    ``fused_epochs`` False, ``prefetch_depth`` 0; ``mesh`` is the
+    requested (data, model) axes, as the reference's."""
     out: Dict[str, Any] = {"run_spec": {"kind": kind, **dataclasses.asdict(spec)}}
     if kind == "ebft":
         out.update({
             "ebft_lr": spec.lr, "ebft_epochs": spec.epochs,
             "calib_samples": spec.calib_samples, "seq": spec.seq, "seed": spec.seed,
-            "fused_epochs": False, "prefetch_depth": 0, "mesh": {"data": 1, "model": 1},
+            "fused_epochs": False, "prefetch_depth": 0,
+            "mesh": {"data": spec.mesh_data, "model": spec.mesh_model},
         })
     elif kind == "train":
         out.update({"steps": spec.steps, "batch": spec.batch, "seq": spec.seq})

@@ -38,6 +38,19 @@ card then takes its tiles from the cache. ``kernel_tuning`` in the
 artifact holds the mode, the cache path and the hits, misses, searches and
 search seconds; a second run on a warm cache shows no miss.
 
+``--mesh-data`` and ``--mesh-model`` run the EBFT walk on a (data,
+model) mesh of ranks (``launch.mesh.make_ebft_plan``; dense family): one
+process per rank under ``torchrun``, e.g. four gloo ranks on the CPU::
+
+    torchrun --nproc-per-node 4 -m repro_torch.launch.ebft_run --arch tiny_dense \
+        --device cpu --mesh-data 2 --mesh-model 2
+
+(nccl on the card). Every rank runs the whole pipeline; the walk is
+sharded, everything else replicated. Rank 0 alone prints and writes the
+artifact, whose ``mesh`` section is the plan's ``describe()`` with the
+peak per-shard live block bytes and the total collective bytes. The
+default, 1 × 1, is the single-device path bit for bit.
+
 The VLM and encoder-decoder families are refused
 (``launch.api.refuse_frontend_families``): the reference's driver passes
 no patches and no frames.
@@ -63,6 +76,7 @@ from repro_torch.data.tokens import (
 )
 from repro_torch.kernels import tuning
 from repro_torch.launch.api import parse, refuse_frontend_families, start_obs_run
+from repro_torch.launch.mesh import init_from_env, make_ebft_plan
 from repro_torch.models.model import build
 from repro_torch.obs import metrics as OM
 from repro_torch.obs import trace as OT
@@ -103,6 +117,8 @@ class RunSpec:
     obs_jsonl: str = ""
     kernel_tune: str = "cache"  # off | cache | search (kernels.tuning)
     kernel_cache: str = ""      # "" keeps the tuner's path (experiments/kernel_cache_torch.json)
+    mesh_data: int = 1    # the EBFT walk's data axis (0: every rank the model axis leaves)
+    mesh_model: int = 1   # its model axis
 
 
 @dataclasses.dataclass
@@ -129,6 +145,9 @@ class RunResult:
     # the artifact's kernel_tuning section: mode, cache path and the tuner's
     # stats at the run's end (the pre-tune and every launch's resolution)
     kernel_tuning: Dict[str, Any] = dataclasses.field(default_factory=dict)
+    # the EBFT walk's plan (MeshPlan.describe())
+    mesh: Dict[str, Any] = dataclasses.field(
+        default_factory=lambda: {"devices": 1, "axes": {}, "active": False})
 
 
 def _sync(device: torch.device) -> None:
@@ -200,12 +219,13 @@ def pretrain(model, params, corpus, steps: int, batch: int, seq: int, lr: float,
 
 
 def run(cfg: ModelConfig, spec: RunSpec, device=None, params: Optional[Any] = None,
-        on_stage: Optional[Callable[[str], None]] = None) -> RunResult:
+        on_stage: Optional[Callable[[str], None]] = None, mesh_plan=None) -> RunResult:
     """pretrain (``spec.pretrain_steps`` > 0) -> eval_dense -> prune ->
     pruned eval -> EBFT -> tuned eval, then each of ``spec.baselines`` with
     its eval, as the reference's ``ebft_run.py``. ``params`` defaults to
     the port's init seeded with ``spec.seed``; they are not changed.
-    ``on_stage`` is handed to each pretraining step (``make_train_step``)."""
+    ``on_stage`` is handed to each pretraining step (``make_train_step``).
+    ``mesh_plan`` (a ``MeshPlan``; None is one device) is EBFT's."""
     refuse_frontend_families(cfg, "ebft_run")
     wants = set(spec.baselines.split(",")) if spec.baselines else set()
     if wants - set(BASELINES):
@@ -250,7 +270,9 @@ def run(cfg: ModelConfig, spec: RunSpec, device=None, params: Optional[Any] = No
     ppl[spec.method] = perplexity(model, pruned, ev, masks=masks)  # not a phase, as the reference
     res = RunResult(ppl, phases, sparsity_of(masks, params), params, masks, pruned,
                     pretrain_losses=history, kernel_plans=plans)
-    ecfg = ebft.EBFTConfig(lr=spec.lr, epochs=spec.epochs)
+    ecfg = ebft.EBFTConfig(lr=spec.lr, epochs=spec.epochs, mesh_plan=mesh_plan)
+    if mesh_plan is not None:
+        res.mesh = mesh_plan.describe()
     with _phase(device, "phase/ebft", lr=spec.lr, epochs=spec.epochs) as sp:
         res.tuned, res.reports = ebft.finetune(model, params, pruned, masks, calib, ecfg)
     phases["ebft"] = sp.duration
@@ -323,8 +345,10 @@ def bench_record(spec: RunSpec, res: RunResult,
     ``blocks``, ``perplexity``, ``ebft``, ``mesh``, ``dispatch``,
     ``walk_phases`` and ``kernel_tuning``, and the spec as ``run_spec``.
     ``summ`` is the run's metric summary; without it the sections that
-    read it hold None. The port runs the per-epoch loop on one device: no
-    fused blocks, no prefetch, an inactive 1-device mesh. ``kernel_tuning``
+    read it hold None. The port runs the per-epoch loop: no fused blocks,
+    no prefetch; ``mesh`` is the walk's plan (``MeshPlan.describe()``)
+    with the peak per-shard live block bytes and the total collective
+    bytes, as the reference's. ``kernel_tuning``
     is the tuner's mode, cache path, hits, misses, searches and search
     seconds over the run, the reference's keys."""
     reports = res.reports
@@ -347,7 +371,7 @@ def bench_record(spec: RunSpec, res: RunResult,
             "early_stops": {reason: sum(1 for r in reports if r.early_stop == reason)
                             for reason in {r.early_stop for r in reports}},
         },
-        "mesh": {"devices": 1, "axes": {}, "active": False,
+        "mesh": {**res.mesh,
                  "peak_live_block_bytes_per_shard": max(
                      (r.live_bytes_per_shard for r in reports), default=None),
                  "collective_bytes_total": sum(r.collective_bytes for r in reports)},
@@ -374,6 +398,10 @@ def bench_record(spec: RunSpec, res: RunResult,
     }
 
 
+def _quiet(*_args, **_kw) -> None:
+    """A rank other than 0 prints nothing."""
+
+
 def _mean_drop(reports) -> float:
     return sum(r.loss_before - r.loss_after for r in reports) / max(len(reports), 1)
 
@@ -384,9 +412,14 @@ def main(argv=None) -> RunResult:
     device = resolve_device(device)
     cfg = get_config(spec.arch)
     refuse_frontend_families(cfg, "ebft_run")
-    obs_run = start_obs_run(spec, "ebft", device)
-    say = obs_run.say if obs_run is not None else print
-    res = run(cfg, spec, device)
+    owned = not torch.distributed.is_initialized()
+    rank = init_from_env(device.type)
+    plan = make_ebft_plan(spec.mesh_data, spec.mesh_model, device_type=device.type)
+    obs_run = start_obs_run(spec, "ebft", device) if rank == 0 else None
+    say = obs_run.say if obs_run is not None else (print if rank == 0 else _quiet)
+    if plan.active:
+        say(f"calibration mesh: {plan.describe()['axes']} ({plan.device_count} devices)")
+    res = run(cfg, spec, device, mesh_plan=plan)
     if spec.kernel_tune != "off":
         got = [p["source"] for p in res.kernel_plans]
         say(f"kernel plans: {len(got)} workloads, {got.count('cache')} cached, "
@@ -413,6 +446,8 @@ def main(argv=None) -> RunResult:
         if spec.bench_out:
             print(f"wrote {spec.bench_out}  (render with: python -m repro_torch.obs report "
                   f"{spec.bench_out})")
+    if owned and torch.distributed.is_initialized():
+        torch.distributed.destroy_process_group()
     return res
 
 

@@ -16,8 +16,8 @@ other's run. Runs on the card unless ``--device cpu``. The step is
 fenced) and the loop books the reference's ``train/*`` spans and metrics;
 with ``--bench-out`` the run writes its artifact with the reference's
 ``trained`` section (``--obs-jsonl`` streams the events, ``--no-obs``
-turns it all off). The mesh flags and the sharded step
-(``launch/steps.py``) wait for the distributed port (ROADMAP.md A.8).
+turns it all off). The mesh flags and the sharded step (the cells of
+``launch/steps.py``) wait for ROADMAP.md A.8c.
 """
 from __future__ import annotations
 

@@ -20,6 +20,8 @@ from typing import Any, Dict, Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed import act_sharding as AS
+from repro_torch.distributed import local_kernels as LK
 from repro_torch.kernels.flash_attention.ops import flash_attention_bshd
 from repro_torch.kernels.masked_matmul.ops import masked_matmul
 
@@ -105,9 +107,12 @@ def _chunked_attend(q, k, v, causal: bool, q_offset: int, chunk: int, scale):
     sk = k.shape[1]
     dev = q.device
     q_pos = q_offset + torch.arange(sq, device=dev)
-    m = torch.full((b, h, sq), -math.inf, dtype=torch.float32, device=dev)
-    l = torch.zeros((b, h, sq), dtype=torch.float32, device=dev)
-    acc = torch.zeros((b, sq, h, hd), dtype=torch.float32, device=dev)
+    # the reference constrains the carry inits here (GSPMD would infer a
+    # replicated carry from the constants); the port's attention runs on
+    # local shards, so these hooks pass plain tensors through
+    m = AS.constrain(torch.full((b, h, sq), -math.inf, dtype=torch.float32, device=dev), "bhq")
+    l = AS.constrain(torch.zeros((b, h, sq), dtype=torch.float32, device=dev), "bhq")
+    acc = AS.constrain(torch.zeros((b, sq, h, hd), dtype=torch.float32, device=dev), "bqhd")
     for c0 in range(0, max(sk, 1), chunk):
         kb, vb = k[:, c0:c0 + chunk], v[:, c0:c0 + chunk]
         n = kb.shape[1]
@@ -133,8 +138,12 @@ def attend(q, k, v, *, causal: bool, impl: str = "dot", chunk: int = 1024,
 
     ``"flash"`` on a CUDA tensor launches the flash attention kernel;
     ``"flash"`` or ``"chunked"`` elsewhere take the chunked plain path;
-    ``"dot"`` materialises the scores.
+    ``"dot"`` materialises the scores. DTensor operands (a mesh walk) run
+    each rank's batch rows and heads locally (``distributed.local_kernels``).
     """
+    if LK.any_dtensor(q, k, v):
+        return LK.attend(attend, q, k, v, causal=causal, impl=impl, chunk=chunk,
+                         q_chunk=q_chunk, q_offset=q_offset)
     h, hkv = q.shape[2], k.shape[2]
     scale = 1.0 / math.sqrt(q.shape[-1])
     k = _repeat_kv(k, h // hkv)
@@ -195,7 +204,9 @@ def out_proj(p: Params, o: torch.Tensor, masks: Optional[Params] = None) -> torc
     """o (B, S, H, hd) x wo (H, hd, d) -> (B, S, d)."""
     b, s, h, hd = o.shape
     mk = (masks or {}).get("wo")
-    return _linear(o.reshape(b, s, h * hd), p["wo"], 2, mk)
+    # row-parallel on a mesh: the product is a partial sum over "model",
+    # summed here, before the residual add (a no-op without a policy)
+    return AS.constrain(_linear(o.reshape(b, s, h * hd), p["wo"], 2, mk), "bqd")
 
 
 def attention_block(p: Params, x: torch.Tensor, *, positions: torch.Tensor,
@@ -259,7 +270,8 @@ def mlp_block(p: Params, x: torch.Tensor, act: str, masks: Optional[Params] = No
     mk = masks or {}
     up = _linear(x, p["w_up"], 1, mk.get("w_up"))
     gate = _linear(x, p["w_gate"], 1, mk.get("w_gate")) if act == "swiglu" else None
-    return _linear(activation(up, gate, act), p["w_down"], 1, mk.get("w_down"))
+    return AS.constrain(_linear(activation(up, gate, act), p["w_down"], 1, mk.get("w_down")),
+                        "bqd")
 
 
 # ---------------------------------------------------------------------------

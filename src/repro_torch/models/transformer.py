@@ -22,6 +22,7 @@ from typing import Any, Dict, Optional
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import fsdp
 from repro_torch.models import layers as L
 
 Params = Dict[str, Any]
@@ -127,7 +128,8 @@ def run_blocks(params: Params, cfg: ModelConfig, h: torch.Tensor, positions: tor
     """The embedded stream h (B, S, d) through every block, no final norm."""
     for i in range(cfg.num_layers):
         bm = slice_block(masks["blocks"], i) if masks is not None else None
-        h = block_apply(slice_block(params["blocks"], i), cfg, h, positions, bm)
+        bp = fsdp.gather_block(slice_block(params["blocks"], i))  # no-op w/o policy
+        h = block_apply(bp, cfg, h, positions, bm)
     return h
 
 
@@ -174,7 +176,8 @@ def prefill_hidden(params: Params, cfg: ModelConfig, h: torch.Tensor, cache: Par
     positions = torch.arange(start, start + S, device=h.device)[None, :]
     for i in range(cfg.num_layers):
         layer = {"k": cache["k"][i], "v": cache["v"][i], "len": start}
-        h = block_apply(slice_block(params["blocks"], i), cfg, h, positions, cache=layer)
+        bp = fsdp.gather_block(slice_block(params["blocks"], i))  # serve-path hook
+        h = block_apply(bp, cfg, h, positions, cache=layer)
     h = L.apply_norm(params["final_norm"], h[:, -1:], cfg.norm)
     return logits_from_hidden(params, cfg, h), {"k": cache["k"], "v": cache["v"],
                                                 "len": start + S}

@@ -105,8 +105,8 @@ class DispatchLedger:
     counter pair — always live, so ``BlockReport`` carries real numbers
     even with observability off — and mirrors into the metrics registry
     when one is installed. ``devices`` books every dispatch per
-    participating device under ``<name>/device_dispatches`` (1 here: the
-    mesh walk waits for ROADMAP.md A.8).
+    participating device under ``<name>/device_dispatches`` (the EBFT
+    walk's ``plan.device_count`` on a mesh, ``core/ebft.py``; else 1).
     """
 
     __slots__ = ("name", "dispatches", "host_syncs", "devices")

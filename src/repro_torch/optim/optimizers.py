@@ -79,7 +79,10 @@ def adam(lr: Schedule, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
 
     def init(params):
         def zeros(p):
-            return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+            # zeros_like: a DTensor weight (a mesh walk) gets moments of its
+            # own placements; a plain one, f32 zeros of its shape
+            return torch.zeros_like(p, dtype=torch.float32,
+                                    memory_format=torch.contiguous_format)
 
         leaf = next(p for _, p in T.leaves_with_path(params))
         return {"step": torch.zeros((), dtype=torch.int32, device=leaf.device),

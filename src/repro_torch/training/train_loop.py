@@ -62,8 +62,8 @@ def make_train_step(loss_fn: Callable, opt: Optimizer, *, microbatches: int = 1,
     "compress" (when on), "clip" and "update" as each stage has been
     issued: a hook to time or count the step's stages (the device may still
     be running them). The reference's ``constrain_microbatch`` pins a
-    sharding under GSPMD; it waits for the distributed port (ROADMAP.md
-    A.8)."""
+    sharding under GSPMD; it waits for the sharded steps (ROADMAP.md
+    A.8c)."""
     mark = on_stage or (lambda _: None)
 
     def accumulate(params, batch):

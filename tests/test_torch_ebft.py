@@ -291,9 +291,25 @@ def test_dual_stream_walk_refuses_to_write_the_teacher(setup):
                       dual_stream=True)
 
 
-def test_mesh_plan_is_refused(setup):
+def test_mesh_plan_is_refused(setup, tuned):
+    """An inactive plan (``make_ebft_plan(1, 1)``, ``ebft_run``'s default) is
+    the single-device path: the reference's reports within the file's
+    tolerance, and the bits of ``mesh_plan=None``. What is not a MeshPlan
+    is still refused. (Active plans: tests/test_torch_mesh_ebft.py.)"""
+    from repro_torch.distributed.meshplan import MeshPlan
+    from repro_torch.launch.mesh import make_ebft_plan
+
     s = setup
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    ref_tuned, ref_reports, port_tuned, port_reports = tuned
+    plan = make_ebft_plan(1, 1)
+    assert plan == MeshPlan.single() and not plan.active
+    got, reports = EBFT.finetune(s["model"], s["params"], s["pruned"], s["masks"], s["calib"],
+                                 EBFT.EBFTConfig(**ECFG, mesh_plan=plan))
+    _assert_reports_match(ref_reports, reports)
+    assert [r.asdict() for r in reports] == [r.asdict() for r in port_reports]
+    for path, t in T.leaves_with_path(got):
+        assert torch.equal(t, T.get_path(port_tuned, path)), path
+    with pytest.raises(TypeError, match="MeshPlan"):
         EBFT.finetune(s["model"], s["params"], s["pruned"], s["masks"], s["calib"],
                       EBFT.EBFTConfig(mesh_plan=object()))
 
