@@ -11,7 +11,7 @@ the pipeline (``repro_torch.launch.ebft_run.run``) on Llama-7B at full
 width with 4 of its 32 layers in bf16: Wanda 0.7 -> EBFT (the main path);
 2:4, whose tuned weights are re-packed and run through ``nm_spmm``;
 SparseGPT 0.7 -> EBFT with the DSnoT and mask-tuning baselines (path A);
-FLAP at 26% structured sparsity -> EBFT with 200 LoRA steps (path B). It
+FLAP at 26% structured sparsity -> EBFT with 100 LoRA steps (path B). It
 serves the main path's pretrained and EBFT-tuned weights from a KV cache
 (``serve``: cached decode held to the no-cache forward, continuous
 batching through ``repro_torch.serving``, ``launch/serve`` on the card).
@@ -23,14 +23,14 @@ products through the expert-batched masked GEMM, which the
 ``masked_matmul_batched`` phase holds against its plain version and
 against the 2-D kernel on each expert's slab; and tiny_moe on the card
 against the CPU. The ``ssm`` and ``hybrid`` phases run the SSM family on
-Mamba2-130M (all 24 layers) and the hybrid on Zamba2-1.2B (13 of its 38
+Mamba2-130M (16 of its 24 layers) and the hybrid on Zamba2-1.2B (7 of its 38
 layers) at their published widths: pretraining, Wanda 0.7, EBFT,
 perplexity and serving, every Mamba projection through the masked GEMM
 (Mamba2-130M's in_dt mask, (768, 24), a view into a row-padded buffer)
 and Zamba2's shared block through the attention kernel at head width 64,
 which the masked and attention phases hold at those shapes; then
 tiny_ssm and tiny_hybrid on the card against the CPU. The ``vlm`` phase
-runs the VLM family on LLaVA-NeXT-Mistral-7B at its published widths (4
+runs the VLM family on LLaVA-NeXT-Mistral-7B at its published widths (3
 of its 32 layers; 32 query heads over 8 KV heads; seq 2048 = 1024 seeded
 patch positions + 1024 tokens): pretraining through ``launch/train``,
 Wanda 0.7, EBFT and perplexity with the patches passed as ``extra_batch``,
@@ -50,10 +50,15 @@ teacher-forced check and greedy serving at the model level; then
 tiny_encdec (with the baselines) on the card against the CPU. The
 ``masked_matmul_encdec`` phase and the attention phases hold its shapes.
 The ``mesh`` phase runs the EBFT walk on a mesh of ranks (``MeshPlan``,
-``core/ebft.py``) at Llama-7B's widths (2 layers, f32): one process, a
+``core/ebft.py``) at Llama-7B's widths (1 layer, f32): one process, a
 one-rank nccl check of the inactive plans, then a 2 × 1 and a 1 × 2 mesh
 of gloo ranks on the one card, each held to the one process's per-block
-losses with its kernels launched on every rank's local shards.
+losses with its kernels launched on every rank's local shards. The same
+ranks then run the sharded cells of ``launch/steps.py`` (train, ebft in
+two layouts, prefill and greedy decode) and ``launch/train.run`` with a
+checkpoint saved on 2 × 1 and resumed on 1 × 2, each held to one process;
+the ebft cells' masked matmuls and the launcher's flash attention are
+launched on local shards and counted.
 Every path above runs with the tile autotuner off (``kernel_tune="off"``),
 on the default tiles. The ``tuning`` phase (last) holds every compiled
 instantiation's launch plan (``kernels/validation.py``) to the compiled
@@ -769,10 +774,11 @@ def llama_cfg(layers: int = 4, dtype: str = "bfloat16"):
                                           attn_impl="flash")
 
 
-def run_path(tokens, params=None, tag="main", **spec_kw):
+def run_path(tokens, params=None, tag="main", lora_cfg=None, **spec_kw):
     """``ebft_run.run`` on ``llama_cfg()`` with the run's own calibration
     segments, EBFT at the reference's EBFTConfig defaults (lr 2e-4, 10
-    epochs, patience 2) and ``spec_kw``; every kernel count is set to 0
+    epochs, patience 2), ``spec_kw`` and the LoRA baseline's ``lora_cfg``
+    (None: the driver's); every kernel count is set to 0
     just before it and read just after. Without ``params`` the run
     pretrains the seeded init for PRETRAIN_STEPS steps on batches of
     PRETRAIN_BATCH, and its pretraining is measured apart through the train
@@ -815,7 +821,7 @@ def run_path(tokens, params=None, tag="main", **spec_kw):
     reset_counts()
     obs_run = start_obs_run(spec, "ebft", "cuda", name=f"chip_smoke/{tag}", console=False)
     t0 = time.perf_counter()
-    res = ebft_run.run(cfg, spec, "cuda", params=params, on_stage=on_stage)
+    res = ebft_run.run(cfg, spec, "cuda", params=params, on_stage=on_stage, lora_cfg=lora_cfg)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = read_counts()
@@ -1724,9 +1730,15 @@ def phase_path_a(tokens, dense, microbatch=8):
     return launches, artifact
 
 
+# path B's LoRA steps: the reference driver's 200 halved to keep the script
+# inside its limit (at 200, with every family at its earlier depth, the
+# script took 1216.7 s; PERF.md §4)
+B_LORA_STEPS = 100
+
+
 def phase_path_b(tokens, dense, microbatch=8):
-    """Path B: FLAP at 26% structured sparsity -> EBFT -> 200 LoRA steps
-    (the paper's structured comparison of EBFT against LoRA), on Llama-7B
+    """Path B: FLAP at 26% structured sparsity -> EBFT -> B_LORA_STEPS LoRA
+    steps (the paper's structured comparison of EBFT against LoRA), on Llama-7B
     (4 of 32 layers, bf16, flash attention) from the pretrained weights
     ``dense``, through ``ebft_run.run``.
     Raises unless every mask is constant along each unit (a head's wq and
@@ -1739,6 +1751,8 @@ def phase_path_b(tokens, dense, microbatch=8):
     loss drops; LoRA's merged
     weights are exactly 0 in pruned slots and its LM losses are finite; and
     the launch counts are the loop's."""
+    import dataclasses
+
     import torch
 
     from repro_torch import tree as T
@@ -1751,7 +1765,8 @@ def phase_path_b(tokens, dense, microbatch=8):
     sparsity = 0.26
     calib, _ = tokens
     cfg, spec, res, launches, wall, _, artifact = run_path(
-        tokens, dense, tag="B", method="flap", sparsity=sparsity, baselines="lora")
+        tokens, dense, tag="B", lora_cfg=dataclasses.replace(ebft_run.LORA, steps=B_LORA_STEPS),
+        method="flap", sparsity=sparsity, baselines="lora")
     peak = torch.cuda.max_memory_allocated() / 2**30
     L, H = cfg.num_layers, cfg.num_heads
     n_cal = math.ceil(len(calib) / microbatch)
@@ -3141,8 +3156,9 @@ def phase_moe(walls):
 
 
 # ---------------------------------------------------------------------------
-# the SSM family (Mamba2-130M, all 24 layers) and the hybrid (Zamba2-1.2B, 13
-# of its 38 layers) at their published widths
+# the SSM family (Mamba2-130M, 16 of its 24 layers) and the hybrid
+# (Zamba2-1.2B, 7 of its 38 layers: one shared-block site) at their
+# published widths; the depths keep the script inside its limit (PERF.md §4)
 # ---------------------------------------------------------------------------
 # every Mamba leaf's (R, O) matrix at both models' widths, bf16, at the EBFT
 # microbatch's M rows: in_z and in_x (d | H·P), in_B and in_C (d | N), in_dt
@@ -3156,9 +3172,9 @@ MAMBA_LEAVES = {"ssm": [("in_zx", 768, 1536), ("in_BC", 768, 128), ("in_dt", 768
 # first site then held every later block's EBFT loss near 1.2e8, and EBFT's
 # perplexity above Wanda's (PERF.md §6). Microbatches: the most each
 # pretraining step fits (Mamba2-130M's peak 67 GiB in one)
-FAMILY = {"ssm": dict(arch="mamba2_130m", layers=None, reduced=None, microbatches=1,
+FAMILY = {"ssm": dict(arch="mamba2_130m", layers=16, reduced="num_layers 24->16", microbatches=1,
                       pretrain_lr=3e-3),
-          "hybrid": dict(arch="zamba2_1_2b", layers=13, reduced="num_layers 38->13",
+          "hybrid": dict(arch="zamba2_1_2b", layers=7, reduced="num_layers 38->7",
                          microbatches=2, pretrain_lr=3e-4)}
 FAM = dict(pretrain_steps=50, batch=8, calib=16, eval=16, seq=2048)
 FAM_SERVE = dict(slots=8, prompt_len=512, max_new=32, max_len=1024, requests=16, forced_steps=32)
@@ -3616,7 +3632,7 @@ def phase_tiny_family(arch: str, rel=1e-4, smoke=False):
                              lora_x=(lambda step: extra(8, 100 + step)) if calib_x else None)
 
 # ---------------------------------------------------------------------------
-# the VLM family: LLaVA-NeXT-Mistral-7B at its published widths, 4 of its 32
+# the VLM family: LLaVA-NeXT-Mistral-7B at its published widths, 3 of its 32
 # layers; and the dense family's other four configs
 # ---------------------------------------------------------------------------
 # the masked GEMM's leaves that no other phase holds, bf16, at the EBFT
@@ -3633,7 +3649,7 @@ VLM_LEAVES = {"vlm": [("wk_wv", 4096, 1024), ("w_gate_up", 4096, 14336),
 # seq 2048 = P 1024 patch positions (min(frontend_len 2880, seq // 2)) + 1024
 # text tokens; pretraining through launch/train.run (AdamW on its warmup-cosine
 # schedule, one piece), EBFT at the paper's settings
-VLM = dict(layers=4, pretrain_steps=50, batch=8, seq=2048, pretrain_lr=3e-3, calib=16, eval=16)
+VLM = dict(layers=3, pretrain_steps=50, batch=8, seq=2048, pretrain_lr=3e-3, calib=16, eval=16)
 # 8 prompts of [1024 patches ; 512 tokens], 32 greedy tokens each, a
 # 2048-position cache; the teacher-forced check over 32 steps
 VLM_SERVE = dict(slots=8, prompt_len=512, max_new=32, max_len=2048, forced_steps=32)
@@ -3776,7 +3792,7 @@ def _kv_repeat_ms(cfg, conf, g):
 def phase_vlm(walls):
     """The VLM family's path on LLaVA-NeXT-Mistral-7B at its published widths
     (d_model 4096, 32 heads x 128 over 8 KV heads, d_ff 14336, vocab 32000,
-    rope_theta 1e6), 4 of its 32 layers, bf16, the flash attention kernel,
+    rope_theta 1e6), 3 of its 32 layers, bf16, the flash attention kernel,
     seq 2048 = 1024 patch positions + 1024 text tokens: the seeded init
     pretrained VLM["pretrain_steps"] steps through ``launch/train.run``
     (batch 8, its seeded patches, AdamW lr 3e-3), then from those weights,
@@ -4632,10 +4648,38 @@ def _default_tiles(name: str) -> dict:
 # ---------------------------------------------------------------------------
 # the EBFT walk on a mesh of ranks (core/ebft.py with an active MeshPlan)
 # ---------------------------------------------------------------------------
-# Llama-7B's widths at 2 layers in f32 (the kernels' f32 routes), 16
-# segments of 2048 in microbatches of 8, 2 EBFT epochs; magnitude 0.5
-MESH = dict(arch="llama_7b", layers=2, seq=2048, calib=16, microbatch=8, epochs=2, lr=2e-4,
+# Llama-7B's widths at 1 layer in f32 (the kernels' f32 routes), 8
+# segments of 2048 in one microbatch, 2 EBFT epochs; magnitude 0.5 (2
+# layers and 16 segments before the sharded cells joined the phase: the
+# cuts pay for them)
+MESH = dict(arch="llama_7b", layers=1, seq=2048, calib=8, microbatch=8, epochs=2, lr=2e-4,
             sparsity=0.5)
+# the sharded cells of launch/steps.py and launch/train on the same ranks,
+# at the walk's widths, depth and seq: the train cell (bf16, chunked
+# attention, block remat) 2 steps on 4 samples (one a data shard a
+# microbatch); the ebft cell (one Adam step on 4 samples) in the TP and
+# the dp_only layouts, one mesh's at a time (four ranks' chunked attention
+# at once outgrew the card's 80 GB); the prefill cell on 8 prompts of 512 tokens, then 8
+# greedy decode cells; launch/train.run (f32, the flash kernel) 2 steps
+# checkpointed at step 2 on the first mesh, resumed on the second for a
+# third, against one process's 3
+MESH_CELLS = dict(train_batch=4, train_steps=2, train_lr=1e-4, ebft_batch=4, prompts=8,
+                  prompt_len=512, decode_steps=8, launch_batch=2, launch_steps=3, ckpt_step=2)
+# stated tolerances: the bf16 cells' losses rtol 5e-3, grad norms 2e-2;
+# logits within 3e-2 of the step's largest, greedy tokens equal where one
+# process's top two are more than twice that apart; the f32 launcher's
+# losses (every step) rtol 2e-3, atol 1e-5. The updated state, each leaf
+# against one process's in relative L2 (``_state_errors``): the weights'
+# difference over one process's update (new - init), the moments'
+# difference over one process's moments (Adam's m carries the gradient).
+# Read (H100, PR 27): the bf16 cells' weights at most 0.070, moments
+# 0.012; the f32 launcher 2.6e-5 and 2.5e-6. Planted on the CPU rehearsal:
+# unsummed gradients 0.7-1.04, no update 1.0, swapped shards 139-326
+# (weights) and 0.8-1.4 (moments). Each limit sits between the two
+CELL_LOSS_RTOL, CELL_NORM_RTOL, CELL_LOGIT_REL = 5e-3, 2e-2, 3e-2
+CELL_UPDATE_REL, CELL_MOMENT_REL = 0.3, 0.1  # bf16
+LAUNCH_UPDATE_REL, LAUNCH_MOMENT_REL = 5e-3, 5e-3  # f32
+SAMPLE = 1 << 18  # the elements of a leaf the state checks read
 MESH_SHAPES = ((2, 1), (1, 2))  # (data, model): 2 ranks each, all on the one card
 MESH_KERNELS = ("masked_matmul", "masked_matmul_dx", "masked_matmul_dw", "flash_attention",
                 "flash_attention_bwd")
@@ -4671,14 +4715,294 @@ def _mesh_ecfg(plan=None, conf=MESH):
                            mesh_plan=plan)
 
 
+def _cells_cfg(conf):
+    from repro_torch.configs import get_config
+
+    return get_config(conf["arch"]).replace(num_layers=conf["layers"])
+
+
+def _leaf_samples(tree) -> dict:
+    """{leaf: f64 host tensor} of each floating leaf at ``SAMPLE`` seeded
+    positions, the same in every process (the whole leaf when smaller); a
+    DTensor's are read from the ranks' pieces (``_dtensor_at``), never
+    gathered whole. The relative L2 of a difference over 2^18 uniform
+    positions is the whole leaf's within a few per cent."""
+    import torch
+
+    from repro_torch import tree as T
+    from repro_torch.distributed.local_kernels import any_dtensor
+
+    out = {}
+    for p, t in T.leaves_with_path(tree):
+        if not (isinstance(t, torch.Tensor) and t.is_floating_point()):
+            continue
+        n = t.numel()
+        idx = torch.randint(n, (SAMPLE,), generator=torch.Generator().manual_seed(n)) \
+            if n > SAMPLE else torch.arange(n)
+        if any_dtensor(t):
+            out["/".join(p)] = _dtensor_at(t, idx)
+        else:
+            out["/".join(p)] = t.detach().reshape(-1)[idx.to(t.device)].double().cpu()
+    return out
+
+
+def _dtensor_at(t, idx):
+    """A DTensor's elements at the flat positions ``idx`` of its global
+    shape, on every rank (a collective): each rank reads the positions
+    that its piece holds (one rank of each replica), and one host
+    all-reduce of ``len(idx)`` values over the default group (the mesh's
+    ranks) sums the pieces."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
+
+    mesh, placements = t.device_mesh, t.placements
+    if any(p.is_partial() for p in placements):
+        raise ValueError("mesh: a Partial leaf has no elements to sample")
+    shape, offset = compute_local_shape_and_global_offset(t.shape, mesh, placements)
+    coords = torch.stack(torch.unravel_index(idx, tuple(t.shape)))  # (ndim, k)
+    lo = torch.tensor(offset)[:, None]
+    inside = ((coords >= lo) & (coords < lo + torch.tensor(shape)[:, None])).all(0)
+    if any(not p.is_shard() and mesh.get_local_rank(d) != 0 for d, p in enumerate(placements)):
+        inside[:] = False  # a replica's copy: its coordinate-0 rank reads it
+    sel = inside.nonzero().squeeze(1)
+    vals = torch.zeros(len(idx), dtype=torch.float64)
+    if len(sel):
+        local = t.to_local().detach()
+        pos = torch.tensor(0)
+        for d in range(len(shape)):  # the positions in the piece, row-major
+            pos = pos * shape[d] + (coords[d, sel] - offset[d])
+        vals[sel] = local.reshape(-1)[pos.to(local.device)].double().cpu()
+    dist.all_reduce(vals)  # the phase's meshes span their whole group
+    return vals
+
+
+def _moments(opt_state) -> dict:
+    return {"m": opt_state["m"], "v": opt_state["v"]}
+
+
+def _dir_bytes(path) -> int:
+    return sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(path) for f in fs)
+
+
+def mesh_cells(device, mesh, conf, cells, logits_path, ebft_after=None, ebft_done=None):
+    """The train, ebft, prefill and decode cells of ``launch/steps.py`` on
+    ``mesh`` (the ranks' ``DeviceMesh``, or a 1 × 1 ``AbstractMesh``: one
+    process, plain tensors) at ``conf``'s widths and seq, seeded on
+    ``device``. Returns their record; the serving steps' logits go to
+    ``logits_path``. The masked-matmul launches of the ebft cells are
+    counted from 0, with their local shapes. The ebft cells wait for the
+    file ``ebft_after`` when given, and rank 0 then writes ``ebft_done``."""
+    import torch
+
+    from repro_torch import tree as T
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.kernels.masked_matmul import ops as MM
+    from repro_torch.launch import steps as ST
+    from repro_torch.optim.optimizers import adam, adamw
+
+    cfg, seq, rec = _cells_cfg(conf), conf["seq"], {}
+    g = torch.Generator(device=device).manual_seed(0)
+
+    # the train cell: 2 steps from the seeded init
+    cell = ST.build_train_cell(cfg, ShapeConfig("mesh_train", seq, cells["train_batch"], "train"),
+                               mesh, lr=cells["train_lr"], fsdp=False)
+    params = cell.model.init(g)
+    opt_state = adamw(cells["train_lr"]).init(params)
+    toks = torch.randint(0, cfg.vocab_size, (cells["train_batch"], seq), generator=g,
+                         device=device, dtype=torch.int32)
+    losses, norms, step_s = [], [], []
+    init = _leaf_samples(params)
+    if device == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    for _ in range(cells["train_steps"]):
+        _sync(device)
+        t0 = time.perf_counter()
+        params, opt_state, m = ST.run_cell(cell, mesh, params, opt_state, {"tokens": toks})
+        _sync(device)
+        step_s.append(time.perf_counter() - t0)
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+    peak = torch.cuda.max_memory_allocated() / 2**30 if device == "cuda" else None
+    rec["train"] = dict(losses=losses, grad_norms=norms, step_s=step_s, peak_gib=peak,
+                        samples=dict(init=init, params=_leaf_samples(params),
+                                     moments=_leaf_samples(_moments(opt_state))),
+                        microbatches=ST.microbatches_for(cell.cfg, ShapeConfig(
+                            "t", seq, cells["train_batch"], "train"), mesh))
+    del params, opt_state, cell
+
+    # the ebft cell, tensor-parallel and dp_only, on the mid-stack block
+    shapes = set()
+    call = MM._call
+
+    def spy(fn, a, b, c, tiles=None, **kw):
+        shapes.add((fn, tuple(a.shape), tuple(b.shape)))
+        return call(fn, a, b, c, tiles, **kw)
+
+    MM._call = spy
+    deadline = time.perf_counter() + 600
+    while ebft_after and not os.path.exists(ebft_after):
+        if time.perf_counter() > deadline:
+            raise TimeoutError(f"mesh: {ebft_after} never appeared")
+        time.sleep(0.2)
+    try:
+        for dp_only in (False, True):
+            cell = ST.build_ebft_cell(cfg, ShapeConfig("mesh_ebft", seq, cells["ebft_batch"],
+                                                       "ebft"), mesh, dp_only=dp_only)
+            ge = torch.Generator(device=device).manual_seed(1)
+            i = cell.model.num_blocks // 2
+            bw = T.tree_map(torch.clone, cell.model.get_block(cell.model.init(ge), i))
+            masks = T.tree_map(lambda t: ((torch.rand(t.shape, generator=ge, device=device) < 0.5)
+                                          | (t.dim() < 2)).to(torch.bfloat16), bw)
+            h, tgt = (torch.randn(cells["ebft_batch"], seq, cfg.d_model, generator=ge,
+                                  device=device).to(torch.bfloat16) for _ in range(2))
+            pos = torch.arange(seq, dtype=torch.int32, device=device)[None]
+            init = _leaf_samples(bw)
+            shapes.clear()
+            reset_counts()
+            _sync(device)
+            t0 = time.perf_counter()
+            nbw, opt_state, loss = ST.run_cell(cell, mesh, bw, adam(2e-4).init(bw), masks, h, tgt,
+                                               pos)
+            _sync(device)
+            counts = read_counts()
+            rec["ebft_dp_only" if dp_only else "ebft_tp"] = dict(
+                loss=float(loss), seconds=time.perf_counter() - t0,
+                samples=dict(init=init, params=_leaf_samples(nbw),
+                             moments=_leaf_samples(_moments(opt_state))),
+                launches={k: counts[k] for k in ("masked_matmul", "masked_matmul_dx",
+                                                 "masked_matmul_dw")},
+                masked_shapes=sorted(shapes))
+            del bw, nbw, opt_state, masks, h, tgt, cell
+    finally:
+        MM._call = call
+    if ebft_done and int(os.environ.get("RANK", "0")) == 0:
+        open(ebft_done, "w").close()
+
+    # the prefill cell, then greedy decode cells on its cache
+    P, N, B = cells["prompt_len"], cells["decode_steps"], cells["prompts"]
+    pc = ST.build_prefill_cell(cfg, ShapeConfig("mesh_prefill", P, B, "prefill"), mesh)
+    dc = ST.build_decode_cell(cfg, ShapeConfig("mesh_decode", P + N - 1, B, "decode"), mesh)
+    gs = torch.Generator(device=device).manual_seed(2)
+    sparams = pc.model.init(gs)
+    prompts = torch.randint(0, cfg.vocab_size, (B, P), generator=gs, device=device,
+                            dtype=torch.int32)
+    state = pc.model.init_serve_state(B, P + N, device)
+    _sync(device)
+    t0 = time.perf_counter()
+    logits, state = ST.run_cell(pc, mesh, sparams, {"tokens": prompts}, state)
+    _sync(device)
+    prefill_s = time.perf_counter() - t0
+    steps = [logits[:, -1].float()]
+    t0 = time.perf_counter()
+    for _ in range(N):
+        tok = steps[-1].argmax(-1)[:, None].to(torch.int32)
+        logits, state = ST.run_cell(dc, mesh, sparams, tok, state)
+        steps.append(logits[:, -1].float())
+    _sync(device)
+    k = state["k"]
+    local = k.to_local() if hasattr(k, "to_local") else k
+    torch.save(torch.stack(steps).cpu(), logits_path)
+    rec["serve"] = dict(prefill_s=prefill_s, decode_s=(time.perf_counter() - t0) / N,
+                        len=state["len"], local_cache=list(local.shape),
+                        cache=list(k.shape))
+    return rec
+
+
+def train_peak_without_remat(device, conf, cells):
+    """The one-process train step's peak memory (GiB) over one step with
+    ``remat="none"`` in place of the cell's block remat (``mesh_cells``
+    reads it with remat): the cell's own config and microbatches, the
+    step ``make_train_step`` builds for it on one process; None on the
+    CPU."""
+    import torch
+
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import steps as ST
+    from repro_torch.models.model import build
+    from repro_torch.optim.optimizers import adamw
+    from repro_torch.training.train_loop import make_train_step
+
+    if device != "cuda":
+        return None
+    shape = ShapeConfig("mesh_train", conf["seq"], cells["train_batch"], "train")
+    cfg = ST.adapt_config(_cells_cfg(conf), shape, ONE_MESH()).replace(remat="none")
+    model = build(cfg)
+    opt = adamw(cells["train_lr"])
+    step = make_train_step(model.loss, opt,
+                           microbatches=ST.microbatches_for(cfg, shape, ONE_MESH()))
+    g = torch.Generator(device=device).manual_seed(0)
+    params = model.init(g)
+    opt_state = opt.init(params)
+    toks = torch.randint(0, cfg.vocab_size, (cells["train_batch"], conf["seq"]),
+                         generator=g, device=device, dtype=torch.int32)
+    torch.cuda.reset_peak_memory_stats()
+    step(params, opt_state, {"tokens": toks}, None)
+    torch.cuda.synchronize()
+    return torch.cuda.max_memory_allocated() / 2**30
+
+
+def mesh_launch(device, mesh, conf, cells, steps, ckpt_dir=None):
+    """``launch/train.run`` on ``mesh`` (None: one process) at ``conf``'s
+    widths in f32 with the flash kernel, ``cells["launch_batch"]`` samples
+    of ``conf["seq"]``, checkpointed every ``ckpt_step`` steps into
+    ``ckpt_dir`` (resuming from it), the loss read every step. The flash
+    launches are counted from 0; the checkpoint's seconds are the run's
+    own spans (``train/checkpoint``: the periodic saves' synchronous part,
+    the gather; ``train/checkpoint_drain``: the writers' wait and the
+    closing save; ``train/restore``)."""
+    import torch
+
+    from repro_torch.checkpoint import ckpt as CK
+    from repro_torch.launch import train
+    from repro_torch.models.model import build
+    from repro_torch.obs import trace as OT
+
+    cfg = _cells_cfg(conf).replace(dtype="float32", param_dtype="float32", attn_impl="flash")
+    spec = train.TrainSpec(arch=conf["arch"], steps=steps, batch=cells["launch_batch"],
+                           seq=conf["seq"], ckpt_dir=ckpt_dir or "",
+                           ckpt_every=cells["ckpt_step"])
+    # the launcher's own init (spec.seed), sampled before it trains in place
+    params = build(cfg).init(torch.Generator(device=device).manual_seed(spec.seed))
+    init = _leaf_samples(params)
+    tracer = OT.Tracer()
+    OT.set_tracer(tracer)
+    reset_counts()
+    try:
+        res = train.run(cfg, spec, device, params=params, say=lambda *_: None, mesh=mesh,
+                        log_every=1)
+    finally:
+        OT.set_tracer(None)
+    counts = read_counts()
+    timed = dict.fromkeys(("train/checkpoint", "train/checkpoint_drain", "train/restore"), 0.0)
+    todo = list(tracer.roots)
+    while todo:
+        sp = todo.pop()
+        if sp.name in timed:
+            timed[sp.name] += sp.duration
+        todo.extend(sp.children)
+    last = CK.latest_step(ckpt_dir) if ckpt_dir else None
+    return dict(start=res.start, history=res.history, seconds=res.seconds,
+                save_s=timed["train/checkpoint"], drain_s=timed["train/checkpoint_drain"],
+                restore_s=timed["train/restore"],
+                samples=dict(init=init, params=_leaf_samples(res.params),
+                             moments=_leaf_samples(_moments(res.opt_state))),
+                ckpt_bytes=_dir_bytes(os.path.join(ckpt_dir, f"step_{last:08d}"))
+                if last is not None else 0,
+                launches={k: counts[k] for k in ("flash_attention", "flash_attention_bwd")})
+
+
 def mesh_rank():
     """One rank of the ``mesh`` phase (``RANK``, ``WORLD_SIZE``,
     ``MESH_STORE``, ``MESH_SHAPE`` "data,model", ``MESH_GO``,
-    ``MESH_OUT``, ``MESH_DEVICE`` in the environment): a gloo group over a
-    file store, every rank on the one card; once the file ``MESH_GO``
-    exists, EBFT on that mesh, its kernels' launches and masked-matmul
-    shapes counted on this rank. Writes ``<data>x<model>_rank<r>.json``
-    into ``MESH_OUT``."""
+    ``MESH_OUT``, ``MESH_DEVICE``, ``MESH_LAUNCH`` in the environment): a
+    gloo group over a file store, every rank on the one card; once the
+    file ``MESH_GO`` exists, EBFT on that mesh, its kernels' launches and
+    masked-matmul shapes counted on this rank, then the sharded cells
+    (``mesh_cells``) and ``launch/train`` to step ``MESH_LAUNCH``
+    (``mesh_launch``; past the checkpoint step it waits for the other
+    mesh's checkpoint and resumes it). Writes ``<data>x<model>_rank<r>.json`` into
+    ``MESH_OUT``."""
     import torch
     import torch.distributed as dist
 
@@ -4726,8 +5050,42 @@ def mesh_rank():
         tuned={"/".join(p): t.double().sum().item() for p, t in T.leaves_with_path(tuned)},
         masked_shapes=sorted(shapes))
     MM._call = call
-    with open(os.path.join(os.environ["MESH_OUT"], f"{data}x{model_axis}_rank{rank}.json"),
-              "w") as f:
+    if device == "cuda":
+        out["walk_peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    del model, params, pruned, masks, tuned
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    # the sharded cells and launch/train on the same ranks
+    cells = json.loads(os.environ.get("MESH_CELLS", json.dumps(MESH_CELLS)))
+    key = f"{data}x{model_axis}"
+    t0 = time.perf_counter()
+    out["cells"] = mesh_cells(device, plan.mesh, conf, cells,
+                              os.path.join(os.environ["MESH_OUT"], f"{key}_rank{rank}_logits.pt"),
+                              os.environ.get("MESH_EBFT_AFTER"),
+                              os.path.join(os.environ["MESH_OUT"], f"{key}.ebft_done"))
+    out["cells_s"] = time.perf_counter() - t0
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    ckpt_dir = os.path.join(os.environ["MESH_OUT"], "launch_ckpt")
+    steps = int(os.environ["MESH_LAUNCH"])
+    if steps > cells["ckpt_step"]:  # the resuming mesh waits for the other's checkpoint
+        from repro_torch.checkpoint import ckpt as CK
+
+        deadline = time.perf_counter() + 600
+        while CK.latest_step(ckpt_dir) != cells["ckpt_step"]:
+            if time.perf_counter() > deadline:
+                raise TimeoutError("mesh: the first mesh's checkpoint never appeared")
+            time.sleep(0.2)
+    if device == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out["launch"] = mesh_launch(device, plan.mesh, conf, cells, steps, ckpt_dir)
+    out["launch_s"] = time.perf_counter() - t0
+    if device == "cuda":
+        out["launch_peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    samples = _pop_samples(out["cells"], out["launch"])
+    torch.save(samples, os.path.join(os.environ["MESH_OUT"], f"{key}_rank{rank}_samples.pt"))
+    with open(os.path.join(os.environ["MESH_OUT"], f"{key}_rank{rank}.json"), "w") as f:
         json.dump(out, f)
     dist.destroy_process_group()
 
@@ -4778,20 +5136,82 @@ def _nccl_one_rank(device, conf=MESH):
                 seconds=time.perf_counter() - t0)
 
 
-def phase_mesh(walls, device="cuda", conf=MESH):
+def _pop_samples(cells, launch) -> dict:
+    """The state samples taken out of a process's cells and launcher
+    records (they stay off the printed JSON): {kind: samples}."""
+    out = {k: v.pop("samples") for k, v in cells.items() if "samples" in v}
+    out["launch"] = launch.pop("samples")
+    return out
+
+
+def _state_errors(got, one, update_rel, moment_rel, what):
+    """One updated state against one process's, leaf by leaf, in relative
+    L2 over the sampled positions: the weights' difference over one
+    process's update (``params - init``), each moment's over one process's
+    moment. Returns (the worst reading of each with its leaf, the
+    failures: leaves past ``update_rel`` or ``moment_rel``)."""
+    worst, failed = {}, []
+    for part, limit in (("params", update_rel), ("moments", moment_rel)):
+        rows = {}
+        for leaf, ref in one[part].items():
+            base = ref - one["init"][leaf] if part == "params" else ref
+            rows[leaf] = float((got[part][leaf] - ref).norm() / max(float(base.norm()), 1e-300))
+        leaf = max(rows, key=rows.get)
+        worst[part] = [leaf, rows[leaf]]
+        failed += [f"mesh {what}: {part} {k} reads {v} against {limit}"
+                   for k, v in rows.items() if v > limit]
+    return worst, failed
+
+
+def _greedy_close(one, got, rel, what) -> dict:
+    """Greedy decoding on a mesh against one process: ``one`` and ``got``
+    (steps, B, V) logits. Row by row, each step's logits within ``rel`` of
+    the one process's largest |logit| in that row, and the same greedy
+    token unless one process's top two are within twice that (a near tie;
+    the row is then compared no further: its next input differs)."""
+    import torch
+
+    steps, rows, _ = one.shape
+    worst, equal, ties = 0.0, 0, 0
+    for b in range(rows):
+        for t in range(steps):
+            tol = rel * float(one[t, b].abs().max())
+            err = float((got[t, b] - one[t, b]).abs().max())
+            worst = max(worst, err / max(tol / rel, 1e-30))
+            if err > tol:
+                raise AssertionError(f"mesh {what}: row {b} step {t} logits off by {err} "
+                                     f"(tolerance {tol})")
+            # bf16 logits tie exactly at times: the token is argmax's (the
+            # one fed on), the gap topk's
+            top2 = torch.topk(one[t, b], 2).values
+            if int(got[t, b].argmax()) == int(one[t, b].argmax()):
+                equal += 1
+                continue
+            if float(top2[0] - top2[1]) > 2 * tol:
+                raise AssertionError(f"mesh {what}: row {b} step {t} greedy token differs "
+                                     "beyond a near tie")
+            ties += 1
+            break
+    return dict(max_rel_err=worst, tokens_equal=equal, near_ties=ties, tokens=steps * rows)
+
+
+def phase_mesh(walls, device="cuda", conf=MESH, cells=MESH_CELLS):
     """EBFT on a mesh of ranks at Llama-7B's widths (``MESH``): one process
-    first (the reference run), then the one-rank nccl check
-    (``_nccl_one_rank``), then a 2 × 1 (data) and a 1 × 2 (model: 16
-    heads and 5504 ff columns a rank) mesh, each two gloo ranks of its own
-    group, all four on the one card at once (nccl takes one rank a GPU).
-    Each mesh's wall is so taken under the other's load. Each mesh's
+    (the reference run, then the one-rank nccl check ``_nccl_one_rank``,
+    the cells and ``launch/train`` on one process), then a 2 × 1 (data)
+    and a 1 × 2 (model: 16 heads and 5504 ff columns a rank) mesh at once,
+    each two gloo ranks of its own group, all on the one card (nccl takes
+    one rank a GPU). Each mesh's wall is so taken under the other's load. Each mesh's
     per-block loss histories must equal one process's within rtol 2e-3,
     atol 1e-5 (the reference
     test's); every rank returns the same whole tensors; each rank launches
     the masked matmul (forward, dX, dW) and the attention (forward,
     backward) on its local shards, counted from 0 for each mesh; the
     accounting holds (device dispatches, collective bytes on the data
-    axis, per-shard live bytes below the whole on the model axis)."""
+    axis, per-shard live bytes below the whole on the model axis). Then
+    the same ranks run the sharded cells and ``launch/train``, each held
+    to one process (``_check_cells``): the 2 × 1 mesh trains to the
+    checkpoint, the 1 × 2 mesh resumes it."""
     import tempfile
 
     import torch
@@ -4802,26 +5222,28 @@ def phase_mesh(walls, device="cuda", conf=MESH):
     tmp = tempfile.mkdtemp(prefix="mesh_ranks_")
     world = 2
     env = dict(os.environ, WORLD_SIZE=str(world), PYTHONFAULTHANDLER="1", MESH_OUT=tmp,
-               MESH_DEVICE=device, MESH_CONF=json.dumps(conf),
+               MESH_DEVICE=device, MESH_CONF=json.dumps(conf), MESH_CELLS=json.dumps(cells),
                PYTHONPATH=os.pathsep.join([ROOT, os.path.join(ROOT, "src")]))
     # each mesh is a group of its own, all started now (imports, the card,
-    # the group); the first mesh runs beside this process's own pass, the
-    # second after the first (four sets of weights and activations at once
-    # do not fit the card's 80 GB), each on its go file
+    # the group); both meshes run once this process's own pass is done (the
+    # four ranks beside this process's ebft cell outgrew the card's 80 GB),
+    # on the go file
     keys = [f"{d}x{m}" for d, m in MESH_SHAPES]
     jobs = [(key, r) for key in keys for r in range(world)]
-    go = {key: os.path.join(tmp, f"{key}.go") for key in keys}
+    go = os.path.join(tmp, "go")
     logs = [open(os.path.join(tmp, f"{key}_rank{r}.log"), "w") for key, r in jobs]
+    # launch/train: the first mesh trains to the checkpoint, the second resumes
+    launch_steps = {keys[0]: cells["ckpt_step"], keys[1]: cells["launch_steps"]}
     procs = [subprocess.Popen([sys.executable, "-c", "import chip_smoke; chip_smoke.mesh_rank()"],
                               env=dict(env, RANK=str(r), MESH_SHAPE=key.replace("x", ","),
                                        MESH_STORE=os.path.join(tmp, f"{key}.store"),
-                                       MESH_GO=go[key]),
+                                       MESH_GO=go, MESH_LAUNCH=str(launch_steps[key]),
+                                       MESH_EBFT_AFTER="" if key == keys[0] else
+                                       os.path.join(tmp, f"{keys[0]}.ebft_done")),
                               cwd=ROOT, stdout=log, stderr=subprocess.STDOUT)
              for (key, r), log in zip(jobs, logs)]
     ranks_s = {}
     try:
-        t_mesh = time.perf_counter()
-        open(go[keys[0]], "w").close()
         model, params, pruned, masks, calib = _mesh_setup(device, conf["layers"], conf)
         reset_counts()
         _sync(device)
@@ -4836,13 +5258,25 @@ def phase_mesh(walls, device="cuda", conf=MESH):
         one_rank = _nccl_one_rank(device, conf)
         if device == "cuda":
             torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        cells_one = mesh_cells(device, ONE_MESH(), conf, cells, os.path.join(tmp, "one_logits.pt"))
+        cells_one_s = time.perf_counter() - t0
+        if device == "cuda":
+            torch.cuda.empty_cache()
+        cells_one["train"]["peak_gib_no_remat"] = train_peak_without_remat(device, conf, cells)
+        if device == "cuda":
+            torch.cuda.empty_cache()
+        t0 = time.perf_counter()  # one process's uninterrupted run
+        launch_one = mesh_launch(device, None, conf, cells, cells["launch_steps"])
+        launch_one_s = time.perf_counter() - t0
+        one_samples = _pop_samples(cells_one, launch_one)
+        if device == "cuda":
+            torch.cuda.empty_cache()
+        t_mesh = time.perf_counter()
+        open(go, "w").close()
         for (key, _), p in zip(jobs, procs):
-            if key == keys[1] and not os.path.exists(go[key]):
-                ranks_s[keys[0]] = time.perf_counter() - t_mesh
-                t_mesh = time.perf_counter()
-                open(go[key], "w").close()
             p.wait(timeout=600)
-        ranks_s[keys[1]] = time.perf_counter() - t_mesh
+            ranks_s[key] = time.perf_counter() - t_mesh  # from the start to its last rank's end
     finally:
         for p, log in zip(procs, logs):
             if p.poll() is None:
@@ -4859,7 +5293,7 @@ def phase_mesh(walls, device="cuda", conf=MESH):
             json.load(open(os.path.join(tmp, f"{key}_rank{r}.json"))))
 
     hist = [r.history for r in single]
-    meshes = {}
+    meshes, failed = {}, []
     for data, model_axis in MESH_SHAPES:
         key = f"{data}x{model_axis}"
         ranks = by_mesh[key]
@@ -4897,17 +5331,136 @@ def phase_mesh(walls, device="cuda", conf=MESH):
                      if fn == "masked_matmul_dw"})
         meshes[key] = dict(seconds=[r["seconds"] for r in ranks],
                            setup_s=[r["setup_s"] for r in ranks], max_rel=rel,
+                           peak_gib={k: [r.get(k) for r in ranks]
+                                     for k in ("walk_peak_gib", "launch_peak_gib")},
+                           cells_s=[r["cells_s"] for r in ranks],
+                           launch_s=[r["launch_s"] for r in ranks],
                            collective_bytes=coll, live_bytes=live,
                            live_bytes_per_shard=shard,
                            launches=[{k: r["launches"][k] for k in MESH_KERNELS}
                                      for r in ranks],
                            masked_rows=sorted(rows), tune_dw_shapes=dw,
                            histories=[r["history"] for r in reps])
+        try:  # every mesh's record is printed before a failure is raised
+            meshes[key]["cells"] = _check_cells(key, ranks, cells_one, launch_one, one_samples,
+                                                cells, device, tmp, resumed=key == keys[1])
+        except AssertionError as e:
+            failed.append(str(e))
+            meshes[key]["cells"] = dict(error=str(e), raw={k: [_brief(r[k]) for r in ranks]
+                                                           for k in ("launch",)},
+                                        raw_cells=[{c: _brief(v) for c, v in r["cells"].items()}
+                                                   for r in ranks])
     walls["mesh"] = time.perf_counter() - t_phase
-    emit(dict(phase="mesh", conf=conf, single_s=single_s, single_histories=hist,
+    emit(dict(phase="mesh", conf=conf, cells_conf=cells, single_s=single_s,
+              single_histories=hist,
               single_launches={k: single_launches[k] for k in MESH_KERNELS},
               one_rank=one_rank, ranks_s=ranks_s, meshes=meshes,
+              one_process=dict(cells_s=cells_one_s, launch_s=launch_one_s,
+                               train=cells_one["train"],
+                               ebft_tp=_brief(cells_one["ebft_tp"]),
+                               ebft_dp_only=_brief(cells_one["ebft_dp_only"]),
+                               serve=cells_one["serve"], launch=launch_one),
               seconds_phase=walls["mesh"]))
+    if failed:
+        raise AssertionError("mesh: " + "; ".join(failed))
+
+
+def ONE_MESH():
+    from repro_torch.launch.mesh import make_abstract_mesh
+
+    return make_abstract_mesh((1, 1), ("data", "model"))
+
+
+def _brief(rec) -> dict:
+    return {k: v for k, v in rec.items() if k != "masked_shapes"}
+
+
+def _check_cells(key, ranks, one, launch_one, one_samples, cells, device, tmp,
+                 resumed) -> dict:
+    """One mesh's cells and launcher run, every rank against one process
+    (the tolerances at ``CELL_*`` and ``LAUNCH_*``); returns what the phase
+    prints, the state readings included, and raises after it has them."""
+    import torch
+
+    rec = ranks[0]["cells"]
+    samples = [torch.load(os.path.join(tmp, f"{key}_rank{i}_samples.pt"))
+               for i in range(len(ranks))]
+    failed = []
+    for r, smp in zip(ranks, samples):
+        if r["cells"]["train"]["losses"] != rec["train"]["losses"] or \
+                r["cells"]["ebft_tp"]["loss"] != rec["ebft_tp"]["loss"]:
+            raise AssertionError(f"mesh {key}: the ranks' cells differ")
+        for kind, s in smp.items():  # every rank gathers the same whole state
+            if any(not torch.equal(t, samples[0][kind][part][leaf])
+                   for part in ("params", "moments") for leaf, t in s[part].items()):
+                failed.append(f"mesh {key}: the ranks' {kind} states differ")
+    tr, tr1 = rec["train"], one["train"]
+    if not (torch.allclose(torch.tensor(tr["losses"]), torch.tensor(tr1["losses"]),
+                           rtol=CELL_LOSS_RTOL, atol=0)
+            and torch.allclose(torch.tensor(tr["grad_norms"]), torch.tensor(tr1["grad_norms"]),
+                               rtol=CELL_NORM_RTOL, atol=0)):
+        failed.append(f"mesh {key}: train cell losses {tr['losses']} norms "
+                      f"{tr['grad_norms']} against {tr1['losses']} {tr1['grad_norms']}")
+    worst, bad = _state_errors(samples[0]["train"], one_samples["train"], CELL_UPDATE_REL,
+                               CELL_MOMENT_REL, f"{key} train cell")
+    failed += bad
+    out = dict(train=dict(tr, step_s=[r["cells"]["train"]["step_s"] for r in ranks],
+                          peak_gib=[r["cells"]["train"]["peak_gib"] for r in ranks],
+                          state_rel=worst))
+    for kind in ("ebft_tp", "ebft_dp_only"):
+        e, e1 = rec[kind], one[kind]
+        if abs(e["loss"] - e1["loss"]) > CELL_LOSS_RTOL * abs(e1["loss"]):
+            failed.append(f"mesh {key}: {kind} loss {e['loss']} against {e1['loss']}")
+        for r in ranks:
+            missing = [k for k, n in r["cells"][kind]["launches"].items() if n == 0]
+            if missing and device == "cuda":
+                failed.append(f"mesh {key}: {kind} launched no {missing} on a rank")
+        worst, bad = _state_errors(samples[0][kind], one_samples[kind], CELL_UPDATE_REL,
+                                   CELL_MOMENT_REL, f"{key} {kind}")
+        failed += bad
+        out[kind] = dict(loss=e["loss"], loss_one=e1["loss"],
+                         seconds=[r["cells"][kind]["seconds"] for r in ranks],
+                         launches=[r["cells"][kind]["launches"] for r in ranks],
+                         masked_shapes=sorted({(x[0], tuple(x[1]), tuple(x[2]))
+                                               for x in e["masked_shapes"]}),
+                         state_rel=worst)
+    one_logits = torch.load(os.path.join(tmp, "one_logits.pt"))
+    serve = [dict(r["cells"]["serve"], **_greedy_close(
+        one_logits, torch.load(os.path.join(tmp, f"{key}_rank{i}_logits.pt")), CELL_LOGIT_REL,
+        f"{key} rank {i} decode")) for i, r in enumerate(ranks)]
+    out["serve"] = serve
+    la, la1 = [r["launch"] for r in ranks], launch_one
+    for r in la:
+        if device == "cuda" and not all(r["launches"].values()):
+            failed.append(f"mesh {key}: launch/train launched no flash kernel {r}")
+        if r["history"] != la[0]["history"]:
+            failed.append(f"mesh {key}: the ranks' launcher losses differ")
+    # every step's loss against one process's same step: the first mesh's
+    # steps from the seeded init, the resumed mesh's from the checkpoint
+    ref = dict(la1["history"])
+    want = list(range(la[0]["start"], cells["ckpt_step"] if not resumed
+                      else cells["launch_steps"]))
+    if [s for s, _ in la[0]["history"]] != want or (resumed and la[0]["start"] !=
+                                                    cells["ckpt_step"]):
+        failed.append(f"mesh {key}: launch/train ran steps {la[0]['history']} from "
+                      f"{la[0]['start']}")
+    for step, loss in la[0]["history"]:
+        if abs(loss - ref[step]) > MESH_RTOL * abs(ref[step]) + MESH_ATOL:
+            failed.append(f"mesh {key}: launch/train step {step} loss {loss} against "
+                          f"{ref[step]}")
+    worst = None
+    if resumed:  # the resumed state against one process's 3 uninterrupted steps
+        worst, bad = _state_errors(samples[0]["launch"], one_samples["launch"],
+                                   LAUNCH_UPDATE_REL, LAUNCH_MOMENT_REL, f"{key} resumed run")
+        failed += bad
+    out["launch"] = dict(start=la[0]["start"], history=la[0]["history"],
+                         history_one=la1["history"], state_rel=worst,
+                         **{k: [r[k] for r in la] for k in ("seconds", "save_s", "drain_s",
+                                                            "restore_s", "ckpt_bytes",
+                                                            "launches")})
+    if failed:
+        raise AssertionError("; ".join(failed) + f"\nreadings: {json.dumps(out)}")
+    return out
 
 
 def main() -> int:

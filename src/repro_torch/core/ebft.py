@@ -131,13 +131,6 @@ def _global_loss(loss: torch.Tensor) -> torch.Tensor:
     return loss.full_tensor() if LK.any_dtensor(loss) else loss
 
 
-def _reduce_grads(grads, leaves):
-    """Each gradient in its weight's placements. A weight replicated over
-    the data axes gets a partial sum from each rank's rows (``Partial``),
-    which this all-reduces; the gradient the reference's GSPMD sums."""
-    return [g.redistribute(w.device_mesh, w.placements) for g, w in zip(grads, leaves)]
-
-
 def _loss_and_grads(model, i: int, bw, leaves, mask_bp, h, target, pos, aux=None):
     with torch.enable_grad():
         loss = R.block_loss(model, i, bw, mask_bp, h, target, pos, aux)
@@ -188,7 +181,7 @@ def tune_block(model, i: int, bp: Params, mask_bp: Params, data: List[Tuple],
             for mb in data:
                 loss, grads = step(model, i, bw, leaves, mask_bp, *mb)
                 if sharded:
-                    grads = _reduce_grads(grads, leaves)
+                    grads = LK.reduce_grads(grads, leaves)
                 it = iter(grads)
                 updates, state = opt.update(T.tree_map(lambda _: next(it), bw), state, bw)
                 apply_updates(bw, updates)

@@ -18,7 +18,7 @@ The "grad" columns are ``local_map``'s ``in_grad_placements``: on a
 data-sharded batch each rank's dW is its rows' share of the sum, so it is
 labelled ``Partial``. Left at the input's ``Replicate``, each rank would
 keep its own partial gradient as if it were the whole one. The caller
-sums it (``core/ebft.py`` redistributes every gradient to its weight's
+sums it (``reduce_grads`` redistributes every gradient to its weight's
 placements before the update). A row-parallel output is ``Partial`` over
 "model", summed before the residual add (``act_sharding.constrain``).
 
@@ -48,6 +48,16 @@ def any_dtensor(*ts) -> bool:
         return False
     dt = _dtensor_type()
     return any(isinstance(t, dt) for t in ts)
+
+
+def reduce_grads(grads, leaves):
+    """Each DTensor gradient in its weight's placements (plain ones pass).
+    A weight replicated over the data axes gets a partial sum from each
+    rank's rows (``Partial``), which this all-reduces: the gradient the
+    reference's GSPMD sums. The EBFT walk's tuning step and the train step
+    (``training/train_loop.value_and_grad``) share it."""
+    return [g.redistribute(w.device_mesh, w.placements) if any_dtensor(g) else g
+            for g, w in zip(grads, leaves)]
 
 
 def _mm_rule(xp, wp):
@@ -120,6 +130,51 @@ def attend(fn: Callable, q, k, v, **kw):
                       in_placements=(pl, pl, pl), in_grad_placements=(pl, pl, pl),
                       device_mesh=mesh)
     return local(q, k, v)
+
+
+def embed(tokens, table):
+    """``F.embedding(tokens, table)`` for a DTensor table (or tokens): each
+    rank looks up its own vocab rows. Per mesh dimension, a vocab-sharded
+    table (``Shard(0)``, tokens replicated there) gives each rank the rows
+    its shard holds and zeros elsewhere, labelled ``Partial`` (the caller
+    sums it: ``act_sharding.constrain``); a replicated table follows the
+    tokens' placement. A table sharded along its width (FSDP) is gathered
+    first. DTensor's own rule labels the output with a masked partial whose
+    backward it cannot redistribute."""
+    import torch.nn.functional as F
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = next(t.device_mesh for t in (tokens, table) if any_dtensor(t))
+    tokens, table = (_as_dtensor(t, mesh) for t in (tokens, table))
+    table = table.redistribute(mesh, [p if p == Shard(0) else Replicate()
+                                      for p in table.placements])
+    out, gw, offset = [], [], 0
+    rows = table.to_local().shape[0]
+    for dim, (a, b) in enumerate(zip(tokens.placements, table.placements)):
+        if b == Shard(0):
+            if a != Replicate():
+                raise ValueError(f"embed: tokens {a} against a vocab-sharded table on mesh "
+                                 f"dimension {dim}")
+            out.append(Partial()), gw.append(Shard(0))
+            offset = offset * mesh.size(dim) + mesh.get_local_rank(dim)
+        elif a == Shard(0):
+            out.append(Shard(0)), gw.append(Partial())
+        elif a == Replicate():
+            out.append(Replicate()), gw.append(Replicate())
+        else:
+            raise ValueError(f"embed: no sharding rule for tokens {a} on mesh dimension {dim}")
+    lo = offset * rows
+
+    def local(t, w):
+        hit = (t >= lo) & (t < lo + rows)
+        rows_ = F.embedding(torch.where(hit, t - lo, torch.zeros_like(t)), w)
+        return rows_ * hit[..., None].to(rows_.dtype)
+
+    return local_map(local, out_placements=out,
+                     in_placements=(list(tokens.placements), list(table.placements)),
+                     in_grad_placements=(list(tokens.placements), gw),
+                     device_mesh=mesh)(tokens, table)
 
 
 class _DenseGrad(torch.autograd.Function):

@@ -37,29 +37,6 @@ def _itemsize(leaf) -> int:
     return (getattr(leaf, "dtype", None) or torch.float32).itemsize
 
 
-def _whole(t) -> torch.Tensor:
-    """A Shard/Replicate DTensor as one whole tensor on every rank. Under
-    nccl, ``full_tensor``. Under gloo the pieces cross on the host, by
-    ``all_gather`` on CPU tensors: gloo's ``all_gather_into_tensor`` of CUDA
-    tensors (what ``full_tensor`` runs) crashed the process on the H100
-    (PERF.md §6)."""
-    import torch.distributed as dist
-
-    if dist.get_backend() != "gloo":
-        return t.full_tensor()
-    mesh = t.device_mesh
-    x = t.to_local().cpu()
-    for dim in reversed(range(mesh.ndim)):  # the innermost split first
-        p = t.placements[dim]
-        if p.is_partial():
-            raise ValueError(f"gather takes Shard and Replicate placements, not {p}")
-        if p.is_shard():
-            parts = [torch.empty_like(x) for _ in range(mesh.size(dim))]
-            dist.all_gather(parts, x.contiguous(), group=mesh.get_group(dim))
-            x = torch.cat(parts, dim=p.dim)
-    return x.to(t.device)
-
-
 def _numel(leaf) -> int:
     n = 1
     for s in leaf.shape:
@@ -166,11 +143,12 @@ class MeshPlan:
 
     @staticmethod
     def gather(tree: Any) -> Any:
-        """Whole tensors on every rank from a tree of DTensors (other leaves
-        pass)."""
+        """Whole tensors on every rank from a tree of DTensors (a ``Partial``
+        placement is summed; other leaves pass). Under gloo on the card the
+        collectives cross the host (``host_collectives``)."""
         from torch.distributed.tensor import DTensor
 
-        return T.tree_map(lambda t: _whole(t) if isinstance(t, DTensor) else t, tree)
+        return T.tree_map(lambda t: t.full_tensor() if isinstance(t, DTensor) else t, tree)
 
     # -- accounting ---------------------------------------------------------
     def sharded_bytes(self, tree: Any, specs: Optional[Any] = None) -> int:

@@ -245,6 +245,29 @@ def cache_pspecs(cache_tree: Any, mesh) -> Any:
     return T.tree_map(g, cache_tree)
 
 
+def port_cache_pspecs(cache_tree: Any, mesh) -> Any:
+    """``cache_pspecs`` on the port's serve state. The port keeps a KV
+    cache as (L, B, Hkv, max_len, hd) where the reference keeps (L, B,
+    max_len, Hkv, hd), and ``cache_pspecs``'s "model" rule reads dim -2:
+    on the port's layout that is ``max_len``. So each 5-D ``k``/``v`` leaf
+    takes the reference's spec of its reference-layout shape, with dims 2
+    and 3 swapped back: the batch over "data", the KV heads over "model"
+    when they divide, ``max_len`` never sharded. The host-int ``len`` has
+    no spec (``None``); every other leaf (Mamba states, the
+    encoder-decoder's memory) is laid out as the reference's."""
+    def g(path, leaf):
+        if not hasattr(leaf, "shape"):
+            return None
+        shape = tuple(leaf.shape)
+        kv = bool(path) and path[-1] in ("k", "v") and len(shape) == 5
+        if kv:
+            shape = shape[:2] + (shape[3], shape[2]) + shape[4:]
+        spec = cache_pspecs(ShapeLeaf(shape), mesh)
+        return spec[:2] + (spec[3], spec[2]) + spec[4:] if kv else spec
+
+    return T.map_with_path(g, cache_tree)
+
+
 def spec_axes(entry) -> Tuple[str, ...]:
     """The axis names of one spec entry (``None`` -> ())."""
     if entry is None:
@@ -264,16 +287,19 @@ def shards_of(spec: Spec, mesh) -> int:
 def to_placements(spec: Sequence, mesh) -> Tuple:
     """DTensor placements of ``spec`` on a ``DeviceMesh`` (the reference's
     ``named``): ``Shard(d)`` on each mesh dimension that spec entry ``d``
-    names, ``Replicate()`` elsewhere. A mesh dimension named twice is an
-    error."""
+    names, ``Replicate()`` elsewhere and on a dimension of size 1. A mesh
+    dimension named twice is an error."""
     from torch.distributed.tensor import Replicate, Shard
 
+    sizes = axis_sizes(mesh)
     placements = []
     for name in axis_names(mesh):
         dims = [d for d, entry in enumerate(spec) if name in spec_axes(entry)]
         if len(dims) > 1:
             raise ValueError(f"spec {tuple(spec)} names mesh axis {name!r} twice")
-        placements.append(Shard(dims[0]) if dims else Replicate())
+        # an axis of size 1 cuts nothing; Replicate keeps DTensor's views
+        # free to merge that dim (a one-row microbatch on a 1 x 2 mesh)
+        placements.append(Shard(dims[0]) if dims and sizes[name] > 1 else Replicate())
     return tuple(placements)
 
 

@@ -36,6 +36,10 @@ def refuse_frontend_families(cfg, driver: str) -> None:
             "launch.train, which draws the patches as the reference's does")
 
 
+def quiet(*_args, **_kw) -> None:
+    """What a rank other than 0 prints: nothing."""
+
+
 def parse(spec_cls, argv: Optional[Sequence[str]], prog: str, description: str,
           choices: Optional[Dict[str, Sequence]] = None) -> Tuple[object, Optional[str]]:
     """(spec, device) from ``argv``; device None means the card."""

@@ -75,7 +75,7 @@ from repro_torch.data.tokens import (
     CorpusConfig, SyntheticCorpus, calibration_set, corpus_iterator, eval_set,
 )
 from repro_torch.kernels import tuning
-from repro_torch.launch.api import parse, refuse_frontend_families, start_obs_run
+from repro_torch.launch.api import parse, quiet, refuse_frontend_families, start_obs_run
 from repro_torch.launch.mesh import init_from_env, make_ebft_plan
 from repro_torch.models.model import build
 from repro_torch.obs import metrics as OM
@@ -219,13 +219,15 @@ def pretrain(model, params, corpus, steps: int, batch: int, seq: int, lr: float,
 
 
 def run(cfg: ModelConfig, spec: RunSpec, device=None, params: Optional[Any] = None,
-        on_stage: Optional[Callable[[str], None]] = None, mesh_plan=None) -> RunResult:
+        on_stage: Optional[Callable[[str], None]] = None, mesh_plan=None,
+        lora_cfg: Optional[lora.LoRAConfig] = None) -> RunResult:
     """pretrain (``spec.pretrain_steps`` > 0) -> eval_dense -> prune ->
     pruned eval -> EBFT -> tuned eval, then each of ``spec.baselines`` with
     its eval, as the reference's ``ebft_run.py``. ``params`` defaults to
     the port's init seeded with ``spec.seed``; they are not changed.
     ``on_stage`` is handed to each pretraining step (``make_train_step``).
-    ``mesh_plan`` (a ``MeshPlan``; None is one device) is EBFT's."""
+    ``mesh_plan`` (a ``MeshPlan``; None is one device) is EBFT's;
+    ``lora_cfg`` (default ``LORA``) the LoRA baseline's."""
     refuse_frontend_families(cfg, "ebft_run")
     wants = set(spec.baselines.split(",")) if spec.baselines else set()
     if wants - set(BASELINES):
@@ -301,7 +303,8 @@ def run(cfg: ModelConfig, spec: RunSpec, device=None, params: Optional[Any] = No
         losses: List[torch.Tensor] = []
         with _phase(device, "phase/baseline", which="lora") as sp:
             it = corpus_iterator(corpus, batch=8, seq_len=spec.seq, seed=9)
-            lr_params = lora.finetune_lora(model, pruned, masks, it, LORA, losses=losses)
+            lr_params = lora.finetune_lora(model, pruned, masks, it, lora_cfg or LORA,
+                                            losses=losses)
             ppl["LoRA"] = perplexity(model, lr_params, ev, masks=masks)
         phases["baseline_lora"] = sp.duration
         res.baselines["lora"] = dict(params=lr_params, losses=losses)
@@ -398,10 +401,6 @@ def bench_record(spec: RunSpec, res: RunResult,
     }
 
 
-def _quiet(*_args, **_kw) -> None:
-    """A rank other than 0 prints nothing."""
-
-
 def _mean_drop(reports) -> float:
     return sum(r.loss_before - r.loss_after for r in reports) / max(len(reports), 1)
 
@@ -416,7 +415,7 @@ def main(argv=None) -> RunResult:
     rank = init_from_env(device.type)
     plan = make_ebft_plan(spec.mesh_data, spec.mesh_model, device_type=device.type)
     obs_run = start_obs_run(spec, "ebft", device) if rank == 0 else None
-    say = obs_run.say if obs_run is not None else (print if rank == 0 else _quiet)
+    say = obs_run.say if obs_run is not None else (print if rank == 0 else quiet)
     if plan.active:
         say(f"calibration mesh: {plan.describe()['axes']} ({plan.device_count} devices)")
     res = run(cfg, spec, device, mesh_plan=plan)

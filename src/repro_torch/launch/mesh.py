@@ -53,9 +53,16 @@ def abstract_production_mesh(*, multi_pod: bool = False) -> AbstractMesh:
 def make_debug_mesh(data: int = 1, model: int = 1, device_type: str = "cuda"):
     """A (data, model) ``DeviceMesh`` over the ranks of the default process
     group (which must exist: ``init_from_env`` under ``torchrun``), axes
-    ("data", "model")."""
+    ("data", "model"). A CUDA mesh under gloo (several ranks on one card)
+    moves its collectives through host memory
+    (``distributed.host_collectives``)."""
+    import torch.distributed as dist
     from torch.distributed.device_mesh import init_device_mesh
 
+    if device_type == "cuda" and dist.get_backend() == "gloo":
+        from repro_torch.distributed import host_collectives
+
+        host_collectives.install()  # gloo's CUDA collectives cross the host
     return init_device_mesh(device_type, (data, model), mesh_dim_names=("data", "model"))
 
 
@@ -84,9 +91,20 @@ def make_ebft_plan(data: int = 0, model: int = 1, device_type: str = "cuda"):
     data axis every rank the model axis leaves; 1 × 1 (the CLI default)
     returns the inactive plan, the single-device path bit for bit. More
     ranks than the process group has raise a ValueError."""
-    import torch.distributed as dist
-
     from repro_torch.distributed.meshplan import MeshPlan
+
+    data, model = resolve_axes(data, model)
+    if data * model == 1:
+        return MeshPlan.single()
+    return MeshPlan.from_mesh(make_debug_mesh(data, model, device_type))
+
+
+def resolve_axes(data: int = 0, model: int = 1) -> Tuple[int, int]:
+    """(data, model) of a run's mesh over the default process group, the
+    reference's rule: ``data=0`` gives the data axis every rank the model
+    axis leaves. 1 × 1 is one device (on every rank); any other mesh must
+    use every rank of the group (a ValueError otherwise)."""
+    import torch.distributed as dist
 
     nranks = dist.get_world_size() if dist.is_initialized() else 1
     model = max(int(model), 1)
@@ -94,7 +112,7 @@ def make_ebft_plan(data: int = 0, model: int = 1, device_type: str = "cuda"):
         data = max(nranks // model, 1)
     data = max(int(data), 1)
     if data * model == 1:
-        return MeshPlan.single()
+        return 1, 1
     if data * model > nranks:
         raise ValueError(
             f"mesh ({data} data x {model} model) needs {data * model} ranks but the "
@@ -103,4 +121,4 @@ def make_ebft_plan(data: int = 0, model: int = 1, device_type: str = "cuda"):
     if data * model != nranks:
         raise ValueError(f"mesh ({data} data x {model} model) must use all {nranks} ranks "
                          "of the process group")
-    return MeshPlan.from_mesh(make_debug_mesh(data, model, device_type))
+    return data, model

@@ -67,16 +67,31 @@ def mamba_block(tree: Params, i: int, cfg: ModelConfig) -> Params:
 def forward_hidden(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
                    masks: Optional[Params] = None) -> torch.Tensor:
     """The shared block runs at every site with positions 0..S-1."""
-    G, K, R = schedule(cfg)
+    G, K, _ = schedule(cfg)
     h = L.embed(params["embed"]["tok"], tokens, TR.torch_dtype(cfg.dtype))
     positions = torch.arange(tokens.shape[1], device=tokens.device)[None, :]
-    shared_m = masks["shared"] if masks is not None else None
-    for i in range(cfg.num_layers):
-        bm = mamba_block(masks, i, cfg) if masks is not None else None
-        h, _ = S.mamba_block_apply(mamba_block(params, i, cfg), cfg, h, masks=bm)
-        if i < G * K and i % K == K - 1:
-            h = TR.block_apply(params["shared"], cfg, h, positions, shared_m)
+    for g in range(G):
+        h = TR.remat_block(cfg, _group_body, params, cfg, masks, g, h, positions)
+    for i in range(G * K, cfg.num_layers):  # the trailing blocks: no remat, as the reference
+        h = _mamba(params, cfg, masks, i, h)
     return L.apply_norm(params["final_norm"], h, cfg.norm)
+
+
+def _mamba(params: Params, cfg: ModelConfig, masks: Optional[Params], i: int,
+           h: torch.Tensor) -> torch.Tensor:
+    bm = mamba_block(masks, i, cfg) if masks is not None else None
+    return S.mamba_block_apply(mamba_block(params, i, cfg), cfg, h, masks=bm)[0]
+
+
+def _group_body(params: Params, cfg: ModelConfig, masks: Optional[Params], g: int,
+                h: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
+    """Group ``g``: its K Mamba blocks, then the shared block (the
+    reference's remat body)."""
+    _, K, _ = schedule(cfg)
+    for i in range(g * K, (g + 1) * K):
+        h = _mamba(params, cfg, masks, i, h)
+    return TR.block_apply(params["shared"], cfg, h, positions,
+                          masks["shared"] if masks is not None else None)
 
 
 def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor,

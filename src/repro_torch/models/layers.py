@@ -280,9 +280,15 @@ def mlp_block(p: Params, x: torch.Tensor, act: str, masks: Optional[Params] = No
 def embed(tok_emb: torch.Tensor, tokens: torch.Tensor, dtype) -> torch.Tensor:
     """The rows of ``tok_emb`` at ``tokens``. ``F.embedding``'s backward sums
     a repeated token's rows in a fixed order (indexing's accumulates them in
-    parallel on the CPU), so a training step repeats bit for bit."""
+    parallel on the CPU), so a training step repeats bit for bit. On a mesh
+    a vocab-sharded table gives each rank its own rows' share
+    (``local_kernels.embed``), summed here."""
+    if LK.any_dtensor(tok_emb, tokens):
+        return AS.constrain(LK.embed(tokens, tok_emb).to(dtype), "bqd")
     return F.embedding(tokens, tok_emb).to(dtype)
 
 
 def lm_logits(head_w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-    return torch.matmul(x, head_w).float()
+    """f32 logits; on a mesh a vocab-sharded head's are gathered whole
+    along the vocab (a no-op without a policy)."""
+    return AS.constrain(torch.matmul(x, head_w).float(), "bqd")

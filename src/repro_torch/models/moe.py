@@ -43,6 +43,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import fsdp
 from repro_torch.kernels.masked_matmul.ops import masked_matmul_batched
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as TR
@@ -233,9 +234,16 @@ def forward_hidden(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     aux_total = torch.zeros((), dtype=torch.float32, device=h.device)
     for i in range(cfg.num_layers - cfg.moe_first_dense):
         bm = TR.slice_block(masks["moe_blocks"], i) if masks is not None else None
-        h, a = moe_block_apply(TR.slice_block(params["moe_blocks"], i), cfg, h, positions, bm)
+        h, a = TR.remat_block(cfg, _moe_body, TR.slice_block(params["moe_blocks"], i), cfg, h,
+                              positions, bm)
         aux_total = aux_total + a
     return L.apply_norm(params["final_norm"], h, cfg.norm), aux_total
+
+
+def _moe_body(bp: Params, cfg: ModelConfig, h: torch.Tensor, positions: torch.Tensor,
+              masks: Optional[Params]):
+    """One MoE block of the training forward (the reference's remat body)."""
+    return moe_block_apply(fsdp.gather_block(bp), cfg, h, positions, masks)
 
 
 def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor,

@@ -51,6 +51,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import fsdp
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as TR
 
@@ -259,8 +260,14 @@ def forward_hidden(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     h = L.embed(params["embed"]["tok"], tokens, TR.torch_dtype(cfg.dtype))
     for i in range(cfg.num_layers):
         bm = TR.slice_block(masks["blocks"], i) if masks is not None else None
-        h, _ = mamba_block_apply(TR.slice_block(params["blocks"], i), cfg, h, masks=bm)
+        h = TR.remat_block(cfg, _mamba_body, TR.slice_block(params["blocks"], i), cfg, h, bm)
     return L.apply_norm(params["final_norm"], h, cfg.norm)
+
+
+def _mamba_body(bp: Params, cfg: ModelConfig, h: torch.Tensor,
+                masks: Optional[Params]) -> torch.Tensor:
+    """One Mamba block of the training forward (the reference's remat body)."""
+    return mamba_block_apply(fsdp.gather_block(bp), cfg, h, masks=masks)[0]
 
 
 def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor,

@@ -123,13 +123,32 @@ def forward_hidden(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
                         cfg.norm)
 
 
+def remat_block(cfg: ModelConfig, body, *args):
+    """``body(*args)``, one block's step of a training forward. Under
+    ``cfg.remat == "block"`` with autograd on, its activations are
+    recomputed in the backward instead of kept (``torch.utils.checkpoint``,
+    the reference's ``jax.checkpoint`` around the block body). The
+    recompute runs the same operations, kernels included (their launch
+    counters count it), so the loss and the gradients keep their bits."""
+    if cfg.remat == "block" and torch.is_grad_enabled():
+        from torch.utils.checkpoint import checkpoint
+
+        return checkpoint(body, *args, use_reentrant=False)
+    return body(*args)
+
+
+def _gathered_block(bp: Params, cfg: ModelConfig, h: torch.Tensor, positions: torch.Tensor,
+                    masks: Optional[Params]) -> torch.Tensor:
+    return block_apply(fsdp.gather_block(bp), cfg, h, positions, masks)  # no-op w/o policy
+
+
 def run_blocks(params: Params, cfg: ModelConfig, h: torch.Tensor, positions: torch.Tensor,
                masks: Optional[Params] = None) -> torch.Tensor:
     """The embedded stream h (B, S, d) through every block, no final norm."""
     for i in range(cfg.num_layers):
         bm = slice_block(masks["blocks"], i) if masks is not None else None
-        bp = fsdp.gather_block(slice_block(params["blocks"], i))  # no-op w/o policy
-        h = block_apply(bp, cfg, h, positions, bm)
+        h = remat_block(cfg, _gathered_block, slice_block(params["blocks"], i), cfg, h,
+                        positions, bm)
     return h
 
 

@@ -15,12 +15,15 @@ from typing import Any, Tuple
 import torch
 
 from repro_torch import tree as T
+from repro_torch.distributed import local_kernels as LK
 
 MIN_SIZE = 1024  # smaller leaves pass through uncompressed
 
 
 def init_error_state(params) -> Any:
-    return T.tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32, device=p.device),
+    """f32 zeros, each in its parameter's placements (a DTensor on a mesh)."""
+    return T.tree_map(lambda p: torch.zeros_like(p, dtype=torch.float32,
+                                                 memory_format=torch.contiguous_format),
                       params)
 
 
@@ -37,6 +40,16 @@ def compress_leaf(g: torch.Tensor, err: torch.Tensor,
     residual)."""
     if g.numel() < MIN_SIZE or ratio >= 1.0:
         return g, err
+    if LK.any_dtensor(g):
+        # the top k of the whole leaf, as the reference's (a rank's shard
+        # has no global threshold): gathered, compressed, put back
+        from torch.distributed.tensor import distribute_tensor
+
+        from repro_torch.distributed.meshplan import MeshPlan
+
+        sent, new_err = compress_leaf(MeshPlan.gather(g), MeshPlan.gather(err), ratio)
+        return tuple(distribute_tensor(t, like.device_mesh, like.placements, src_data_rank=None)
+                     for t, like in ((sent, g), (new_err, err)))
     g32 = g.to(torch.float32) + err
     k = max(1, int(g.numel() * ratio))
     sent = g32 * _topk_mask(g32, k)
