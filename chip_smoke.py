@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """GPU smoke of the PyTorch port (``src/repro_torch``) on one card.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py                # the smoke
+    python3 chip_smoke.py --plant-fault  # the MoE mesh cells' check, against a planted fault
 
 Builds the hand-written CUDA kernels from ``src/repro_torch/kernels/csrc``
 into ``build/kernels/``, holds each against its plain PyTorch version at
@@ -11,7 +12,7 @@ the pipeline (``repro_torch.launch.ebft_run.run``) on Llama-7B at full
 width with 4 of its 32 layers in bf16: Wanda 0.7 -> EBFT (the main path);
 2:4, whose tuned weights are re-packed and run through ``nm_spmm``;
 SparseGPT 0.7 -> EBFT with the DSnoT and mask-tuning baselines (path A);
-FLAP at 26% structured sparsity -> EBFT with 100 LoRA steps (path B). It
+FLAP at 26% structured sparsity -> EBFT with 10 LoRA steps (path B). It
 serves the main path's pretrained and EBFT-tuned weights from a KV cache
 (``serve``: cached decode held to the no-cache forward, continuous
 batching through ``repro_torch.serving``, ``launch/serve`` on the card).
@@ -23,7 +24,7 @@ products through the expert-batched masked GEMM, which the
 ``masked_matmul_batched`` phase holds against its plain version and
 against the 2-D kernel on each expert's slab; and tiny_moe on the card
 against the CPU. The ``ssm`` and ``hybrid`` phases run the SSM family on
-Mamba2-130M (16 of its 24 layers) and the hybrid on Zamba2-1.2B (7 of its 38
+Mamba2-130M (4 of its 24 layers) and the hybrid on Zamba2-1.2B (6 of its 38
 layers) at their published widths: pretraining, Wanda 0.7, EBFT,
 perplexity and serving, every Mamba projection through the masked GEMM
 (Mamba2-130M's in_dt mask, (768, 24), a view into a row-padded buffer)
@@ -58,7 +59,15 @@ ranks then run the sharded cells of ``launch/steps.py`` (train, ebft in
 two layouts, prefill and greedy decode) and ``launch/train.run`` with a
 checkpoint saved on 2 × 1 and resumed on 1 × 2, each held to one process;
 the ebft cells' masked matmuls and the launcher's flash attention are
-launched on local shards and counted.
+launched on local shards and counted. The ``mesh_families`` phase then
+runs the MoE, SSM and hybrid families on the same two meshes at their
+published widths (DeepSeek-MoE-16B at 2 layers, Mamba2-130M at 2,
+Zamba2-1.2B at 6): the EBFT walk in f32, the SSM's train and ebft cells
+and the MoE's on 1 × 2 (bf16, the MoE's train cell f32) and every
+family's prefill and decode steps, each held to one process, with the experts split over "model" (the
+expert-batched masked GEMM on each rank's slabs) and the Mamba mixers
+over heads; on 1 × 2 a rank's expert slabs against the whole launch bit
+for bit and Mamba2-130M's in_dt shard through the bf16 kernel.
 Every path above runs with the tile autotuner off (``kernel_tune="off"``),
 on the default tiles. The ``tuning`` phase (last) holds every compiled
 instantiation's launch plan (``kernels/validation.py``) to the compiled
@@ -71,8 +80,8 @@ searched cache, and runs ``ebft_run.run`` on a 2-layer
 Llama-7B with ``--kernel-tune search``, then ``cache`` (warm: no miss),
 then ``off``. The kernels line gives each row's default ``tiles``. Every
 phase
-prints one JSON line; any
-failed check raises, so the script exits non-zero. The last three lines
+prints one JSON line, also appended to ``chiprun_out/chip_smoke_phases.jsonl``
+beside the script; any failed check raises, so the script exits non-zero. The last three lines
 are the card's name and power limit, the per-kernel summary, and
 ``{"ok": true, "device": ...}``. Without a card it exits non-zero and
 prints no result.
@@ -89,6 +98,7 @@ isolated ones.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -116,8 +126,18 @@ OBS_REQUIRE = ["blocks", "phases", "perplexity", "ebft", "dispatch", "walk_phase
                "kernel_tuning"]
 
 
+# every phase's line also goes to this file (the call's output keeps only
+# its end): ``main`` starts it
+PHASES_LOG = os.path.join(ROOT, "chiprun_out", "chip_smoke_phases.jsonl")
+_log = {"on": False}
+
+
 def emit(obj) -> None:
-    print(json.dumps(obj), flush=True)
+    line = json.dumps(obj)
+    print(line, flush=True)
+    if _log["on"]:
+        with open(PHASES_LOG, "a") as f:
+            f.write(line + "\n")
 
 
 def smi() -> str:
@@ -1730,10 +1750,10 @@ def phase_path_a(tokens, dense, microbatch=8):
     return launches, artifact
 
 
-# path B's LoRA steps: the reference driver's 200 halved to keep the script
+# path B's LoRA steps: ebft_run's default 200 cut to keep the script
 # inside its limit (at 200, with every family at its earlier depth, the
-# script took 1216.7 s; PERF.md §4)
-B_LORA_STEPS = 100
+# script took 1216.7 s; 100 until the families' mesh phase joined: PERF.md §4)
+B_LORA_STEPS = 10
 
 
 def phase_path_b(tokens, dense, microbatch=8):
@@ -3073,7 +3093,8 @@ def phase_moe(walls):
               for r in res.reports]
     experts = _moe_expert_readings(model, res.dense, calib)
     row = dict(phase="moe", arch="deepseek_moe_16b", num_layers=cfg.num_layers,
-               reduced="num_layers 28->5", dtype=cfg.dtype, attn_impl=cfg.attn_impl,
+               reduced=f"num_layers 28->{cfg.num_layers}", dtype=cfg.dtype,
+               attn_impl=cfg.attn_impl,
                seq=spec.seq, params=sum(t.numel() for _, t in T.leaves_with_path(res.dense)),
                pretrain=dict(steps=spec.pretrain_steps, batch=spec.batch,
                              microbatches=spec.microbatches, lr=3e-3,
@@ -3156,8 +3177,8 @@ def phase_moe(walls):
 
 
 # ---------------------------------------------------------------------------
-# the SSM family (Mamba2-130M, 16 of its 24 layers) and the hybrid
-# (Zamba2-1.2B, 7 of its 38 layers: one shared-block site) at their
+# the SSM family (Mamba2-130M, 4 of its 24 layers) and the hybrid
+# (Zamba2-1.2B, 6 of its 38 layers: one shared-block site) at their
 # published widths; the depths keep the script inside its limit (PERF.md §4)
 # ---------------------------------------------------------------------------
 # every Mamba leaf's (R, O) matrix at both models' widths, bf16, at the EBFT
@@ -3171,10 +3192,12 @@ MAMBA_LEAVES = {"ssm": [("in_zx", 768, 1536), ("in_BC", 768, 128), ("in_dt", 768
 # swamps the Mamba stream: the untuned sparse shared block's error at its
 # first site then held every later block's EBFT loss near 1.2e8, and EBFT's
 # perplexity above Wanda's (PERF.md §6). Microbatches: the most each
-# pretraining step fits (Mamba2-130M's peak 67 GiB in one)
-FAMILY = {"ssm": dict(arch="mamba2_130m", layers=16, reduced="num_layers 24->16", microbatches=1,
+# pretraining step fits (Mamba2-130M's peak 67 GiB in one at 24 layers); the
+# depths are cut for the script's time (PERF.md §4: ssm 24 -> 16 -> 4,
+# hybrid 38 -> 13 -> 7 -> 6: one shared-block site, no trailing block)
+FAMILY = {"ssm": dict(arch="mamba2_130m", layers=4, reduced="num_layers 24->4", microbatches=1,
                       pretrain_lr=3e-3),
-          "hybrid": dict(arch="zamba2_1_2b", layers=7, reduced="num_layers 38->7",
+          "hybrid": dict(arch="zamba2_1_2b", layers=6, reduced="num_layers 38->6",
                          microbatches=2, pretrain_lr=3e-4)}
 FAM = dict(pretrain_steps=50, batch=8, calib=16, eval=16, seq=2048)
 FAM_SERVE = dict(slots=8, prompt_len=512, max_new=32, max_len=1024, requests=16, forced_steps=32)
@@ -3896,7 +3919,8 @@ def phase_vlm(walls):
                    loss_after=r.loss_after, epochs_run=r.epochs_run, early_stop=r.early_stop)
               for r in reports]
     row = dict(phase="vlm", arch="llava_next_mistral_7b", num_layers=cfg.num_layers,
-               reduced="num_layers 32->4", dtype=cfg.dtype, attn_impl=cfg.attn_impl,
+               reduced=f"num_layers 32->{cfg.num_layers}", dtype=cfg.dtype,
+               attn_impl=cfg.attn_impl,
                seq=VLM["seq"], patches=P, text=S, num_heads=cfg.num_heads,
                num_kv_heads=cfg.num_kv_heads,
                params=sum(t.numel() for _, t in T.leaves_with_path(dense)),
@@ -4651,7 +4675,7 @@ def _default_tiles(name: str) -> dict:
 # Llama-7B's widths at 1 layer in f32 (the kernels' f32 routes), 8
 # segments of 2048 in one microbatch, 2 EBFT epochs; magnitude 0.5 (2
 # layers and 16 segments before the sharded cells joined the phase: the
-# cuts pay for them)
+# cut pays for them)
 MESH = dict(arch="llama_7b", layers=1, seq=2048, calib=8, microbatch=8, epochs=2, lr=2e-4,
             sparsity=0.5)
 # the sharded cells of launch/steps.py and launch/train on the same ranks,
@@ -4785,26 +4809,57 @@ def _dir_bytes(path) -> int:
     return sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(path) for f in fs)
 
 
-def mesh_cells(device, mesh, conf, cells, logits_path, ebft_after=None, ebft_done=None):
+def mesh_cells(device, mesh, conf, cells, logits_path, ebft_after=None, ebft_done=None,
+               parts=("train", "ebft", "serve"), layouts=(False, True), dtypes=None):
     """The train, ebft, prefill and decode cells of ``launch/steps.py`` on
-    ``mesh`` (the ranks' ``DeviceMesh``, or a 1 × 1 ``AbstractMesh``: one
-    process, plain tensors) at ``conf``'s widths and seq, seeded on
-    ``device``. Returns their record; the serving steps' logits go to
-    ``logits_path``. The masked-matmul launches of the ebft cells are
-    counted from 0, with their local shapes. The ebft cells wait for the
-    file ``ebft_after`` when given, and rank 0 then writes ``ebft_done``."""
+    ``mesh`` (the ranks' ``DeviceMesh``, or an ``AbstractMesh``: one
+    process, plain tensors, the config that mesh's cells take) at
+    ``conf``'s widths and seq, seeded on ``device``. Returns their record;
+    the serving steps' logits go to ``logits_path``. The masked-matmul
+    launches of the ebft cells are counted from 0, with their local shapes.
+    The ebft cells wait for the file ``ebft_after`` when given, and rank 0
+    then writes ``ebft_done``. ``parts`` picks the cells, ``layouts`` the
+    ebft cell's ``dp_only`` values, ``dtypes`` ({"train" or "serve":
+    dtype}) the train or serving cells' weights and activations in place
+    of the cells' own bf16."""
     import torch
 
-    from repro_torch import tree as T
-    from repro_torch.configs.base import ShapeConfig
-    from repro_torch.kernels.masked_matmul import ops as MM
-    from repro_torch.launch import steps as ST
-    from repro_torch.optim.optimizers import adam, adamw
-
     cfg, seq, rec = _cells_cfg(conf), conf["seq"], {}
-    g = torch.Generator(device=device).manual_seed(0)
+    g, dtypes = torch.Generator(device=device).manual_seed(0), dtypes or {}
+    if "train" in parts:
+        with _cell_dtype(dtypes.get("train")):
+            rec["train"] = _train_cell(device, mesh, cfg, seq, cells, g)
+    if "ebft" in parts:
+        rec.update(_ebft_cells(device, mesh, cfg, seq, cells, layouts, ebft_after, ebft_done))
+    if "serve" in parts:
+        with _cell_dtype(dtypes.get("serve")):
+            rec["serve"] = _serve_cells(device, mesh, cfg, cells, logits_path)
+    return rec
 
-    # the train cell: 2 steps from the seeded init
+
+@contextlib.contextmanager
+def _cell_dtype(dtype):
+    """The cells built inside take ``dtype`` (None: their own bf16) for
+    their weights and activations."""
+    from repro_torch.launch import steps as ST
+
+    adapt = ST.adapt_config
+    if dtype is not None:
+        ST.adapt_config = lambda *a, **k: adapt(*a, **k).replace(dtype=dtype, param_dtype=dtype)
+    try:
+        yield
+    finally:
+        ST.adapt_config = adapt
+
+
+def _train_cell(device, mesh, cfg, seq, cells, g) -> dict:
+    """The train cell: ``train_steps`` steps from the seeded init."""
+    import torch
+
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import steps as ST
+    from repro_torch.optim.optimizers import adamw
+
     cell = ST.build_train_cell(cfg, ShapeConfig("mesh_train", seq, cells["train_batch"], "train"),
                                mesh, lr=cells["train_lr"], fsdp=False)
     params = cell.model.init(g)
@@ -4824,15 +4879,25 @@ def mesh_cells(device, mesh, conf, cells, logits_path, ebft_after=None, ebft_don
         losses.append(float(m["loss"]))
         norms.append(float(m["grad_norm"]))
     peak = torch.cuda.max_memory_allocated() / 2**30 if device == "cuda" else None
-    rec["train"] = dict(losses=losses, grad_norms=norms, step_s=step_s, peak_gib=peak,
-                        samples=dict(init=init, params=_leaf_samples(params),
-                                     moments=_leaf_samples(_moments(opt_state))),
-                        microbatches=ST.microbatches_for(cell.cfg, ShapeConfig(
-                            "t", seq, cells["train_batch"], "train"), mesh))
-    del params, opt_state, cell
+    return dict(losses=losses, grad_norms=norms, step_s=step_s, peak_gib=peak,
+                samples=dict(init=init, params=_leaf_samples(params),
+                             moments=_leaf_samples(_moments(opt_state))),
+                microbatches=ST.microbatches_for(cell.cfg, ShapeConfig(
+                    "t", seq, cells["train_batch"], "train"), mesh))
 
-    # the ebft cell, tensor-parallel and dp_only, on the mid-stack block
-    shapes = set()
+
+def _ebft_cells(device, mesh, cfg, seq, cells, layouts, ebft_after, ebft_done) -> dict:
+    """The ebft cell on the mid-stack block in each of ``layouts``
+    (``dp_only`` False: tensor-parallel; True: the block replicated)."""
+    import torch
+
+    from repro_torch import tree as T
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.kernels.masked_matmul import ops as MM
+    from repro_torch.launch import steps as ST
+    from repro_torch.optim.optimizers import adam
+
+    rec, shapes = {}, set()
     call = MM._call
 
     def spy(fn, a, b, c, tiles=None, **kw):
@@ -4846,7 +4911,7 @@ def mesh_cells(device, mesh, conf, cells, logits_path, ebft_after=None, ebft_don
             raise TimeoutError(f"mesh: {ebft_after} never appeared")
         time.sleep(0.2)
     try:
-        for dp_only in (False, True):
+        for dp_only in layouts:
             cell = ST.build_ebft_cell(cfg, ShapeConfig("mesh_ebft", seq, cells["ebft_batch"],
                                                        "ebft"), mesh, dp_only=dp_only)
             ge = torch.Generator(device=device).manual_seed(1)
@@ -4866,20 +4931,31 @@ def mesh_cells(device, mesh, conf, cells, logits_path, ebft_after=None, ebft_don
                                                pos)
             _sync(device)
             counts = read_counts()
+            batched = cfg.family == "moe"  # the routed experts' launches too
             rec["ebft_dp_only" if dp_only else "ebft_tp"] = dict(
-                loss=float(loss), seconds=time.perf_counter() - t0,
+                loss=float(loss), seconds=time.perf_counter() - t0, block=i,
                 samples=dict(init=init, params=_leaf_samples(nbw),
                              moments=_leaf_samples(_moments(opt_state))),
                 launches={k: counts[k] for k in ("masked_matmul", "masked_matmul_dx",
-                                                 "masked_matmul_dw")},
+                                                 "masked_matmul_dw")
+                          + (BATCHED[:3] if batched else ())},
                 masked_shapes=sorted(shapes))
             del bw, nbw, opt_state, masks, h, tgt, cell
     finally:
         MM._call = call
     if ebft_done and int(os.environ.get("RANK", "0")) == 0:
         open(ebft_done, "w").close()
+    return rec
 
-    # the prefill cell, then greedy decode cells on its cache
+
+def _serve_cells(device, mesh, cfg, cells, logits_path) -> dict:
+    """The prefill cell, then greedy decode cells on its cache (or state)."""
+    import torch
+
+    from repro_torch import tree as T
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import steps as ST
+
     P, N, B = cells["prompt_len"], cells["decode_steps"], cells["prompts"]
     pc = ST.build_prefill_cell(cfg, ShapeConfig("mesh_prefill", P, B, "prefill"), mesh)
     dc = ST.build_decode_cell(cfg, ShapeConfig("mesh_decode", P + N - 1, B, "decode"), mesh)
@@ -4900,13 +4976,17 @@ def mesh_cells(device, mesh, conf, cells, logits_path, ebft_after=None, ebft_don
         logits, state = ST.run_cell(dc, mesh, sparams, tok, state)
         steps.append(logits[:, -1].float())
     _sync(device)
-    k = state["k"]
-    local = k.to_local() if hasattr(k, "to_local") else k
     torch.save(torch.stack(steps).cpu(), logits_path)
-    rec["serve"] = dict(prefill_s=prefill_s, decode_s=(time.perf_counter() - t0) / N,
-                        len=state["len"], local_cache=list(local.shape),
-                        cache=list(k.shape))
-    return rec
+    # each state leaf's (local, global) shape; the dense cache's k as before
+    leaves = {"/".join(p): [list(t.to_local().shape if hasattr(t, "to_local") else t.shape),
+                            list(t.shape)]
+              for p, t in T.leaves_with_path(state) if isinstance(t, torch.Tensor)}
+    out = dict(prefill_s=prefill_s, decode_s=(time.perf_counter() - t0) / N, len=state["len"])
+    if "k" in leaves:
+        out.update(local_cache=leaves["k"][0], cache=leaves["k"][1])
+    else:
+        out["states"] = leaves
+    return out
 
 
 def train_peak_without_remat(device, conf, cells):
@@ -5463,7 +5543,453 @@ def _check_cells(key, ranks, one, launch_one, one_samples, cells, device, tmp,
     return out
 
 
-def main() -> int:
+# ---------------------------------------------------------------------------
+# the MoE, SSM and hybrid families on a mesh of ranks (the ``mesh`` phase
+# continued: ``phase_mesh_families``)
+# ---------------------------------------------------------------------------
+# the walks at the published widths in f32 (the kernels' f32 routes), 4
+# segments of 2048 in one microbatch, 2 EBFT epochs, magnitude 0.5:
+# DeepSeek-MoE-16B's dense first layer and one MoE layer (E 64, top-6, 2
+# shared experts), Mamba2-130M at 2 layers, Zamba2-1.2B at 6 (its fewest
+# with one shared-block site)
+FAMILY_MESH = {
+    "moe": dict(arch="deepseek_moe_16b", layers=2, seq=2048, calib=4, microbatch=4, epochs=2,
+                lr=2e-4, sparsity=0.5),
+    "ssm": dict(arch="mamba2_130m", layers=2, seq=2048, calib=4, microbatch=4, epochs=2,
+                lr=2e-4, sparsity=0.5),
+    "hybrid": dict(arch="zamba2_1_2b", layers=6, seq=2048, calib=4, microbatch=4, epochs=2,
+                   lr=2e-4, sparsity=0.5),
+}
+# the cells at the walks' widths and depth: the train cell 1 step on 2 ×
+# 2048 (one microbatch a data shard) and the bf16 ebft cell
+# (tensor-parallel) on 4 × 2048, then prefill 8 × 256 and 2 greedy decode
+# steps; the hybrid serves only
+FAMILY_CELLS = dict(train_batch=2, train_steps=1, train_lr=1e-4, ebft_batch=4, prompts=8,
+                    prompt_len=256, decode_steps=2)
+# the cells each family runs on each mesh: the MoE's train and ebft cells
+# on 1 × 2 alone, where its experts split (its routing over the data
+# ranks is the walks' on 2 × 1; the cells' own take one dispatch group a
+# data shard, routed on the rank alone)
+FAMILY_PARTS = {"moe": {"2x1": ("serve",), "1x2": ("train", "ebft", "serve")},
+                "ssm": dict.fromkeys(("2x1", "1x2"), ("train", "ebft", "serve")),
+                "hybrid": dict.fromkeys(("2x1", "1x2"), ("serve",))}
+# the cells that run in f32 in place of bf16: in bf16 a rounding of the
+# router's input flips near-tie experts. At a decode step's capacity of 1
+# a flip reorders which tokens drop (the CPU rehearsal: logits off by 18%
+# of a row's largest); the MoE's bf16 train cell on 1 × 2 moved the
+# router's update by 0.33-0.37 of one process's (H100), above the dense
+# limits. In f32 the cells hold the layout, not bf16's luck, to the dense
+# CELL_UPDATE_REL and CELL_MOMENT_REL (on the H100 a router gradient
+# left unsummed, ``--plant-fault``, reads 0.98 and 0.73)
+FAMILY_DTYPES = {"moe": dict(train="float32", serve="float32"),
+                 "ssm": dict(serve="float32"), "hybrid": dict(serve="float32")}
+FAMILY_KERNELS = {
+    "moe": ("masked_matmul", "masked_matmul_dx", "masked_matmul_dw") + BATCHED[:3]
+    + ("flash_attention", "flash_attention_bwd"),
+    "ssm": ("masked_matmul", "masked_matmul_dx", "masked_matmul_dw"),
+    "hybrid": ("masked_matmul", "masked_matmul_dx", "masked_matmul_dw", "flash_attention",
+               "flash_attention_bwd")}
+SLAB_CHECK = dict(E=64, C=1920, K=2048, N=1408)  # DeepSeek's w_gate slabs at EBFT's microbatch
+IN_DT = dict(M=16384, K=768, N=24)  # Mamba2-130M's in_dt: (768, 12) a rank on 1 × 2
+
+
+def _family_meshes(fam, shapes=MESH_SHAPES) -> dict:
+    """{mesh key: the abstract mesh whose one-process cells it is held
+    to}: the MoE cells take one dispatch group per data shard, so a mesh
+    with a data axis its own config; otherwise one device's."""
+    from repro_torch.launch.mesh import make_abstract_mesh
+
+    return {f"{d}x{m}": make_abstract_mesh((d, m), ("data", "model"))
+            if fam == "moe" and d > 1 else ONE_MESH() for d, m in shapes}
+
+
+def mesh_families_rank():
+    """One rank of ``phase_mesh_families`` (``RANK``, ``WORLD_SIZE``,
+    ``MESH_STORE``, ``MESH_SHAPE``, ``MESH_GO``, ``MESH_OUT``,
+    ``MESH_DEVICE``, ``MESH_CONFS``, ``MESH_CELLS``, ``MESH_MOE_AFTER``,
+    ``MESH_FAULT`` in the environment): for each family the walk on this mesh (its kernels'
+    launches counted on this rank) and the family's cells; the MoE's after
+    the file ``MESH_MOE_AFTER`` appears (the two meshes' MoE in turn), then
+    rank 0 writes ``<key>.moe_done``. On 1 × 2 also the expert-slab and
+    in_dt launches (``_family_kernel_checks``). Writes
+    ``<key>_rank<r>.json``."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch import tree as T
+    from repro_torch.core import ebft
+    from repro_torch.launch.mesh import make_ebft_plan
+
+    rank, world = int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"])
+    device = os.environ.get("MESH_DEVICE", "cuda")
+    confs = json.loads(os.environ["MESH_CONFS"])
+    cells = json.loads(os.environ["MESH_CELLS"])
+    out_dir, after = os.environ["MESH_OUT"], os.environ.get("MESH_MOE_AFTER")
+    if device == "cuda":
+        torch.cuda.set_device(0)
+        torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_process_group("gloo", init_method="file://" + os.environ["MESH_STORE"],
+                            rank=rank, world_size=world)
+    _wait_for(os.environ["MESH_GO"], 900, "the parent never let the ranks start")
+    if os.environ.get("MESH_FAULT"):
+        _unsum_router()
+    data, model_axis = (int(x) for x in os.environ["MESH_SHAPE"].split(","))
+    key = f"{data}x{model_axis}"
+    plan = make_ebft_plan(data, model_axis, device_type=device)
+    out, samples = {}, {}
+    for fam, conf in confs.items():
+        if fam == "moe" and after:
+            _wait_for(after, 600, "the other mesh's MoE never ended")
+        t0 = time.perf_counter()
+        model, params, pruned, masks, calib = _mesh_setup(device, conf["layers"], conf)
+        rec = {"setup_s": time.perf_counter() - t0}
+        if device == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        _sync(device)
+        t0 = time.perf_counter()
+        tuned, reports = ebft.finetune(model, params, pruned, masks, calib,
+                                       _mesh_ecfg(plan, conf))
+        _sync(device)
+        rec.update(seconds=time.perf_counter() - t0, launches=read_counts(),
+                   reports=[r.asdict() for r in reports],
+                   whole=all(type(t) is torch.Tensor for t in T.tensors(tuned)),
+                   tuned={"/".join(p): t.double().sum().item()
+                          for p, t in T.leaves_with_path(tuned)})
+        if device == "cuda":
+            rec["walk_peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        del model, params, pruned, masks, tuned
+        if device == "cuda":
+            torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        rec["cells"] = mesh_cells(device, plan.mesh, conf, cells,
+                                  os.path.join(out_dir, f"{fam}_{key}_rank{rank}_logits.pt"),
+                                  parts=FAMILY_PARTS[fam][key], layouts=(False,),
+                                  dtypes=FAMILY_DTYPES[fam])
+        rec["cells_s"] = time.perf_counter() - t0
+        samples[fam] = {k: v.pop("samples") for k, v in rec["cells"].items() if "samples" in v}
+        if device == "cuda":
+            torch.cuda.empty_cache()
+        if fam == "moe" and rank == 0:
+            open(os.path.join(out_dir, f"{key}.moe_done"), "w").close()
+        out[fam] = rec
+    if model_axis > 1:
+        try:  # a failure is the parent's to raise, after the readings are out
+            out["kernel_checks"] = _family_kernel_checks(device, plan.mesh,
+                                                         **json.loads(os.environ["MESH_CHECKS"]))
+        except (AssertionError, ValueError, RuntimeError) as e:
+            out["kernel_checks"] = {"error": f"{type(e).__name__}: {e}"}
+    torch.save(samples, os.path.join(out_dir, f"{key}_rank{rank}_samples.pt"))
+    with open(os.path.join(out_dir, f"{key}_rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    dist.destroy_process_group()
+
+
+def _unsum_router():
+    """The planted fault of ``--plant-fault``: the MoE layer's router
+    gradient, ``Partial`` over the expert split, taken as this rank's own
+    (``local_kernels.moe_routed``'s ``in_grad_placements``)."""
+    import torch.distributed.tensor.experimental as E
+    from torch.distributed.tensor import Replicate
+
+    local_map = E.local_map
+
+    def unsummed(fn, *a, **kw):
+        if "moe_routed" in fn.__qualname__:
+            grads = list(kw["in_grad_placements"])
+            grads[1] = [Replicate()] * len(grads[1])
+            kw["in_grad_placements"] = tuple(grads)
+        return local_map(fn, *a, **kw)
+
+    E.local_map = unsummed
+
+
+def _wait_for(path, seconds, what):
+    deadline = time.perf_counter() + seconds
+    while not os.path.exists(path):
+        if time.perf_counter() > deadline:
+            raise TimeoutError(f"mesh: {what}")
+        time.sleep(0.2)
+
+
+def _family_kernel_checks(device, mesh, slabs=SLAB_CHECK, in_dt=IN_DT) -> dict:
+    """On a model axis of 2 (each rank, its own half):
+    - the expert-batched masked matmul on DeepSeek's w_gate slabs (E 64, C
+      1920, K 2048, N 1408, bf16) split over E: this rank's forward, dX and
+      dW (through the DTensor route, its 32 experts a launch) must equal
+      the same experts' slabs of the whole launch bit for bit;
+    - Mamba2-130M's in_dt (768, 24, bf16) split over its 24 heads: the
+      rank's (768, 12) shard through the DTensor route (the weight and mask
+      padded to 16 columns, the kernel's unit), held to its plain version.
+    Each route's launches are counted on this rank (the kernels, not their
+    plain versions)."""
+    import torch
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+
+    from repro_torch.kernels.masked_matmul import ops as MM
+
+    dt, rec = torch.bfloat16, {}
+    g = torch.Generator(device=device).manual_seed(7)
+    E, C, K, N = (slabs[k] for k in "ECKN")
+    x = torch.randn(E, C, K, generator=g, device=device).to(dt)
+    w = (torch.randn(E, K, N, generator=g, device=device) / K ** 0.5).to(dt)
+    m = torch.rand(E, K, N, generator=g, device=device) < 0.5
+    dy = torch.randn(E, C, N, generator=g, device=device).to(dt)
+    whole = (MM.masked_matmul_batched(x, w, m), MM.masked_matmul_batched_dx(dy, w, m),
+             MM.masked_matmul_batched_dw(x, dy, m))
+    pl = [Replicate()] * (mesh.ndim - 1) + [Shard(0)]
+    xd, wd, md, dyd = (distribute_tensor(t, mesh, pl, src_data_rank=None) for t in (x, w, m, dy))
+    xd.requires_grad_(True)
+    wd.requires_grad_(True)
+    reset_counts()
+    y = MM.masked_matmul_batched(xd, wd, md)
+    gx, gw = torch.autograd.grad(y, (xd, wd), dyd)
+    _sync(device)
+    counts = read_counts()
+    lo = mesh.get_local_rank(mesh.ndim - 1) * (E // mesh.size(mesh.ndim - 1))
+    local = [t.to_local() for t in (y, gx, gw)]
+    hi = lo + local[0].shape[0]
+    rec["expert_slabs"] = dict(
+        experts=[lo, hi], local_shape=list(local[0].shape),
+        bits_equal={n: bool(torch.equal(a, b[lo:hi]))
+                    for n, a, b in zip(("fwd", "dx", "dw"), local, whole)},
+        launches={k: counts[k] for k in BATCHED[:3]})
+    if not all(rec["expert_slabs"]["bits_equal"].values()) or \
+            (device == "cuda" and not all(rec["expert_slabs"]["launches"].values())):
+        raise AssertionError(f"mesh: the local expert slabs {rec['expert_slabs']}")
+    del x, w, m, dy, whole, xd, wd, md, dyd, y, gx, gw, local
+    M, K, N = (in_dt[k] for k in "MKN")
+    x = torch.randn(M, K, generator=g, device=device).to(dt)
+    w = (torch.randn(K, N, generator=g, device=device) / K ** 0.5).to(dt)
+    m = torch.rand(K, N, generator=g, device=device) < 0.5
+    pl = [Replicate()] * (mesh.ndim - 1) + [Shard(1)]
+    wd, md = (distribute_tensor(t, mesh, pl, src_data_rank=None) for t in (w, m))
+    xd = distribute_tensor(x, mesh, [Replicate()] * mesh.ndim, src_data_rank=None)
+    reset_counts()
+    y = MM.masked_matmul(xd, wd, md).to_local()
+    _sync(device)
+    counts = read_counts()
+    c0 = mesh.get_local_rank(mesh.ndim - 1) * y.shape[1]
+    ref = MM.masked_matmul_plain(x, w, m)[:, c0:c0 + y.shape[1]]
+    rec["in_dt"] = dict(local_weight=list(wd.to_local().shape), out=list(y.shape),
+                        launches=counts["masked_matmul"],
+                        max_abs_err=check_close("in_dt shard", y, ref, "bfloat16"),
+                        whole_launch_bits_equal=bool(torch.equal(y, MM.masked_matmul(
+                            x, w, MM.aligned_mask(m))[:, c0:c0 + y.shape[1]])))
+    if device == "cuda" and counts["masked_matmul"] != 1:
+        raise AssertionError(f"mesh: the in_dt shard launched {counts['masked_matmul']} kernels")
+    return rec
+
+
+def _family_one(device, fam, conf, cells, tmp, shapes=MESH_SHAPES) -> dict:
+    """One process's walk of ``fam`` at ``conf`` and its cells for each
+    mesh's config (``_family_meshes``), the serving logits to ``tmp``."""
+    import torch
+
+    from repro_torch.core import ebft
+
+    model, params, pruned, masks, calib = _mesh_setup(device, conf["layers"], conf)
+    if device == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    _sync(device)
+    t0 = time.perf_counter()
+    _, reps = ebft.finetune(model, params, pruned, masks, calib, _mesh_ecfg(None, conf))
+    _sync(device)
+    rec = dict(seconds=time.perf_counter() - t0, reports=reps, launches=read_counts(), cells={},
+               samples={}, peak_gib=torch.cuda.max_memory_allocated() / 2**30
+               if device == "cuda" else None)
+    del model, params, pruned, masks
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    done = {}
+    for key, mesh in _family_meshes(fam, shapes).items():
+        tag, parts = "one" if mesh.size == 1 else key, FAMILY_PARTS[fam][key]
+        if (tag, parts) not in done:
+            t0 = time.perf_counter()
+            cr = mesh_cells(device, mesh, conf, cells,
+                            os.path.join(tmp, f"{fam}_{tag}_one_logits.pt"),
+                            parts=parts, layouts=(False,), dtypes=FAMILY_DTYPES[fam])
+            done[tag, parts] = (dict(cr, seconds=time.perf_counter() - t0),
+                                {k: v.pop("samples") for k, v in cr.items() if "samples" in v})
+            if device == "cuda":
+                torch.cuda.empty_cache()
+        rec["cells"][key] = dict(done[tag, parts][0], logits=f"{fam}_{tag}_one_logits.pt")
+        rec["samples"][key] = done[tag, parts][1]
+    return rec
+
+
+def phase_mesh_families(walls, device="cuda", confs=FAMILY_MESH, cells=FAMILY_CELLS,
+                        checks=None, shapes=MESH_SHAPES, fault=False):
+    """The MoE, SSM and hybrid families on a mesh (``mesh`` continued): one
+    process runs each family's walk at the published widths (``FAMILY_MESH``)
+    and its cells for each mesh's config, then a 2 × 1 and a 1 × 2 mesh of
+    two gloo ranks each on the one card run the same, at once but the MoE
+    (the four ranks' MoE walks would outgrow the card's 80 GB: the meshes
+    take it in turn). Each walk must hold one process's per-block
+    histories within rtol 2e-3, atol 1e-5 with the same ``epochs_run``
+    and ``early_stop``, every rank the same whole tensors and each family
+    kernel launched on every rank; the train and ebft cells of the MoE (on
+    1 × 2, its train cell in f32) and the SSM, one process's loss within
+    ``CELL_LOSS_RTOL`` and each leaf's update and moments within
+    ``CELL_UPDATE_REL`` and ``CELL_MOMENT_REL`` (``_state_errors``); every
+    family's decode steps one process's logits and greedy tokens
+    (``_greedy_close``); and the
+    1 × 2 ranks' local expert slabs and in_dt shard
+    (``_family_kernel_checks``). ``fault`` plants ``_unsum_router`` in
+    the ranks."""
+    import tempfile
+
+    import torch
+
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="mesh_families_")
+    world, keys = 2, [f"{d}x{m}" for d, m in shapes]
+    env = dict(os.environ, WORLD_SIZE=str(world), PYTHONFAULTHANDLER="1", MESH_OUT=tmp,
+               MESH_DEVICE=device, MESH_CONFS=json.dumps(confs), MESH_CELLS=json.dumps(cells),
+               MESH_CHECKS=json.dumps(checks or dict(slabs=SLAB_CHECK, in_dt=IN_DT)),
+               MESH_FAULT="1" if fault else "",
+               PYTHONPATH=os.pathsep.join([ROOT, os.path.join(ROOT, "src")]))
+    jobs = [(key, r) for key in keys for r in range(world)]
+    go = os.path.join(tmp, "go")
+    logs = [open(os.path.join(tmp, f"{key}_rank{r}.log"), "w") for key, r in jobs]
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", "import chip_smoke; chip_smoke.mesh_families_rank()"],
+        env=dict(env, RANK=str(r), MESH_SHAPE=key.replace("x", ","),
+                 MESH_STORE=os.path.join(tmp, f"{key}.store"), MESH_GO=go,
+                 MESH_MOE_AFTER="" if key == keys[0] else os.path.join(tmp, f"{keys[0]}.moe_done")),
+        cwd=ROOT, stdout=log, stderr=subprocess.STDOUT) for (key, r), log in zip(jobs, logs)]
+    one, ranks_s = {}, {}
+    try:
+        for fam, conf in confs.items():  # one process, before the ranks start
+            one[fam] = _family_one(device, fam, conf, cells, tmp, shapes)
+        t_mesh = time.perf_counter()
+        open(go, "w").close()
+        for (key, _), p in zip(jobs, procs):
+            p.wait(timeout=900)
+            ranks_s[key] = time.perf_counter() - t_mesh
+    finally:
+        for p, log in zip(procs, logs):
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+            log.close()
+    if any(p.returncode != 0 for p in procs):
+        tails = [open(os.path.join(tmp, f"{key}_rank{r}.log")).read()[-3000:] for key, r in jobs]
+        emit(dict(phase="mesh_families_ranks_failed", exits=[p.returncode for p in procs],
+                  logs={f"{key}_rank{r}": open(os.path.join(tmp, f"{key}_rank{r}.log"))
+                        .read()[-20000:] for key, r in jobs}))
+        raise AssertionError(f"mesh_families: ranks exit {[p.returncode for p in procs]}\n" +
+                             "\n".join(tails))
+    by_mesh = {key: [json.load(open(os.path.join(tmp, f"{key}_rank{r}.json")))
+                     for r in range(world)] for key in keys}
+    smp = {key: [torch.load(os.path.join(tmp, f"{key}_rank{r}_samples.pt"))
+                 for r in range(world)] for key in keys}
+    record, failed = {}, []
+    for fam in confs:
+        single = one[fam]["reports"]
+        fam_rec = dict(one=dict(seconds=one[fam]["seconds"], peak_gib=one[fam]["peak_gib"],
+                                histories=[r.history for r in single],
+                                launches={k: one[fam]["launches"][k]
+                                          for k in FAMILY_KERNELS[fam]},
+                                cells={k: {c: _brief(v) for c, v in cr.items()
+                                           if isinstance(v, dict)}
+                                       for k, cr in one[fam]["cells"].items()}))
+        for key in keys:
+            ranks = [r[fam] for r in by_mesh[key]]
+            rec, reps = ranks[0], ranks[0]["reports"]
+            if [(r["epochs_run"], r["early_stop"]) for r in reps] != \
+                    [(r.epochs_run, r.early_stop) for r in single]:
+                failed.append(f"mesh {fam} {key}: the blocks stopped otherwise than one "
+                              "process's")
+            rel = 0.0
+            for rs, rm in zip(single, reps):
+                a = torch.tensor(rm["history"], dtype=torch.float64)
+                b = torch.tensor(rs.history, dtype=torch.float64)
+                if a.shape != b.shape or not torch.allclose(a, b, rtol=MESH_RTOL,
+                                                            atol=MESH_ATOL):
+                    failed.append(f"mesh {fam} {key}: block {rm['index']} history "
+                                  f"{rm['history']} against one process's {rs.history}")
+                else:
+                    rel = max(rel, float(((a - b).abs() / b.abs()).max()))
+            for r in ranks:
+                if not r["whole"] or r["tuned"] != rec["tuned"] or r["reports"] != reps:
+                    failed.append(f"mesh {fam} {key}: the ranks' walks differ")
+                missing = [k for k in FAMILY_KERNELS[fam] if r["launches"][k] == 0]
+                if missing and device == "cuda":
+                    failed.append(f"mesh {fam} {key}: a rank launched no {missing}")
+            cells_rec = {}
+            one_cells = one[fam]["cells"][key]
+            for kind in ("train", "ebft_tp"):
+                if kind not in rec["cells"]:
+                    continue
+                got, want = rec["cells"][kind], one_cells[kind]
+                loss = got["losses"] if kind == "train" else [got["loss"]]
+                loss1 = want["losses"] if kind == "train" else [want["loss"]]
+                if not torch.allclose(torch.tensor(loss), torch.tensor(loss1),
+                                      rtol=CELL_LOSS_RTOL, atol=0):
+                    failed.append(f"mesh {fam} {key}: {kind} loss {loss} against {loss1}")
+                worst, bad = _state_errors(smp[key][0][fam][kind],
+                                           one[fam]["samples"][key][kind], CELL_UPDATE_REL,
+                                           CELL_MOMENT_REL, f"{fam} {key} {kind}")
+                failed += bad
+                cells_rec[kind] = dict(loss=loss, loss_one=loss1, state_rel=worst,
+                                       seconds=[r["cells"][kind].get("seconds", r["cells"][kind]
+                                                                     .get("step_s"))
+                                                for r in ranks],
+                                       peak_gib=[r["cells"][kind].get("peak_gib")
+                                                 for r in ranks],
+                                       launches=[r["cells"][kind].get("launches")
+                                                 for r in ranks])
+            one_logits = torch.load(os.path.join(tmp, one_cells["logits"]))
+            try:
+                cells_rec["serve"] = [dict(r["cells"]["serve"], **_greedy_close(
+                    one_logits, torch.load(os.path.join(
+                        tmp, f"{fam}_{key}_rank{i}_logits.pt")), CELL_LOGIT_REL,
+                    f"{fam} {key} rank {i} decode")) for i, r in enumerate(ranks)]
+            except AssertionError as e:
+                failed.append(str(e))
+            fam_rec[key] = dict(seconds=[r["seconds"] for r in ranks],
+                                setup_s=[r["setup_s"] for r in ranks],
+                                cells_s=[r["cells_s"] for r in ranks], max_rel=rel,
+                                walk_peak_gib=[r.get("walk_peak_gib") for r in ranks],
+                                collective_bytes=sum(r["collective_bytes"] for r in reps),
+                                live_bytes=max(r["live_bytes"] for r in reps),
+                                live_bytes_per_shard=max(r["live_bytes_per_shard"]
+                                                         for r in reps),
+                                launches=[{k: r["launches"][k] for k in FAMILY_KERNELS[fam]}
+                                          for r in ranks],
+                                histories=[r["history"] for r in reps], cells=cells_rec)
+        record[fam] = fam_rec
+    checks = [r.get("kernel_checks") for key in keys for r in by_mesh[key]]
+    failed += [f"mesh_families: kernel checks {c['error']}" for c in checks if c and "error" in c]
+    walls["mesh_families"] = time.perf_counter() - t_phase
+    emit(dict(phase="mesh_families", confs=confs, cells_conf=cells, ranks_s=ranks_s,
+              families=record, kernel_checks=[c for c in checks if c],
+              seconds_phase=walls["mesh_families"]))
+    if failed:
+        raise AssertionError("mesh_families: " + "; ".join(failed))
+
+
+def plant_fault(device="cuda") -> int:
+    """``--plant-fault``: the ``mesh_families`` phase's MoE on 1 × 2 alone,
+    its ranks' router gradient left unsummed over the expert split
+    (``_unsum_router``). 0 when the cells' state check (``_state_errors``)
+    flags the router in both the train and the ebft cell."""
+    try:
+        phase_mesh_families({}, device, confs={"moe": FAMILY_MESH["moe"]}, shapes=((1, 2),),
+                            fault=True)
+        failed = []
+    except AssertionError as e:
+        failed = str(e).split("; ")
+    caught = {kind: [f for f in failed if f"moe 1x2 {kind}: " in f and "router/w" in f]
+              for kind in ("train", "ebft_tp")}
+    emit(dict(phase="plant_fault", fault="router gradient unsummed over the expert split",
+              caught=caught))
+    return 0 if all(caught.values()) else 1
+
+
+def main(argv=()) -> int:
     # cuBLAS picks its workspace per stream; a fixed configuration makes a
     # product repeat bit for bit, which the resumed training run relies on.
     # It must be set before the first product.
@@ -5474,6 +6000,9 @@ def main() -> int:
         print("chip_smoke: no CUDA device; this script runs the port on a GPU",
               file=sys.stderr)
         return 2
+    os.makedirs(os.path.dirname(PHASES_LOG), exist_ok=True)
+    open(PHASES_LOG, "w").close()
+    _log["on"] = True
     from repro_torch.kernels import _build
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -5488,6 +6017,8 @@ def main() -> int:
     emit(dict(phase="build", seconds=time.perf_counter() - t0, per_library=_build.build_seconds,
               ptxas={n: [ln.strip() for ln in log.splitlines() if "Used" in ln or "spill" in ln]
                      for n, log in _build.build_log.items()}))
+    if "--plant-fault" in argv:
+        return plant_fault()
 
     g = torch.Generator(device="cuda").manual_seed(0)
     # the moe path's 2-D shapes, by kernel: {label: row}
@@ -5611,8 +6142,11 @@ def main() -> int:
     # the encoder-decoder family's path and tiny_encdec
     enc_launches, enc_pre_launches = phase_encdec(walls)
     torch.cuda.empty_cache()
-    # the EBFT walk on a mesh of ranks: two gloo ranks on the one card
+    # the EBFT walk on a mesh of ranks: two gloo ranks on the one card;
+    # then the MoE, SSM and hybrid families on the same meshes
     phase_mesh(walls)
+    torch.cuda.empty_cache()
+    phase_mesh_families(walls)
     torch.cuda.empty_cache()
     # the launch plans and the tile autotuner (every path above ran with it off)
     phase_tuning(g, walls)
@@ -5689,4 +6223,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

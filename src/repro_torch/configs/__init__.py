@@ -5,8 +5,8 @@ family: the dense family (the paper's own Llama-7B, its tiny test
 variant, Qwen1.5-4B, Nemotron-4-15B, Qwen2.5-32B and Qwen1.5-110B), the
 MoE family (DeepSeek-MoE-16B, its tiny variant, and Kimi-K2, whose full
 width only the sharded cells lay out, on the production meshes:
-``launch/steps.py``; a mesh run of the family waits for ROADMAP.md A.8e),
-the SSM family
+``launch/steps.py``; the family's walk, cells and ``launch/train`` run on
+a mesh, experts split over "model"), the SSM family
 (Mamba2-130M, tiny_ssm), the hybrid (Zamba2-1.2B, tiny_hybrid), the
 VLM (LLaVA-NeXT-Mistral-7B, tiny_vlm) and the encoder-decoder
 (Seamless-M4T-medium, tiny_encdec). Each module exposes ``CONFIG``

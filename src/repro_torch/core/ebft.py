@@ -43,9 +43,13 @@ whole on every rank, so everything after EBFT is unchanged. The report
 books the reference's accounting: ``device_dispatches`` = dispatches ×
 devices, ``collective_bytes`` = epochs × microbatches ×
 ``plan.allreduce_bytes(live_bytes(block))`` and ``live_bytes_per_shard``
-from ``plan.sharded_bytes``. The dense family runs on a mesh; an
-active plan on any other family raises (ROADMAP.md A.8e). An inactive
-plan (``make_ebft_plan(1, 1)``) is the single-device path bit for bit.
+from ``plan.sharded_bytes``. The dense, MoE, SSM and hybrid families run
+on a mesh (an MoE layer's experts split over "model" and its routing over
+the data ranks, a Mamba mixer's heads over "model": ``local_kernels``;
+the hybrid's shared block tuned once on every site's sharded
+microbatches); an active plan on the VLM or the encoder-decoder raises
+(ROADMAP.md A.8e). An inactive plan (``make_ebft_plan(1, 1)``) is the
+single-device path bit for bit.
 
 Observability, at the reference's call sites and names: ``finetune``
 opens ``ebft/walk`` (``fused=False``, ``prefetch_depth=0``) and
@@ -79,6 +83,10 @@ from repro_torch.optim.schedules import plateau_early_stop
 from repro_torch.sparsity.sparse_params import apply_masks
 
 Params = Any
+
+# the families whose walk runs on a mesh (the VLM's and encoder-decoder's
+# front-end arrays are not sharded yet: ROADMAP.md A.8e)
+MESH_FAMILIES = ("dense", "moe", "ssm", "hybrid")
 
 
 @dataclasses.dataclass
@@ -251,10 +259,10 @@ def finetune(model, dense_params: Params, pruned_params: Params, masks: Params,
         raise TypeError(f"EBFTConfig.mesh_plan must be a MeshPlan or None, got "
                         f"{type(plan).__name__}")
     sharded = plan is not None and plan.active
-    if sharded and model.cfg.family != "dense":
+    if sharded and model.cfg.family not in MESH_FAMILIES:
         raise NotImplementedError(
-            f"EBFT on a mesh holds the dense family only; the {model.cfg.family} family "
-            "on a mesh is not ported yet (ROADMAP.md A.8e)")
+            f"EBFT on a mesh holds the {', '.join(MESH_FAMILIES)} families; the "
+            f"{model.cfg.family} family on a mesh is not ported yet (ROADMAP.md A.8e)")
     with OT.span("ebft/walk", epochs=ecfg.epochs, lr=ecfg.lr, microbatch=ecfg.microbatch,
                  fused=False, prefetch_depth=0,
                  mesh_devices=plan.device_count if sharded else 1):
@@ -281,10 +289,12 @@ def finetune(model, dense_params: Params, pruned_params: Params, masks: Params,
                                extra_batch=extra_batch, params_student=student, masks=masks,
                                dual_stream=True, mesh_plan=plan)
         if shared_sites:
-            # tune_block trains clones of the live leaves get_block returns
-            tuned, rep = tune_block(model, shared_idx, model.get_block(result, shared_idx),
-                                    model.get_block(masks, shared_idx), shared_sites, ecfg,
-                                    step_cache)
+            # tune_block trains clones of the live leaves get_block returns;
+            # on a mesh the sites' microbatches are the walk's sharded ones
+            with C.mesh_scope(plan):
+                tuned, rep = tune_block(model, shared_idx, model.get_block(result, shared_idx),
+                                        model.get_block(masks, shared_idx), shared_sites,
+                                        ecfg, step_cache)
             reports.append(rep)
             if log:
                 log(f"shared block [{rep.kind}] ({len(shared_sites)} site-batches) "

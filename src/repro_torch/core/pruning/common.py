@@ -26,6 +26,8 @@ Cholesky failed; the readings are in PERF.md (``chip_smoke.py``, path A).
 """
 from __future__ import annotations
 
+import contextlib
+
 import dataclasses
 from typing import Callable, Dict, List, Optional, Tuple
 
@@ -225,16 +227,26 @@ def walk_blocks(model, params, calib: np.ndarray, visit_fn: Callable, microbatch
     implicit replication of plain tensors. ``visit_fn`` returns whole
     tensors.
     """
+    put = mesh_plan.put_stacked if mesh_plan is not None else (lambda x: x)
+    with mesh_scope(mesh_plan):
+        return _walk(model, params, calib, visit_fn, microbatch, extra_batch, params_student,
+                     masks, dual_stream, put)
+
+
+def mesh_scope(mesh_plan):
+    """The context a walk's work runs in on an active plan: the plan's
+    activation policy (``act_sharding``) and DTensor's implicit
+    replication of the plain tensors a block makes (positions, RoPE
+    tables). A no-op otherwise."""
+    stack = contextlib.ExitStack()
     if mesh_plan is not None and mesh_plan.active:
         from torch.distributed.tensor.experimental import implicit_replication
 
         from repro_torch.distributed import act_sharding as AS
 
-        with implicit_replication(), AS.policy(AS.make_mesh_policy(mesh_plan.mesh)):
-            return _walk(model, params, calib, visit_fn, microbatch, extra_batch,
-                         params_student, masks, dual_stream, mesh_plan.put_stacked)
-    return _walk(model, params, calib, visit_fn, microbatch, extra_batch, params_student,
-                 masks, dual_stream, lambda x: x)
+        stack.enter_context(implicit_replication())
+        stack.enter_context(AS.policy(AS.make_mesh_policy(mesh_plan.mesh)))
+    return stack
 
 
 def _walk(model, params, calib, visit_fn, microbatch, extra_batch, params_student, masks,

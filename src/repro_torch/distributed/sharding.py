@@ -253,12 +253,33 @@ def port_cache_pspecs(cache_tree: Any, mesh) -> Any:
     takes the reference's spec of its reference-layout shape, with dims 2
     and 3 swapped back: the batch over "data", the KV heads over "model"
     when they divide, ``max_len`` never sharded. The host-int ``len`` has
-    no spec (``None``); every other leaf (Mamba states, the
-    encoder-decoder's memory) is laid out as the reference's."""
+    no spec (``None``). The Mamba states take the head-parallel mixer's
+    layout (``local_kernels.mamba_mixer``), not the reference's (which
+    splits the SSM state along N and the conv state along its channels,
+    across head boundaries): an ``ssm`` leaf (..., B, H, N, P) its batch
+    over "data" and its heads over "model", a ``conv`` leaf (..., B, K-1,
+    ch) its batch over "data" only, each when it divides. Every other leaf
+    (the encoder-decoder's memory) is laid out as the reference's."""
+    dsize = mesh_axis_size(mesh, DATA_AXIS)
+    msize = mesh_axis_size(mesh, MODEL_AXIS)
+
+    def mamba(shape, batch_dim, heads_dim=None):
+        spec = [None] * len(shape)
+        if _fits(shape[batch_dim], dsize):
+            spec[batch_dim] = DATA_AXIS
+        if heads_dim is not None and _fits(shape[heads_dim], msize):
+            spec[heads_dim] = MODEL_AXIS
+        return tuple(spec)
+
     def g(path, leaf):
         if not hasattr(leaf, "shape"):
             return None
         shape = tuple(leaf.shape)
+        name = path[-1] if path else None
+        if name == "ssm" and len(shape) >= 4:
+            return mamba(shape, -4, -3)
+        if name == "conv" and len(shape) >= 3:
+            return mamba(shape, -3)
         kv = bool(path) and path[-1] in ("k", "v") and len(shape) == 5
         if kv:
             shape = shape[:2] + (shape[3], shape[2]) + shape[4:]

@@ -78,7 +78,8 @@ def masked_matmul(x: torch.Tensor, w: torch.Tensor, m: torch.Tensor, **tiles) ->
     grad, a 0/1 float tensor that requires grad (a tuned mask: its gradient
     is dM). ``tiles`` (bm, bn, bk) fix the forward's launch plan; without
     them the card's launch resolves its tiles through ``kernels.tuning``.
-    DTensor operands run on their local shards
+    DTensor operands, matrices or E slabs (split over E, or column- or
+    row-parallel), run on their local shards
     (``distributed.local_kernels``)."""
     if LK.any_dtensor(x, w, m):
         return LK.masked_matmul(masked_matmul, x, w, m, **tiles)

@@ -39,7 +39,8 @@ artifact holds the mode, the cache path and the hits, misses, searches and
 search seconds; a second run on a warm cache shows no miss.
 
 ``--mesh-data`` and ``--mesh-model`` run the EBFT walk on a (data,
-model) mesh of ranks (``launch.mesh.make_ebft_plan``; dense family): one
+model) mesh of ranks (``launch.mesh.make_ebft_plan``; the dense, MoE, SSM
+and hybrid families): one
 process per rank under ``torchrun``, e.g. four gloo ranks on the CPU::
 
     torchrun --nproc-per-node 4 -m repro_torch.launch.ebft_run --arch tiny_dense \

@@ -25,8 +25,8 @@ A.7): :func:`run_cell` places the arguments by their specs on a
 ``DeviceMesh`` and calls the cell's function on DTensors, the port's
 ``jax.jit(fn, in_shardings=…, out_shardings=…)``. On a one-device mesh
 (an ``AbstractMesh`` of size 1, or no process group) it runs on plain
-tensors. A cell over more than one rank holds the dense family only
-(ROADMAP.md A.8e).
+tensors. A cell over more than one rank holds the dense, MoE, SSM and
+hybrid families: the VLM and the encoder-decoder raise (ROADMAP.md A.8e).
 """
 from __future__ import annotations
 
@@ -151,11 +151,14 @@ def is_active_mesh(mesh) -> bool:
 
 
 def check_family(cfg: ModelConfig, mesh) -> None:
-    """A step on an active mesh holds the dense family only."""
-    if is_active_mesh(mesh) and cfg.family != "dense":
+    """A step on an active mesh holds the dense, MoE, SSM and hybrid
+    families (``core.ebft.MESH_FAMILIES``)."""
+    from repro_torch.core.ebft import MESH_FAMILIES
+
+    if is_active_mesh(mesh) and cfg.family not in MESH_FAMILIES:
         raise NotImplementedError(
-            f"a sharded step holds the dense family only; the {cfg.family} family on a "
-            "mesh is not ported yet (ROADMAP.md A.8e)")
+            f"a sharded step holds the {', '.join(MESH_FAMILIES)} families; the {cfg.family} "
+            "family on a mesh is not ported yet (ROADMAP.md A.8e)")
 
 
 def _shapes(tree):

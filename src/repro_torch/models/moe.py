@@ -25,10 +25,10 @@ are taken by a stable descending sort, so ties go to the lower expert as
 ``masked_matmul_batched`` (one launch per leaf, the card's expert-batched
 masked GEMM) when the block's masks are given, and ``torch.bmm`` on the
 weights as they are otherwise (pretraining, serving the pruned tree), as
-the reference's einsums. Dropped assignments add exact zeros into slot
-(e, 0) (``index_put_`` accumulating, as the reference's ``.at[].add``) and
-read it back as zeros, so the dispatch and its backward repeat bit for
-bit.
+the reference's einsums. Dropped assignments add exact zeros into slot 0
+of a slab (``index_put_`` accumulating, as the reference's ``.at[].add``)
+and read it back as zeros, so the dispatch and its backward repeat bit
+for bit.
 
 ``init`` draws from a ``torch.Generator`` with the reference's shapes and
 scales; it does not reproduce ``jax.random``'s numbers (tests bring the
@@ -36,6 +36,7 @@ reference's weights over with ``repro_torch.interop``).
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Any, Dict, Optional, Tuple
 
@@ -43,7 +44,9 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import act_sharding as AS
 from repro_torch.distributed import fsdp
+from repro_torch.distributed import local_kernels as LK
 from repro_torch.kernels.masked_matmul.ops import masked_matmul_batched
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as TR
@@ -125,12 +128,7 @@ def dispatch(router_w: torch.Tensor, xf: torch.Tensor, cfg: ModelConfig):
     gates, idx, probs = route(router_w, xf, k)
     C = capacity(cfg, T_)
     flat_idx = idx.reshape(-1)
-    # the one-hot as a comparison, as the reference's: F.one_hot reads the
-    # indices' bounds to the host on the CPU
-    onehot = flat_idx[:, None] == torch.arange(E, device=flat_idx.device)
-    pos = torch.cumsum(onehot, dim=0, dtype=torch.int32) - 1  # within expert
-    pos = torch.gather(pos, 1, flat_idx[:, None])[:, 0].long()
-    keep = pos < C
+    pos, keep = scan_positions(flat_idx, E, C)
     pos = torch.where(keep, pos, torch.zeros_like(pos))
     x_rep = torch.repeat_interleave(xf, k, dim=0)
     vals = torch.where(keep[:, None], x_rep, torch.zeros_like(x_rep))
@@ -162,41 +160,98 @@ def expert_counts(idx: torch.Tensor, E: int) -> torch.Tensor:
     return torch.zeros(E, dtype=torch.float32, device=flat.device).index_add_(0, flat, ones)
 
 
-def _dispatch_group(p: Params, xf: torch.Tensor, cfg: ModelConfig,
-                    masks: Optional[Params] = None) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Route, dispatch and combine one token group. xf (T, d) -> (out, aux)."""
-    T_, d = xf.shape
+def scan_positions(flat_idx: torch.Tensor, E: int, C: int,
+                   offset: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(pos, keep) of each assignment (token-major): its slot in its
+    expert's slab, ``offset[e]`` (the group's assignments of expert e
+    before these; none by default) plus its rank among these, kept when
+    below the capacity C. Only keep/drop reaches the output: the expert
+    FFN is row-independent. The one-hot is a comparison, as the
+    reference's: ``F.one_hot`` reads the indices' bounds to the host on the
+    CPU."""
+    onehot = flat_idx[:, None] == torch.arange(E, device=flat_idx.device)
+    pos = torch.cumsum(onehot, dim=0, dtype=torch.int32) - 1
+    pos = torch.gather(pos, 1, flat_idx[:, None])[:, 0].long()
+    if offset is not None:
+        pos = pos + offset.long()[flat_idx]
+    return pos, pos < C
+
+
+def routed_local(x: torch.Tensor, router_w: torch.Tensor, ew: Params,
+                 em: Optional[Params], cfg: ModelConfig, *, chunk: int = 0, n_chunks: int = 1,
+                 gather=None, e0: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The routed experts on the tokens and experts at hand: by default the
+    whole batch and every expert (one device); on a mesh, one rank's shards
+    (``local_kernels.moe_routed``). x (B, S, d) is piece ``chunk`` of
+    ``n_chunks`` of the batch's tokens in order; ``ew`` (and ``em``, the
+    masks) hold the experts e0 .. e0 + E_loc - 1, or every expert's ff
+    slice. Each local dispatch group is routed over all E experts; only
+    the kept assignments of the local experts are dispatched, run and
+    combined, so the output is this rank's share of one process's. A group that spans pieces (G dividing ``n_chunks``)
+    takes its slot offsets from the pieces before this one in the group
+    (``gather``: every piece's per-expert counts, (n_chunks, E)), and its
+    capacity from the whole group's T·k/E. Returns (out (B, S, d), this
+    rank's share of the load-balance loss, the mean over the G groups)."""
+    B, S, d = x.shape
     E, k = cfg.moe_num_experts, cfg.moe_top_k
-    disp, flat_idx, pos, keep, gates, probs, idx = dispatch(p["router"]["w"], xf, cfg)
-
-    # load-balance auxiliary loss (Switch-style)
-    me = probs.mean(dim=0)
-    ce = expert_counts(idx, E) / (T_ * k)
-    aux = E * torch.sum(me * ce)
-
-    eout = expert_ffn(p["experts"], disp, (masks or {}).get("experts"))
-    slots = eout[flat_idx, pos]
-    slots = torch.where(keep[:, None], slots, torch.zeros_like(slots))
-    out = (slots.reshape(T_, k, d) * gates[..., None].to(xf.dtype)).sum(dim=1)
-    return out, aux
+    G = max(1, cfg.moe_dispatch_groups)
+    if G % n_chunks == 0:
+        groups, span = G // n_chunks, 1
+    elif n_chunks % G == 0:
+        groups, span = 1, n_chunks // G
+    else:
+        raise ValueError(f"moe: {G} dispatch groups over {n_chunks} token pieces")
+    if (B * S) % groups:
+        raise ValueError(f"moe_mlp: {B * S} tokens do not split into {groups} dispatch groups")
+    Tg = B * S * n_chunks // G  # a group's tokens
+    C = capacity(cfg, Tg)
+    E_loc = ew["w_gate"].shape[0]
+    outs, aux = [], torch.zeros((), dtype=torch.float32, device=x.device)
+    for xf in x.reshape(groups, -1, d):
+        gates, idx, probs = route(router_w, xf, k)
+        flat_idx = idx.reshape(-1)
+        counts = expert_counts(idx, E)
+        offset = None
+        if span > 1:  # the group's earlier pieces: an exclusive scan of their counts
+            every = gather(counts)
+            first = chunk - chunk % span
+            offset, counts = every[first:chunk].sum(0), every[first:first + span].sum(0)
+        pos, keep = scan_positions(flat_idx, E, C, offset)
+        aux = aux + E * torch.sum(probs.sum(0) / Tg * (counts / (Tg * k)))
+        le = flat_idx - e0
+        mine = keep & (le >= 0) & (le < E_loc)
+        li = torch.where(mine, le, torch.zeros_like(le))
+        lp = torch.where(mine, pos, torch.zeros_like(pos))
+        x_rep = torch.repeat_interleave(xf, k, dim=0)
+        vals = torch.where(mine[:, None], x_rep, torch.zeros_like(x_rep))
+        disp = torch.zeros((E_loc, C, d), dtype=xf.dtype, device=xf.device)
+        disp = disp.index_put((li, lp), vals, accumulate=True)
+        slots = expert_ffn(ew, disp, em)[li, lp]
+        slots = torch.where(mine[:, None], slots, torch.zeros_like(slots))
+        outs.append((slots.reshape(-1, k, d) * gates[..., None].to(xf.dtype)).sum(dim=1))
+    return torch.cat(outs).reshape(B, S, d), aux / G
 
 
 def moe_mlp(p: Params, x: torch.Tensor, cfg: ModelConfig,
             masks: Optional[Params] = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """x (B, S, d) -> (out (B, S, d), aux load-balance loss, the mean over
-    the ``moe_dispatch_groups`` G independent groups)."""
+    the ``moe_dispatch_groups`` G independent groups), through
+    ``routed_local``. DTensor operands (a mesh) run it on each rank's
+    tokens and experts (``local_kernels.moe_routed``), their partial sums
+    over the experts summed before the shared experts are added."""
     B, S, d = x.shape
-    G = max(1, cfg.moe_dispatch_groups)
     T_ = B * S
-    if T_ % G:
-        raise ValueError(f"moe_mlp: {T_} tokens do not split into {G} dispatch groups")
-    xg = x.reshape(G, T_ // G, d)
-    outs, auxes = zip(*(_dispatch_group(p, xg[i], cfg, masks) for i in range(G)))
-    out = torch.stack(outs).reshape(B, S, d)
+    em = (masks or {}).get("experts")
+    if LK.any_dtensor(x, p["router"]["w"], *p["experts"].values()):
+        out, aux = LK.moe_routed(functools.partial(routed_local, cfg=cfg), x,
+                                 p["router"]["w"], p["experts"], em)
+        out = AS.constrain(out, "bqd")
+    else:
+        out, aux = routed_local(x, p["router"]["w"], p["experts"], em, cfg)
     if "shared" in p:
         sm = (masks or {}).get("shared")
         out = out + L.mlp_block(p["shared"], x.reshape(T_, d), "swiglu", sm).reshape(B, S, d)
-    return out, torch.stack(auxes).mean()
+    return out, aux
 
 
 def moe_block_apply(bp: Params, cfg: ModelConfig, h: torch.Tensor, positions: torch.Tensor,

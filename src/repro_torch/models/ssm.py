@@ -51,7 +51,9 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import act_sharding as AS
 from repro_torch.distributed import fsdp
+from repro_torch.distributed import local_kernels as LK
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as TR
 
@@ -195,50 +197,81 @@ def ssd_step(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, Bm: torch.Tenso
 # the Mamba block: norm -> projections -> conv -> SSD -> gated norm -> out
 # ---------------------------------------------------------------------------
 def in_proj(bp: Params, cfg: ModelConfig, h: torch.Tensor, masks: Optional[Params] = None):
-    """-> (u, the normed input; z (B, S, H, P); xbc (B, S, ch), the conv's
-    input; dt_raw (B, S, H))."""
+    """-> (u, the normed input; z, x (B, S, H, P); Bm, Cm (B, S, N), the
+    conv's other inputs; dt_raw (B, S, H))."""
     mk = masks or {}
-    Bsz, S, _ = h.shape
-    H, P = cfg.ssm_num_heads, cfg.ssm_head_dim
     u = L.apply_norm(bp["ln"], h, cfg.norm)
     z = L._linear(u, bp["in_z"], 1, mk.get("in_z"))
     x = L._linear(u, bp["in_x"], 1, mk.get("in_x"))
     Bm = L._linear(u, bp["in_B"], 1, mk.get("in_B"))
     Cm = L._linear(u, bp["in_C"], 1, mk.get("in_C"))
     dt_raw = L._linear(u, bp["in_dt"], 1, mk.get("in_dt"))
-    xbc = torch.cat([x.reshape(Bsz, S, H * P), Bm, Cm], dim=-1)
-    return u, z, xbc, dt_raw
+    return u, z, x, Bm, Cm, dt_raw
 
 
-def mixer(bp: Params, cfg: ModelConfig, z: torch.Tensor, xbc: torch.Tensor,
-          dt_raw: torch.Tensor, state: Optional[Params] = None,
+def mixer(bp: Params, cfg: ModelConfig, z: torch.Tensor, x: torch.Tensor, Bm: torch.Tensor,
+          Cm: torch.Tensor, dt_raw: torch.Tensor, state: Optional[Params] = None,
           masks: Optional[Params] = None) -> Tuple[torch.Tensor, Optional[Params]]:
     """conv -> SSD -> gated RMS norm: the input of the ``out`` projection,
     (B, S, H·P), and the new state (with ``state``: a token (S == 1) takes
-    ``ssd_step``, a prompt ``ssd_chunked`` from the state)."""
-    Bsz, S, _ = xbc.shape
-    H, P, N = cfg.ssm_num_heads, cfg.ssm_head_dim, cfg.ssm_state
+    ``ssd_step``, a prompt ``ssd_chunked`` from the state). DTensor
+    operands (a mesh) run each rank's heads and rows
+    (``local_kernels.mamba_mixer``)."""
     conv_w = bp["conv_w"]
     if masks is not None and "conv_w" in masks:
         conv_w = conv_w * masks["conv_w"].to(conv_w.dtype)
-    xbc, new_conv = causal_conv(xbc, conv_w, bp["conv_b"],
-                                state["conv"] if state is not None else None)
-    x = xbc[..., :H * P].reshape(Bsz, S, H, P)
-    Bm = xbc[..., H * P:H * P + N]
-    Cm = xbc[..., H * P + N:]
-    v = dt_raw.float() + bp["dt_bias"]
+    args = (z, x, Bm, Cm, dt_raw, conv_w, bp["conv_b"], bp["A_log"], bp["D"], bp["dt_bias"],
+            bp["gnorm"]["w"])
+    if LK.any_dtensor(*args):
+        return LK.mamba_mixer(mixer_local, cfg, *args, state)
+    return mixer_local(cfg, *args, state)
+
+
+def mixer_local(cfg: ModelConfig, z, x, Bm, Cm, dt_raw, conv_w, conv_b, A_log, D, dt_bias,
+                gnorm_w, state: Optional[Params] = None, *, h0: int = 0, sum_sq=None,
+                gather_x=None) -> Tuple[torch.Tensor, Optional[Params]]:
+    """The mixer on heads h0 .. h0 + Hl - 1 of the H: z, x (B, S, Hl, P),
+    dt_raw (B, S, Hl), gnorm_w (Hl·P,) and the SSM state (B, Hl, N, P) are
+    theirs; Bm, Cm, the conv's weights (K, ch), the per-head vectors (H,)
+    and the conv state (B, K-1, ch) are whole, and sliced here to the
+    heads' channels (the conv is depthwise: a channel's output reads its
+    own channel only). ``sum_sq`` sums the gated norm's squares over the
+    other ranks' heads, ``gather_x`` the new conv state's x channels (None:
+    these are all H heads, the single-device path)."""
+    Bsz, S, Hl, P = x.shape
+    H, N = cfg.ssm_num_heads, cfg.ssm_state
+    xs, hs = slice(h0 * P, (h0 + Hl) * P), slice(h0, h0 + Hl)
+
+    def mine(t):  # the local heads' x channels, then B's and C's
+        return t if Hl == H else torch.cat([t[..., xs], t[..., H * P:]], dim=-1)
+
+    xbc = torch.cat([x.reshape(Bsz, S, Hl * P), Bm, Cm], dim=-1)
+    xbc, new_conv = causal_conv(xbc, mine(conv_w), mine(conv_b),
+                                mine(state["conv"]) if state is not None else None)
+    x = xbc[..., :Hl * P].reshape(Bsz, S, Hl, P)
+    Bm = xbc[..., Hl * P:Hl * P + N]
+    Cm = xbc[..., Hl * P + N:]
+    v = dt_raw.float() + dt_bias[hs]
     dt = torch.logaddexp(v, torch.zeros_like(v))  # softplus, as jax.nn.softplus
-    A = -torch.exp(bp["A_log"])
+    A = -torch.exp(A_log[hs])
     if state is not None and S == 1:
         y, new_ssm = ssd_step(x, dt, A, Bm, Cm, state["ssm"])
     else:
         y, new_ssm = ssd_chunked(x, dt, A, Bm, Cm, cfg.ssm_chunk,
                                  state["ssm"] if state is not None else None)
-    y = y + bp["D"].to(y.dtype)[None, None, :, None] * x
-    yf = y.reshape(Bsz, S, H * P) * F.silu(z.reshape(Bsz, S, H * P))
-    yf = L.rms_norm(yf, bp["gnorm"]["w"])
-    new_state = {"conv": new_conv, "ssm": new_ssm} if state is not None else None
-    return yf, new_state
+    y = y + D[hs].to(y.dtype)[None, None, :, None] * x
+    yf = y.reshape(Bsz, S, Hl * P) * F.silu(z.reshape(Bsz, S, Hl * P))
+    if sum_sq is None:
+        yf = L.rms_norm(yf, gnorm_w)
+    else:  # the norm's mean square over all H·P channels, summed across the heads
+        f = yf.float()
+        var = sum_sq(f.square().sum(dim=-1, keepdim=True)) / (H * P)
+        yf = (f * torch.rsqrt(var + 1e-6) * gnorm_w.float()).to(yf.dtype)
+    if state is None:
+        return yf, None
+    if gather_x is not None:
+        new_conv = torch.cat([gather_x(new_conv[..., :Hl * P]), new_conv[..., Hl * P:]], dim=-1)
+    return yf, {"conv": new_conv, "ssm": new_ssm}
 
 
 def mamba_block_apply(bp: Params, cfg: ModelConfig, h: torch.Tensor,
@@ -247,9 +280,12 @@ def mamba_block_apply(bp: Params, cfg: ModelConfig, h: torch.Tensor,
     """One Mamba block -> (h', the new state or None). ``state`` is
     ``{"conv": (B, K-1, ch), "ssm": (B, H, N, P)}`` or None, ``masks`` the
     block's mask dict or None."""
-    _, z, xbc, dt_raw = in_proj(bp, cfg, h, masks)
-    yf, new_state = mixer(bp, cfg, z, xbc, dt_raw, state, masks)
-    return h + L._linear(yf, bp["out"], 2, (masks or {}).get("out")), new_state
+    _, z, x, Bm, Cm, dt_raw = in_proj(bp, cfg, h, masks)
+    yf, new_state = mixer(bp, cfg, z, x, Bm, Cm, dt_raw, state, masks)
+    # row-parallel on a mesh: the heads' partial sums, summed before the
+    # residual add (a no-op without a policy)
+    out = AS.constrain(L._linear(yf, bp["out"], 2, (masks or {}).get("out")), "bqd")
+    return h + out, new_state
 
 
 # ---------------------------------------------------------------------------

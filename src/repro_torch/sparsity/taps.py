@@ -123,11 +123,11 @@ def moe_taps(bp, cfg: ModelConfig, h: torch.Tensor, positions) -> Dict[str, torc
 def ssm_taps(bp, cfg: ModelConfig, h: torch.Tensor, positions=None) -> Dict[str, torch.Tensor]:
     """A Mamba block's taps: the normed input for the five in-projections,
     the conv's input for ``conv_w``, the gated norm's output for ``out``."""
-    u, z, xbc, dt_raw = SSM.in_proj(bp, cfg, h)
+    u, z, x, Bm, Cm, dt_raw = SSM.in_proj(bp, cfg, h)
     flat_u = _flat(u)
     out = {k: flat_u for k in ("in_z", "in_x", "in_B", "in_C", "in_dt")}
-    out["conv_w"] = _flat(xbc)
-    out["out"] = _flat(SSM.mixer(bp, cfg, z, xbc, dt_raw)[0])
+    out["conv_w"] = _flat(torch.cat([x.reshape(*x.shape[:2], -1), Bm, Cm], dim=-1))
+    out["out"] = _flat(SSM.mixer(bp, cfg, z, x, Bm, Cm, dt_raw)[0])
     return out
 
 

@@ -68,16 +68,6 @@ def rel_norm(a, b) -> float:
     return float(np.linalg.norm(a - b) / max(np.linalg.norm(b), 1e-30))
 
 
-@pytest.fixture()
-def one_thread():
-    """One intra-op thread: the tiny models gain nothing from more, and
-    under several test workers on few cores the threads' waits dominate."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
 def make_pair(arch: str) -> dict:
     rcfg, cfg = ref_get_config(arch), get_config(arch)
     rmodel = ref_build(rcfg)

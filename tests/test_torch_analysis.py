@@ -22,6 +22,8 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_threads import one_thread_module  # noqa: F401
+
 from _torch_analysis_fixtures import BAD_HEAD_WIDTH, BAD_HEADS, BAD_TILES
 from repro_torch.analysis import PASS_NAMES, Finding, Report, run
 from repro_torch.analysis import passes as P
@@ -50,14 +52,6 @@ def codes(findings):
 
 def errors(findings):
     return [f for f in findings if f.severity == "error"]
-
-
-@pytest.fixture()
-def one_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")
@@ -326,7 +320,7 @@ def _block(arch: str, i: int):
 
 
 @pytest.mark.parametrize("arch,i", _BLOCKS)
-def test_mask_check_real_block_loss_is_masked(arch, i, one_thread):
+def test_mask_check_real_block_loss_is_masked(arch, i):
     """Every family's block_loss masks each prunable leaf before its
     product; the same loss with the masks left out is flagged."""
     model, i, bw, h, pos, aux = _block(arch, i)
@@ -399,14 +393,14 @@ def test_moe_aux_loss_bits_unchanged():
     model, params = P._smoke_model(get_config("tiny_moe", smoke=True))
     p = model.get_block(params, cfg.moe_first_dense)["moe"]
     xf = torch.randn(64, cfg.d_model, generator=torch.Generator().manual_seed(3))
-    _, aux = moe._dispatch_group(p, xf, cfg)
+    _, aux = moe.routed_local(xf[None], p["router"]["w"], p["experts"], None, cfg)
     _, idx, probs = moe.route(p["router"]["w"], xf, cfg.moe_top_k)
     E, k = cfg.moe_num_experts, cfg.moe_top_k
     ce = torch.bincount(idx.reshape(-1), minlength=E).float() / (64 * k)
     assert torch.equal(aux, E * torch.sum(probs.mean(dim=0) * ce))
 
 
-def test_moe_block_and_decode_trace_without_host_reads(one_thread):
+def test_moe_block_and_decode_trace_without_host_reads():
     smoke = get_config("tiny_moe", smoke=True)
     i = smoke.moe_first_dense
     model, i, bw, h, pos, aux = _block("tiny_moe", i)

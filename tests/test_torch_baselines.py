@@ -54,6 +54,8 @@ from repro_torch.models.model import build
 from repro_torch.optim import optimizers as OPT
 from repro_torch.sparsity import sparse_params as SP
 
+from _torch_threads import one_thread_module  # noqa: F401
+
 REL = 1e-4
 
 

@@ -38,6 +38,8 @@ from repro_torch.core.masks import expand_masks, prune
 from repro_torch.models.model import build
 from repro_torch.sparsity import sparse_params as SP
 
+from _torch_threads import one_thread_module  # noqa: F401
+
 ARCHS = ["qwen1_5_4b", "nemotron_4_15b", "qwen2_5_32b", "qwen1_5_110b"]
 REL = 1e-5
 PIPE_REL = 1e-4
@@ -52,14 +54,6 @@ def _close(got, want, rel=REL):
     want = np.asarray(want, dtype=np.float64)
     np.testing.assert_allclose(got.detach().double().numpy(), want, rtol=0,
                                atol=rel * max(1.0, float(np.abs(want).max())))
-
-
-@pytest.fixture()
-def one_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.mark.parametrize("arch", ARCHS)
@@ -112,7 +106,7 @@ def test_forward_and_loss_match_reference(pair):
     _close(pair["model"].forward(pair["params"], {"tokens": torch.as_tensor(toks)}), rlogits)
 
 
-def test_wanda_ebft_perplexity_match_reference(pair, one_thread):
+def test_wanda_ebft_perplexity_match_reference(pair):
     """Wanda 0.7 (masks bar near-ties), then EBFT from the reference's masks
     and pruned weights (each block's losses, epochs, early stop) and the
     dense, Wanda and EBFT perplexities."""

@@ -45,6 +45,8 @@ from repro_torch.optim import optimizers as OPT
 from repro_torch.optim import schedules as SCHED
 from repro_torch.sparsity import sparse_params as SP
 
+from _torch_threads import one_thread_module  # noqa: F401
+
 ECFG = dict(lr=1e-2, epochs=8, microbatch=8, patience=3)  # tests/test_ebft.py:22
 REL = 1e-4
 

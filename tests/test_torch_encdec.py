@@ -65,6 +65,8 @@ from repro_torch.sparsity import sparse_params as SP
 from repro_torch.sparsity import taps as TAPS
 from repro_torch.training.train_loop import value_and_grad
 
+from _torch_threads import one_thread_module  # noqa: F401
+
 ARCH = "tiny_encdec"
 REL = 1e-5
 PIPE_REL = 1e-4
@@ -91,16 +93,6 @@ def _rel(a, b) -> float:
 
 def _frames(n, cfg, seed, f=F):
     return np.random.default_rng(seed).normal(size=(n, f, cfg.d_model)).astype(np.float32)
-
-
-@pytest.fixture()
-def one_thread():
-    """One intra-op thread: the tiny models gain nothing from more, and
-    under several test workers on few cores the threads' waits dominate."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")
@@ -236,7 +228,7 @@ def test_forward_and_loss_match_reference(pair):
     _close(pair["model"].forward(pair["params"], _tt(raw)), rlogits)
 
 
-def test_loss_gradients_match_reference(pair, one_thread):
+def test_loss_gradients_match_reference(pair):
     """The gradient with respect to every leaf, the encoder's included."""
     raw = _batch(pair["cfg"], 2, 32, 4)
     _, g = value_and_grad(pair["model"].loss, pair["params"], _tt(raw))
@@ -409,7 +401,7 @@ def _prunable(masks):
 
 @pytest.mark.parametrize("method,sparsity,pattern", PRUNES,
                          ids=[f"{m}-{'2:4' if p else s}" for m, s, p in PRUNES])
-def test_prune_matches_reference(pair, method, sparsity, pattern, one_thread):
+def test_prune_matches_reference(pair, method, sparsity, pattern):
     """Every method's masks and pruned weights as the reference's, both
     walks fed the same calibration frames (``extra_batch``), the encoder's
     and the decoder's leaves (cross-attention's too)."""
@@ -465,7 +457,7 @@ def wanda(pair):
                 pruned=interop.params_to_torch(_np(rpruned), "cpu"))
 
 
-def test_ebft_matches_reference(pair, wanda, one_thread):
+def test_ebft_matches_reference(pair, wanda):
     """From the reference's Wanda masks and pruned weights, both walks fed
     the same calibration frames: each block's kind, losses, epochs and
     early stop (the decoder's student on its tuned encoder's memory), and
@@ -517,7 +509,7 @@ def test_perplexity_and_cloze_match_reference(pair, wanda):
 # ---------------------------------------------------------------------------
 # mask tuning, LoRA
 # ---------------------------------------------------------------------------
-def test_finetune_masks_matches_reference(pair, wanda, monkeypatch, one_thread):
+def test_finetune_masks_matches_reference(pair, wanda, monkeypatch):
     """Epoch histories within rel 1e-4 (four blocks, the decoder's on its
     mask-tuned encoder's memory); tuned masks equal bar slots within 1e-5
     of the port's final scores' threshold; the weights the dense ones
@@ -561,7 +553,7 @@ def test_finetune_masks_matches_reference(pair, wanda, monkeypatch, one_thread):
                            wanda["masks"]["dec_blocks"]["xattn"]["wk"])
 
 
-def test_finetune_lora_matches_reference(pair, wanda, one_thread):
+def test_finetune_lora_matches_reference(pair, wanda):
     """5 steps from the reference's adapter init, each step's frames from
     ``extra_batch_fn(step)``: merged weights within rel 1e-4, pruned slots
     0, every prunable leaf of both stacks moved."""
@@ -676,7 +668,7 @@ def test_train_batch_matches_reference(monkeypatch):
             np.testing.assert_array_equal(got[k].numpy(), np.asarray(want[k]))
 
 
-def test_train_launcher_runs_encdec_on_the_cpu(capsys, one_thread):
+def test_train_launcher_runs_encdec_on_the_cpu(capsys):
     res = train.main(["--arch", ARCH, "--steps", "3", "--batch", "2", "--seq", "32",
                       "--device", "cpu", "--no-obs"])
     assert len(res.history) == 1 and math.isfinite(res.history[0][1])

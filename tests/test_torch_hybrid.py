@@ -58,6 +58,8 @@ from repro_torch.sparsity import sparse_params as SP
 from repro_torch.sparsity import taps as TAPS
 from repro_torch.training.train_loop import value_and_grad
 
+from _torch_threads import one_thread_module  # noqa: F401
+
 ARCH = "tiny_hybrid"
 REL = 1e-5
 PIPE_REL = 1e-4
@@ -74,16 +76,6 @@ def _close(got, want, rel=REL):
     want = np.asarray(want, dtype=np.float64)
     got = got.detach().double().numpy() if isinstance(got, torch.Tensor) else np.asarray(got)
     np.testing.assert_allclose(got, want, rtol=0, atol=rel * max(1.0, float(np.abs(want).max())))
-
-
-@pytest.fixture()
-def one_thread():
-    """One intra-op thread: the tiny models gain nothing from more, and
-    under several test workers on few cores the threads' waits dominate."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")
@@ -153,7 +145,7 @@ def test_loss_and_logits_match_reference(pair):
     _close(pair["model"].forward(pair["params"], {"tokens": torch.as_tensor(toks)}), rlogits)
 
 
-def test_loss_gradients_match_reference(pair, one_thread):
+def test_loss_gradients_match_reference(pair):
     """Every leaf's gradient, the shared block's summed over its sites."""
     toks = np.random.default_rng(2).integers(0, pair["cfg"].vocab_size, (2, 40)).astype(np.int32)
     _, g = value_and_grad(pair["model"].loss, pair["params"], {"tokens": torch.as_tensor(toks)})
@@ -264,7 +256,7 @@ def test_prune_masks_equal_reference(pair, pruned, method, pattern):
     assert not bool(r["masks"]["shared"]["attn"]["wq"].all())
 
 
-def test_unported_methods_raise(pair, pruned, one_thread):
+def test_unported_methods_raise(pair, pruned):
     """FLAP still refuses the family. The baselines that refused it until
     they were ported now agree with the reference: SparseGPT's (``conv_w``
     Wanda's mask, no update) and DSnoT's leaf functions on Mamba block 1,
@@ -306,7 +298,7 @@ def _same_reports(reports, rreports):
         assert a.loss_after < a.loss_before
 
 
-def test_ebft_tunes_the_shared_block_once_on_both_sites(pair, pruned, ref_ebft, one_thread,
+def test_ebft_tunes_the_shared_block_once_on_both_sites(pair, pruned, ref_ebft,
                                                         monkeypatch):
     """From the reference's masks and pruned weights: the reports (Mamba
     blocks in walk order, the shared block last) and the tuned perplexity
@@ -352,7 +344,7 @@ def test_ebft_tunes_the_shared_block_once_on_both_sites(pair, pruned, ref_ebft, 
             assert bool((t[~m.expand(t.shape)] == 0).all()), path
 
 
-def test_ebft_run_matches_reference(pair, ref_ebft, one_thread):
+def test_ebft_run_matches_reference(pair, ref_ebft):
     """``ebft_run.run`` (Wanda 0.7, EBFT) on the reference's weights: the
     dense, pruned and EBFT perplexities, each block's losses, epochs and
     early stop."""
@@ -412,7 +404,7 @@ def test_checkpoint_restores_across_packages(pair, tmp_path):
         assert torch.equal(t, T.get_path(pair["params"], path)), path
 
 
-def test_launchers_run_on_the_cpu(tmp_path, capsys, one_thread):
+def test_launchers_run_on_the_cpu(tmp_path, capsys):
     from repro_torch.launch import serve, train
 
     out = tmp_path / "bench.json"

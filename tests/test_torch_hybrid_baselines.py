@@ -16,14 +16,15 @@ import torch
 
 from _torch_baselines import (
     adapter_shapes, check_driver, check_lora, check_mask_tuning, check_prune, make_pair,
-    one_thread, ref_lora, ref_mask_tuning, ref_prunes,
+    ref_lora, ref_mask_tuning, ref_prunes,
 )
 from repro_torch import tree as T
 from repro_torch.core import reconstruction as R
 from repro_torch.core.masks import prune
 from repro_torch.core.pruning import common as C
 
-__all__ = ["one_thread"]
+from _torch_threads import one_thread_module  # noqa: F401
+
 
 
 @pytest.fixture(scope="module")
@@ -47,12 +48,12 @@ def ref_lr(pair, refs):
 
 
 @pytest.mark.parametrize("method", ["sparsegpt", "dsnot"])
-def test_prune_matches_reference(pair, refs, method, one_thread):
+def test_prune_matches_reference(pair, refs, method):
     flips = check_prune(pair, refs, method)
     print(f"tiny_hybrid {method}: {flips} near-tie flips")
 
 
-def test_conv_w_takes_wandas_mask_and_no_update(pair, refs, one_thread):
+def test_conv_w_takes_wandas_mask_and_no_update(pair, refs):
     masks, pruned = prune(pair["model"], pair["params"], pair["calib"], method="sparsegpt",
                           sparsity=0.7)
     for group in ("groups", "trailing"):
@@ -75,8 +76,7 @@ def test_lora_adapter_shapes_are_the_references(pair):
     assert shapes["shared/attn/wq"][0] == (d, 8)
 
 
-def test_finetune_masks_matches_reference_site_by_site(pair, refs, ref_mt, monkeypatch,
-                                                       one_thread):
+def test_finetune_masks_matches_reference_site_by_site(pair, refs, ref_mt, monkeypatch):
     """Against the reference's run, and in its order: the walk visits the
     shared block at both sites, the second starting from the masks the
     first left and both moving them; the final shared masks are the second
@@ -111,11 +111,10 @@ def test_finetune_masks_matches_reference_site_by_site(pair, refs, ref_mt, monke
     assert same(sites[1][1], masks["shared"])
 
 
-def test_finetune_lora_matches_reference(pair, refs, ref_lr, one_thread):
+def test_finetune_lora_matches_reference(pair, refs, ref_lr):
     check_lora(pair, refs, ref_lr)
 
 
-def test_ebft_run_baselines_match_reference(pair, refs, ref_mt, ref_lr, monkeypatch,
-                                            one_thread):
+def test_ebft_run_baselines_match_reference(pair, refs, ref_mt, ref_lr, monkeypatch):
     res = check_driver(pair, refs, ref_mt, ref_lr, monkeypatch)
     assert len(res.baselines["mask"]["histories"]) == pair["cfg"].num_layers + 2

@@ -17,6 +17,8 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_threads import one_thread_module  # noqa: F401
+
 from repro.configs import get_config as ref_get_config
 from repro.launch import ebft_run as ref_ebft_run
 from repro.launch.api import RunSpec as RefSpec
@@ -46,14 +48,6 @@ def fresh_tuner(tmp_path):
     tuning.configure(path=str(tmp_path / "cache.json"))
     yield
     tuning._reset_for_tests()
-
-
-@pytest.fixture()
-def one_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _write_cache(entries, schema=tuning.SCHEMA) -> str:
@@ -284,7 +278,7 @@ def test_the_search_measures_the_default_inside_its_sweep(monkeypatch, times, be
 # the launches of an EBFT walk
 # ---------------------------------------------------------------------------
 @pytest.mark.parametrize("arch", ["tiny_dense", "tiny_moe"])
-def test_ebft_workloads_cover_the_walks_launches(arch, monkeypatch, one_thread):
+def test_ebft_workloads_cover_the_walks_launches(arch, monkeypatch):
     """Every 2-D and expert-batched masked product an EBFT walk launches
     (recorded at the wrappers) is among ``ebft_workloads``' shapes."""
     cfg = get_config(arch)
@@ -348,7 +342,7 @@ def test_spec_defaults_mirror_reference():
         ebft_run.main(["--kernel-tune", "always", "--device", "cpu"])
 
 
-def test_ebft_run_searches_then_hits_a_warm_cache(tmp_path, capsys, one_thread):
+def test_ebft_run_searches_then_hits_a_warm_cache(tmp_path, capsys):
     """``--kernel-tune search`` then ``cache`` on one cache: the second
     artifact's ``kernel_tuning`` is warm for the port's and the reference's
     validators, and every perplexity equals an ``off`` run's bit for bit and

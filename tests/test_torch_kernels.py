@@ -30,6 +30,8 @@ from repro_torch.kernels.flash_attention.ref import (
 from repro_torch.kernels.masked_matmul import ops as MM
 from repro_torch.kernels.masked_matmul.ref import masked_matmul_plain
 
+from _torch_threads import one_thread_module  # noqa: F401
+
 DTYPES = {"float32": (jnp.float32, torch.float32), "bfloat16": (jnp.bfloat16, torch.bfloat16)}
 
 

@@ -24,6 +24,8 @@ from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
 from repro_torch.models.model import build
 
+from _torch_threads import one_thread_module  # noqa: F401
+
 TOL = dict(rtol=1e-5, atol=1e-5)
 
 

@@ -13,8 +13,9 @@ they run tiny_dense at 2 layers (bf16):
   and the ``dp_only`` layouts, its loss and updated block against one
   device; a spy on Adam records each gradient's placements, which must be
   its moment's (ZeRO-2: the data-sharded layout);
-* a cell of another family on an active mesh, which must raise, citing
-  ROADMAP.md A.8e;
+* a cell of the VLM or the encoder-decoder on an active mesh, which must
+  raise, citing ROADMAP.md A.8e (the MoE, SSM and hybrid cells run:
+  ``tests/test_torch_mesh_families.py``);
 * the host-staged collectives (``distributed.host_collectives``) on CPU
   tensors against gloo's own;
 * global-norm clipping and top-k compression with error feedback of
@@ -136,7 +137,7 @@ for dp_only in (False, True):
 O.adam = adam
 
 refused = {}
-for arch in ("tiny_moe", "tiny_ssm"):
+for arch in ("tiny_vlm", "tiny_encdec"):
     try:
         ST.build_train_cell(get_config(arch), ShapeConfig("t", 32, 8, "train"), mesh)
         refused[arch] = None
@@ -245,6 +246,7 @@ def test_ebft_gradients_reach_adam_in_the_moments_layout(ranks, dp_only):
 
 
 def test_other_families_refuse_an_active_mesh(ranks):
+    assert set(ranks[0]["refused"]) == {"tiny_vlm", "tiny_encdec"}
     for arch, msg in ranks[0]["refused"].items():
         assert msg is not None and "A.8e" in msg, arch
 

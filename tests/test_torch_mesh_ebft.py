@@ -267,11 +267,12 @@ def test_plan_accounting_matches_reference():
 
 
 def test_active_plan_on_other_families_raises():
-    """Only the dense family runs on a mesh; an active plan elsewhere
+    """The dense, MoE, SSM and hybrid families run on a mesh
+    (``tests/test_torch_mesh_families.py``); an active plan on the VLM
     raises before any work, and never runs unsharded."""
     plan = MeshPlan.from_mesh(make_abstract_mesh((2, 2), ("data", "model")))
     assert plan.active
-    cfg = get_config("tiny_moe")
+    cfg = get_config("tiny_vlm")
     model = build(cfg)
     import torch
 

@@ -58,6 +58,8 @@ from repro_torch.serving.decode import Request, Server, _slot_update
 from repro_torch.sparsity import sparse_params as SP
 from repro_torch.sparsity import taps as TAPS
 
+from _torch_threads import one_thread_module  # noqa: F401
+
 ARCHS = ["tiny_moe", "kimi_k2_1t_a32b"]
 REL = 1e-5
 PIPE_REL = 1e-4
@@ -72,16 +74,6 @@ def _cfgs(arch, **kw):
 
 def _np(tree):
     return jax.tree.map(np.asarray, tree)
-
-
-@pytest.fixture()
-def one_thread():
-    """One intra-op thread: the tiny models gain nothing from more, and
-    under several test workers on few cores the threads' waits dominate."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module", params=ARCHS)
@@ -197,7 +189,7 @@ def test_loss_logits_nll_and_aux_match_reference(pair):
     _close(logits, pair["rmodel"].forward(pair["rparams"], {"tokens": jnp.asarray(toks)}))
 
 
-def test_loss_gradients_match_reference(pair, one_thread):
+def test_loss_gradients_match_reference(pair):
     """The gradient of nll + 0.01·aux, the f32 router's included."""
     from repro_torch.training.train_loop import value_and_grad
 
@@ -387,7 +379,7 @@ def test_prune_leaves_the_router_and_hits_the_sparsity(pair, pruned, method):
             np.testing.assert_array_equal(t.numpy(), want, err_msg=str(path))
 
 
-def test_unported_methods_raise(pair, pruned, monkeypatch, one_thread):
+def test_unported_methods_raise(pair, pruned, monkeypatch):
     """FLAP still refuses the family, as the reference's assert does. The
     baselines that refused it until they were ported now agree with the
     reference: SparseGPT's and DSnoT's leaf functions on block 1's routed
@@ -416,7 +408,7 @@ def test_unported_methods_raise(pair, pruned, monkeypatch, one_thread):
 ECFG = dict(lr=1e-3, epochs=4, microbatch=8, patience=3)
 
 
-def test_ebft_matches_reference(pair, pruned, one_thread):
+def test_ebft_matches_reference(pair, pruned):
     """Per block: epochs run and early stops equal, the losses (before,
     every epoch, after) within rel 1e-4; the tuned model's perplexity
     within rel 1e-4; the router moves (Adam runs over the whole block)."""
@@ -441,7 +433,7 @@ def test_ebft_matches_reference(pair, pruned, one_thread):
             assert bool((T.get_path(tuned, path)[~m] == 0).all()), path
 
 
-def test_ebft_repeats_bit_for_bit(pair, pruned, one_thread):
+def test_ebft_repeats_bit_for_bit(pair, pruned):
     w, calib = pruned["wanda"], pruned["calib"][:8]
     runs = [EBFT.finetune(pair["model"], pair["params"], w["pruned"], w["masks"], calib,
                           EBFT.EBFTConfig(**dict(ECFG, epochs=2)))[0] for _ in range(2)]
@@ -459,7 +451,7 @@ def test_perplexity_reads_the_nll_not_the_loss(pair):
     assert ppl == pytest.approx(ref_perplexity(pair["rmodel"], pair["rparams"], toks), rel=REL)
 
 
-def test_ebft_run_matches_reference(one_thread):
+def test_ebft_run_matches_reference():
     """``ebft_run.run`` on tiny_moe (Wanda 0.7, EBFT) against the reference's
     functions on the same weights: the dense, pruned and EBFT perplexities
     within rel 1e-4."""
@@ -484,7 +476,7 @@ def test_ebft_run_matches_reference(one_thread):
     assert [r.kind for r in res.reports] == ["dense", "moe", "moe"]
 
 
-def test_train_cli_runs_and_resumes_on_the_cpu(tmp_path, capsys, one_thread):
+def test_train_cli_runs_and_resumes_on_the_cpu(tmp_path, capsys):
     from repro_torch.launch import train
 
     argv = ["--arch", "tiny_moe", "--batch", "4", "--seq", "32", "--ckpt-dir",
@@ -495,7 +487,7 @@ def test_train_cli_runs_and_resumes_on_the_cpu(tmp_path, capsys, one_thread):
     assert "resumed from step 2" in capsys.readouterr().out
 
 
-def test_ebft_run_cli_runs_on_the_cpu(tmp_path, capsys, one_thread):
+def test_ebft_run_cli_runs_on_the_cpu(tmp_path, capsys):
     out = tmp_path / "bench.json"
     res = ebft_run.main(["--arch", "tiny_moe", "--pretrain-steps", "3", "--batch", "4",
                          "--seq", "32", "--calib-samples", "8", "--epochs", "1",

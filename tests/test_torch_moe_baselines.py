@@ -18,7 +18,7 @@ import torch
 
 from _torch_baselines import (
     REL, SPARSITY, adapter_shapes, check_driver, check_lora, check_mask_tuning, check_prune,
-    make_pair, one_thread, ref_lora, ref_mask_tuning, ref_prunes,
+    make_pair, ref_lora, ref_mask_tuning, ref_prunes,
 )
 from repro.core.pruning import common as RC
 from repro.core.pruning import dsnot as RDSNOT
@@ -32,7 +32,8 @@ from repro_torch.kernels.masked_matmul import ops as MM
 from repro_torch.kernels.masked_matmul.ref import masked_matmul_batched_dm_plain
 from repro_torch.sparsity import sparse_params as SP
 
-__all__ = ["one_thread"]
+from _torch_threads import one_thread_module  # noqa: F401
+
 
 
 @pytest.fixture(scope="module")
@@ -155,7 +156,7 @@ def test_dsnot_reselects_each_expert_on_its_own(pattern):
 # the pipeline's baselines against the reference's
 # ---------------------------------------------------------------------------
 @pytest.mark.parametrize("method", ["sparsegpt", "dsnot"])
-def test_prune_matches_reference(pair, refs, method, one_thread):
+def test_prune_matches_reference(pair, refs, method):
     flips = check_prune(pair, refs, method)
     print(f"tiny_moe {method}: {flips} near-tie flips")
 
@@ -172,14 +173,14 @@ def test_lora_adapter_shapes_are_the_references(pair):
     assert shapes["dense_blocks/mlp/w_up"][0] == (cfg.moe_first_dense, d, 8)
 
 
-def test_finetune_masks_matches_reference(pair, refs, ref_mt, one_thread):
+def test_finetune_masks_matches_reference(pair, refs, ref_mt):
     masks = check_mask_tuning(pair, refs, ref_mt)
     experts = masks["moe_blocks"]["moe"]["experts"]["w_up"]
     assert not torch.equal(experts, refs["wanda"]["masks"]["moe_blocks"]["moe"]["experts"]["w_up"])
     assert bool(masks["moe_blocks"]["moe"]["router"]["w"].all())
 
 
-def test_mask_scores_start_from_one_maximum_per_leaf(pair, refs, one_thread):
+def test_mask_scores_start_from_one_maximum_per_leaf(pair, refs):
     """With no epoch the scores are their start: |W| over the leaf's largest
     |W|, over all its experts, plus the bonus on the init mask's slots."""
     scores = {}
@@ -192,12 +193,11 @@ def test_mask_scores_start_from_one_maximum_per_leaf(pair, refs, one_thread):
                                w / w.max() + 0.1 * m.float(), rtol=0, atol=0)
 
 
-def test_finetune_lora_matches_reference(pair, refs, ref_lr, one_thread):
+def test_finetune_lora_matches_reference(pair, refs, ref_lr):
     check_lora(pair, refs, ref_lr)
 
 
-def test_ebft_run_baselines_match_reference(pair, refs, ref_mt, ref_lr, monkeypatch,
-                                            one_thread):
+def test_ebft_run_baselines_match_reference(pair, refs, ref_mt, ref_lr, monkeypatch):
     res = check_driver(pair, refs, ref_mt, ref_lr, monkeypatch)
     assert [r.kind for r in res.reports] == ["dense", "moe", "moe"]
     for path, m in T.leaves_with_path(res.baselines["dsnot"]["masks"]):

@@ -21,6 +21,8 @@ from repro_torch.kernels.nm_spmm import ops as NM
 from repro_torch.kernels.nm_spmm.ref import nm_spmm_plain
 from repro_torch.sparsity import sparse_params as SP
 
+from _torch_threads import one_thread_module  # noqa: F401
+
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 
 

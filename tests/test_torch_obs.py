@@ -32,6 +32,8 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_threads import one_thread_module  # noqa: F401
+
 from repro.configs import get_config as ref_get_config
 from repro.core import ebft as REBFT
 from repro.data import tokens as RTOK
@@ -84,16 +86,6 @@ def _obs_reset():
         tr.set_tracer(None)
         reg.set_registry(None)
     P.drop_pending_kernels()
-
-
-@pytest.fixture()
-def one_thread():
-    """One intra-op thread: the tiny models gain nothing from more, and
-    under several test workers on few cores the threads' waits dominate."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 # ---------------------------------------------------------------------------
@@ -700,7 +692,7 @@ def test_bench_record_without_a_run_leaves_the_metric_sections_empty(pipeline_ru
 # ---------------------------------------------------------------------------
 # launch/train.py
 # ---------------------------------------------------------------------------
-def test_train_cli_writes_the_trained_section(tmp_path, capsys, one_thread):
+def test_train_cli_writes_the_trained_section(tmp_path, capsys):
     bench = tmp_path / "BENCH_train.json"
     res = TRAIN.main(["--steps", "12", "--batch", "4", "--seq", "32", "--device", "cpu",
                       "--bench-out", str(bench)])

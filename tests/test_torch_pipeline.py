@@ -22,17 +22,9 @@ from repro_torch.data import tokens as TOK
 from repro_torch.launch import ebft_run
 from repro_torch.models.model import build
 
+from _torch_threads import one_thread_module  # noqa: F401
+
 REL = 1e-4
-
-
-@pytest.fixture()
-def one_thread():
-    """One intra-op thread: the tiny models gain nothing from more, and
-    under several test workers on few cores the threads' waits dominate."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.mark.parametrize("vocab,seed", [(512, 0), (32000, 3)])
@@ -116,7 +108,7 @@ def test_spec_defaults_mirror_reference():
 
 
 @pytest.mark.parametrize("argv", [[], ["--pretrain-steps", "5"], ["--epochs", "0"]])
-def test_unported_tuning_raises(argv, tmp_path, one_thread):
+def test_unported_tuning_raises(argv, tmp_path):
     """Pretraining (the default 200 steps, or 5) and ``--epochs 0`` run
     through to EBFT and raise nothing, on small batches; the bench JSON's
     phases are the reference's."""
@@ -140,7 +132,7 @@ def test_run_refuses_params_on_another_device():
         ebft_run.run(cfg, spec, "cpu", params=params)
 
 
-def test_epochs_0_output_matches_reference(tmp_path, one_thread):
+def test_epochs_0_output_matches_reference(tmp_path):
     """``--epochs 0`` as the reference's driver writes it, on the same
     weights: the same phases, perplexities, blocks (each ``epochs_run`` 0)
     and ``ebft`` keys, and an EBFT perplexity equal to the pruned one within

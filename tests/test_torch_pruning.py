@@ -30,6 +30,8 @@ from repro_torch.core.pruning import wanda as WANDA
 from repro_torch.models.model import build
 from repro_torch.sparsity import sparse_params as SP
 
+from _torch_threads import one_thread_module  # noqa: F401
+
 TIE_RTOL = 1e-6
 
 

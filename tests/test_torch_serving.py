@@ -43,20 +43,12 @@ from repro_torch.obs import trace as OT
 from repro_torch.obs.run import validate_payload
 from repro_torch.serving.decode import Request, Server
 
+from _torch_threads import one_thread_module  # noqa: F401
+
 TOL = dict(rtol=1e-5, atol=1e-5)
 SERVE_NAMES = ["serve/prefill/compile_s", "serve/decode/exec_s", "serve/queue_depth",
                "serve/batch_occupancy", "serve/tokens", "serve/requests",
                "serve/tokens_per_s"]
-
-
-@pytest.fixture(autouse=True)
-def one_thread():
-    """One intra-op thread: the tiny models gain nothing from more, and
-    under several test workers on few cores the threads' waits dominate."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(autouse=True)

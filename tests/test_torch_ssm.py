@@ -66,6 +66,8 @@ from repro_torch.sparsity import sparse_params as SP
 from repro_torch.sparsity import taps as TAPS
 from repro_torch.training.train_loop import value_and_grad
 
+from _torch_threads import one_thread_module  # noqa: F401
+
 ARCH = "tiny_ssm"
 REL = 1e-5
 PIPE_REL = 1e-4
@@ -89,16 +91,6 @@ def _close(got, want, rel=REL):
     want = np.asarray(want, dtype=np.float64)
     got = got.detach().double().numpy() if isinstance(got, torch.Tensor) else np.asarray(got)
     np.testing.assert_allclose(got, want, rtol=0, atol=rel * max(1.0, float(np.abs(want).max())))
-
-
-@pytest.fixture()
-def one_thread():
-    """One intra-op thread: the tiny models gain nothing from more, and
-    under several test workers on few cores the threads' waits dominate."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")
@@ -308,7 +300,7 @@ def test_loss_and_logits_match_reference(pair):
            pair["rmodel"].forward(pair["rparams"], {"tokens": jnp.asarray(toks)}))
 
 
-def test_loss_gradients_match_reference(pair, one_thread):
+def test_loss_gradients_match_reference(pair):
     """Every leaf's gradient, at tiny_ssm's widths (H 8, Q 32), where the
     reference's SSD gradient is finite."""
     toks = np.random.default_rng(9).integers(0, pair["cfg"].vocab_size, (2, 40)).astype(np.int32)
@@ -430,7 +422,7 @@ def test_bf16_kernel_takes_a_narrow_mask_as_a_padded_view():
         MM.check_operands("masked_matmul", x, w, blk["in_dt"])
 
 
-def test_unported_methods_raise(pair, pruned, monkeypatch, one_thread):
+def test_unported_methods_raise(pair, pruned, monkeypatch):
     """FLAP still refuses the family, as the reference's assert does. The
     baselines that refused it until they were ported now agree with the
     reference: SparseGPT's (``conv_w`` Wanda's mask, no update) and DSnoT's
@@ -476,7 +468,7 @@ def _same_reports(reports, rreports):
         assert a.loss_after < a.loss_before
 
 
-def test_ebft_matches_reference(pair, pruned, ref_ebft, one_thread):
+def test_ebft_matches_reference(pair, pruned, ref_ebft):
     """EBFT from the reference's masks and pruned weights: per block the
     epochs run and early stops equal, the losses within rel 1e-4, pruned
     slots still 0; the tuned perplexity within rel 1e-4."""
@@ -495,7 +487,7 @@ def test_ebft_matches_reference(pair, pruned, ref_ebft, one_thread):
                          == 0).all()), path
 
 
-def test_ebft_run_matches_reference(pair, ref_ebft, one_thread):
+def test_ebft_run_matches_reference(pair, ref_ebft):
     """``ebft_run.run`` (Wanda 0.7, EBFT) on the reference's weights: the
     dense, pruned and EBFT perplexities, each block's losses, epochs and
     early stop, against the reference's functions."""
@@ -506,7 +498,7 @@ def test_ebft_run_matches_reference(pair, ref_ebft, one_thread):
     assert not any(math.isnan(v) for v in res.perplexity.values())
 
 
-def test_pretrain_matches_reference(pair, one_thread):
+def test_pretrain_matches_reference(pair):
     """Five AdamW steps (``ebft_run.pretrain``): the recorded losses
     within rel 1e-5 of the reference's."""
     corpus = RSyntheticCorpus(RCorpusConfig(vocab_size=pair["cfg"].vocab_size, seed=0))
@@ -566,7 +558,7 @@ def _bf16_decode_gaps(forward, prefill, decode, toks, s0):
 
 
 @pytest.mark.parametrize("arch", ["tiny_ssm", "tiny_hybrid"])
-def test_bf16_cached_decode_departs_from_the_forward_as_the_reference_does(arch, one_thread):
+def test_bf16_cached_decode_departs_from_the_forward_as_the_reference_does(arch):
     """In bf16 the one-step recurrence of a Mamba block (decode) and the
     chunked scan (the forward, and the prefill) round apart. With the same
     weights and prompts, the port's cached decode is as far from its own
@@ -611,7 +603,7 @@ def test_checkpoint_restores_across_packages(pair, tmp_path):
         assert torch.equal(t, T.get_path(pair["params"], path)), path
 
 
-def test_launchers_run_on_the_cpu(tmp_path, capsys, one_thread):
+def test_launchers_run_on_the_cpu(tmp_path, capsys):
     from repro_torch.launch import serve, train
 
     out = tmp_path / "bench.json"

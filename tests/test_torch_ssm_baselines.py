@@ -14,13 +14,14 @@ import torch
 
 from _torch_baselines import (
     adapter_shapes, check_driver, check_lora, check_mask_tuning, check_prune, make_pair,
-    one_thread, ref_lora, ref_mask_tuning, ref_prunes,
+    ref_lora, ref_mask_tuning, ref_prunes,
 )
 from repro_torch import tree as T
 from repro_torch.core.masks import prune
 from repro_torch.core.pruning import common as C
 
-__all__ = ["one_thread"]
+from _torch_threads import one_thread_module  # noqa: F401
+
 
 
 @pytest.fixture(scope="module")
@@ -44,12 +45,12 @@ def ref_lr(pair, refs):
 
 
 @pytest.mark.parametrize("method", ["sparsegpt", "dsnot"])
-def test_prune_matches_reference(pair, refs, method, one_thread):
+def test_prune_matches_reference(pair, refs, method):
     flips = check_prune(pair, refs, method)
     print(f"tiny_ssm {method}: {flips} near-tie flips")
 
 
-def test_conv_w_takes_wandas_mask_and_no_update(pair, refs, one_thread):
+def test_conv_w_takes_wandas_mask_and_no_update(pair, refs):
     """SparseGPT's ``conv_w`` is Wanda's mask on the dense taps, no update;
     DSnoT's is its init (Wanda's) mask; the taps' Gram over the conv's
     channels is not taken, and the in-projections share one stats object."""
@@ -80,24 +81,23 @@ def test_lora_adapter_shapes_are_the_references(pair):
     assert shapes["blocks/in_x"][0] == (L, 8)
 
 
-def test_finetune_masks_matches_reference(pair, refs, ref_mt, one_thread):
+def test_finetune_masks_matches_reference(pair, refs, ref_mt):
     masks = check_mask_tuning(pair, refs, ref_mt)
     assert not torch.equal(masks["blocks"]["out"], refs["wanda"]["masks"]["blocks"]["out"])
 
 
-def test_finetune_lora_matches_reference(pair, refs, ref_lr, one_thread):
+def test_finetune_lora_matches_reference(pair, refs, ref_lr):
     check_lora(pair, refs, ref_lr)
 
 
-def test_ebft_run_baselines_match_reference(pair, refs, ref_mt, ref_lr, monkeypatch,
-                                            one_thread):
+def test_ebft_run_baselines_match_reference(pair, refs, ref_mt, ref_lr, monkeypatch):
     res = check_driver(pair, refs, ref_mt, ref_lr, monkeypatch)
     for path, m in T.leaves_with_path(res.baselines["dsnot"]["masks"]):
         if path[-1] == "conv_w":
             assert torch.equal(m, res.masks["blocks"]["conv_w"])
 
 
-def test_baseline_masks_keep_in_dt_laid_out_for_the_kernel(one_thread):
+def test_baseline_masks_keep_in_dt_laid_out_for_the_kernel():
     """On a Mamba2-130M block, SparseGPT's, DSnoT's and mask tuning's masks
     keep ``in_dt`` (768, 24) in a row-padded buffer, as ``prune``'s Wanda
     masks are: a clone of such a view is contiguous, 24 bytes a row, which

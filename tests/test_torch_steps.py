@@ -49,6 +49,8 @@ from repro_torch.models.model import build
 from repro_torch.optim.optimizers import adam, adamw
 from repro_torch.training.train_loop import value_and_grad
 
+from _torch_threads import one_thread_module  # noqa: F401
+
 
 def _swap(t):
     return tuple(t[:2]) + (t[3], t[2]) + tuple(t[4:])

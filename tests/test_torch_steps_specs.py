@@ -7,7 +7,9 @@ abstract meshes: the adapted config, the in- and out-specs, the abstract
 arguments' shapes and dtypes and ``donate_argnums``; nothing is
 allocated. The port's KV cache is (L, B, Hkv, max_len, hd) where the
 reference's is (L, B, max_len, Hkv, hd): its leaves are held with dims 2
-and 3 swapped, and its host-int ``len`` has no spec. The numbers of the
+and 3 swapped, and its host-int ``len`` has no spec. The Mamba states
+take the head-parallel mixer's layout (``_mamba_spec``; ROADMAP.md C.12),
+their shapes and dtypes the reference's. The numbers of the
 cells are ``tests/test_torch_steps.py``'s (the two files split the time).
 """
 from __future__ import annotations
@@ -70,7 +72,26 @@ def _swap(t):
     return tuple(t[:2]) + (t[3], t[2]) + tuple(t[4:])
 
 
-def _check_arg(port_specs, port_abs, ref_sh, ref_abs, where):
+def _mamba_spec(path, shape, mesh):
+    """The port's own layout of a Mamba state leaf (ROADMAP.md C.12): an
+    ``ssm`` (..., B, H, N, P) its batch over "data" and its heads over
+    "model", a ``conv`` (..., B, K-1, ch) its batch only, each where it
+    divides; None for other leaves."""
+    name = path[-1] if path else None
+    if name not in ("ssm", "conv"):
+        return None
+    sizes = dict(zip(mesh.axis_names, mesh.axis_sizes))
+    spec = [None] * len(shape)
+    b = len(shape) - (4 if name == "ssm" else 3)
+    if shape[b] % sizes["data"] == 0 and shape[b] >= sizes["data"]:
+        spec[b] = "data"
+    h = b + 1
+    if name == "ssm" and shape[h] % sizes["model"] == 0 and shape[h] >= sizes["model"]:
+        spec[h] = "model"
+    return tuple(spec)
+
+
+def _check_arg(port_specs, port_abs, ref_sh, ref_abs, where, mesh=None):
     rs, ra = _ref_flat(ref_sh), _ref_flat(ref_abs)
     ps, pa = dict(T.leaves_with_path(port_specs)), dict(T.leaves_with_path(port_abs))
     assert set(ps) == set(pa) == set(rs) == set(ra), where
@@ -85,6 +106,9 @@ def _check_arg(port_specs, port_abs, ref_sh, ref_abs, where):
         assert tuple(b.shape) == shape, (where, path, b.shape, shape)
         assert _dtype_name(b.dtype) == str(a.dtype), (where, path, b.dtype, a.dtype)
         full = spec + (None,) * (len(shape) - len(spec))
+        own = _mamba_spec(path, shape, mesh) if mesh is not None else None
+        if own is not None:  # the head-parallel mixer's state layout
+            full = own
         assert tuple(ps[path]) == full, (where, path, ps[path], full)
 
 
@@ -100,7 +124,8 @@ def _check_cells(arch: str, key: str):
         assert len(cell.in_specs) == len(rc.in_shardings) == len(cell.abstract_args)
         for j, (ps, pa, rsh, ra) in enumerate(zip(cell.in_specs, cell.abstract_args,
                                                   rc.in_shardings, rc.abstract_args)):
-            _check_arg(ps, pa, rsh, ra, where + (j,))
+            _check_arg(ps, pa, rsh, ra, where + (j,),
+                       mesh if cell.kind in ("prefill", "decode") and j == 2 else None)
         # results: whole where the reference leaves them to jit, else the state's specs
         assert [o is None for o in cell.out_specs] == [o is None for o in rc.out_shardings]
         for o, i in zip(cell.out_specs, cell.in_specs[-len(cell.out_specs):]

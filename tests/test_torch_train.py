@@ -48,17 +48,9 @@ from repro_torch.optim import optimizers as OPT
 from repro_torch.optim import schedules as SCH
 from repro_torch.training.train_loop import Trainer, make_train_step
 
+from _torch_threads import one_thread_module  # noqa: F401
+
 MOVE = 1 + 1e-6
-
-
-@pytest.fixture(autouse=True)
-def one_thread():
-    """One intra-op thread: the tiny models gain nothing from more, and
-    under several test workers on few cores the threads' waits dominate."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _rel(a, b) -> float:

@@ -59,6 +59,8 @@ from repro_torch.sparsity import sparse_params as SP
 from repro_torch.sparsity import taps as TAPS
 from repro_torch.training.train_loop import value_and_grad
 
+from _torch_threads import one_thread_module  # noqa: F401
+
 ARCH = "tiny_vlm"
 REL = 1e-5
 PIPE_REL = 1e-4
@@ -85,16 +87,6 @@ def _rel(a, b) -> float:
 def _patches(n, cfg, seed):
     return np.random.default_rng(seed).normal(
         size=(n, cfg.frontend_len, cfg.d_model)).astype(np.float32)
-
-
-@pytest.fixture()
-def one_thread():
-    """One intra-op thread: the tiny models gain nothing from more, and
-    under several test workers on few cores the threads' waits dominate."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")
@@ -235,7 +227,7 @@ def test_forward_and_loss_match_reference(pair):
     _close(logits, rlogits)
 
 
-def test_loss_gradients_match_reference(pair, one_thread):
+def test_loss_gradients_match_reference(pair):
     raw = _batch(pair["cfg"], 2, 16, 4)
     _, g = value_and_grad(pair["model"].loss, pair["params"], _tt(raw))
     rg = _np(jax.jit(jax.grad(lambda p: pair["rmodel"].loss(p, _jj(raw))[0]))(pair["rparams"]))
@@ -279,7 +271,7 @@ def _prunable(masks):
 
 @pytest.mark.parametrize("method,sparsity,pattern", PRUNES,
                          ids=[f"{m}-{'2:4' if p else s}" for m, s, p in PRUNES])
-def test_prune_matches_reference(pair, method, sparsity, pattern, one_thread):
+def test_prune_matches_reference(pair, method, sparsity, pattern):
     """Every method's masks and pruned weights as the reference's, both
     walks fed the same calibration patches (``extra_batch``)."""
     scores = {}
@@ -333,7 +325,7 @@ def wanda(pair):
                 pruned=interop.params_to_torch(_np(rpruned), "cpu"))
 
 
-def test_ebft_matches_reference(pair, wanda, one_thread):
+def test_ebft_matches_reference(pair, wanda):
     """From the reference's Wanda masks and pruned weights, both walks fed
     the same calibration patches: each block's losses, epochs and early
     stop, and the tuned perplexity on the evaluation patches."""
@@ -380,7 +372,7 @@ def test_perplexity_and_cloze_match_reference(pair, wanda):
 # ---------------------------------------------------------------------------
 # mask tuning, LoRA
 # ---------------------------------------------------------------------------
-def test_finetune_masks_matches_reference(pair, wanda, monkeypatch, one_thread):
+def test_finetune_masks_matches_reference(pair, wanda, monkeypatch):
     """Epoch histories within rel 1e-4; tuned masks equal bar slots within
     1e-5 of the port's final scores' threshold; the weights the dense ones
     under the tuned masks."""
@@ -420,7 +412,7 @@ def test_finetune_masks_matches_reference(pair, wanda, monkeypatch, one_thread):
     assert not torch.equal(masks["blocks"]["mlp"]["w_up"], wanda["masks"]["blocks"]["mlp"]["w_up"])
 
 
-def test_finetune_lora_matches_reference(pair, wanda, one_thread):
+def test_finetune_lora_matches_reference(pair, wanda):
     """5 steps from the reference's adapter init, each step's patches from
     ``extra_batch_fn(step)``: merged weights within rel 1e-4, pruned slots 0."""
     steps = 5
@@ -528,7 +520,7 @@ def test_train_batch_matches_reference(monkeypatch):
             np.testing.assert_array_equal(got[k].numpy(), np.asarray(want[k]))
 
 
-def test_train_launcher_runs_vlm_on_the_cpu(capsys, one_thread):
+def test_train_launcher_runs_vlm_on_the_cpu(capsys):
     res = train.main(["--arch", ARCH, "--steps", "3", "--batch", "2", "--seq", "32",
                       "--device", "cpu", "--no-obs"])
     assert len(res.history) == 1 and math.isfinite(res.history[0][1])
