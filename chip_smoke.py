@@ -60,14 +60,25 @@ two layouts, prefill and greedy decode) and ``launch/train.run`` with a
 checkpoint saved on 2 × 1 and resumed on 1 × 2, each held to one process;
 the ebft cells' masked matmuls and the launcher's flash attention are
 launched on local shards and counted. The ``mesh_families`` phase then
-runs the MoE, SSM and hybrid families on the same two meshes at their
-published widths (DeepSeek-MoE-16B at 2 layers, Mamba2-130M at 2,
-Zamba2-1.2B at 6): the EBFT walk in f32, the SSM's train and ebft cells
-and the MoE's on 1 × 2 (bf16, the MoE's train cell f32) and every
-family's prefill and decode steps, each held to one process, with the experts split over "model" (the
-expert-batched masked GEMM on each rank's slabs) and the Mamba mixers
-over heads; on 1 × 2 a rank's expert slabs against the whole launch bit
-for bit and Mamba2-130M's in_dt shard through the bf16 kernel.
+runs the MoE, SSM, hybrid, VLM and encoder-decoder families on the same
+two meshes at their published widths (DeepSeek-MoE-16B at 2 layers,
+Mamba2-130M at 2, Zamba2-1.2B at 6, LLaVA-NeXT-Mistral-7B at 1 over 1024
+seeded patches and 1024 tokens, Seamless-M4T-medium at 1 + 1 over 256
+seeded frames): the EBFT walk in f32, the train and ebft cells of the
+SSM and the VLM, the MoE's train and ebft cells on 1 × 2 only and the
+encoder-decoder's train cell on 2 × 1 only (bf16, the MoE's train cell
+f32), and every family's prefill and decode steps, each held to one
+process, with the experts split over "model" (the expert-batched masked
+GEMM on each rank's slabs), the Mamba mixers over heads, and the VLM's
+and the encoder-decoder's masked
+products on each rank's rows or columns; on 1 × 2 a rank's expert slabs
+against the whole launch bit for bit and Mamba2-130M's in_dt shard
+through the bf16 kernel. The ``dryrun`` phase runs ``python -m
+repro_torch.launch.dryrun`` (a fake process group, no device) in the
+background from the start over one config of each family at
+``ebft_block`` and Llama-7B's ``train_4k`` on the 16 × 16 mesh, and at
+the end holds every record to no error and its ``argument_bytes`` to a
+count of the cell's in-specs on the abstract mesh made here.
 Every path above runs with the tile autotuner off (``kernel_tune="off"``),
 on the default tiles. The ``tuning`` phase (last) holds every compiled
 instantiation's launch plan (``kernels/validation.py``) to the compiled
@@ -76,7 +87,7 @@ version (repeated bit for bit, its bits compared with the default's),
 pre-tunes Llama-7B's and Seamless-M4T-medium's EBFT launches in ``search``
 mode (default and best ms of each), runs the static checks (``python -m
 repro_torch.analysis``, phase ``analysis``) over every config with that
-searched cache, and runs ``ebft_run.run`` on a 2-layer
+searched cache, and runs ``ebft_run.run`` on a 1-layer
 Llama-7B with ``--kernel-tune search``, then ``cache`` (warm: no miss),
 then ``off``. The kernels line gives each row's default ``tiles``. Every
 phase
@@ -98,6 +109,7 @@ isolated ones.
 """
 from __future__ import annotations
 
+import atexit
 import contextlib
 import json
 import math
@@ -4270,7 +4282,7 @@ TUNE_ATTN = {"decode": SERVE_ATTN["decode"], "ebft": (256, 2048, 2048, 128, True
              "seamless_cross": (128, 2048, 256, 64, False, 0)}
 # ebft_run at Llama-7B width, searched, then on the warm cache, then off,
 # then on a cache whose every entry names a tile other than the default
-TUNE_RUN = dict(layers=2, epochs=2, calib=16, seq=2048)
+TUNE_RUN = dict(layers=1, epochs=2, calib=8, seq=2048)
 # the tuned run's perplexities against the default tiles': the GEMMs keep
 # their summation order on every tile, the attention's key tile moves the
 # online softmax's rescale points (bits within the kernel's tolerance)
@@ -4712,24 +4724,63 @@ MESH_RTOL, MESH_ATOL = 2e-3, 1e-5  # the reference's own (tests/test_mesh_ebft.p
 
 def _mesh_setup(device, layers, conf=MESH):
     """The mesh phase's model, weights (seeded on ``device``), magnitude
-    masks and calibration segments; every rank builds the same bits."""
+    masks, calibration segments and their frontend arrays (a VLM's seeded
+    patches in front of ``seq - P`` tokens, an encoder-decoder's seeded
+    frames beside ``seq``: ``Model.input_specs``; None for the other
+    families); every rank builds the same bits."""
     import numpy as np
     import torch
 
-    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
     from repro_torch.core.masks import prune
     from repro_torch.data.tokens import CorpusConfig, SyntheticCorpus, calibration_set
     from repro_torch.models.model import build
 
-    cfg = get_config(conf["arch"]).replace(num_layers=layers, dtype="float32",
-                                           param_dtype="float32", attn_impl="flash")
+    cfg = _cells_cfg(dict(conf, layers=layers)).replace(dtype="float32", param_dtype="float32",
+                                                        attn_impl="flash")
     model = build(cfg)
     params = model.init(torch.Generator(device=device).manual_seed(0))
+    specs = model.input_specs(ShapeConfig("mesh", conf["seq"], conf["calib"], "train"))
     calib = calibration_set(SyntheticCorpus(CorpusConfig(vocab_size=cfg.vocab_size, seed=0)),
-                            conf["calib"], conf["seq"])
+                            conf["calib"], specs["tokens"].shape[1])
+    extra = None
+    if "patches" in specs:
+        extra = _patches(cfg, conf["calib"], specs["patches"].shape[1], 11)
+    elif "frames" in specs:
+        extra = _frames(cfg, conf["calib"], specs["frames"].shape[1], 11)
     masks, pruned = prune(model, params, np.asarray(calib), method="magnitude",
-                          sparsity=conf["sparsity"])
-    return model, params, pruned, masks, calib
+                          sparsity=conf["sparsity"], extra_batch=extra)
+    return model, params, pruned, masks, calib, extra
+
+
+@contextlib.contextmanager
+def _forward_shapes():
+    """The (M, K, N) of every masked-matmul forward launched inside, as a
+    set (on a mesh, each rank's local shapes)."""
+    from repro_torch.kernels.masked_matmul import ops as MM
+
+    shapes, call = set(), MM._call
+
+    def spy(fn, a, b, c, tiles=None, **kw):
+        if fn == "masked_matmul" and a.dim() == 2:
+            shapes.add((a.shape[0], a.shape[1], b.shape[1]))
+        return call(fn, a, b, c, tiles, **kw)
+
+    MM._call = spy
+    try:
+        yield shapes
+    finally:
+        MM._call = call
+
+
+def _frontend_arrays(model, shape, g, device) -> dict:
+    """A cell batch's arrays beside its tokens (``Model.input_specs``: a
+    VLM's patches, an encoder-decoder's frames), seeded normals on
+    ``device`` in the specs' dtype; {} for the token-only families."""
+    import torch
+
+    return {k: torch.randn(sp.shape, generator=g, device=device).to(sp.dtype)
+            for k, sp in model.input_specs(shape).items() if k != "tokens"}
 
 
 def _mesh_ecfg(plan=None, conf=MESH):
@@ -4740,9 +4791,12 @@ def _mesh_ecfg(plan=None, conf=MESH):
 
 
 def _cells_cfg(conf):
+    """``conf``'s config at its depth (an encoder-decoder's ``enc_layers``
+    too, when given)."""
     from repro_torch.configs import get_config
 
-    return get_config(conf["arch"]).replace(num_layers=conf["layers"])
+    return get_config(conf["arch"]).replace(
+        num_layers=conf["layers"], **{k: conf[k] for k in ("enc_layers",) if k in conf})
 
 
 def _leaf_samples(tree) -> dict:
@@ -4860,12 +4914,14 @@ def _train_cell(device, mesh, cfg, seq, cells, g) -> dict:
     from repro_torch.launch import steps as ST
     from repro_torch.optim.optimizers import adamw
 
-    cell = ST.build_train_cell(cfg, ShapeConfig("mesh_train", seq, cells["train_batch"], "train"),
-                               mesh, lr=cells["train_lr"], fsdp=False)
+    shape = ShapeConfig("mesh_train", seq, cells["train_batch"], "train")
+    cell = ST.build_train_cell(cfg, shape, mesh, lr=cells["train_lr"], fsdp=False)
     params = cell.model.init(g)
     opt_state = adamw(cells["train_lr"]).init(params)
-    toks = torch.randint(0, cfg.vocab_size, (cells["train_batch"], seq), generator=g,
+    text = cell.model.input_specs(shape)["tokens"].shape[1]
+    toks = torch.randint(0, cfg.vocab_size, (cells["train_batch"], text), generator=g,
                          device=device, dtype=torch.int32)
+    batch = {"tokens": toks, **_frontend_arrays(cell.model, shape, g, device)}
     losses, norms, step_s = [], [], []
     init = _leaf_samples(params)
     if device == "cuda":
@@ -4873,7 +4929,7 @@ def _train_cell(device, mesh, cfg, seq, cells, g) -> dict:
     for _ in range(cells["train_steps"]):
         _sync(device)
         t0 = time.perf_counter()
-        params, opt_state, m = ST.run_cell(cell, mesh, params, opt_state, {"tokens": toks})
+        params, opt_state, m = ST.run_cell(cell, mesh, params, opt_state, batch)
         _sync(device)
         step_s.append(time.perf_counter() - t0)
         losses.append(float(m["loss"]))
@@ -4915,7 +4971,8 @@ def _ebft_cells(device, mesh, cfg, seq, cells, layouts, ebft_after, ebft_done) -
             cell = ST.build_ebft_cell(cfg, ShapeConfig("mesh_ebft", seq, cells["ebft_batch"],
                                                        "ebft"), mesh, dp_only=dp_only)
             ge = torch.Generator(device=device).manual_seed(1)
-            i = cell.model.num_blocks // 2
+            # the cell's block: mid-stack, an encoder block for the encoder-decoder
+            i = cfg.enc_layers // 2 if cfg.family == "encdec" else cell.model.num_blocks // 2
             bw = T.tree_map(torch.clone, cell.model.get_block(cell.model.init(ge), i))
             masks = T.tree_map(lambda t: ((torch.rand(t.shape, generator=ge, device=device) < 0.5)
                                           | (t.dim() < 2)).to(torch.bfloat16), bw)
@@ -4957,16 +5014,19 @@ def _serve_cells(device, mesh, cfg, cells, logits_path) -> dict:
     from repro_torch.launch import steps as ST
 
     P, N, B = cells["prompt_len"], cells["decode_steps"], cells["prompts"]
-    pc = ST.build_prefill_cell(cfg, ShapeConfig("mesh_prefill", P, B, "prefill"), mesh)
+    shape = ShapeConfig("mesh_prefill", P, B, "prefill")
+    pc = ST.build_prefill_cell(cfg, shape, mesh)
     dc = ST.build_decode_cell(cfg, ShapeConfig("mesh_decode", P + N - 1, B, "decode"), mesh)
     gs = torch.Generator(device=device).manual_seed(2)
     sparams = pc.model.init(gs)
-    prompts = torch.randint(0, cfg.vocab_size, (B, P), generator=gs, device=device,
-                            dtype=torch.int32)
+    # a VLM's prompt is [patches ; text] of P positions in all
+    prompts = torch.randint(0, cfg.vocab_size, pc.model.input_specs(shape)["tokens"].shape,
+                            generator=gs, device=device, dtype=torch.int32)
+    batch = {"tokens": prompts, **_frontend_arrays(pc.model, shape, gs, device)}
     state = pc.model.init_serve_state(B, P + N, device)
     _sync(device)
     t0 = time.perf_counter()
-    logits, state = ST.run_cell(pc, mesh, sparams, {"tokens": prompts}, state)
+    logits, state = ST.run_cell(pc, mesh, sparams, batch, state)
     _sync(device)
     prefill_s = time.perf_counter() - t0
     steps = [logits[:, -1].float()]
@@ -4981,10 +5041,11 @@ def _serve_cells(device, mesh, cfg, cells, logits_path) -> dict:
     leaves = {"/".join(p): [list(t.to_local().shape if hasattr(t, "to_local") else t.shape),
                             list(t.shape)]
               for p, t in T.leaves_with_path(state) if isinstance(t, torch.Tensor)}
-    out = dict(prefill_s=prefill_s, decode_s=(time.perf_counter() - t0) / N, len=state["len"])
+    out = dict(prefill_s=prefill_s, decode_s=(time.perf_counter() - t0) / N,
+               len=state["cache"]["len"] if "cache" in state else state["len"])
     if "k" in leaves:
         out.update(local_cache=leaves["k"][0], cache=leaves["k"][1])
-    else:
+    else:  # the encoder-decoder's {cache, memory}, the Mamba families' states
         out["states"] = leaves
     return out
 
@@ -5106,7 +5167,7 @@ def mesh_rank():
             raise TimeoutError("mesh: the parent never let the ranks start")
         time.sleep(0.1)
     t0 = time.perf_counter()
-    model, params, pruned, masks, calib = _mesh_setup(device, conf["layers"], conf)
+    model, params, pruned, masks, calib, _ = _mesh_setup(device, conf["layers"], conf)
     out = {"setup_s": time.perf_counter() - t0}
     shapes = set()
     call = MM._call
@@ -5196,7 +5257,7 @@ def _nccl_one_rank(device, conf=MESH):
     backend = "nccl" if device == "cuda" else "gloo"
     dist.init_process_group(backend, init_method=f"file://{store}/store", rank=0, world_size=1)
     try:
-        model, params, pruned, masks, calib = _mesh_setup(device, 1, conf)
+        model, params, pruned, masks, calib, _ = _mesh_setup(device, 1, conf)
         calib = calib[:1]
         plans = {"none": None, "make_ebft_plan(1, 1)": make_ebft_plan(1, 1, device_type=device),
                  "DeviceMesh 1x1": MeshPlan.from_mesh(make_debug_mesh(1, 1, device))}
@@ -5324,7 +5385,7 @@ def phase_mesh(walls, device="cuda", conf=MESH, cells=MESH_CELLS):
              for (key, r), log in zip(jobs, logs)]
     ranks_s = {}
     try:
-        model, params, pruned, masks, calib = _mesh_setup(device, conf["layers"], conf)
+        model, params, pruned, masks, calib, _ = _mesh_setup(device, conf["layers"], conf)
         reset_counts()
         _sync(device)
         t0 = time.perf_counter()
@@ -5548,17 +5609,24 @@ def _check_cells(key, ranks, one, launch_one, one_samples, cells, device, tmp,
 # continued: ``phase_mesh_families``)
 # ---------------------------------------------------------------------------
 # the walks at the published widths in f32 (the kernels' f32 routes), 4
-# segments of 2048 in one microbatch, 2 EBFT epochs, magnitude 0.5:
+# segments of 2048 in one microbatch, 2 EBFT epochs (the MoE's 1, to pay
+# for the VLM and the encoder-decoder), magnitude 0.5:
 # DeepSeek-MoE-16B's dense first layer and one MoE layer (E 64, top-6, 2
 # shared experts), Mamba2-130M at 2 layers, Zamba2-1.2B at 6 (its fewest
-# with one shared-block site)
+# with one shared-block site), LLaVA-NeXT-Mistral-7B at 1 layer over
+# [1024 seeded patches ; 1024 tokens], Seamless-M4T-medium at 1 + 1
+# layers, 2048 decoder tokens over 256 seeded frames
 FAMILY_MESH = {
-    "moe": dict(arch="deepseek_moe_16b", layers=2, seq=2048, calib=4, microbatch=4, epochs=2,
+    "moe": dict(arch="deepseek_moe_16b", layers=2, seq=2048, calib=4, microbatch=4, epochs=1,
                 lr=2e-4, sparsity=0.5),
     "ssm": dict(arch="mamba2_130m", layers=2, seq=2048, calib=4, microbatch=4, epochs=2,
                 lr=2e-4, sparsity=0.5),
     "hybrid": dict(arch="zamba2_1_2b", layers=6, seq=2048, calib=4, microbatch=4, epochs=2,
                    lr=2e-4, sparsity=0.5),
+    "vlm": dict(arch="llava_next_mistral_7b", layers=1, seq=2048, calib=4, microbatch=4,
+                epochs=2, lr=2e-4, sparsity=0.5),
+    "encdec": dict(arch="seamless_m4t_medium", layers=1, enc_layers=1, seq=2048, calib=4,
+                   microbatch=4, epochs=2, lr=2e-4, sparsity=0.5),
 }
 # the cells at the walks' widths and depth: the train cell 1 step on 2 ×
 # 2048 (one microbatch a data shard) and the bf16 ebft cell
@@ -5569,10 +5637,16 @@ FAMILY_CELLS = dict(train_batch=2, train_steps=1, train_lr=1e-4, ebft_batch=4, p
 # the cells each family runs on each mesh: the MoE's train and ebft cells
 # on 1 × 2 alone, where its experts split (its routing over the data
 # ranks is the walks' on 2 × 1; the cells' own take one dispatch group a
-# data shard, routed on the rank alone)
+# data shard, routed on the rank alone); the encoder-decoder's train cell
+# on 2 × 1 alone (each rank holds the whole f32 logits of its rows over
+# Seamless's 256206-token vocab and their gradient, the largest cell of
+# the phase but the MoE's), which the 2 × 1 ranks run while the 1 × 2
+# ranks, held up by their MoE's turn, are still on the families before it
 FAMILY_PARTS = {"moe": {"2x1": ("serve",), "1x2": ("train", "ebft", "serve")},
                 "ssm": dict.fromkeys(("2x1", "1x2"), ("train", "ebft", "serve")),
-                "hybrid": dict.fromkeys(("2x1", "1x2"), ("serve",))}
+                "hybrid": dict.fromkeys(("2x1", "1x2"), ("serve",)),
+                "vlm": dict.fromkeys(("2x1", "1x2"), ("train", "ebft", "serve")),
+                "encdec": {"2x1": ("train", "ebft", "serve"), "1x2": ("ebft", "serve")}}
 # the cells that run in f32 in place of bf16: in bf16 a rounding of the
 # router's input flips near-tie experts. At a decode step's capacity of 1
 # a flip reorders which tokens drop (the CPU rehearsal: logits off by 18%
@@ -5582,13 +5656,15 @@ FAMILY_PARTS = {"moe": {"2x1": ("serve",), "1x2": ("train", "ebft", "serve")},
 # CELL_UPDATE_REL and CELL_MOMENT_REL (on the H100 a router gradient
 # left unsummed, ``--plant-fault``, reads 0.98 and 0.73)
 FAMILY_DTYPES = {"moe": dict(train="float32", serve="float32"),
-                 "ssm": dict(serve="float32"), "hybrid": dict(serve="float32")}
+                 "ssm": dict(serve="float32"), "hybrid": dict(serve="float32"),
+                 "vlm": dict(serve="float32"), "encdec": dict(serve="float32")}
 FAMILY_KERNELS = {
     "moe": ("masked_matmul", "masked_matmul_dx", "masked_matmul_dw") + BATCHED[:3]
     + ("flash_attention", "flash_attention_bwd"),
     "ssm": ("masked_matmul", "masked_matmul_dx", "masked_matmul_dw"),
     "hybrid": ("masked_matmul", "masked_matmul_dx", "masked_matmul_dw", "flash_attention",
                "flash_attention_bwd")}
+FAMILY_KERNELS["vlm"] = FAMILY_KERNELS["encdec"] = FAMILY_KERNELS["hybrid"]
 SLAB_CHECK = dict(E=64, C=1920, K=2048, N=1408)  # DeepSeek's w_gate slabs at EBFT's microbatch
 IN_DT = dict(M=16384, K=768, N=24)  # Mamba2-130M's in_dt: (768, 12) a rank on 1 × 2
 
@@ -5607,10 +5683,12 @@ def mesh_families_rank():
     """One rank of ``phase_mesh_families`` (``RANK``, ``WORLD_SIZE``,
     ``MESH_STORE``, ``MESH_SHAPE``, ``MESH_GO``, ``MESH_OUT``,
     ``MESH_DEVICE``, ``MESH_CONFS``, ``MESH_CELLS``, ``MESH_MOE_AFTER``,
-    ``MESH_FAULT`` in the environment): for each family the walk on this mesh (its kernels'
-    launches counted on this rank) and the family's cells; the MoE's after
-    the file ``MESH_MOE_AFTER`` appears (the two meshes' MoE in turn), then
-    rank 0 writes ``<key>.moe_done``. On 1 × 2 also the expert-slab and
+    ``MESH_REST_AFTER``, ``MESH_FAULT`` in the environment): for each family
+    the walk on this mesh (its kernels' launches counted on this rank) and
+    the family's cells; the MoE's after the file ``MESH_MOE_AFTER`` appears
+    (the two meshes' MoE in turn), then rank 0 writes ``<key>.moe_done``,
+    and the families after it once ``MESH_REST_AFTER`` appears (the other
+    mesh's MoE done). On 1 × 2 also the expert-slab and
     in_dt launches (``_family_kernel_checks``). Writes
     ``<key>_rank<r>.json``."""
     import torch
@@ -5641,17 +5719,19 @@ def mesh_families_rank():
         if fam == "moe" and after:
             _wait_for(after, 600, "the other mesh's MoE never ended")
         t0 = time.perf_counter()
-        model, params, pruned, masks, calib = _mesh_setup(device, conf["layers"], conf)
+        model, params, pruned, masks, calib, extra = _mesh_setup(device, conf["layers"], conf)
         rec = {"setup_s": time.perf_counter() - t0}
         if device == "cuda":
             torch.cuda.reset_peak_memory_stats()
         reset_counts()
         _sync(device)
         t0 = time.perf_counter()
-        tuned, reports = ebft.finetune(model, params, pruned, masks, calib,
-                                       _mesh_ecfg(plan, conf))
+        with _forward_shapes() as shapes:
+            tuned, reports = ebft.finetune(model, params, pruned, masks, calib,
+                                           _mesh_ecfg(plan, conf), extra_batch=extra)
         _sync(device)
         rec.update(seconds=time.perf_counter() - t0, launches=read_counts(),
+                   forward_shapes=sorted(shapes),
                    reports=[r.asdict() for r in reports],
                    whole=all(type(t) is torch.Tensor for t in T.tensors(tuned)),
                    tuned={"/".join(p): t.double().sum().item()
@@ -5672,6 +5752,10 @@ def mesh_families_rank():
             torch.cuda.empty_cache()
         if fam == "moe" and rank == 0:
             open(os.path.join(out_dir, f"{key}.moe_done"), "w").close()
+        if fam == "moe" and os.environ.get("MESH_REST_AFTER"):
+            # the rest once the other mesh's MoE is done: beside its MoE cells
+            # (24 GiB a rank) this mesh's VLM and encoder-decoder outgrew the card
+            _wait_for(os.environ["MESH_REST_AFTER"], 600, "the other mesh's MoE never ended")
         out[fam] = rec
     if model_axis > 1:
         try:  # a failure is the parent's to raise, after the readings are out
@@ -5788,15 +5872,18 @@ def _family_one(device, fam, conf, cells, tmp, shapes=MESH_SHAPES) -> dict:
 
     from repro_torch.core import ebft
 
-    model, params, pruned, masks, calib = _mesh_setup(device, conf["layers"], conf)
+    model, params, pruned, masks, calib, extra = _mesh_setup(device, conf["layers"], conf)
     if device == "cuda":
         torch.cuda.reset_peak_memory_stats()
     reset_counts()
     _sync(device)
     t0 = time.perf_counter()
-    _, reps = ebft.finetune(model, params, pruned, masks, calib, _mesh_ecfg(None, conf))
+    with _forward_shapes() as fwd:
+        _, reps = ebft.finetune(model, params, pruned, masks, calib, _mesh_ecfg(None, conf),
+                                extra_batch=extra)
     _sync(device)
     rec = dict(seconds=time.perf_counter() - t0, reports=reps, launches=read_counts(), cells={},
+               forward_shapes=sorted(fwd),
                samples={}, peak_gib=torch.cuda.max_memory_allocated() / 2**30
                if device == "cuda" else None)
     del model, params, pruned, masks
@@ -5857,7 +5944,9 @@ def phase_mesh_families(walls, device="cuda", confs=FAMILY_MESH, cells=FAMILY_CE
         [sys.executable, "-c", "import chip_smoke; chip_smoke.mesh_families_rank()"],
         env=dict(env, RANK=str(r), MESH_SHAPE=key.replace("x", ","),
                  MESH_STORE=os.path.join(tmp, f"{key}.store"), MESH_GO=go,
-                 MESH_MOE_AFTER="" if key == keys[0] else os.path.join(tmp, f"{keys[0]}.moe_done")),
+                 MESH_MOE_AFTER="" if key == keys[0] else os.path.join(tmp, f"{keys[0]}.moe_done"),
+                 MESH_REST_AFTER=os.path.join(tmp, f"{keys[-1]}.moe_done")
+                 if key == keys[0] and len(keys) > 1 and "moe" in confs else ""),
         cwd=ROOT, stdout=log, stderr=subprocess.STDOUT) for (key, r), log in zip(jobs, logs)]
     one, ranks_s = {}, {}
     try:
@@ -5918,6 +6007,10 @@ def phase_mesh_families(walls, device="cuda", confs=FAMILY_MESH, cells=FAMILY_CE
                 missing = [k for k in FAMILY_KERNELS[fam] if r["launches"][k] == 0]
                 if missing and device == "cuda":
                     failed.append(f"mesh {fam} {key}: a rank launched no {missing}")
+                if fam in ("vlm", "encdec") and not _on_local_shards(
+                        r["forward_shapes"], one[fam]["forward_shapes"], key):
+                    failed.append(f"mesh {fam} {key}: no masked-matmul forward ran on this "
+                                  f"rank's shards: {r['forward_shapes']}")
             cells_rec = {}
             one_cells = one[fam]["cells"][key]
             for kind in ("train", "ebft_tp"):
@@ -5959,6 +6052,7 @@ def phase_mesh_families(walls, device="cuda", confs=FAMILY_MESH, cells=FAMILY_CE
                                                          for r in reps),
                                 launches=[{k: r["launches"][k] for k in FAMILY_KERNELS[fam]}
                                           for r in ranks],
+                                forward_shapes=ranks[0]["forward_shapes"],
                                 histories=[r["history"] for r in reps], cells=cells_rec)
         record[fam] = fam_rec
     checks = [r.get("kernel_checks") for key in keys for r in by_mesh[key]]
@@ -5969,6 +6063,104 @@ def phase_mesh_families(walls, device="cuda", confs=FAMILY_MESH, cells=FAMILY_CE
               seconds_phase=walls["mesh_families"]))
     if failed:
         raise AssertionError("mesh_families: " + "; ".join(failed))
+
+
+def _on_local_shards(mine, whole, key) -> bool:
+    """Whether a rank's masked-matmul forwards (``_forward_shapes``) ran on
+    its shards of one process's: on a data axis of d some product is one
+    process's with its rows cut d ways (the streams' and the memory's rows
+    split with the batch); on a model axis of m, with its columns cut m
+    ways (the tuned block's column-parallel projections)."""
+    d, m = (int(v) for v in key.split("x"))
+    whole = {tuple(x) for x in whole}
+    return any((a * d, b, c * m) in whole for a, b, c in mine)
+
+
+# the dry run (launch/dryrun.py) on the 16 x 16 mesh: one config of each
+# family at ebft_block, and Llama-7B's train shape
+DRYRUN = (("llama_7b,deepseek_moe_16b,mamba2_130m,zamba2_1_2b,llava_next_mistral_7b,"
+           "seamless_m4t_medium", "ebft_block"), ("llama_7b", "train_4k"))
+
+
+def start_dryrun():
+    """``python -m repro_torch.launch.dryrun`` over ``DRYRUN``'s cells, one
+    process a group, in the background with the card hidden (it runs on
+    fake tensors over a fake process group, on no device). Returns
+    (the processes, their output directory)."""
+    import tempfile
+
+    out = tempfile.mkdtemp(prefix="dryrun_")
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="1",
+               PYTHONPATH=os.path.join(ROOT, "src"))
+    logs = [open(os.path.join(out, f"log{i}.txt"), "w") for i in range(len(DRYRUN))]
+    procs = [subprocess.Popen([sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", archs,
+                               "--shape", shape, "--mesh", "single", "--out", out],
+                              cwd=ROOT, env=env, stdout=log, stderr=subprocess.STDOUT)
+             for (archs, shape), log in zip(DRYRUN, logs)]
+
+    def stop():  # a phase that fails before the dry run's end leaves none running
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+
+    atexit.register(stop)
+    return procs, out
+
+
+def phase_dryrun(started, walls):
+    """The dry run's end: every process exits 0, every cell's record has no
+    ``error``, the reference's keys but the HLO ones, and rank 0's
+    ``argument_bytes`` equal to the bytes of each argument's shard as the
+    cell's in-specs cut it on the abstract 16 × 16 mesh, counted here
+    (``sharding.shards_of``). It books the cells' own seconds, run beside
+    the phases before, and the seconds the script waited for them."""
+    from repro_torch import tree as T
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.launch import dryrun as DR
+    from repro_torch.launch import steps as ST
+    from repro_torch.launch.mesh import abstract_production_mesh
+
+    procs, out = started
+    t_wait = time.perf_counter()
+    for p in procs:
+        p.wait(timeout=600)
+    waited = time.perf_counter() - t_wait  # what the dry run adds to the script's wall
+    logs = [open(os.path.join(out, f"log{i}.txt")).read() for i in range(len(procs))]
+    failed = [f"exit {p.returncode}: {log[-2000:]}" for p, log in zip(procs, logs)
+              if p.returncode != 0]
+    mesh, recs = abstract_production_mesh(), {}
+    keys = {"arch", "shape", "mesh", "chips", "kind", "fsdp", "memory_analysis", "timing", "hlo"}
+    for archs, shape_name in DRYRUN:
+        for arch in archs.split(","):
+            path = os.path.join(out, "baseline", f"{arch}__{shape_name}__single.json")
+            if not os.path.exists(path):
+                failed.append(f"{arch} {shape_name}: no record")
+                continue
+            rec = json.load(open(path))
+            cfg = get_config(arch)
+            cell = ST.build_cell(cfg, DR.shape_of(cfg, shape_name), mesh)
+            count = 0
+            for tree, specs in zip(cell.abstract_args, cell.in_specs):
+                for (_, x), (_, spec) in zip(T.leaves_with_path(tree),
+                                             T.leaves_with_path(specs)):
+                    if hasattr(x, "dtype") and hasattr(x, "shape"):
+                        count += (math.prod(x.shape) // SH.shards_of(spec, mesh)
+                                  * x.dtype.itemsize)
+            got = rec.get("memory_analysis", {}).get("argument_bytes")
+            if "error" in rec or set(rec) != keys or got != count:
+                failed.append(f"{arch} {shape_name}: {rec.get('error')} keys {sorted(rec)} "
+                              f"argument_bytes {got} against {count}")
+            recs[f"{arch}__{shape_name}"] = dict(rec["memory_analysis"], **rec["timing"],
+                                                 counted_argument_bytes=count) \
+                if "memory_analysis" in rec else rec.get("error")
+    walls["dryrun (waited)"] = waited
+    cells_s = sum(r["build_s"] + r["run_s"] for r in recs.values() if isinstance(r, dict))
+    emit(dict(phase="dryrun", waited_s=waited, cells_s=cells_s, cells=recs,
+              logs=[log.strip().splitlines()[-1] if log.strip() else "" for log in logs]))
+    if failed:
+        raise AssertionError("dryrun: " + "; ".join(failed))
 
 
 def plant_fault(device="cuda") -> int:
@@ -6019,6 +6211,7 @@ def main(argv=()) -> int:
                      for n, log in _build.build_log.items()}))
     if "--plant-fault" in argv:
         return plant_fault()
+    dryrun = start_dryrun()  # on the host, beside the card's phases
 
     g = torch.Generator(device="cuda").manual_seed(0)
     # the moe path's 2-D shapes, by kernel: {label: row}
@@ -6150,6 +6343,7 @@ def main(argv=()) -> int:
     torch.cuda.empty_cache()
     # the launch plans and the tile autotuner (every path above ran with it off)
     phase_tuning(g, walls)
+    phase_dryrun(dryrun, walls)
     emit(dict(phase="walls", seconds=walls, total_s=time.perf_counter() - t_start))
 
     root = "src/repro_torch/kernels/csrc/"

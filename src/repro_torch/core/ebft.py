@@ -43,13 +43,18 @@ whole on every rank, so everything after EBFT is unchanged. The report
 books the reference's accounting: ``device_dispatches`` = dispatches ×
 devices, ``collective_bytes`` = epochs × microbatches ×
 ``plan.allreduce_bytes(live_bytes(block))`` and ``live_bytes_per_shard``
-from ``plan.sharded_bytes``. The dense, MoE, SSM and hybrid families run
-on a mesh (an MoE layer's experts split over "model" and its routing over
-the data ranks, a Mamba mixer's heads over "model": ``local_kernels``;
-the hybrid's shared block tuned once on every site's sharded
-microbatches); an active plan on the VLM or the encoder-decoder raises
-(ROADMAP.md A.8e). An inactive plan (``make_ebft_plan(1, 1)``) is the
-single-device path bit for bit.
+from ``plan.sharded_bytes``. Every family runs on a mesh: an MoE layer's
+experts split over "model" and its routing over the data ranks, a Mamba
+mixer's heads over "model" (``local_kernels``); the hybrid's shared
+block is tuned once on every site's sharded microbatches. The VLM's
+stream starts from [patches ; text], built whole on every rank and then
+sharded with its batch. The encoder-decoder's encoder blocks are dense
+blocks with bidirectional attention on local heads; its decoder
+segment's memory (B, F, d), encoded whole on every rank, is sharded on
+its batch dim over the data axes with its microbatch (``walk_blocks``),
+so cross-attention's keys and values, projected column-parallel over
+"model", share the query's rows and heads. An inactive plan
+(``make_ebft_plan(1, 1)``) is the single-device path bit for bit.
 
 Observability, at the reference's call sites and names: ``finetune``
 opens ``ebft/walk`` (``fused=False``, ``prefetch_depth=0``) and
@@ -83,11 +88,6 @@ from repro_torch.optim.schedules import plateau_early_stop
 from repro_torch.sparsity.sparse_params import apply_masks
 
 Params = Any
-
-# the families whose walk runs on a mesh (the VLM's and encoder-decoder's
-# front-end arrays are not sharded yet: ROADMAP.md A.8e)
-MESH_FAMILIES = ("dense", "moe", "ssm", "hybrid")
-
 
 @dataclasses.dataclass
 class EBFTConfig:
@@ -259,10 +259,6 @@ def finetune(model, dense_params: Params, pruned_params: Params, masks: Params,
         raise TypeError(f"EBFTConfig.mesh_plan must be a MeshPlan or None, got "
                         f"{type(plan).__name__}")
     sharded = plan is not None and plan.active
-    if sharded and model.cfg.family not in MESH_FAMILIES:
-        raise NotImplementedError(
-            f"EBFT on a mesh holds the {', '.join(MESH_FAMILIES)} families; the "
-            f"{model.cfg.family} family on a mesh is not ported yet (ROADMAP.md A.8e)")
     with OT.span("ebft/walk", epochs=ecfg.epochs, lr=ecfg.lr, microbatch=ecfg.microbatch,
                  fused=False, prefetch_depth=0,
                  mesh_devices=plan.device_count if sharded else 1):

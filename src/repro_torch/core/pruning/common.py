@@ -220,8 +220,10 @@ def walk_blocks(model, params, calib: np.ndarray, visit_fn: Callable, microbatch
     (no prefetcher).
 
     With an active ``mesh_plan`` (EBFT on a mesh, ``core/ebft.py``) each
-    microbatch of both streams is sharded on its batch dim over the data
-    axes when its segment starts (``plan.put_stacked``); the advances run
+    microbatch of both streams, and of both streams' segment aux (the
+    memory (B, F, d)), is sharded on its batch dim over the data axes when
+    its segment starts (``plan.put_stacked``, the microbatch's own
+    ``microbatch_spec``); the advances run
     SPMD on those shards, with the blocks' weights whole on every rank,
     under the plan's activation policy (``act_sharding``) and DTensor's
     implicit replication of plain tensors. ``visit_fn`` returns whole
@@ -276,8 +278,9 @@ def _walk(model, params, calib, visit_fn, microbatch, extra_batch, params_studen
                 aux_t = [seg.aux(params, b) for b in batch_all]
                 aux_s = [seg.aux(out_params, b, masks) for b in batch_all] if dual_stream \
                     else aux_t
-            hs_mb = [put_stream(h) for h in hs_mb]
-            ht_mb = [put_stream(h) for h in ht_mb]
+            # the memory with its microbatch: the same rows on the same ranks
+            hs_mb, ht_mb, aux_s, aux_t = ([put_stream(x) for x in xs]
+                                          for xs in (hs_mb, ht_mb, aux_s, aux_t))
         if dual_stream:
             ledger.dispatch((2 if seg.aux is None else 4) * len(batch_all))
         clock.take()  # segment setup is not a phase

@@ -28,17 +28,27 @@ same rule on their last two dims, plus expert parallelism:
     x           w, m        out         grad x      grad w
     Shard(0)    Shard(0)    Shard(0)    Shard(0)    Shard(0)  (expert-parallel slabs)
 
-A bf16 weight whose local width the kernel cannot take (a column shard
-of fewer than 8 or an odd number of columns: Mamba2-130M's ``in_dt``,
-(768, 24), is (768, 12) a rank on a 1 × 2 mesh) is laid out for it: the
-local weight and mask padded with zero columns to a multiple of 8, the
-product cut back (``_laid_out``). It never falls back to a plain version.
+A bf16 weight whose local width or depth the kernel cannot take (a
+column shard of fewer than 8 or an odd number of columns: Mamba2-130M's
+``in_dt``, (768, 24), is (768, 12) a rank on a 1 × 2 mesh; a row shard of
+as few: a small expert's ``w_down`` split along its ff over 16 ranks) is
+laid out for it: the local weight and mask padded with zero columns, or
+zero rows with x's matching columns, to a multiple of 8, the product cut
+back (``_laid_out``). It never falls back to a plain version.
 
 Attention (``models.layers.attend``) is independent across batch rows
 and heads: q, k and v (B, S, H, hd) run locally under q's placements,
-each ``Shard(0)``, ``Shard(2)`` or ``Replicate`` per mesh dimension; kv
-heads that replicate where q's heads shard (GQA with few kv heads) are
-repeated to H and cut to q's heads first.
+each ``Shard(0)``, ``Shard(2)`` or ``Replicate`` per mesh dimension (Sq
+and Sk may differ: cross-attention over the encoder memory). Where k and
+v are laid out otherwise, per mesh dimension: split where q is not, or
+split otherwise (a serve cache laid out by ``sharding.port_cache_pspecs``
+with the reference's rule where its rows or kv heads do not divide:
+"data" on its kv heads or its sequence, "model" on its head dim), they
+are gathered first; replicated where q's rows split, each rank cuts its
+rows; replicated where q's heads split (GQA with few kv heads, or heads
+that do not divide), the kv heads are repeated to H and cut to q's
+heads. A ``Partial`` q, k or v, or k and v laid out apart, raises
+ValueError.
 
 The MoE layer's routed experts (``moe_routed``) and the Mamba mixer
 (``mamba_mixer``) are one ``local_map`` each, whose local function is the
@@ -60,16 +70,25 @@ model's own (``models.moe.routed_local``, ``models.ssm.mixer_local``):
 * Mamba, per mesh dimension: batch split (every activation ``Shard(0)``),
   heads split (z, x, dt ``Shard`` on H, B and C replicated, ``gnorm/w``
   ``Shard(0)``; the conv, ``A_log``, ``D`` and ``dt_bias`` replicated and
-  sliced to the local heads' channels), or replicated. The gated norm's
+  sliced to the local heads' channels), or replicated. A ``gnorm/w``
+  split over a mesh dimension whose heads are not (the heads do not
+  divide it: Mamba2-130M's 24 over 16) is gathered first, and a serve
+  state whole on a mesh dimension that splits the rows (the "pod" axis,
+  which ``sharding.port_cache_pspecs`` leaves to the activations) is cut
+  to the local rows. The gated norm's
   sum of squares runs over all H·P channels (an all-reduce over the heads
   split). The serve state: the SSM state (B, H, N, P) splits as the heads,
   the conv state (B, K-1, ch) only over the batch (its x channels are
   gathered after each step).
 
 The gradients (``in_grad_placements``): a replicated operand read by
-split work (the router, B and C, the conv, the SSM's per-head vectors,
-the layer's input under an expert or ff split) gets a ``Partial``
-gradient; ``reduce_grads`` sums it.
+split work (the router, the conv, the SSM's per-head vectors, the
+layer's input under an expert or ff split) gets a ``Partial`` gradient;
+``reduce_grads`` sums it. The Mamba mixer's B and C are summed over the
+heads split inside its ``local_map`` and leave replicated (a ``Partial``
+there met DTensor's product rule for ``in_B``'s dW on a 16 × 16 mesh,
+which split their rows over "model" as well, a layout its fake
+execution could not propagate).
 """
 from __future__ import annotations
 
@@ -161,13 +180,34 @@ def masked_matmul(fn: Callable, x, w, m, **tiles):
 
 def _laid_out(fn: Callable, a, b, c, tiles):
     """``fn(a, b, c)`` on a local shard; a bf16 weight on the card whose
-    width N is not a multiple of 8 (the kernel's unit) goes in padded with
-    zero columns, weight and mask, and the product is cut back to N."""
-    N = b.shape[-1]
-    if a.device.type != "cuda" or a.dtype != torch.bfloat16 or N % 8 == 0:
+    width N or depth K is not a multiple of 8 (the kernel's unit) goes in
+    padded with zero columns (weight and mask) or zero rows (x's columns
+    too), and the product is cut back to N."""
+    K, N = b.shape[-2:]
+    if a.device.type != "cuda" or a.dtype != torch.bfloat16 or (K % 8 == 0 and N % 8 == 0):
         return fn(a, b, c, **tiles)
-    b, c = pad_columns(b, c, 8)
+    if K % 8:
+        a, b, c = pad_depth(a, b, c, 8)
+    if N % 8:
+        b, c = pad_columns(b, c, 8)
     return fn(a, b, c, **tiles)[..., :N]
+
+
+def pad_depth(x, w, m, unit: int):
+    """x (..., M, K) with zero columns and w and m (..., K, N) with zero rows
+    up to K a multiple of ``unit``: every padded term of the product is 0,
+    so ``x @ (w ⊙ m)`` is unchanged (an expert's ``w_down`` split along
+    its ff over a wide "model" axis). The mask keeps the kernel's row
+    layout."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.masked_matmul.ops import aligned_mask
+
+    pad = -w.shape[-2] % unit
+    buf = m.new_zeros((*m.shape[:-2], m.shape[-2] + pad, m.shape[-1]))
+    buf[..., :m.shape[-2], :] = m
+    return (F.pad(x, (0, pad)), F.pad(w, (0, 0, 0, pad)),
+            buf if m.is_floating_point() else aligned_mask(buf))
 
 
 def pad_columns(w, m, unit: int):
@@ -196,8 +236,24 @@ def attend(fn: Callable, q, k, v, **kw):
     if any(p not in ok for p in q.placements):
         raise ValueError(f"attend: no sharding rule for q placements {tuple(q.placements)}")
     k, v = (_as_dtensor(t, mesh) for t in (k, v))
-    if tuple(k.placements) != tuple(q.placements) or tuple(v.placements) != tuple(q.placements):
-        groups = q.shape[2] // k.shape[2]
+    if tuple(v.placements) != tuple(k.placements):
+        raise ValueError(f"attend: k {tuple(k.placements)} and v {tuple(v.placements)} "
+                         "are laid out apart")
+    if any(p.is_partial() for p in k.placements):
+        raise ValueError(f"attend: no sharding rule for k placements {tuple(k.placements)}")
+    # k split where q is not (a serve cache laid out by the reference's
+    # rule where its rows or kv heads do not divide: "data" on its heads or
+    # its sequence, "model" on its head dim): gathered over that dimension
+    whole = [Replicate() if pk.is_shard() and pk != pq else pk
+             for pk, pq in zip(k.placements, q.placements)]
+    if whole != list(k.placements):
+        k, v = (t.redistribute(mesh, whole) for t in (k, v))
+    if tuple(k.placements) != tuple(q.placements):
+        # k whole where q splits: its rows cut locally; where q's heads
+        # split, the kv heads repeated to H first, then cut
+        repeat = any(pk == Replicate() and pq == Shard(2)
+                     for pk, pq in zip(k.placements, q.placements))
+        groups = q.shape[2] // k.shape[2] if repeat else 1
         k, v = (_repeat_heads(t, groups).redistribute(mesh, q.placements) for t in (k, v))
     pl = list(q.placements)
     local = local_map(lambda a, b, c: fn(*(_DenseGrad.apply(t) for t in (a, b, c)), **kw),
@@ -282,6 +338,21 @@ class _SumOver(torch.autograd.Function):
     def forward(ctx, t, mesh, dims):
         ctx.mesh, ctx.dims = mesh, dims
         return _all_reduce(t, mesh, dims)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_reduce(g.contiguous(), ctx.mesh, ctx.dims), None, None
+
+
+class _SumGrad(torch.autograd.Function):
+    """The identity, whose gradient is summed over the ranks of the mesh
+    dimensions ``dims`` (an all-reduce): a replicated input read by split
+    work gets its whole gradient on every rank."""
+
+    @staticmethod
+    def forward(ctx, t, mesh, dims):
+        ctx.mesh, ctx.dims = mesh, dims
+        return t.view_as(t)
 
     @staticmethod
     def backward(ctx, g):
@@ -379,26 +450,38 @@ def mamba_mixer(fn: Callable, cfg, z, x, Bm, Cm, dt_raw, conv_w, conv_b, A_log, 
             "heads": ((Shard(2), Shard(2), Shard(2)), (R, R), S0, (R, Shard(1))),
             "none": ((R, R, R), (R, R), R, (R, R))}
     kinds = []
+    gnorm_pl = list(par[5].placements)
+    st_in = [list(t.placements) for t in sts]
     for d in range(mesh.ndim):
         kind = {S0: "batch", Shard(2): "heads", R: "none"}.get(z.placements[d])
+        if kind in ("batch", "none") and gnorm_pl[d] == S0:
+            gnorm_pl[d] = R  # the norm's weight split where the heads are not: gathered
+        for pl in st_in:
+            if kind == "batch" and pl[d] == R:
+                pl[d] = S0  # a state whole where the rows split (the pod axis): cut
         ok = kind is not None
         if ok:
             (_, px, pdt), (pb, pc), pg, (pcs, pss) = want[kind]
             ok = ((x.placements[d], dt_raw.placements[d], Bm.placements[d], Cm.placements[d],
-                   par[5].placements[d]) == (px, pdt, pb, pc, pg)
+                   gnorm_pl[d]) == (px, pdt, pb, pc, pg)
                   and all(t.placements[d] == R for t in par[:5])
-                  and (not sts or (sts[0].placements[d], sts[1].placements[d]) == (pcs, pss)))
+                  and (not sts or (st_in[0][d], st_in[1][d]) == (pcs, pss)))
         if not ok:
             raise ValueError(f"mamba_mixer: no sharding rule on mesh dimension {d} for z "
                              f"{tuple(z.placements)}, x {tuple(x.placements)}, B "
                              f"{tuple(Bm.placements)}, gnorm {tuple(par[5].placements)}"
                              + (f", state {[tuple(t.placements) for t in sts]}" if sts else ""))
         kinds.append(kind)
+    par[5] = par[5].redistribute(mesh, gnorm_pl)
+    sts = tuple(t.redistribute(mesh, pl) for t, pl in zip(sts, st_in))
     heads = [d for d, k in enumerate(kinds) if k == "heads"]
     piece = pieces(mesh, heads)[0]
     y_pl = [want[k][0][0] for k in kinds]
     st_pl = [[want[k][3][i] for k in kinds] for i in (0, 1)]
-    g_bc = [S0 if k == "batch" else P_ if k == "heads" else R for k in kinds]
+    # B's and C's gradients summed over the heads split inside (``_SumGrad``),
+    # so they leave replicated: left Partial there, DTensor's product rule
+    # for in_B's and in_C's dW reduce-scattered them onto their rows
+    g_bc = [S0 if k == "batch" else R for k in kinds]
     g_par = [R if k == "none" else P_ for k in kinds]
     g_gn = [S0 if k == "heads" else P_ if k == "batch" else R for k in kinds]
 
@@ -410,6 +493,8 @@ def mamba_mixer(fn: Callable, cfg, z, x, Bm, Cm, dt_raw, conv_w, conv_b, A_log, 
         return g.permute(1, 2, 0, 3).reshape(*t.shape[:-1], -1)
 
     def local(zl, xl, bl, cl, dl, *rest):
+        if heads:
+            bl, cl = (_SumGrad.apply(t, mesh, heads) for t in (bl, cl))
         pl, sl = rest[:6], rest[6:]
         st = {"conv": sl[0], "ssm": sl[1]} if sl else None
         yf, ns = fn(cfg, zl, xl, bl, cl, dl, *pl, st, h0=piece * xl.shape[2],

@@ -41,8 +41,11 @@ def quiet(*_args, **_kw) -> None:
 
 
 def parse(spec_cls, argv: Optional[Sequence[str]], prog: str, description: str,
-          choices: Optional[Dict[str, Sequence]] = None) -> Tuple[object, Optional[str]]:
-    """(spec, device) from ``argv``; device None means the card."""
+          choices: Optional[Dict[str, Sequence]] = None,
+          device: bool = True) -> Tuple[object, Optional[str]]:
+    """(spec, device) from ``argv``; device None means the card. With
+    ``device=False`` there is no ``--device`` (a launcher that uses no
+    device: the dry run) and the device is None."""
     ap = argparse.ArgumentParser(prog=prog, description=description)
     choices = choices or {}
     for f in dataclasses.fields(spec_cls):
@@ -52,11 +55,11 @@ def parse(spec_cls, argv: Optional[Sequence[str]], prog: str, description: str,
         else:
             ap.add_argument(flag, type=type(f.default), default=f.default,
                             choices=choices.get(f.name))
-    ap.add_argument("--device", default=None,
-                    help="cuda (the default) or cpu; never falls back")
+    if device:
+        ap.add_argument("--device", default=None,
+                        help="cuda (the default) or cpu; never falls back")
     args = vars(ap.parse_args(argv))
-    device = args.pop("device")
-    return spec_cls(**args), device
+    return spec_cls(**{k: v for k, v in args.items() if k != "device"}), args.get("device")
 
 
 def to_manifest(spec, kind: str) -> Dict[str, Any]:

@@ -3,9 +3,11 @@
 An ``AbstractMesh`` holds axis names and sizes and no devices: the
 sharding rules and the static checks lay out the production meshes with
 it (``abstract_production_mesh``: 16 × 16 ("data", "model"), or 2 × 16 ×
-16 with a "pod" axis). ``make_debug_mesh`` builds a real ``DeviceMesh``
-over the ranks of the default process group, and ``make_ebft_plan`` the
-``MeshPlan`` of the EBFT calibration walk.
+16 with a "pod" axis), and ``fake_production_mesh`` the same as a real
+``DeviceMesh`` over a fake process group (the dry run).
+``make_debug_mesh`` builds a real ``DeviceMesh`` over the ranks of the
+default process group, and ``make_ebft_plan`` the ``MeshPlan`` of the
+EBFT calibration walk.
 
 A multi-rank run starts one process per rank, e.g. on the CPU::
 
@@ -48,6 +50,28 @@ def abstract_production_mesh(*, multi_pod: bool = False) -> AbstractMesh:
     shape = (2, 16, 16) if multi_pod else (16, 16)
     axes = ("pod", "data", "model") if multi_pod else ("data", "model")
     return make_abstract_mesh(shape, axes)
+
+
+def fake_production_mesh(*, multi_pod: bool = False):
+    """The production mesh (16 × 16, or 2 × 16 × 16) as a real ``DeviceMesh``
+    over a fake process group of 256 (512) ranks, this process rank 0: the
+    dry run's mesh (``launch/dryrun.py``). Every collective on it returns at
+    once and moves nothing, and no rank but this one exists. Joins a fake
+    group of that size, made here when the process has none; any other
+    group raises. Never call it in a process that runs other work (a test
+    runner's): the group is the process's."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    ab = abstract_production_mesh(multi_pod=multi_pod)
+    if not dist.is_initialized():
+        dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=ab.size)
+    elif dist.get_backend() != "fake" or dist.get_world_size() != ab.size:
+        raise ValueError(f"the production mesh needs a fake process group of {ab.size} ranks; "
+                         f"this process has a {dist.get_backend()} group of "
+                         f"{dist.get_world_size()}")
+    return init_device_mesh("cpu", ab.axis_sizes, mesh_dim_names=ab.axis_names)
 
 
 def make_debug_mesh(data: int = 1, model: int = 1, device_type: str = "cuda"):

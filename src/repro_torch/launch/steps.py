@@ -25,8 +25,10 @@ A.7): :func:`run_cell` places the arguments by their specs on a
 ``DeviceMesh`` and calls the cell's function on DTensors, the port's
 ``jax.jit(fn, in_shardings=…, out_shardings=…)``. On a one-device mesh
 (an ``AbstractMesh`` of size 1, or no process group) it runs on plain
-tensors. A cell over more than one rank holds the dense, MoE, SSM and
-hybrid families: the VLM and the encoder-decoder raise (ROADMAP.md A.8e).
+tensors. A cell over more than one rank holds every family; the VLM's
+``patches`` and the encoder-decoder's ``frames`` are batch arrays of the
+cell (``model.input_specs``), placed over the batch axes by
+``batch_pspecs`` as the tokens are.
 """
 from __future__ import annotations
 
@@ -150,17 +152,6 @@ def is_active_mesh(mesh) -> bool:
     return n > 1
 
 
-def check_family(cfg: ModelConfig, mesh) -> None:
-    """A step on an active mesh holds the dense, MoE, SSM and hybrid
-    families (``core.ebft.MESH_FAMILIES``)."""
-    from repro_torch.core.ebft import MESH_FAMILIES
-
-    if is_active_mesh(mesh) and cfg.family not in MESH_FAMILIES:
-        raise NotImplementedError(
-            f"a sharded step holds the {', '.join(MESH_FAMILIES)} families; the {cfg.family} "
-            "family on a mesh is not ported yet (ROADMAP.md A.8e)")
-
-
 def _shapes(tree):
     """A tree's (or a tuple of trees') tensors as ``ShapeLeaf``s; other
     leaves (the cache's host ``len``) pass."""
@@ -226,7 +217,6 @@ def build_train_cell(cfg: ModelConfig, shape: ShapeConfig, mesh, *, lr: float = 
     from repro_torch.training.train_loop import make_train_step
 
     cfg = adapt_config(cfg, shape, mesh)
-    check_family(cfg, mesh)
     model = build(cfg)
     fsdp = wants_fsdp(cfg) if fsdp is None else fsdp
     mb = microbatches_for(cfg, shape, mesh) if microbatches is None else microbatches
@@ -276,7 +266,6 @@ def _serve_cell(kind: str, cfg: ModelConfig, shape: ShapeConfig, mesh, state_len
     from repro_torch.models.model import build
 
     cfg = adapt_config(cfg, shape, mesh)
-    check_family(cfg, mesh)
     model = build(cfg)
     params_shapes = SH.abstract_params(model)
     serve_fsdp = _serve_fully_sharded(cfg, mesh)
@@ -338,7 +327,6 @@ def build_ebft_cell(cfg: ModelConfig, shape: ShapeConfig, mesh, *,
     from repro_torch.optim.optimizers import adam, apply_updates
 
     cfg = adapt_config(cfg, shape, mesh).replace(remat="none")
-    check_family(cfg, mesh)
     model = build(cfg)
     if block_index is None:
         # mid-stack; an encoder block for the encoder-decoder (a decoder

@@ -23,8 +23,10 @@ Under ``torchrun`` the run is sharded, as the reference's: the mesh is
 ``--mesh-data`` × ``--mesh-model`` (data 0: every rank the model axis
 leaves), the params are placed by ``param_pspecs`` (no FSDP), AdamW's
 moments take the params' placements, and each step's batch is placed by
-``batch_pspecs``; every rank runs the step on its DTensor shards (dense
-family; ``launch/steps.py``). Rank 0 alone prints and writes the
+``batch_pspecs`` (a VLM's ``patches`` and an encoder-decoder's
+``frames`` as its tokens, and in microbatches each rank's rows of them:
+``constrain_microbatch``); every rank runs the step on its DTensor
+shards, every family (``launch/steps.py``). Rank 0 alone prints and writes the
 artifact and the checkpoints; a checkpoint restores onto whatever mesh
 (or single device) the resuming run has::
 
@@ -122,7 +124,6 @@ def run(cfg: ModelConfig, spec: TrainSpec, device=None, params: Optional[Any] = 
     model = build(cfg)
     shape = ShapeConfig("cli", spec.seq, spec.batch, "train")
     corpus = SyntheticCorpus(CorpusConfig(vocab_size=cfg.vocab_size, seed=spec.seed))
-    ST.check_family(cfg, mesh)
     sharded = ST.is_active_mesh(mesh)
     if params is None:
         params = model.init(torch.Generator(device=device).manual_seed(spec.seed))

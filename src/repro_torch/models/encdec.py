@@ -33,6 +33,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import act_sharding as AS
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
 
@@ -143,6 +144,10 @@ def decode_hidden(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     with ``len`` advanced by S, or None). Positions start at the cache's
     ``len`` (0 without a cache); the cache is written in place."""
     h = L.embed(params["embed"]["tok"], tokens, T.torch_dtype(cfg.dtype))
+    # on a mesh the memory joins the batch layout (a no-op without a
+    # policy): a serve state keeps it as the reference's cache_pspecs lay
+    # it out, F over "data" and d over "model"
+    memory = AS.constrain(memory, "bkd")
     start, S = (cache["len"] if cache is not None else 0), tokens.shape[1]
     positions = torch.arange(start, start + S, device=h.device)[None, :]
     for i in range(cfg.num_layers):

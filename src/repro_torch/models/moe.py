@@ -285,7 +285,8 @@ def forward_hidden(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     positions = torch.arange(tokens.shape[1], device=tokens.device)[None, :]
     for i in range(_n_dense(params)):
         bm = TR.slice_block(masks["dense_blocks"], i) if masks is not None else None
-        h = TR.block_apply(TR.slice_block(params["dense_blocks"], i), cfg, h, positions, bm)
+        h = TR.block_apply(fsdp.gather_block(TR.slice_block(params["dense_blocks"], i)), cfg, h,
+                           positions, bm)
     aux_total = torch.zeros((), dtype=torch.float32, device=h.device)
     for i in range(cfg.num_layers - cfg.moe_first_dense):
         bm = TR.slice_block(masks["moe_blocks"], i) if masks is not None else None
@@ -338,12 +339,12 @@ def prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor, cache: Param
     positions = torch.arange(start, start + S, device=tokens.device)[None, :]
     for i in range(_n_dense(params)):
         layer = {"k": cache["dense"]["k"][i], "v": cache["dense"]["v"][i], "len": start}
-        h = TR.block_apply(TR.slice_block(params["dense_blocks"], i), cfg, h, positions,
-                           cache=layer)
+        h = TR.block_apply(fsdp.gather_block(TR.slice_block(params["dense_blocks"], i)), cfg,
+                           h, positions, cache=layer)
     for i in range(cfg.num_layers - cfg.moe_first_dense):
         layer = {"k": cache["moe"]["k"][i], "v": cache["moe"]["v"][i], "len": start}
-        h, _ = moe_block_apply(TR.slice_block(params["moe_blocks"], i), cfg, h, positions,
-                               cache=layer)
+        h, _ = moe_block_apply(fsdp.gather_block(TR.slice_block(params["moe_blocks"], i)), cfg,
+                               h, positions, cache=layer)
     h = L.apply_norm(params["final_norm"], h[:, -1:], cfg.norm)
     new_cache = {k: v for k, v in cache.items() if k != "len"}
     new_cache["len"] = start + S

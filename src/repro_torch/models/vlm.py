@@ -18,6 +18,7 @@ from typing import Any, Dict, Optional
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import act_sharding as AS
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
 
@@ -30,10 +31,14 @@ decode_step = T.decode_step
 
 def embed(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
           patches: torch.Tensor) -> torch.Tensor:
-    """[patches ; token embeddings] (B, P + S_text, d) in the model's dtype."""
+    """[patches ; token embeddings] (B, P + S_text, d) in the model's dtype.
+    On a mesh both halves are brought to the batch layout first (a no-op
+    without a policy): the token embedding of a vocab-sharded table is a
+    sum over "model" until ``L.embed`` constrains it, and the patches come
+    as the batch placed them."""
     dtype = T.torch_dtype(cfg.dtype)
     tok = L.embed(params["embed"]["tok"], tokens, dtype)
-    return torch.cat([patches.to(dtype), tok], dim=1)
+    return torch.cat([AS.constrain(patches.to(dtype), "bqd"), tok], dim=1)
 
 
 def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor, patches: torch.Tensor,

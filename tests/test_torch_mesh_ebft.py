@@ -95,6 +95,23 @@ for data, model_axis in json.loads(os.environ["MESH_SHAPES"]):
 MM._call = plain
 ebft.adam = adam
 
+# the VLM's walk on 2 x 2 against one process: [8 seeded patches ; 24
+# tokens], its stream sharded with the batch
+vcfg = get_config("tiny_vlm")
+vmodel = build(vcfg)
+vparams = vmodel.init(torch.Generator().manual_seed(0))
+vcalib = np.random.default_rng(0).integers(0, vcfg.vocab_size, size=(16, 24)).astype(np.int32)
+patches = {"patches": np.random.default_rng(1).normal(size=(16, 8, vcfg.d_model))
+           .astype(np.float32)}
+vmasks, vpruned = prune(vmodel, vparams, vcalib, method="magnitude", sparsity=0.5,
+                        extra_batch=patches)
+out["vlm"] = {}
+for key, plan in (("1x1", None), ("2x2", make_ebft_plan(2, 2, device_type="cpu"))):
+    tuned, reps = ebft.finetune(vmodel, vparams, vpruned, vmasks, vcalib,
+                                ebft.EBFTConfig(**base, mesh_plan=plan), extra_batch=patches)
+    out["vlm"][key] = {"reports": [r.asdict() for r in reps],
+                       "plain": all(type(t) is torch.Tensor for t in T.tensors(tuned))}
+
 # a kernel on DTensors: a layout without a rule raises, and the attention
 # wrappers take none (layers.attend maps their shards)
 from torch.distributed.tensor import Replicate, Shard, distribute_tensor
@@ -266,20 +283,22 @@ def test_plan_accounting_matches_reference():
     assert not MeshPlan.single().active and MeshPlan.single().explain({}) == []
 
 
-def test_active_plan_on_other_families_raises():
-    """The dense, MoE, SSM and hybrid families run on a mesh
-    (``tests/test_torch_mesh_families.py``); an active plan on the VLM
-    raises before any work, and never runs unsharded."""
-    plan = MeshPlan.from_mesh(make_abstract_mesh((2, 2), ("data", "model")))
-    assert plan.active
-    cfg = get_config("tiny_vlm")
-    model = build(cfg)
-    import torch
-
-    params = model.init(torch.Generator().manual_seed(0))
-    calib = np.zeros((8, 16), np.int32)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A.8e"):
-        ebft.finetune(model, params, params, params, calib, ebft.EBFTConfig(mesh_plan=plan))
+def test_active_plan_on_other_families_raises(ranks):
+    """Every family runs on a mesh (the MoE, SSM and hybrid:
+    ``tests/test_torch_mesh_families.py``; the VLM and the
+    encoder-decoder: ``tests/test_torch_mesh_frontends.py``). Here the
+    VLM's walk on the 2 × 2 plan, [8 seeded patches ; 24 tokens] a
+    segment, keeps one process's per-block histories within rtol 2e-3,
+    atol 1e-5, its epochs and early stops, and returns whole tensors on
+    every rank."""
+    one, got = ranks[0]["vlm"]["1x1"], ranks[0]["vlm"]["2x2"]
+    assert len(got["reports"]) == len(one["reports"]) == 2
+    for rs, rm in zip(one["reports"], got["reports"]):
+        assert (rm["index"], rm["epochs_run"], rm["early_stop"]) == \
+            (rs["index"], rs["epochs_run"], rs["early_stop"])
+        np.testing.assert_allclose(rm["history"], rs["history"], rtol=2e-3, atol=1e-5)
+        assert rm["device_dispatches"] == rm["dispatches"] * 4
+    assert all(r["vlm"]["2x2"] == got and got["plain"] for r in ranks)
 
 
 def test_ebft_run_on_a_mesh(ranks):

@@ -562,3 +562,24 @@ def test_narrow_column_shard_is_padded_for_the_bf16_kernel():
                                rtol=0, atol=0)
     w4, m4 = pad_columns(w[:, :4], m[:, :4], 8)  # a mask row of 8 bytes sits in 16
     assert m4.shape == (768, 8) and m4.stride(0) == 16
+
+
+def test_shallow_row_shard_is_padded_for_the_bf16_kernel():
+    """A small expert's ``w_down`` split along its ff over a wide "model"
+    axis leaves a rank a depth K the bf16 kernel does not take (K a
+    multiple of 8; tiny_moe's 32 over 16 ranks: 2). The local route pads
+    x with zero columns and the weight and mask with zero rows, so the
+    product is the unpadded one exactly; the mask keeps 16-byte rows."""
+    from repro_torch.distributed.local_kernels import pad_depth
+    from repro_torch.kernels.masked_matmul import ops as MM
+
+    g = torch.Generator().manual_seed(1)
+    x = torch.randn(3, 40, 2, generator=g)
+    w = torch.randn(3, 2, 64, generator=g)
+    m = torch.rand(3, 2, 64, generator=g) < 0.5
+    xp, wp, mp = pad_depth(x, w, m, 8)
+    assert xp.shape == (3, 40, 8) and wp.shape == mp.shape == (3, 8, 64)
+    assert mp.stride(-2) % 16 == 0 and not mp[:, 2:].any() and not wp[:, 2:].any()
+    assert not xp[..., 2:].any()
+    torch.testing.assert_close(MM.masked_matmul(xp, wp, mp), MM.masked_matmul(x, w, m),
+                               rtol=0, atol=0)
