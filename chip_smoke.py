@@ -100,11 +100,21 @@ prints no result.
 Every path runs inside an obs run (``repro_torch.obs``): each writes its
 artifact in the reference's schema to ``chiprun_out/`` (the main path's
 is ``chiprun_out/BENCH_ebft.json``) and must pass ``validate_payload``.
-The ``obs`` phase prints the main path's ``walk_phases``, its span tree's
-top two levels (each phase with the event time of its kernel launches,
-``kernel_s``) and each kernel's in-run CUDA-event times, and reruns its
-EBFT with obs off and on: the tuned weights must equal the main run's bit
-for bit. The summary line carries each kernel's in-run times beside its
+Every EBFT runs the reference's default path: the fused loop (every
+epoch enqueued, the plateau decided on the card, one host read a block)
+with the teacher prefetched one visit ahead on a side stream; each
+``ebft_run`` artifact must also pass the reference's CI gate,
+``max_dispatches_per_block = epochs + 2``, and the launch counts take all
+10 epochs of a fused block. The ``obs`` phase prints the main path's
+``walk_phases``, its span tree's top two levels (each phase with the
+event time of its kernel launches, ``kernel_s``) and each kernel's in-run
+CUDA-event times, and reruns its EBFT with obs off and on: the tuned
+weights must equal the main run's bit for bit. The ``fused`` phase then
+reruns the main path's EBFT three ways at a rel_tol at which blocks stop
+early (fused with prefetch 1, fused with prefetch 0, the per-epoch loop),
+holds them equal bit for bit and prints
+each one's wall, walk phases, dispatches, host syncs, peak memory and the
+epochs it computed after a plateau. The summary line carries each kernel's in-run times beside its
 isolated ones.
 """
 from __future__ import annotations
@@ -797,6 +807,13 @@ def read_counts() -> dict:
     return {name: getattr(mod, attr) for name, (mod, attr) in _counters().items()}
 
 
+def _epochs_computed(r, epochs: int) -> int:
+    """The epochs of Adam steps block report ``r``'s EBFT ran on the card:
+    on the fused path all ``epochs`` (those after a plateau are computed
+    and their updates discarded), on the per-epoch path ``epochs_run``."""
+    return epochs if r.path == "fused" else r.epochs_run
+
+
 def llama_cfg(layers: int = 4, dtype: str = "bfloat16"):
     """Llama-7B at its published widths, cut to ``layers`` of its 32 layers,
     with the flash attention kernel."""
@@ -858,15 +875,19 @@ def run_path(tokens, params=None, tag="main", lora_cfg=None, **spec_kw):
     wall = time.perf_counter() - t0
     launches = read_counts()
     summ = obs_run.payload()["metrics"]
+    # the reference's CI gate: the tune loop's dispatches and the walk's two
+    # stream advances within epochs + 2 a block
     artifact = finish_obs(obs_run, ebft_run.bench_record(spec, res, summ),
-                          "BENCH_ebft.json" if tag == "main" else f"BENCH_ebft_{tag}.json")
+                          "BENCH_ebft.json" if tag == "main" else f"BENCH_ebft_{tag}.json",
+                          max_dispatches_per_block=spec.epochs + 2)
     return cfg, spec, res, launches, wall, (pre or None), artifact
 
 
-def finish_obs(obs_run, extra, name=None):
+def finish_obs(obs_run, extra, name=None, max_dispatches_per_block=None):
     """Finish an obs run with ``extra`` (and write it to ``chiprun_out/name``);
     the artifact must pass ``validate_payload``, with every section the
-    pipeline writes when ``extra`` is the pipeline's."""
+    pipeline writes when ``extra`` is the pipeline's, and within
+    ``max_dispatches_per_block`` where it is given."""
     from repro_torch.obs.run import validate_payload
 
     path = None
@@ -874,7 +895,8 @@ def finish_obs(obs_run, extra, name=None):
         os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
         path = os.path.join(ROOT, "chiprun_out", name)
     payload = obs_run.finish(extra=extra, summary_path=path)
-    problems = validate_payload(payload, require=OBS_REQUIRE if "phases" in extra else list(extra))
+    problems = validate_payload(payload, require=OBS_REQUIRE if "phases" in extra else list(extra),
+                                max_dispatches_per_block=max_dispatches_per_block)
     if problems:
         raise AssertionError(f"obs artifact {name}: {problems}")
     return payload
@@ -916,7 +938,8 @@ def phase_slice(method_cfg, tokens, params=None, microbatch=8, every_block_drops
     L = cfg.num_layers
     n_cal = math.ceil(len(calib) / microbatch)
     n_ev = math.ceil(ebft_run.EVAL_SAMPLES / microbatch)
-    steps = sum(r.epochs_run for r in res.reports) * n_cal  # tuning steps, all blocks
+    # tuning steps, all blocks
+    steps = sum(_epochs_computed(r, spec.epochs) for r in res.reports) * n_cal
     # masked forwards of a block (7 masked linears, one attention each): the
     # prune walk's advances, the pruned and the tuned eval, and in EBFT per
     # block the mean loss before and after, each step, the student advance.
@@ -1077,6 +1100,100 @@ def phase_obs(cfg, res, artifact, launches, tokens):
               dispatch=artifact["dispatch"], ebft_reruns=reruns,
               artifact="chiprun_out/BENCH_ebft.json"))
     return stats
+
+
+FUSED_RUNS = (("fused_prefetch1", dict()), ("fused_prefetch0", dict(prefetch_depth=0)),
+              ("legacy", dict(fused_epochs=False)))
+# at the paper's 1e-3 no block of the main path plateaus (its blocks gain
+# 1.4-13% an epoch on the H100, PERF.md); at 5e-2 blocks 1-3 stop after 2
+# epochs and block 0 runs all 10, each at least 1.5 points off the threshold
+FUSED_REL_TOL = 5e-2
+
+
+def phase_fused(cfg, res, tokens):
+    """The reference's default EBFT path against its fallbacks, on the main
+    path's pretrained weights, Wanda 0.7 masks and calibration segments
+    (Llama-7B widths, 4 layers, 16 segments of 2048, bf16; lr 2e-4, 10
+    epochs, patience 2, rel_tol ``FUSED_REL_TOL``, so that blocks stop
+    early and the fused loop's discarded epochs show): the fused loop with
+    the teacher prefetched one visit ahead on a side stream (the default),
+    the fused loop with the teacher on the walk's stream just before each
+    visit, and the per-epoch loop. Each runs in an obs run of its own. The
+    three must give the same epochs, stops and histories and the same
+    tuned weights bit for bit (the largest absolute difference is
+    printed). Per run: the EBFT wall, the
+    walk's teacher, tune and student seconds, dispatches and host syncs
+    per block, peak GiB (and over what was allocated at its start: the
+    earlier runs' tuned weights are kept), the epochs computed after a plateau (the fused
+    loop computes all 10 and discards their updates) and the prefetcher's
+    in-flight targets."""
+    import torch
+
+    from repro_torch import tree as T
+    from repro_torch.core import ebft
+    from repro_torch.models.model import build
+    from repro_torch.obs.run import start_run
+
+    calib, _ = tokens
+    model = build(cfg)
+    out, rows = {}, {}
+    for name, kw in FUSED_RUNS:
+        ecfg = ebft.EBFTConfig(lr=2e-4, epochs=10, patience=2, rel_tol=FUSED_REL_TOL, **kw)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        start_mem = torch.cuda.memory_allocated()
+        obs_run = start_run(f"chip_smoke/fused/{name}", config="llama_7b", device="cuda",
+                            console=False)
+        t0 = time.perf_counter()
+        tuned, reports = ebft.finetune(model, res.dense, res.pruned, res.masks, calib, ecfg)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        art = finish_obs(obs_run, {"blocks": [r.asdict() for r in reports]})
+        m = art["metrics"]
+        out[name] = (tuned, reports)
+        rows[name] = dict(
+            ebft_s=wall, peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
+            peak_over_start_gib=(torch.cuda.max_memory_allocated() - start_mem) / 2**30,
+            walk_phases={p: m[f"ebft/walk/{p}_s"]["sum"] for p in ("teacher", "tune", "student")},
+            walk_compile={p: m[f"ebft/walk/{p}_compile_s"]["sum"]
+                          for p in ("teacher", "tune", "student")},
+            paths=[r.path for r in reports], dispatches=[r.dispatches for r in reports],
+            host_syncs=[r.host_syncs for r in reports],
+            walk_dispatches=m["ebft/walk/dispatches"]["value"],
+            walk_host_syncs=m["ebft/walk/host_syncs"]["value"],
+            epochs_run=[r.epochs_run for r in reports],
+            early_stop=[r.early_stop for r in reports],
+            epochs_after_stop=sum(_epochs_computed(r, ecfg.epochs) - r.epochs_run
+                                  for r in reports),
+            prefetch_inflight_max=m.get("ebft/walk/prefetch_inflight", {}).get("max"))
+    base_tuned, base_reports = out["fused_prefetch1"]
+    worst, equal = 0.0, True
+    for name, (tuned, reports) in out.items():
+        if [(r.epochs_run, r.early_stop, r.history) for r in reports] != \
+                [(r.epochs_run, r.early_stop, r.history) for r in base_reports]:
+            equal = False
+        for path, t in T.leaves_with_path(tuned):
+            b = T.get_path(base_tuned, path)
+            equal = equal and torch.equal(t, b)
+            worst = max(worst, float((t.float() - b.float()).abs().max()))
+    emit(dict(phase="fused", arch="llama_7b", num_layers=cfg.num_layers, dtype="bfloat16",
+              calib_samples=len(calib), seq=calib.shape[1], lr=2e-4, epochs=10, patience=2,
+              rel_tol=FUSED_REL_TOL, runs=rows, bit_equal=equal, max_abs_diff=worst))
+    if not equal:
+        raise AssertionError(f"fused: the three EBFT paths differ (max abs {worst})")
+    want = dict(fused_prefetch1=("fused", 1, 1), fused_prefetch0=("fused", 1, 1))
+    for name, (path, disp, syncs) in want.items():
+        r = rows[name]
+        if set(r["paths"]) != {path} or set(r["dispatches"]) != {disp} \
+                or set(r["host_syncs"]) != {syncs}:
+            raise AssertionError(f"fused: {name} ran {r['paths']} with dispatches "
+                                 f"{r['dispatches']}, host syncs {r['host_syncs']}")
+    if set(rows["legacy"]["paths"]) != {"legacy"}:
+        raise AssertionError(f"fused: the legacy run took {rows['legacy']['paths']}")
+    if rows["fused_prefetch1"]["prefetch_inflight_max"] > 2:
+        raise AssertionError(f"fused: {rows['fused_prefetch1']['prefetch_inflight_max']} "
+                             "visits' targets in flight at depth 1")
 
 
 # the serve phase: Server.serve at Llama-7B width over 8 slots of a
@@ -1691,7 +1808,7 @@ def phase_path_a(tokens, dense, microbatch=8):
     L = cfg.num_layers
     n_cal = math.ceil(len(calib) / microbatch)
     n_ev = math.ceil(ebft_run.EVAL_SAMPLES / microbatch)
-    steps = sum(r.epochs_run for r in res.reports) * n_cal
+    steps = sum(_epochs_computed(r, spec.epochs) for r in res.reports) * n_cal
     ds, mt = res.baselines["dsnot"], res.baselines["mask"]
     mt_steps = sum(len(h) for h in mt["histories"]) * n_cal
     # block forwards through the masked linears: SparseGPT's walk, the
@@ -1803,7 +1920,7 @@ def phase_path_b(tokens, dense, microbatch=8):
     L, H = cfg.num_layers, cfg.num_heads
     n_cal = math.ceil(len(calib) / microbatch)
     n_ev = math.ceil(ebft_run.EVAL_SAMPLES / microbatch)
-    steps = sum(r.epochs_run for r in res.reports) * n_cal
+    steps = sum(_epochs_computed(r, spec.epochs) for r in res.reports) * n_cal
     lo = res.baselines["lora"]
     n_lora = len(lo["losses"])
     # block forwards through the masked linears: the pruned and tuned evals,
@@ -2356,10 +2473,11 @@ def phase_tiny_crosscheck():
 def phase_tiny_ebft(model, weights, masks_cpu, calib, ev, rel=1e-4, arch="tiny_dense",
                     ecfg=None, calib_x=None, ev_x=None):
     """EBFT on tiny_dense in f32 from the same weights and the same (CPU)
-    masks on the card (kernels, their backward) and on the CPU (plain
-    versions): equal epochs_run and early stops per block, loss histories
-    and the EBFT perplexity within rel 1e-4 (f32, sums taken in another
-    order). ``ecfg`` defaults to the tests' EBFT settings (lr 1e-2, 8
+    masks on the card (kernels, their backward; the fused loop with the
+    teacher on a side stream) and on the CPU (plain versions, the fused
+    loop): every block on the fused path on both, equal epochs_run and
+    early stops per block, loss histories and the EBFT perplexity within
+    rel 1e-4 (f32, sums taken in another order). ``ecfg`` defaults to the tests' EBFT settings (lr 1e-2, 8
     epochs, patience 3); ``calib_x`` and ``ev_x`` are the segments' other
     batch arrays (a VLM's patches)."""
     from repro_torch import interop
@@ -2378,6 +2496,9 @@ def phase_tiny_ebft(model, weights, masks_cpu, calib, ev, rel=1e-4, arch="tiny_d
         out[dev] = dict(reports=reports, ppl=perplexity(model, tuned, ev, extra_batch=ev_x,
                                                         masks=masks))
     worst = 0.0
+    paths = {r.path for dev in out for r in out[dev]["reports"]}
+    if ecfg.fused_epochs and paths != {"fused"}:
+        raise AssertionError(f"tiny EBFT: blocks ran {paths}, not the fused loop")
     for a, b in zip(out["cuda"]["reports"], out["cpu"]["reports"]):
         if (a.epochs_run, a.early_stop) != (b.epochs_run, b.early_stop):
             raise AssertionError(f"tiny EBFT: block {a.index} ran {a.epochs_run} "
@@ -2387,7 +2508,7 @@ def phase_tiny_ebft(model, weights, masks_cpu, calib, ev, rel=1e-4, arch="tiny_d
             worst = max(worst, abs(x - y) / abs(y))
     ppl_rel = abs(out["cuda"]["ppl"] / out["cpu"]["ppl"] - 1.0)
     emit(dict(phase="tiny_ebft", arch=arch, dtype="float32", lr=ecfg.lr,
-              epochs=ecfg.epochs, patience=ecfg.patience,
+              epochs=ecfg.epochs, patience=ecfg.patience, paths=sorted(paths),
               epochs_run=[r.epochs_run for r in out["cuda"]["reports"]],
               early_stop=[r.early_stop for r in out["cuda"]["reports"]],
               worst_loss_rel=worst, ppl_cuda=out["cuda"]["ppl"], ppl_cpu=out["cpu"]["ppl"],
@@ -2953,7 +3074,7 @@ def _moe_expert_readings(model, params, calib, block=1, microbatch=8):
     return out
 
 
-def _moe_expected(cfg, res, microbatch=8):
+def _moe_expected(cfg, res, epochs, microbatch=8):
     """The MoE path's launches, by the same count as the Llama path's
     (``phase_slice``): every masked forward of a block runs its 7 2-D
     masked linears (attention, and the dense MLP or the shared experts)
@@ -2962,8 +3083,8 @@ def _moe_expected(cfg, res, microbatch=8):
     L, n_dense = cfg.num_layers, cfg.moe_first_dense
     n_cal = math.ceil(MOE["calib"] / microbatch)
     n_ev = math.ceil(MOE["eval"] / microbatch)
-    steps = sum(r.epochs_run for r in res.reports) * n_cal
-    steps_moe = sum(r.epochs_run for r in res.reports if r.index >= n_dense) * n_cal
+    steps = sum(_epochs_computed(r, epochs) for r in res.reports) * n_cal
+    steps_moe = sum(_epochs_computed(r, epochs) for r in res.reports if r.index >= n_dense) * n_cal
     per_block = n_cal + 2 * n_ev + 3 * n_cal  # prune walk, two evals, EBFT's evals + advance
     masked_fwd = L * per_block + steps
     pre = MOE["pretrain_steps"] * MOE["microbatches"]
@@ -3086,7 +3207,7 @@ def phase_moe(walls):
     peak = torch.cuda.max_memory_allocated() / 2**30
     summ = obs_run.payload()["metrics"]
     art = finish_obs(obs_run, ebft_run.bench_record(spec, res, summ), "BENCH_ebft_moe.json")
-    expected = _sum_counts(_moe_expected(cfg, res),
+    expected = _sum_counts(_moe_expected(cfg, res, spec.epochs),
                            _baselines_expected(model, res, MOE["calib"], MOE["eval"]))
     stats = kernel_stats(art["metrics"])
     phases = {}
@@ -3334,7 +3455,7 @@ def _masked_leaves(g, groups, phase, m_rows=M_ROWS):
     return out
 
 
-def _family_expected(cfg, res, microbatches):
+def _family_expected(cfg, res, microbatches, epochs):
     """The path's launches, counted as the Llama and moe paths' are: a
     masked forward of a Mamba block runs its 6 masked projections (in_z,
     in_x, in_B, in_C, in_dt, out), one of the hybrid's shared block its 7
@@ -3350,8 +3471,9 @@ def _family_expected(cfg, res, microbatches):
     per_block = n_cal + 2 * n_ev + 3 * n_cal
     shared = cfg.num_layers if cfg.family == "hybrid" else None
     sites = cfg.num_layers // cfg.hybrid_attn_every if shared is not None else 0
-    steps_m = sum(r.epochs_run for r in res.reports if r.index != shared) * n_cal
-    steps_s = sum(r.epochs_run for r in res.reports if r.index == shared) * n_cal * sites
+    steps_m = sum(_epochs_computed(r, epochs) for r in res.reports if r.index != shared) * n_cal
+    steps_s = sum(_epochs_computed(r, epochs) for r in res.reports
+                  if r.index == shared) * n_cal * sites
     fwd_m = cfg.num_layers * per_block + steps_m
     fwd_s = sites * per_block + steps_s
     pre = FAM["pretrain_steps"] * microbatches
@@ -3459,7 +3581,7 @@ def phase_family(family: str, walls):
     summ = obs_run.payload()["metrics"]
     art = finish_obs(obs_run, ebft_run.bench_record(spec, res, summ),
                      f"BENCH_ebft_{family}.json")
-    expected = _sum_counts(_family_expected(cfg, res, f["microbatches"]),
+    expected = _sum_counts(_family_expected(cfg, res, f["microbatches"], spec.epochs),
                            _baselines_expected(model, res, FAM["calib"], FAM["eval"],
                                                FAM_LORA["steps"]))
     stats = kernel_stats(art["metrics"])
@@ -3724,7 +3846,7 @@ def phase_masked_matmul_vlm(g):
     return _masked_leaves(g, VLM_LEAVES, "masked_matmul_vlm")
 
 
-def _vlm_expected(cfg, res):
+def _vlm_expected(cfg, res, epochs):
     """The tuning run's launches, counted as ``_family_expected`` counts a
     dense block's: 7 masked linears and the attention per block forward;
     per block the prune walk's student advance, the two evaluations with
@@ -3735,7 +3857,7 @@ def _vlm_expected(cfg, res):
     n_cal = math.ceil(VLM["calib"] / 8)
     n_ev = math.ceil(VLM["eval"] / 8)
     L = cfg.num_layers
-    steps = sum(r.epochs_run for r in res.reports) * n_cal
+    steps = sum(_epochs_computed(r, epochs) for r in res.reports) * n_cal
     fwd = L * (n_cal + 2 * n_ev + 3 * n_cal) + steps
     out = {k: 0 for k in _counters()}
     out.update(masked_matmul=7 * fwd, masked_matmul_dx=7 * steps, masked_matmul_dw=7 * steps,
@@ -3920,7 +4042,7 @@ def phase_vlm(walls):
                              tuned=tuned, reports=reports)
     summ = obs_run.payload()["metrics"]
     art = finish_obs(obs_run, ebft_run.bench_record(spec, res, summ), "BENCH_ebft_vlm.json")
-    expected = _vlm_expected(cfg, res)
+    expected = _vlm_expected(cfg, res, spec.epochs)
     pre_expected = {k: 0 for k in launches}
     pre_expected.update(flash_attention=cfg.num_layers * tspec.steps,
                         flash_attention_bwd=cfg.num_layers * tspec.steps)
@@ -4050,7 +4172,7 @@ def phase_masked_matmul_encdec(g):
     return out
 
 
-def _encdec_expected(cfg, res):
+def _encdec_expected(cfg, res, epochs):
     """The tuning run's launches, from the block structure: a forward of an
     encoder block runs 6 masked linears and 1 bidirectional attention, of a
     decoder block 10 masked linears (2 of them cross-attention's memory
@@ -4067,8 +4189,8 @@ def _encdec_expected(cfg, res):
     n_cal = math.ceil(ENCDEC["calib"] / 8)
     n_ev = math.ceil(ENCDEC["eval"] / 8)
     E, D = cfg.enc_layers, cfg.num_layers
-    steps_e = sum(r.epochs_run for r in res.reports if r.kind == "enc") * n_cal
-    steps_d = sum(r.epochs_run for r in res.reports if r.kind == "dec") * n_cal
+    steps_e = sum(_epochs_computed(r, epochs) for r in res.reports if r.kind == "enc") * n_cal
+    steps_d = sum(_epochs_computed(r, epochs) for r in res.reports if r.kind == "dec") * n_cal
     per_block = n_cal + 2 * n_ev + 3 * n_cal  # masked forwards a block, bar the steps
     out = {k: 0 for k in _counters()}
     out.update(masked_matmul=6 * (E * per_block + steps_e + E * n_cal)
@@ -4176,7 +4298,7 @@ def phase_encdec(walls):
                              tuned=tuned, reports=reports)
     summ = obs_run.payload()["metrics"]
     art = finish_obs(obs_run, ebft_run.bench_record(spec, res, summ), "BENCH_ebft_encdec.json")
-    expected = _encdec_expected(cfg, res)
+    expected = _encdec_expected(cfg, res, spec.epochs)
     attn_pre = (cfg.enc_layers + 2 * cfg.num_layers) * tspec.steps * tspec.microbatches
     pre_expected = {k: 0 for k in launches}
     pre_expected.update(flash_attention=attn_pre, flash_attention_bwd=attn_pre)
@@ -5718,9 +5840,11 @@ def mesh_families_rank():
     for fam, conf in confs.items():
         if fam == "moe" and after:
             _wait_for(after, 600, "the other mesh's MoE never ended")
+        mem = [_card_gib()] if device == "cuda" else []
+        print(f"{fam} start {mem}", flush=True)
         t0 = time.perf_counter()
         model, params, pruned, masks, calib, extra = _mesh_setup(device, conf["layers"], conf)
-        rec = {"setup_s": time.perf_counter() - t0}
+        rec = {"setup_s": time.perf_counter() - t0, "mem": mem}
         if device == "cuda":
             torch.cuda.reset_peak_memory_stats()
         reset_counts()
@@ -5738,6 +5862,8 @@ def mesh_families_rank():
                           for p, t in T.leaves_with_path(tuned)})
         if device == "cuda":
             rec["walk_peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+            mem.append(_card_gib())
+            print(f"{fam} walked {mem[-1]}", flush=True)
         del model, params, pruned, masks, tuned
         if device == "cuda":
             torch.cuda.empty_cache()
@@ -5747,6 +5873,9 @@ def mesh_families_rank():
                                   parts=FAMILY_PARTS[fam][key], layouts=(False,),
                                   dtypes=FAMILY_DTYPES[fam])
         rec["cells_s"] = time.perf_counter() - t0
+        if device == "cuda":
+            mem.append(_card_gib())
+            print(f"{fam} cells {mem[-1]}", flush=True)
         samples[fam] = {k: v.pop("samples") for k, v in rec["cells"].items() if "samples" in v}
         if device == "cuda":
             torch.cuda.empty_cache()
@@ -5786,6 +5915,16 @@ def _unsum_router():
         return local_map(fn, *a, **kw)
 
     E.local_map = unsummed
+
+
+def _card_gib() -> dict:
+    """This process's allocated and reserved GiB and the card's free GiB
+    (every process's use counts against it)."""
+    import torch
+
+    free, _ = torch.cuda.mem_get_info()
+    return dict(t=time.perf_counter(), allocated=torch.cuda.memory_allocated() / 2**30,
+                reserved=torch.cuda.memory_reserved() / 2**30, card_free=free / 2**30)
 
 
 def _wait_for(path, seconds, what):
@@ -5953,6 +6092,8 @@ def phase_mesh_families(walls, device="cuda", confs=FAMILY_MESH, cells=FAMILY_CE
         for fam, conf in confs.items():  # one process, before the ranks start
             one[fam] = _family_one(device, fam, conf, cells, tmp, shapes)
         t_mesh = time.perf_counter()
+        if device == "cuda":  # what this process holds while the ranks run
+            emit(dict(phase="mesh_families_memory", parent=_card_gib()))
         open(go, "w").close()
         for (key, _), p in zip(jobs, procs):
             p.wait(timeout=900)
@@ -6261,6 +6402,9 @@ def main(argv=()) -> int:
     t0 = time.perf_counter()
     in_run = phase_obs(cfg, res, art_main, launches, tokens)
     walls["obs"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    phase_fused(cfg, res, tokens)
+    walls["fused"] = time.perf_counter() - t0
     # serving: the pretrained weights, then the main path's Wanda-0.7 EBFT ones
     t0 = time.perf_counter()
     serve_launches = phase_serve(cfg, {"pretrained": res.dense, "ebft": res.tuned})

@@ -36,6 +36,7 @@ import torch
 
 from repro_torch import tree as T
 from repro_torch.core import reconstruction as R
+from repro_torch.distributed import local_kernels as LK
 from repro_torch.obs import metrics as OM
 from repro_torch.obs import trace as OT
 from repro_torch.obs.profile import DispatchLedger, FirstCallTimer, compile_clock
@@ -162,22 +163,27 @@ def _aux_kw(aux: Dict) -> Dict:
 
 def walk_blocks(model, params, calib: np.ndarray, visit_fn: Callable, microbatch: int = 8,
                 extra_batch: Optional[Dict] = None, params_student=None, masks=None,
-                dual_stream: bool = False, mesh_plan=None):
-    """Block-by-block calibration walk over per-microbatch lists.
+                dual_stream: bool = False, prefetch_depth: int = 0, mesh_plan=None):
+    """Block-by-block calibration walk.
 
     Single-stream mode (the pruning methods, Wanda/SparseGPT convention):
-    one stream advances through the already-updated blocks. The reference
-    also hands each such visit ``target_mb``, the dense block's output on
-    the same input; no ported pruning visitor reads it, so this mode does
-    not compute it.
+    one stream advances, as per-microbatch lists, through the
+    already-updated blocks. The reference also hands each such visit
+    ``target_mb``, the dense block's output on the same input; no ported
+    pruning visitor reads it, so this mode does not compute it.
 
-    Dual-stream mode (EBFT, Eq. 3/4): the teacher stream propagates through
-    the dense ``params`` and the student stream through
-    ``params_student``; each visit sees the student's inputs (``h_mb``) and
-    the teacher's outputs (``target_mb``), computed just before the visit
-    (the reference's prefetch depth 0). Enqueuing the teacher ahead on the
-    same stream overlaps nothing on the card; a side-stream teacher is
-    later work (ROADMAP.md).
+    Dual-stream mode (EBFT and mask tuning, Eq. 3/4): the teacher stream
+    propagates through the dense ``params`` and the student stream
+    through ``params_student``; each visit sees the student's inputs
+    (``h_mb``) and the teacher's outputs (``target_mb``). When every
+    microbatch has the same shapes (``_uniform_microbatches``) the streams
+    are kept stacked (``_walk_blocks_stacked``): each is one tensor with a
+    leading microbatch axis, the teacher runs ``prefetch_depth`` visits
+    ahead of the visitor (:class:`TeacherPrefetcher`), and the visit also
+    receives ``h_st``, ``target_st``, ``pos_st`` and ``aux_st``, so a fused
+    tuner never re-stacks; its ``*_mb`` are then :class:`Unstacked` views.
+    Ragged shapes fall back to the per-microbatch list walk, with the
+    teacher computed just before each visit.
 
     ``extra_batch`` holds the batch's other arrays beside the tokens (the
     VLM's ``patches`` (N, P, d), the encoder-decoder's ``frames`` (N, F,
@@ -205,34 +211,44 @@ def walk_blocks(model, params, calib: np.ndarray, visit_fn: Callable, microbatch
 
     Observability (dual-stream mode, as the reference's stacked walk): each
     visit is wrapped in the spans ``walk/teacher``, ``walk/tune`` and
-    ``walk/student`` (``block=i``), each fencing its result, so a live run
-    adds three synchronises a block. Their seconds, less the first calls'
-    host time (``FirstCallTimer`` on the advances, drained from the
-    compile clock per phase), go to the histograms
+    ``walk/student`` (``block=i``). The tune and student spans fence their
+    result on the walk's stream (``trace.fence``, which leaves a prefetched
+    teacher on its side stream running); the teacher span holds the
+    prefetcher's wait for the visit's targets. Their seconds, less the
+    first calls' host time (``FirstCallTimer`` on the advances, drained
+    from the compile clock per phase), go to the histograms
     ``ebft/walk/{teacher,tune,student}_s`` and the first calls' to
-    ``…_compile_s``. A ``DispatchLedger("ebft/walk")`` counts one dispatch
-    per microbatch advance: each stream's ``h0`` per segment, then the
-    teacher's and the student's advance per block. The reference counts
-    one per scanned advance of the stacked microbatches; the port's loop
-    advances microbatch by microbatch, and that is its unit; a segment's
-    aux counts one more per microbatch and stream. The
-    reference's ``ebft/walk/prefetch_inflight`` gauge has no counterpart
-    (no prefetcher).
+    ``…_compile_s``; the stacked walk also sets the gauge
+    ``ebft/walk/prefetch_inflight`` after each visit. A
+    ``DispatchLedger("ebft/walk")`` counts the reference's units: in the
+    stacked walk 4 per segment setup (each stream's start and aux) and one
+    per stacked advance of a stream, and one host sync per teacher wait;
+    in the list walk one per microbatch advance (each stream's ``h0`` per
+    segment, a segment's aux one more per microbatch and stream, then the
+    teacher's and the student's advance per block).
 
     With an active ``mesh_plan`` (EBFT on a mesh, ``core/ebft.py``) each
     microbatch of both streams, and of both streams' segment aux (the
     memory (B, F, d)), is sharded on its batch dim over the data axes when
     its segment starts (``plan.put_stacked``, the microbatch's own
-    ``microbatch_spec``); the advances run
+    ``microbatch_spec``; a stacked stream holds each rank's pieces under
+    the same placements one dim further); the advances run
     SPMD on those shards, with the blocks' weights whole on every rank,
     under the plan's activation policy (``act_sharding``) and DTensor's
-    implicit replication of plain tensors. ``visit_fn`` returns whole
-    tensors.
+    implicit replication of plain tensors. The teacher is then prefetched
+    on the walk's own stream. ``visit_fn`` returns whole tensors.
     """
+    out_params = params_student if params_student is not None else params
+    if dual_stream and out_params is params:
+        raise ValueError("walk_blocks: the dual-stream walk needs a student tree of its own "
+                         "(set_block writes in place; the teacher must stay dense)")
     put = mesh_plan.put_stacked if mesh_plan is not None else (lambda x: x)
+    batch_all = _make_batches(calib, microbatch, params["embed"]["tok"].device, extra_batch)
     with mesh_scope(mesh_plan):
-        return _walk(model, params, calib, visit_fn, microbatch, extra_batch, params_student,
-                     masks, dual_stream, put)
+        if dual_stream and _uniform_microbatches(batch_all):
+            return _walk_blocks_stacked(model, params, out_params, batch_all, visit_fn, masks,
+                                        prefetch_depth, mesh_plan, put)
+        return _walk(model, params, out_params, batch_all, visit_fn, masks, dual_stream, put)
 
 
 def mesh_scope(mesh_plan):
@@ -251,14 +267,8 @@ def mesh_scope(mesh_plan):
     return stack
 
 
-def _walk(model, params, calib, visit_fn, microbatch, extra_batch, params_student, masks,
-          dual_stream, put_stream):
-    out_params = params_student if params_student is not None else params
-    if dual_stream and out_params is params:
-        raise ValueError("walk_blocks: the dual-stream walk needs a student tree of its own "
-                         "(set_block writes in place; the teacher must stay dense)")
-    device = params["embed"]["tok"].device
-    batch_all = _make_batches(calib, microbatch, device, extra_batch)
+def _walk(model, params, out_params, batch_all, visit_fn, masks, dual_stream, put_stream):
+    """The per-microbatch list walk (the pruning methods; ragged EBFT)."""
     span = OT.span if dual_stream else (lambda name, **attrs: OT.NULL_SPAN)
     ledger = DispatchLedger("ebft/walk")
     clock = compile_clock()
@@ -313,4 +323,300 @@ def _walk(model, params, calib, visit_fn, microbatch, extra_batch, params_studen
                                      ("student", sp_s, c_student)):
                     OM.histogram(f"ebft/walk/{phase}_s").observe(max(sp.duration - c, 0.0))
                     OM.histogram(f"ebft/walk/{phase}_compile_s").observe(c)
+    return out_params
+
+
+# ---------------------------------------------------------------------------
+# The stacked dual-stream walk (uniform microbatches)
+# ---------------------------------------------------------------------------
+def _nest_map(fn: Callable, nest, *rest):
+    """``fn`` over the tensors of a nest of dicts, tuples and lists (and
+    the matching leaves of ``rest``); other leaves pass."""
+    if isinstance(nest, dict):
+        return {k: _nest_map(fn, v, *(r[k] for r in rest)) for k, v in nest.items()}
+    if isinstance(nest, (tuple, list)):
+        return type(nest)(_nest_map(fn, v, *(r[j] for r in rest)) for j, v in enumerate(nest))
+    return fn(nest, *rest) if isinstance(nest, torch.Tensor) else nest
+
+
+def _signature(nest):
+    """A nest's structure with each tensor's shape and dtype."""
+    if isinstance(nest, dict):
+        return ("d",) + tuple((k, _signature(v)) for k, v in nest.items())
+    if isinstance(nest, (tuple, list)):
+        return (type(nest).__name__,) + tuple(_signature(v) for v in nest)
+    if isinstance(nest, torch.Tensor):
+        return tuple(nest.shape), nest.dtype
+    return ("v", type(nest).__name__)
+
+
+def _uniform_microbatches(batch_all: List) -> bool:
+    """True when every microbatch has the same structure and leaf shapes
+    (the stacked walk and the fused tuner need a uniform leading axis)."""
+    return bool(batch_all) and all(_signature(b) == _signature(batch_all[0])
+                                   for b in batch_all[1:])
+
+
+def _shifted(placements, by: int):
+    """A microbatch's placements on its stack (``by`` 1) or back (-1): a
+    sharded dim moves past the microbatch axis."""
+    from torch.distributed.tensor import Shard
+
+    return [Shard(p.dim + by) if isinstance(p, Shard) else p for p in placements]
+
+
+def _from_local(local, mesh, placements, shape):
+    from torch.distributed.tensor import DTensor
+
+    shape = torch.Size(shape)
+    return DTensor.from_local(local, mesh, placements, run_check=False, shape=shape,
+                              stride=torch.empty(shape, device="meta").stride())
+
+
+def _stacked_buffer(x: torch.Tensor, n: int) -> torch.Tensor:
+    """An (n, *x.shape) tensor like ``x`` for ``n`` microbatches, not yet
+    written. A DTensor's is each rank's pieces stacked, under ``x``'s
+    placements one dim further."""
+    if LK.any_dtensor(x):
+        local = x.to_local()
+        return _from_local(torch.empty((n, *local.shape), dtype=local.dtype, device=local.device),
+                           x.device_mesh, _shifted(x.placements, 1), (n, *x.shape))
+    return torch.empty((n, *x.shape), dtype=x.dtype, device=x.device)
+
+
+def _microbatch(st: torch.Tensor, j: int) -> torch.Tensor:
+    """Microbatch ``j`` of a stacked tensor: a view, no copy."""
+    if LK.any_dtensor(st):
+        return _from_local(st.to_local()[j], st.device_mesh, _shifted(st.placements, -1),
+                           st.shape[1:])
+    return st[j]
+
+
+def _write_microbatch(st: torch.Tensor, j: int, x: torch.Tensor) -> None:
+    if LK.any_dtensor(st):
+        if list(_shifted(st.placements, -1)) != list(x.placements):
+            raise ValueError(f"stacked walk: microbatch {j} is laid out {x.placements}, "
+                             f"the stream {_shifted(st.placements, -1)}")
+        st.to_local()[j].copy_(x.to_local())
+    else:
+        st[j].copy_(x)
+
+
+def _stack_map(fn: Callable, n: int):
+    """``fn(j)`` for each microbatch ``j < n`` (a nest of tensors), written
+    into one stacked nest as it comes, so that one microbatch's
+    intermediates are live at a time (the reference's ``lax.map``)."""
+    out = None
+    with torch.no_grad():
+        for j in range(n):
+            y = fn(j)
+            if out is None:
+                out = _nest_map(lambda t: _stacked_buffer(t, n), y)
+            _nest_map(lambda o, t: _write_microbatch(o, j, t), out, y)
+    return out
+
+
+def stacked_len(stacked) -> int:
+    """The microbatches of a stacked nest (its tensors' leading dim)."""
+    return next(iter(T.tensors(stacked))).shape[0]
+
+
+class Unstacked:
+    """Lazy per-microbatch views of a stacked nest.
+
+    The stacked walk keeps each stream as one tensor with a leading
+    microbatch axis; visitors that read lists (mask tuning, the legacy
+    tuning loop) read ``ctx["h_mb"][j]``, which is a view of microbatch
+    ``j`` (no copy), so a visitor that reads only the stacked form (the
+    fused tuner) costs nothing here."""
+
+    __slots__ = ("tree", "n")
+
+    def __init__(self, tree, n: int):
+        self.tree = tree
+        self.n = n
+
+    def __len__(self) -> int:
+        return self.n
+
+    def __getitem__(self, j):
+        if not -self.n <= j < self.n:
+            raise IndexError(j)
+        return _nest_map(lambda a: _microbatch(a, j), self.tree)
+
+    def __iter__(self):
+        return (self[j] for j in range(self.n))
+
+
+def _advance_stacked(model, params, i: int, bp, h_st, pos_st, aux_st, masks_b=None):
+    """Block ``i`` over every microbatch of a stacked stream, into one
+    stacked output (one stacked advance: the reference's ``adv_scan``)."""
+    def one(j):
+        aux = _nest_map(lambda a: _microbatch(a, j), aux_st)
+        return R.advance_with(model, params, i, bp, _microbatch(h_st, j), _microbatch(pos_st, j),
+                              masks_b, **_aux_kw(aux))
+
+    return _stack_map(one, stacked_len(h_st))
+
+
+class TeacherPrefetcher:
+    """The teacher stream enqueued ahead of the visitor (the reference's
+    dispatch-ahead prefetcher, DESIGN.md §3).
+
+    The teacher depends only on the dense ``params``, never on the
+    student's updates, so visit k+1 … k+depth's targets can be enqueued
+    while visit k tunes. On the card they run on ``stream``, a side
+    stream of the walk's device: at segment setup it waits on an event
+    recorded after the teacher's start, positions and aux, and each
+    visit's targets get an event of their own. ``get(k)`` synchronises
+    visit k's event (one host sync, where the reference calls
+    ``block_until_ready``), makes the walk's stream wait on it and hands
+    each target tensor over to that stream (``record_stream``), so the
+    caching allocator cannot give its memory away under a read still
+    queued there. At most ``depth + 1`` visits' targets are alive.
+
+    ``stream`` None (the CPU, depth 0, an active mesh plan, whose gloo
+    collectives cross the host) enqueues on the walk's own stream: only
+    the order of the calls changes, and ``get`` fences the targets.
+    ``depth`` 0 is the strictly serial order: visit k's targets are
+    computed just before visit k.
+    """
+
+    def __init__(self, model, params, visits, adv: Callable, ht_st, pos_st, aux_t_st,
+                 depth: int, ledger=None, stream=None):
+        self.model = model
+        self.params = params
+        self.visits = visits
+        self.adv = adv
+        self.pos_st = pos_st
+        self.aux_t_st = aux_t_st
+        self.depth = max(int(depth), 0)
+        self.ledger = ledger
+        self.stream = stream
+        self._ht = ht_st                    # the teacher stream before visit _next
+        self._targets: Dict[int, Tuple] = {}  # visit -> (stacked targets, its event)
+        self._next = 0
+        if stream is not None:
+            ready = torch.cuda.Event()
+            ready.record(torch.cuda.current_stream(stream.device))
+            stream.wait_event(ready)
+            for t in T.tensors((ht_st, pos_st, aux_t_st)):
+                t.record_stream(stream)  # made on the walk's stream, read on this one
+
+    def _dispatch_until(self, k: int) -> None:
+        last = min(k, len(self.visits) - 1)
+        while self._next <= last:
+            i, _site = self.visits[self._next]
+            dense_bp = self.model.get_block(self.params, i)
+            with (torch.cuda.stream(self.stream) if self.stream is not None
+                  else contextlib.nullcontext()):
+                t = self.adv(self.model, self.params, i, dense_bp, self._ht, self.pos_st,
+                             self.aux_t_st)
+                done = None
+                if self.stream is not None:
+                    done = torch.cuda.Event()
+                    done.record(self.stream)
+            if self.ledger is not None:
+                self.ledger.dispatch()
+            self._targets[self._next] = (t, done)
+            self._ht = t                    # Eq. 3: the teacher feeds the teacher
+            self._next += 1
+
+    def in_flight(self) -> int:
+        return len(self._targets)
+
+    def get(self, k: int):
+        """Visit ``k``'s stacked targets, waited for where they are consumed."""
+        self._dispatch_until(k + self.depth)
+        t, done = self._targets.pop(k)
+        if done is None:
+            OT.fence(t)
+        else:
+            done.synchronize()
+            walk = torch.cuda.current_stream(self.stream.device)
+            walk.wait_event(done)
+            for x in T.tensors(t):
+                x.record_stream(walk)
+        if self.ledger is not None:
+            self.ledger.host_sync()
+        return t
+
+
+_SIDE_STREAMS: Dict[torch.device, "torch.cuda.Stream"] = {}
+
+
+def _side_stream(device: torch.device):
+    """The teacher's side stream on ``device``, one for the process. cuBLAS
+    keeps a workspace for every stream it has run on until the process
+    ends, and ``empty_cache`` does not return it, so a new stream for each
+    walk would leave a workspace behind each time, and with it the cached
+    segment it sits in."""
+    if device not in _SIDE_STREAMS:
+        _SIDE_STREAMS[device] = torch.cuda.Stream(device)
+    return _SIDE_STREAMS[device]
+
+
+def _walk_blocks_stacked(model, params, out_params, batch_all, visit_fn, masks,
+                         prefetch_depth: int, mesh_plan, put_stream):
+    """The stacked dual-stream walk: one stacked advance per stream and
+    block, the teacher ``prefetch_depth`` visits ahead. On an active plan
+    every microbatch of both streams is put on the data axes when its
+    segment starts, so every advance and every prefetched target stays
+    sharded."""
+    sharded = mesh_plan is not None and mesh_plan.active
+    ledger = DispatchLedger("ebft/walk", devices=mesh_plan.device_count if sharded else 1)
+    clock = compile_clock()
+    clock.take()  # drop first-call time booked before this walk started
+    n = len(batch_all)
+    device = params["embed"]["tok"].device
+    side = (_side_stream(device) if device.type == "cuda" and prefetch_depth > 0
+            and not sharded else None)
+    adv = FirstCallTimer(_advance_stacked)
+    for seg in R.execution_plan(model):
+        def h0(tree):
+            def one(j):
+                h, pos = seg.h0(tree, batch_all[j])
+                return put_stream(h), pos
+            return _stack_map(one, n)
+
+        # stream setup: each stream's start and aux, the reference's 4 dispatches
+        ht_st, pos_st = h0(params)
+        hs_st, _ = h0(out_params)
+        aux_t_st = aux_s_st = {}
+        if seg.aux is not None:
+            # the memory with its microbatch: the same rows on the same ranks
+            aux_t_st = _stack_map(lambda j: put_stream(seg.aux(params, batch_all[j])), n)
+            aux_s_st = _stack_map(lambda j: put_stream(seg.aux(out_params, batch_all[j], masks)),
+                                  n)
+        ledger.dispatch(4)
+        pf = TeacherPrefetcher(model, params, seg.visits, adv, ht_st, pos_st, aux_t_st,
+                               prefetch_depth, ledger=ledger, stream=side)
+        del ht_st  # the prefetcher holds the teacher stream from here
+        clock.take()  # segment setup is not a phase
+        for k, (i, site) in enumerate(seg.visits):
+            with OT.span("walk/teacher", block=i) as sp_t, torch.no_grad():
+                target_st = pf.get(k)
+            c_teacher = clock.take()
+            bp = model.get_block(out_params, i)
+            ctx = dict(h_st=hs_st, target_st=target_st, pos_st=pos_st, aux_st=aux_s_st,
+                       site=site, h_mb=Unstacked(hs_st, n), target_mb=Unstacked(target_st, n),
+                       pos_mb=Unstacked(pos_st, n), aux_mb=Unstacked(aux_s_st, n))
+            with OT.span("walk/tune", block=i) as sp_v:
+                new_bp = sp_v.fence(visit_fn(i, bp, ctx))
+            c_tune = clock.take()
+            del ctx, target_st  # gone before the next teacher advance is enqueued
+            if new_bp is not None:
+                out_params = model.set_block(out_params, i, new_bp)
+                bp = model.get_block(out_params, i)
+            mb = model.get_block(masks, i) if masks is not None else None
+            with OT.span("walk/student", block=i) as sp_s, torch.no_grad():
+                hs_st = sp_s.fence(adv(model, out_params, i, bp, hs_st, pos_st, aux_s_st, mb))
+                ledger.dispatch()
+            c_student = clock.take()
+            if OT.enabled():
+                for phase, sp, c in (("teacher", sp_t, c_teacher), ("tune", sp_v, c_tune),
+                                     ("student", sp_s, c_student)):
+                    OM.histogram(f"ebft/walk/{phase}_s").observe(max(sp.duration - c, 0.0))
+                    OM.histogram(f"ebft/walk/{phase}_compile_s").observe(c)
+                OM.gauge("ebft/walk/prefetch_inflight").set(pf.in_flight())
     return out_params

@@ -45,35 +45,45 @@ def parse(spec_cls, argv: Optional[Sequence[str]], prog: str, description: str,
           device: bool = True) -> Tuple[object, Optional[str]]:
     """(spec, device) from ``argv``; device None means the card. With
     ``device=False`` there is no ``--device`` (a launcher that uses no
-    device: the dry run) and the device is None."""
+    device: the dry run) and the device is None. A field's ``help``
+    metadata is its flag's help; a spec's ``validate()``, where it has
+    one, runs on the parsed spec, and its ValueError is the parser's usage
+    error (exit 2)."""
     ap = argparse.ArgumentParser(prog=prog, description=description)
     choices = choices or {}
     for f in dataclasses.fields(spec_cls):
         flag = "--" + f.name.replace("_", "-")
         if isinstance(f.default, bool):
-            ap.add_argument(flag, action="store_true", default=f.default)
+            ap.add_argument(flag, action="store_true", default=f.default,
+                            help=f.metadata.get("help"))
         else:
             ap.add_argument(flag, type=type(f.default), default=f.default,
-                            choices=choices.get(f.name))
+                            choices=choices.get(f.name), help=f.metadata.get("help"))
     if device:
         ap.add_argument("--device", default=None,
                         help="cuda (the default) or cpu; never falls back")
     args = vars(ap.parse_args(argv))
-    return spec_cls(**{k: v for k, v in args.items() if k != "device"}), args.get("device")
+    spec = spec_cls(**{k: v for k, v in args.items() if k != "device"})
+    try:
+        if hasattr(spec, "validate"):
+            spec.validate()
+    except ValueError as e:
+        ap.error(str(e))  # a usage error at parse time, as the reference's from_argv
+    return spec, args.get("device")
 
 
 def to_manifest(spec, kind: str) -> Dict[str, Any]:
     """The manifest header of the reference's ``RunSpec.to_manifest``:
     ``run_spec`` (``kind`` and every field of the spec) and the flat keys
-    the reference's artifacts carry. The port's EBFT is the per-epoch loop:
-    ``fused_epochs`` False, ``prefetch_depth`` 0; ``mesh`` is the
-    requested (data, model) axes, as the reference's."""
+    the reference's artifacts carry: ``fused_epochs`` (not
+    ``--no-fused-epochs``), ``prefetch_depth``, and ``mesh``, the requested
+    (data, model) axes."""
     out: Dict[str, Any] = {"run_spec": {"kind": kind, **dataclasses.asdict(spec)}}
     if kind == "ebft":
         out.update({
             "ebft_lr": spec.lr, "ebft_epochs": spec.epochs,
             "calib_samples": spec.calib_samples, "seq": spec.seq, "seed": spec.seed,
-            "fused_epochs": False, "prefetch_depth": 0,
+            "fused_epochs": not spec.no_fused_epochs, "prefetch_depth": spec.prefetch_depth,
             "mesh": {"data": spec.mesh_data, "model": spec.mesh_model},
         })
     elif kind == "train":

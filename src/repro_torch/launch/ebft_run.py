@@ -28,6 +28,16 @@ reference's CLI). ``--obs-jsonl`` streams the events as they happen.
 ``--no-obs`` turns all of it off and writes no artifact; the console
 lines are the same either way.
 
+EBFT runs the reference's default path: each block's whole tuning loop
+enqueued with the plateau decided on the card and one host read a block
+(``core.ebft``'s fused loop), the teacher stream one visit ahead on a
+side stream. ``--no-fused-epochs`` runs the per-epoch loop instead (one
+host read an epoch); ``--prefetch-depth N`` puts the teacher N visits
+ahead (at least 1, as the reference's flag; ``EBFTConfig.prefetch_depth=0``
+is the library's strictly serial order). The artifact's ``ebft`` section
+carries both settings, and its ``dispatch`` section ``fused_all_blocks``
+and ``per_block_max``, the reference's.
+
 ``--kernel-tune {off,cache,search}`` (default ``cache``, as the
 reference's) and ``--kernel-cache PATH`` (default
 ``experiments/kernel_cache_torch.json``) drive the tile autotuner
@@ -112,6 +122,12 @@ class RunSpec:
     microbatches: int = 1
     lr: float = 1e-2
     epochs: int = 10
+    no_fused_epochs: bool = dataclasses.field(default=False, metadata={
+        "help": "run the legacy per-microbatch tune loop instead of the fused one (every "
+                "epoch enqueued, the plateau decided on the device, one host read a block)"})
+    prefetch_depth: int = dataclasses.field(default=1, metadata={
+        "help": "teacher stream dispatched this many blocks ahead of the tuner (must be >= 1; "
+                "EBFTConfig.prefetch_depth=0 is the programmatic strictly-serial mode)"})
     baselines: str = ""  # comma list of BASELINES
     bench_out: str = "BENCH_ebft.json"
     no_obs: bool = False
@@ -120,6 +136,16 @@ class RunSpec:
     kernel_cache: str = ""      # "" keeps the tuner's path (experiments/kernel_cache_torch.json)
     mesh_data: int = 1    # the EBFT walk's data axis (0: every rank the model axis leaves)
     mesh_model: int = 1   # its model axis
+
+    def validate(self) -> "RunSpec":
+        """The reference's check that argparse's types cannot express."""
+        if self.prefetch_depth < 1:
+            raise ValueError(
+                f"--prefetch-depth must be >= 1 (got {self.prefetch_depth}); "
+                "the dispatch-ahead teacher stream needs at least one block "
+                "in flight. Strictly serial runs are a library-level mode "
+                "(EBFTConfig.prefetch_depth=0), not a launcher flag.")
+        return self
 
 
 @dataclasses.dataclass
@@ -273,7 +299,8 @@ def run(cfg: ModelConfig, spec: RunSpec, device=None, params: Optional[Any] = No
     ppl[spec.method] = perplexity(model, pruned, ev, masks=masks)  # not a phase, as the reference
     res = RunResult(ppl, phases, sparsity_of(masks, params), params, masks, pruned,
                     pretrain_losses=history, kernel_plans=plans)
-    ecfg = ebft.EBFTConfig(lr=spec.lr, epochs=spec.epochs, mesh_plan=mesh_plan)
+    ecfg = ebft.EBFTConfig(lr=spec.lr, epochs=spec.epochs, fused_epochs=not spec.no_fused_epochs,
+                           prefetch_depth=spec.prefetch_depth, mesh_plan=mesh_plan)
     if mesh_plan is not None:
         res.mesh = mesh_plan.describe()
     with _phase(device, "phase/ebft", lr=spec.lr, epochs=spec.epochs) as sp:
@@ -349,8 +376,9 @@ def bench_record(spec: RunSpec, res: RunResult,
     ``blocks``, ``perplexity``, ``ebft``, ``mesh``, ``dispatch``,
     ``walk_phases`` and ``kernel_tuning``, and the spec as ``run_spec``.
     ``summ`` is the run's metric summary; without it the sections that
-    read it hold None. The port runs the per-epoch loop: no fused blocks,
-    no prefetch; ``mesh`` is the walk's plan (``MeshPlan.describe()``)
+    read it hold None. ``dispatch.per_block_max`` adds the walk's two
+    stream advances to the tune loop's dispatches when every block ran
+    fused, as the reference's; ``mesh`` is the walk's plan (``MeshPlan.describe()``)
     with the peak per-shard live block bytes and the total collective
     bytes, as the reference's. ``kernel_tuning``
     is the tuner's mode, cache path, hits, misses, searches and search
@@ -363,6 +391,7 @@ def bench_record(spec: RunSpec, res: RunResult,
 
     peak = max((r.live_bytes for r in reports), default=None)
     tune_max = max((r.dispatches for r in reports), default=0)
+    fused_all = bool(reports) and all(r.path == "fused" for r in reports)
     return {
         "run_spec": dataclasses.asdict(spec), "phases": res.phases,
         "perplexity": res.perplexity, "blocks": [r.asdict() for r in reports],
@@ -370,8 +399,8 @@ def bench_record(spec: RunSpec, res: RunResult,
             "num_blocks": len(reports),
             "mean_e_drop": _mean_drop(reports),
             "peak_live_block_bytes": peak,
-            "fused_epochs": False,   # the per-epoch loop
-            "prefetch_depth": 0,     # the teacher runs just before each visit
+            "fused_epochs": not spec.no_fused_epochs,
+            "prefetch_depth": spec.prefetch_depth,
             "early_stops": {reason: sum(1 for r in reports if r.early_stop == reason)
                             for reason in {r.early_stop for r in reports}},
         },
@@ -379,13 +408,13 @@ def bench_record(spec: RunSpec, res: RunResult,
                  "peak_live_block_bytes_per_shard": max(
                      (r.live_bytes_per_shard for r in reports), default=None),
                  "collective_bytes_total": sum(r.collective_bytes for r in reports)},
-        # per block: the tune loop's dispatches (the reference's legacy
-        # ledger); the walk's are one per microbatch advance of a stream
+        # per block: the tune loop's dispatches, and in the stacked walk
+        # (every block fused) its two stream advances
         "dispatch": {
             "tune_per_block_max": tune_max,
             "tune_host_syncs_per_block_max": max((r.host_syncs for r in reports), default=0),
-            "per_block_max": tune_max,
-            "fused_all_blocks": False,
+            "per_block_max": tune_max + (2 if fused_all else 0),
+            "fused_all_blocks": fused_all,
             "walk_total": metric("ebft/walk/dispatches", "value"),
             "walk_host_syncs": metric("ebft/walk/host_syncs", "value"),
             "device_dispatches_per_block": {str(r.index): r.device_dispatches for r in reports},

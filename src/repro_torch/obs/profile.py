@@ -132,8 +132,8 @@ class DispatchLedger:
 
 
 # ---------------------------------------------------------------------------
-# kernel launches: (name, flops, bytes, device, start event, end event)
-_PENDING: List[Tuple[str, float, float, torch.device, Any, Any]] = []
+# kernel launches: (name, flops, bytes, device, start event, end event, stream)
+_PENDING: List[Tuple[str, float, float, torch.device, Any, Any, Any]] = []
 # past this many unresolved pairs, a launch books those whose end event has
 # completed (a query, no synchronise), so a loop that never flushes (a
 # training run) holds no more pairs than the card's queue is deep
@@ -171,22 +171,31 @@ def record_kernel(name: str, flops: float, bytes_moved: float, fn: Callable, *ar
     e0.record(stream)
     out = fn(*args, **kw)
     e1.record(stream)
-    _PENDING.append((name, flops, bytes_moved, device, e0, e1))
+    _PENDING.append((name, flops, bytes_moved, device, e0, e1, stream))
     if len(_PENDING) > _PENDING_CAP:
         _book_completed()
     return out
 
 
 def _book_completed() -> None:
-    """Book the pending pairs, oldest first, whose end event has completed,
-    without synchronising; stop at the first one still in the queue."""
-    n = 0
-    for name, flops, bytes_moved, _, e0, e1 in _PENDING:
-        if not e1.query():
+    """Book the pending pairs whose end event has completed, without
+    synchronising, and keep the others in order. A stream's pairs complete
+    in order, so each stream's scan stops at its first pair still in the
+    queue; pairs on two streams (the EBFT walk's prefetched teacher beside
+    the tuning) complete out of order, so one stream's does not hold back
+    the other's."""
+    left, blocked, streams = [], set(), {p[6] for p in _PENDING}
+    for i, pair in enumerate(_PENDING):
+        if len(blocked) == len(streams):
+            left += _PENDING[i:]
             break
-        _book(name, flops, bytes_moved, e0.elapsed_time(e1) / 1e3)
-        n += 1
-    del _PENDING[:n]
+        name, flops, bytes_moved, _, e0, e1, stream = pair
+        if stream not in blocked and e1.query():
+            _book(name, flops, bytes_moved, e0.elapsed_time(e1) / 1e3)
+        else:
+            blocked.add(stream)
+            left.append(pair)
+    _PENDING[:] = left
 
 
 def flush_kernels() -> int:
@@ -198,7 +207,7 @@ def flush_kernels() -> int:
     _PENDING.clear()
     for dev in {p[3] for p in pending}:
         torch.cuda.synchronize(dev)
-    for name, flops, bytes_moved, _, e0, e1 in pending:
+    for name, flops, bytes_moved, _, e0, e1, _ in pending:
         _book(name, flops, bytes_moved, e0.elapsed_time(e1) / 1e3)
     return len(pending)
 

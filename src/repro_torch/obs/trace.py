@@ -4,10 +4,10 @@ of ``repro.obs.trace``).
 A :class:`Span` measures host wall time between ``__enter__`` and
 ``__exit__`` on the monotonic clock. A CUDA launch returns as soon as the
 work is queued, so a span around ``step(...)`` alone times the launch;
-``sp.fence(value)`` synchronises the device of the CUDA tensors in
-``value`` inside the span, so the device work is attributed to the span
-that launched it. On CPU tensors (which PyTorch computes synchronously)
-it does nothing.
+``sp.fence(value)`` waits, inside the span, for the current stream of
+each device that holds a CUDA tensor of ``value``, so the device work is
+attributed to the span that launched it. On CPU tensors (which PyTorch
+computes synchronously) it does nothing.
 
 The module-level :func:`span` dispatches to the current tracer: a
 :class:`NullTracer` by default, whose ``span()`` returns a stateless no-op
@@ -31,11 +31,16 @@ from repro_torch import tree as T
 
 
 def fence(value):
-    """Synchronise every device that holds a CUDA tensor of ``value`` (a
-    nest of dicts, lists and tuples); returns ``value``. The counterpart of
-    ``jax.block_until_ready``."""
+    """Wait for the work queued so far on the current stream of every
+    device that holds a CUDA tensor of ``value`` (a nest of dicts, lists
+    and tuples): an event recorded there and synchronised. Returns
+    ``value``. The counterpart of ``jax.block_until_ready(value)``, which
+    waits for that value only: work on another stream (the EBFT walk's
+    teacher, prefetched on a side stream) is not waited for."""
     for dev in {t.device for t in T.tensors(value) if t.is_cuda}:
-        torch.cuda.synchronize(dev)
+        done = torch.cuda.Event()
+        done.record(torch.cuda.current_stream(dev))
+        done.synchronize()
     return value
 
 

@@ -212,9 +212,10 @@ def test_finetune_matches_reference(setup, tuned):
     s = setup
     ref_tuned, ref_reports, port_tuned, port_reports = tuned
     _assert_reports_match(ref_reports, port_reports)
-    for r in port_reports:
-        assert r.path == "legacy" and r.loss_after < r.loss_before
-        assert r.host_syncs == r.epochs_run + 2
+    for r, ref in zip(port_reports, ref_reports):
+        # the reference's default, its fused loop: one dispatch, one host read
+        assert r.path == ref.path == "fused" and r.loss_after < r.loss_before
+        assert (r.dispatches, r.host_syncs) == (ref.dispatches, ref.host_syncs) == (1, 1)
         assert r.live_bytes > 0
     ref_np = _np(ref_tuned)
     for path, t in T.leaves_with_path(port_tuned):
@@ -321,7 +322,7 @@ def test_config_and_report_fields_mirror_reference():
     defaults and order."""
     ref = [(f.name, f.default) for f in dataclasses.fields(REBFT.EBFTConfig)]
     port = [(f.name, f.default) for f in dataclasses.fields(EBFT.EBFTConfig)]
-    assert port == [r for r in ref if r in port] and len(port) == 6
+    assert port == [r for r in ref if r in port] and len(port) == 8
     ref = [f.name for f in dataclasses.fields(REBFT.BlockReport)]
     port = [f.name for f in dataclasses.fields(EBFT.BlockReport)]
     assert port == ref and len(port) == 14
@@ -343,5 +344,6 @@ def test_ebft_run_writes_the_reference_sections(tmp_path):
     assert set(data["blocks"][0]) == {f.name for f in dataclasses.fields(REBFT.BlockReport)}
     assert set(data["ebft"]) == {"num_blocks", "mean_e_drop", "peak_live_block_bytes",
                                  "fused_epochs", "prefetch_depth", "early_stops"}
+    assert (data["ebft"]["fused_epochs"], data["ebft"]["prefetch_depth"]) == (True, 1)
     assert data["ebft"]["num_blocks"] == 2 and data["run_spec"]["lr"] == 1e-2
     assert all(b["epochs_run"] <= 2 for b in data["blocks"])

@@ -51,12 +51,15 @@ from repro.obs.run import validate_payload as ref_validate
 from repro.obs.sinks import read_jsonl as ref_read_jsonl
 from repro_torch import interop
 from repro_torch import tree as T
+from repro_torch.configs import get_config
+from repro_torch.core import ebft as EBFT
 from repro_torch.kernels.flash_attention import ops as FA
 from repro_torch.kernels.masked_matmul import ops as MM
 from repro_torch.kernels.nm_spmm import ops as NM
 from repro_torch.launch import ebft_run
 from repro_torch.launch import train as TRAIN
 from repro_torch.launch.rooflines import HBM_BW, PEAK_FLOPS
+from repro_torch.models.model import build
 from repro_torch.obs import metrics as OM
 from repro_torch.obs import profile as P
 from repro_torch.obs import trace as OT
@@ -596,8 +599,8 @@ def test_pipeline_artifact_passes_the_reference_validator(pipeline_runs, capsys)
     m = payload["manifest"]
     assert (m["name"], m["config"], m["method"], m["jax_backend"]) == (
         "ebft_run", "tiny_dense", "wanda", "cpu")
-    assert m["run_spec"]["kind"] == "ebft" and m["fused_epochs"] is False
-    assert m["prefetch_depth"] == 0 and m["ebft_epochs"] == 2 and m["calib_samples"] == 8
+    assert m["run_spec"]["kind"] == "ebft" and m["fused_epochs"] is True
+    assert m["prefetch_depth"] == 1 and m["ebft_epochs"] == 2 and m["calib_samples"] == 8
     for cli in (obs_cli, ref_obs_cli):
         assert cli(["report", str(on["bench"])]) == 0
         out = capsys.readouterr().out
@@ -618,7 +621,7 @@ def test_pipeline_trace_and_metrics(pipeline_runs):
     ebft_phase = payload["trace"][4]
     assert [c["name"] for c in ebft_phase["children"]] == ["ebft/walk"]
     walk = ebft_phase["children"][0]
-    assert walk["attrs"]["fused"] is False and walk["attrs"]["prefetch_depth"] == 0
+    assert walk["attrs"]["fused"] is True and walk["attrs"]["prefetch_depth"] == 1
     names = [c["name"] for c in walk["children"]]
     assert names == ["walk/teacher", "walk/tune", "walk/student"] * len(res.reports)
     tunes = [c for c in walk["children"] if c["name"] == "walk/tune"]
@@ -635,8 +638,11 @@ def test_pipeline_trace_and_metrics(pipeline_runs):
     assert metrics["pretrain/loss"]["n"] == len(res.pretrain_losses) == 3
     assert metrics["ebft/loss_before"]["points"] == [
         [float(r.index), r.loss_before] for r in res.reports]
-    n_mb, n_blocks = 1, len(res.reports)
-    assert payload["dispatch"]["walk_total"] == 2 * n_mb + 2 * n_mb * n_blocks
+    n_blocks = len(res.reports)
+    # the stacked walk's units, the reference's: 4 per segment setup, one
+    # per stacked advance of a stream; one host sync per teacher wait
+    assert payload["dispatch"]["walk_total"] == 4 + 2 * n_blocks
+    assert payload["dispatch"]["walk_host_syncs"] == n_blocks
     for p in ("teacher", "tune", "student"):
         assert payload["walk_phases"][p] > 0 and payload["walk_phases"][f"{p}_compile"] >= 0
     assert metrics["ebft/walk/tune_s"]["count"] == n_blocks
@@ -645,13 +651,17 @@ def test_pipeline_trace_and_metrics(pipeline_runs):
                                    payload["ebft"]["peak_live_block_bytes"],
                                "collective_bytes_total": 0}
     assert payload["kernel_tuning"]["mode"] == "cache"
-    assert payload["dispatch"]["per_block_max"] == payload["dispatch"]["tune_per_block_max"]
+    assert payload["dispatch"]["fused_all_blocks"] is True
+    assert payload["dispatch"]["per_block_max"] == payload["dispatch"]["tune_per_block_max"] + 2
     for b, r in zip(payload["blocks"], res.reports):
         assert b["device_dispatches"] == b["dispatches"] == r.dispatches
         assert b["live_bytes_per_shard"] == b["live_bytes"] and b["collective_bytes"] == 0
 
 
 def test_pipeline_dispatch_ledger_equals_reference_legacy_path(pipeline_runs):
+    """The port's per-epoch loop (``fused_epochs=False``) books the
+    reference's legacy ledger on the pipeline's weights, and the pipeline's
+    own blocks (the default, fused) the reference's default's."""
     on, _ = pipeline_runs
     res = on["res"]
     model = ref_build(ref_get_config("tiny_dense"))
@@ -663,11 +673,20 @@ def test_pipeline_dispatch_ledger_equals_reference_legacy_path(pipeline_runs):
                          interop.masks_to_numpy(res.masks), dense)
     _, ref_reports = REBFT.finetune(model, dense, pruned, masks, calib,
                                     REBFT.EBFTConfig(lr=1e-2, epochs=2, fused_epochs=False))
-    assert [r.path for r in ref_reports] == ["legacy"] * len(res.reports)
-    assert [(r.epochs_run, r.early_stop) for r in res.reports] == [
+    _, legacy = EBFT.finetune(build(get_config("tiny_dense")), res.dense,
+                              res.pruned, res.masks, calib,
+                              EBFT.EBFTConfig(lr=1e-2, epochs=2, fused_epochs=False))
+    assert [r.path for r in ref_reports] == [r.path for r in legacy] == \
+        ["legacy"] * len(res.reports)
+    assert [(r.epochs_run, r.early_stop) for r in legacy] == [
         (r.epochs_run, r.early_stop) for r in ref_reports]
-    assert [(r.dispatches, r.host_syncs) for r in res.reports] == [
+    assert [(r.dispatches, r.host_syncs) for r in legacy] == [
         (r.dispatches, r.host_syncs) for r in ref_reports]
+    _, ref_fused = REBFT.finetune(model, dense, pruned, masks, calib,
+                                  REBFT.EBFTConfig(lr=1e-2, epochs=2))
+    assert [(r.path, r.epochs_run, r.early_stop, r.dispatches, r.host_syncs)
+            for r in res.reports] == [(r.path, r.epochs_run, r.early_stop, r.dispatches,
+                                       r.host_syncs) for r in ref_fused]
 
 
 def test_no_obs_gives_the_same_results_and_no_artifact(pipeline_runs):
